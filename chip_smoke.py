@@ -22,6 +22,23 @@ Phases, each of which fails the run with a non-zero exit:
    against the port's solo greedy ``generate``, and one full-depth
    prefill's last-position logits with ``attention="flash"`` against
    ``"plain"``.
+4. The backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) against
+   ``flash_bwd_plain`` at the same attention shapes, bf16 and f32: causal
+   S in {512, 2048}, the training shape B=4 x S=2048 (bf16), a ``start``
+   batch with dead rows, a ``kv_len`` batch, and one
+   ``flash_attention_lse`` backward with a nonzero lse cotangent. Times
+   each kernel, the plain version, the backward of
+   ``F.scaled_dot_product_attention`` (a yardstick) and the bound.
+5. Train: ``llama3_8b()`` at full width cut to 4 layers, bf16 compute, f32
+   params made on the card from a seeded generator, remat "full", the
+   default AdamW: ``run_train_loop(DecoderTask(batch=4, seq=2048))`` for 8
+   steps. Launch counts are zeroed just before and read just after; the
+   loss must be finite and fall, each backward kernel must run once per
+   layer per step and the forward twice (once more in the recompute).
+6. Flash against plain, gradient end to end: one ``loss_fn`` backward at
+   the same width and depth (B=1, S=2048) with ``attention="flash"`` and
+   with ``"plain"``: every leaf gets a nonzero gradient, losses and
+   gradients agree.
 
 Float32 matrix products run in full f32 (TF32 off, set below). The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it
@@ -45,6 +62,13 @@ from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
 from gpushare_device_plugin_tpu_torch.serving.engine import SlotEngine, poisson_trace
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
+from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+from gpushare_device_plugin_tpu_torch.workloads.trainer import (
+    DecoderTask,
+    TrainLoopConfig,
+    run_train_loop,
+)
 from gpushare_device_plugin_tpu_torch.workloads.transformer import init_params, llama3_8b
 
 # H100 SXM published peaks (dense): device memory rate and the operation
@@ -71,6 +95,22 @@ LSE_ATOL = 1e-4
 TOP2_GAP_REL = 2.0 ** -6
 LOGIT_REL = 2.0 ** -5
 SERVED_S = 512  # the engine's prompt chunk: the kernel's shape on the main path
+# Backward kernels vs plain. f32: the same f32 sums in another order, over
+# up to g*S = 8192 terms, and expf against torch.exp: 1e-4 of the tensor's
+# largest magnitude. bf16: P and dS are rounded to an 8-bit mantissa in
+# both versions at slightly different f32 scores, and each output once:
+# one output rounding, 2^-7 * |plain|, plus 2^-8 of the tensor's largest
+# magnitude for the terms that round the other way.
+BWD_F32_REL = 1e-4
+BWD_BF16_REL = 2.0 ** -7
+BWD_BF16_TOP = 2.0 ** -8
+TRAIN_B, TRAIN_S, TRAIN_LAYERS, TRAIN_STEPS = 4, 2048, 4, 8
+# Phase 6, flash vs plain at full width in bf16: the kernels round P and dS
+# to bf16 where the plain path keeps f32 softmax (and its bf16 scores), so
+# the losses may differ by one bf16 step and each gradient leaf by 2^-5 in
+# relative Frobenius norm.
+GRAD_LOSS_REL = 2.0 ** -7
+GRAD_LEAF_REL = 2.0 ** -5
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -229,24 +269,8 @@ def solo_with_gaps(params, cfg, prompt, max_new):
     return toks, gaps
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("torch", torch.__version__, "cuda", torch.version.cuda,
-          "device", torch.cuda.get_device_name(0), flush=True)
-
-    t0 = time.perf_counter()
-    _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in _build.sources():
-        print(_build.build_log(name).strip(), flush=True)
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    served = phase_kernels(gen)
-
+def phase_serve(gen) -> dict:
+    """Phases 2 and 3; returns the kernel launches of the served run."""
     print("phase 2: serve llama3_8b (32 layers, bf16)", flush=True)
     cfg = llama3_8b()
     params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
@@ -326,20 +350,274 @@ def main() -> int:
     if not math.isfinite(diff) or diff > tol:
         raise SystemExit(f"phase 3 failed: flash vs plain logits differ by {diff}")
 
-    kernel = {
+    return launches
+
+
+def bwd_close(got, want, dtype) -> bool:
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    if dtype == torch.float32:
+        tol = BWD_F32_REL * max(top, 1.0)
+    else:
+        tol = BWD_BF16_REL * want.abs() + BWD_BF16_TOP * top
+    return bool(((got - want).abs() <= tol).all()) and bool(torch.isfinite(got).all())
+
+
+def bwd_bound(entry, q, k, v, *, causal, start, kv_len):
+    """Least time for one backward kernel call: 6*D (dQ) or 8*D (dK/dV)
+    flops per visible (query, key) pair per head, against q, k, v, dO,
+    lse and delta read once and the kernel's outputs written once."""
+    B, S, H, D = q.shape
+    vis = fa._visible(B, S, causal=causal, start=start, kv_len=kv_len, device=q.device)
+    per_pair = 6.0 if entry == "flash_bwd_dq" else 8.0
+    flops = per_pair * D * H * float(vis.sum())
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q)) + 2 * B * S * H * 4.0
+    nbytes += sum(b.numel() * 4 for b in (start, kv_len) if b is not None)
+    nbytes += (q.numel() * q.element_size() if entry == "flash_bwd_dq"
+               else 2 * k.numel() * k.element_size())
+    t_ops = flops / PEAK_OPS_PER_S[q.dtype]
+    t_mem = nbytes / MEM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def sdpa_backward_ms(q, k, v, do, mask) -> float:
+    """Time of the backward of ``F.scaled_dot_product_attention`` on the
+    same inputs (k/v [B, Hkv, S, D] views, GQA passed as enable_gqa=True),
+    which computes dq, dk and dv in one call: a yardstick only."""
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True
+    )
+    dot = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 5)
+
+
+def phase_backward() -> dict:
+    """Phase 4; returns the rows at the training shape, by kernel."""
+    print("phase 4: flash backward kernels vs plain", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    failures = 0
+    train_rows = {}
+    cases = [(torch.bfloat16, TRAIN_B, TRAIN_S, "causal")]
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [(dtype, 1, 512, "causal"), (dtype, 1, 2048, "causal"),
+                  (dtype, 2, 512, "start"), (dtype, 2, 512, "kv_len")]
+    for dtype, B, S, mode in cases:
+        q, k, v = attention_inputs(gen, B, S, 32, 8, 128, dtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        start = kv_len = None
+        if mode == "start":  # row 1's queries < 200 see nothing; keys < 200 no query sees
+            start = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
+        if mode == "kv_len":  # row 1's keys >= 300 no query sees
+            kv_len = torch.tensor([S, 300], dtype=torch.int32, device="cuda")
+        bounds = dict(causal=True, start=start, kv_len=kv_len)
+        o, lse = fa.flash_fwd(q, k, v, **bounds)
+        delta = (do.float() * o.float()).sum(-1)
+        dq, dk, dv = fa.flash_bwd(q, k, v, do, lse, delta, **bounds)
+        torch.cuda.synchronize()
+        plain = lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=128 ** -0.5, **bounds)  # noqa: E731
+        pdq, pdk, pdv = plain()
+        ok = all(bwd_close(g, w, dtype) for g, w in ((dq, pdq), (dk, pdk), (dv, pdv)))
+        if mode == "start":
+            ok &= not (dq[1, :200].any() or dk[1, :200].any() or dv[1, :200].any())
+        if mode == "kv_len":
+            ok &= not (dk[1, 300:].any() or dv[1, 300:].any())
+        errs = {n: float((g.float() - w.float()).abs().max())
+                for n, g, w in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv))}
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        lib_ms = None
+        if mode != "start":  # SDPA's dead rows are NaN: no like-for-like call
+            mask = None
+            if mode == "kv_len":
+                mask = fa._visible(B, S, causal=True, start=None, kv_len=kv_len, device="cuda")[:, None]
+            lib_ms = sdpa_backward_ms(q, k, v, do, mask)
+        for entry, err in (("flash_bwd_dq", errs["dq"]), ("flash_bwd_dkv", max(errs["dk"], errs["dv"]))):
+            run = lambda: fa._launch_bwd(entry, q, k, v, do, lse, delta, scale=128 ** -0.5, **bounds)  # noqa: E731
+            bound_ms, bound_by = bwd_bound(entry, q, k, v, **bounds)
+            row = dict(
+                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, mode=mode,
+                max_abs_err=err, ok=ok, ms=cuda_ms(run, 10), plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            )
+            print("  ", json.dumps(row), flush=True)
+            if (dtype, B, S, mode) == cases[0]:
+                train_rows[entry] = row
+        print("    errors", json.dumps(errs), flush=True)
+        failures += not ok
+
+    # The (O, lse) pair with a nonzero lse cotangent, through the autograd
+    # Function: the kernels against the plain version given the same
+    # delta, and against autograd through the plain forward.
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.requires_grad_() for t in attention_inputs(gen, 1, 512, 32, 8, 128, dtype))
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        dlse = torch.randn(q.shape[:3], generator=gen, device="cuda")
+        o, lse = fa.flash_attention_lse(q, k, v)
+        got = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+        delta = (do.float() * o.detach().float()).sum(-1) - dlse
+        want = fa.flash_bwd_plain(q.detach(), k.detach(), v.detach(), do, lse.detach(), delta,
+                                  causal=True, scale=128 ** -0.5)
+        ok = all(bwd_close(g, w, dtype) for g, w in zip(got, want))
+        if dtype == torch.float32:
+            po, plse = fa.flash_fwd_plain(q, k, v, causal=True, scale=128 ** -0.5)
+            auto = torch.autograd.grad((po, plse), (q, k, v), (do, dlse))
+            ok &= all(bwd_close(g, w, dtype) for g, w in zip(got, auto))
+        errs = {n: float((g.float() - w.float()).abs().max()) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        print("   lse pair", str(dtype).split(".")[-1], json.dumps({"ok": ok, **errs}), flush=True)
+        failures += not ok
+    if failures:
+        raise SystemExit(f"phase 4 failed: {failures} case(s) out of tolerance")
+    return train_rows
+
+
+def profile_train_step(step_fn, state, batch) -> dict:
+    """Device busy share of one more training step: summed kernel time
+    from ``torch.profiler`` over the step's host wall time, and the
+    kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss = step_fn(state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "kernels": sum(e.count for e in events),
+        "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top},
+    }
+
+
+def phase_train() -> dict:
+    """Phase 5; returns the kernel launches of the training run."""
+    print(f"phase 5: train llama3_8b width, {TRAIN_LAYERS} layers, B={TRAIN_B} S={TRAIN_S}",
+          flush=True)
+    cfg = dataclasses.replace(llama3_8b(), n_layers=TRAIN_LAYERS)
+    task = DecoderTask(cfg, batch=TRAIN_B, seq=TRAIN_S)
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_metrics(step, loss):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(loss)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    state, _ = run_train_loop(
+        task, TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1), 0, on_metrics=on_metrics
+    )
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    p50 = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    train = {
+        "params": sum(t.numel() for t in tree_leaves(state[0])),
+        "losses": losses,
+        "step_s": step_s,
+        "step_p50_s_steps_1_7": p50,
+        "tokens_per_s": TRAIN_B * TRAIN_S / p50,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+    }
+    print("  train", json.dumps(train), flush=True)
+    batch = task.make_batch(torch.Generator().manual_seed(99), TRAIN_STEPS).cuda()
+    print("  train step profile",
+          json.dumps(profile_train_step(task.make_step(), state, batch)), flush=True)
+    per_run = TRAIN_LAYERS * TRAIN_STEPS
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"phase 5 failed: losses {losses}")
+    want = {"flash_fwd": 2 * per_run, "flash_bwd_dq": per_run, "flash_bwd_dkv": per_run}
+    if launches != want:
+        raise SystemExit(f"phase 5 failed: launches {launches} != {want}")
+    return launches
+
+
+def phase_grad_parity() -> None:
+    print("phase 6: loss_fn gradients, flash vs plain", flush=True)
+    cfg = dataclasses.replace(llama3_8b(), n_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    names = list(T._flatten(params))
+    tokens = T.demo_batch(torch.Generator().manual_seed(6), 1, TRAIN_S, cfg.vocab).cuda()
+    loss, grads = {}, {}
+    for attention in ("flash", "plain"):
+        out = T.loss_fn(params, tokens, dataclasses.replace(cfg, attention=attention))
+        grads[attention] = torch.autograd.grad(out, leaves)
+        loss[attention] = float(out.detach())
+    rel = {
+        n: float((f - p).float().norm() / p.float().norm())
+        for n, f, p in zip(names, grads["flash"], grads["plain"])
+    }
+    zero = [n for n, g in zip(names, grads["flash"]) if not (torch.isfinite(g).all() and g.any())]
+    print("  losses", json.dumps(loss), "relative Frobenius error by leaf", json.dumps(rel),
+          "zero or non-finite flash gradients", zero, flush=True)
+    if zero:
+        raise SystemExit(f"phase 6 failed: no gradient reached {zero}")
+    if abs(loss["flash"] - loss["plain"]) > GRAD_LOSS_REL * abs(loss["plain"]):
+        raise SystemExit(f"phase 6 failed: losses {loss}")
+    bad = {n: r for n, r in rel.items() if not r <= GRAD_LEAF_REL}
+    if bad:
+        raise SystemExit(f"phase 6 failed: gradients differ: {bad}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("torch", torch.__version__, "cuda", torch.version.cuda,
+          "device", torch.cuda.get_device_name(0), flush=True)
+
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in _build.sources():
+        print(_build.build_log(name).strip(), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    served = phase_kernels(gen)
+
+    serve_launches = phase_serve(gen)
+    backward = phase_backward()
+    train_launches = phase_train()
+    phase_grad_parity()
+
+    paths = {"serve": serve_launches, "train": train_launches}
+    kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "gpushare_device_plugin_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "gpushare_device_plugin_tpu/ops/flash_attention.py:96",
-        "launches": launches["flash_fwd"],
-        "max_abs_err": served["max_abs_err"],
-        "ms": served["ms"],
-        "plain_ms": served["plain_ms"],
-        "bound_ms": served["bound_ms"],
-        "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"],
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        "launches": serve_launches["flash_fwd"],
+        "launches_by_path": {k: v["flash_fwd"] for k, v in paths.items()},
+        **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+    }]
+    for entry, line in (("flash_bwd_dq", 251), ("flash_bwd_dkv", 309)):
+        row = backward[entry]
+        kernels.append({
+            "name": entry,
+            "route": "cuda",
+            "source": "gpushare_device_plugin_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"gpushare_device_plugin_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[entry],
+            "launches_by_path": {k: v[entry] for k, v in paths.items()},
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

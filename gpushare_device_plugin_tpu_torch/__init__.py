@@ -1,4 +1,4 @@
-"""PyTorch and CUDA port of the pod-side serving path of
+"""PyTorch and CUDA port of the pod-side serving and training paths of
 ``gpushare_device_plugin_tpu``, for one NVIDIA H100.
 
 The JAX package is the reference; module names here mirror it. This

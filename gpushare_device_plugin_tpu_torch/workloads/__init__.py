@@ -1,1 +1,1 @@
-"""The decoder, its weights, its caches and generation, in PyTorch."""
+"""The decoder, its weights, its caches, generation and training, in PyTorch."""

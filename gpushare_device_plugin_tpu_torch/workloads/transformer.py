@@ -1,28 +1,33 @@
-"""Llama-style decoder, inference half, in PyTorch.
+"""Llama-style decoder in PyTorch: inference and training.
 
 Counterpart of ``gpushare_device_plugin_tpu/workloads/transformer.py``:
-the config, the parameter layout, the layer math and ``forward``. The
-weights keep the reference's stacked einsum layout (``wq [L, d, H, Dh]``,
-``wkv [L, d, 2, Hkv, Dh]``, ``wo [L, H, Dh, d]``, ``wi [L, d, 2, F]``,
-``wdown [L, F, d]``, norm gains ``ln1``/``ln2`` ``[L, d]``), so a JAX tree
-crosses over by value (``convert.from_jax_numpy``). A plain dict of
-tensors is the params tree every function takes; :class:`Decoder` is the
-``nn.Module`` that holds one. The layer loop is a Python loop over the
-stacked weights (the reference's ``lax.scan``). No remat, sharding, LoRA
-or training here.
+the config, the parameter layout, the layer math, ``forward``, and the
+training half (``loss_fn``, ``make_optimizer``, ``make_train_step``,
+``init_train_state``, ``demo_batch``). The weights keep the reference's
+stacked einsum layout (``wq [L, d, H, Dh]``, ``wkv [L, d, 2, Hkv, Dh]``,
+``wo [L, H, Dh, d]``, ``wi [L, d, 2, F]``, ``wdown [L, F, d]``, norm gains
+``ln1``/``ln2`` ``[L, d]``), so a JAX tree crosses over by value
+(``convert.from_jax_numpy``). A plain dict of tensors is the params tree
+every function takes; :class:`Decoder` is the ``nn.Module`` that holds
+one (as buffers to serve, as ``nn.Parameter``s to train). The layer loop
+is a Python loop over the stacked weights (the reference's ``lax.scan``);
+``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``). No sharding or LoRA here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import flash_or_plain
+from .optim import AdamW, make_optimizer, tree_leaves
 from .quant import embed_lookup, is_qtensor, matmul_weight
 
 Params = dict[str, Any]
@@ -43,6 +48,12 @@ class TransformerConfig:
     # "auto": the CUDA flash kernel for CUDA tensors it fits, plain
     # attention otherwise; "flash" / "plain" force one path.
     attention: str = "auto"
+    # Under autograd, recompute each layer in the backward instead of
+    # keeping its activations. "full" saves only the layer inputs (the
+    # flash forward then runs twice per layer per step); the reference's
+    # "dots" (save the named projections) is not ported.
+    remat: bool = True
+    remat_policy: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -155,17 +166,107 @@ def _logits(params: Params, x, cfg: TransformerConfig):
     return torch.einsum("btd,dv->btv", x, out).float()
 
 
+def _layer(x, lp, cfg: TransformerConfig, positions):
+    """One decoder block."""
+    q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
+    attn = flash_or_plain(q, k, v, attention=cfg.attention, causal=True)
+    return _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+
+
+def _layer_fn(cfg: TransformerConfig) -> Callable:
+    """The layer, wrapped for the backward as ``cfg.remat`` asks."""
+    if not cfg.remat:
+        return _layer
+    if cfg.remat_policy != "full":
+        raise ValueError(
+            f"unknown remat_policy={cfg.remat_policy!r}: expected full "
+            "(the reference's dots policy is not ported)"
+        )
+    if not torch.is_grad_enabled():
+        return _layer  # nothing to save, nothing to recompute
+    return lambda *args: checkpoint(_layer, *args, use_reentrant=False)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] f32."""
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
+    layer = _layer_fn(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
-        attn = flash_or_plain(q, k, v, attention=cfg.attention, causal=True)
-        x = _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+        x = layer(x, layer_params(params["layers"], i), cfg, positions)
     return _logits(params, x, cfg)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross-entropy on the f32 logits, mean over [B, S-1]."""
+    logits = forward(params, tokens, cfg)
+    return F.cross_entropy(logits[:, :-1].flatten(0, 1), tokens[:, 1:].flatten().long())
+
+
+# --- training (make_optimizer comes from optim.py) ---------------------------
+
+
+def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
+                    accum_steps: int = 1) -> Callable:
+    """Train step ``(params, opt_state, tokens) -> (params, opt_state,
+    loss)``; params and optimizer state are updated in place.
+
+    ``accum_steps > 1`` splits the batch into that many microbatches (the
+    reference's strided split: microbatch i takes every accum_steps-th
+    row) and sums their gradients before the one optimizer update: the
+    full-batch step up to f32 summation order, at one microbatch's
+    activation memory."""
+    opt = optimizer or make_optimizer()
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def grads_of(params, tokens):
+        loss = loss_fn(params, tokens, cfg)
+        return loss.detach(), list(torch.autograd.grad(loss, tree_leaves(params)))
+
+    def step(params, opt_state, tokens):
+        if accum_steps == 1:
+            loss, grads = grads_of(params, tokens)
+        else:
+            B = tokens.shape[0]
+            if B % accum_steps:
+                raise ValueError(f"batch {B} not divisible by accum_steps={accum_steps}")
+            micros = tokens.reshape(B // accum_steps, accum_steps, -1).transpose(0, 1)
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
+            for micro in micros:
+                micro_loss, micro_grads = grads_of(params, micro)
+                loss = loss + micro_loss
+                for acc, g in zip(grads, micro_grads):
+                    acc.add_(g)
+            loss = loss / accum_steps
+            for g in grads:
+                g.div_(accum_steps)
+        opt.update(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return step
+
+
+def init_train_state(
+    cfg: TransformerConfig, generator: torch.Generator,
+    optimizer: AdamW | None = None, device: str | torch.device | None = None,
+) -> tuple[Params, dict[str, Any]]:
+    """(params, opt_state) for :func:`make_train_step`: f32 params made on
+    ``device`` from ``generator`` (which must live there), held as the
+    ``nn.Parameter``s of a trainable :class:`Decoder`."""
+    opt = optimizer or make_optimizer()
+    params = Decoder(init_params(cfg, generator, device=device), cfg, trainable=True).params
+    return params, opt.init(params)
+
+
+def demo_batch(generator: torch.Generator, batch: int, seq: int, vocab: int) -> torch.Tensor:
+    """Synthetic structured tokens [batch, seq] int64 on the generator's
+    device: each row counts up from a random start (no dataset needed)."""
+    dev = generator.device
+    base = torch.randint(0, vocab // 2, (batch, 1), generator=generator, device=dev)
+    return (base + torch.arange(seq, device=dev)[None, :]) % vocab
 
 
 def _flatten(tree: Params, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -180,17 +281,21 @@ def _flatten(tree: Params, prefix: str = "") -> dict[str, torch.Tensor]:
 
 
 class Decoder(torch.nn.Module):
-    """``nn.Module`` holding a stacked decoder params tree as buffers
-    (inference weights: no gradients), so ``.to()`` and ``state_dict()``
-    work on the whole tree. ``params`` is the tree every function of the
-    port takes; ``forward`` is :func:`forward`."""
+    """``nn.Module`` holding a stacked decoder params tree, so ``.to()``
+    and ``state_dict()`` work on the whole tree: as buffers (inference
+    weights, no gradients), or with ``trainable=True`` as
+    ``nn.Parameter``s. ``params`` is the tree every function of the port
+    takes; ``forward`` is :func:`forward`."""
 
-    def __init__(self, params: Params, cfg: TransformerConfig):
+    def __init__(self, params: Params, cfg: TransformerConfig, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self._names = list(_flatten(params))
         for name, val in _flatten(params).items():
-            self.register_buffer(name, val)
+            if trainable:
+                self.register_parameter(name, torch.nn.Parameter(val))
+            else:
+                self.register_buffer(name, val)
 
     @property
     def params(self) -> Params:

@@ -2,21 +2,43 @@
 
 Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``. Without a
-card every test skips. Tolerances: f32 1e-5 (the same f32 sums in another
-order); bf16 two roundings of an 8-bit mantissa, 2^-7 * max(|plain|, 1).
+card every test skips. Tolerances: forward f32 1e-5 (the same f32 sums in
+another order); forward bf16 two roundings of an 8-bit mantissa,
+2^-7 * max(|plain|, 1). Backward f32 1e-4 of the tensor's largest
+magnitude (the same f32 sums in another order, over up to g*S terms);
+backward bf16 one rounding of the output, 2^-7 * |plain|, plus 2^-8 of the
+tensor's largest magnitude for the P and dS values that round the other
+way at slightly different f32 scores.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
+from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+
+
+def bwd_close(got, want, dtype) -> bool:
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    if dtype == torch.float32:
+        tol = 1e-4 * max(top, 1.0)
+    else:
+        tol = 2.0 ** -7 * want.abs() + 2.0 ** -8 * top
+    return bool(((got - want).abs() <= tol).all()) and bool(torch.isfinite(got).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    _card()
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn(2, 300, 8, 128, generator=gen, device="cuda").to(dt)
@@ -33,3 +55,64 @@ def test_kernel_matches_plain_on_card(dtype):
     tol = 1e-5 if dt == torch.float32 else 2.0 ** -7 * po.float().abs().clamp(min=1)
     assert ((o.float() - po.float()).abs() <= tol).all()
     assert torch.equal(torch.isneginf(lse), torch.isneginf(plse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_kernels_match_plain_on_card(dtype, causal):
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, 300, 8, 128, generator=gen, device="cuda").to(dt)
+    kv = torch.randn(2, 300, 2, 2, 128, generator=gen, device="cuda").to(dt)
+    do = torch.randn(2, 300, 8, 128, generator=gen, device="cuda").to(dt)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    # Row 1: keys before 70 and from 130 on are pad; its queries < 70 see nothing.
+    start = torch.tensor([0, 70], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([300, 130], dtype=torch.int32, device="cuda")
+    bounds = dict(causal=causal, start=start, kv_len=kv_len)
+    o, lse = fa.flash_fwd(q, k, v, **bounds)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_bwd(q, k, v, do, lse, delta, **bounds)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=128 ** -0.5, **bounds)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == dt, name
+        assert bwd_close(g, w, dt), (name, float((g.float() - w.float()).abs().max()))
+    dq, dk, dv = got
+    if causal:
+        assert not dq[1, :70].any()  # dead rows
+    assert not dk[1, :70].any() and not dv[1, 130:].any()  # keys no query sees
+
+
+@pytest.mark.cuda
+def test_decoder_backward_on_card_reaches_every_weight():
+    """loss.backward() through ``transformer.forward`` with the flash
+    kernels: attention stays in the graph, so ``wq`` (which feeds only
+    attention) gets a gradient, and each layer launches each backward
+    kernel once (twice the forward under full remat)."""
+    _card()
+    cfg = T.TransformerConfig(
+        vocab=256, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+        attention="flash",
+    )
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, _ = T.init_train_state(cfg, gen)
+    tokens = T.demo_batch(torch.Generator().manual_seed(1), 2, 128, cfg.vocab).cuda()
+    before = dict(fa.LAUNCHES)
+    loss = T.loss_fn(params, tokens, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {name: p.grad for name, p in T._flatten(params).items()}
+    assert all(g is not None and torch.isfinite(g).all() and g.any() for g in grads.values())
+    assert grads["layers__wq"].abs().sum() > 0
+    assert fa.LAUNCHES["flash_bwd_dq"] - before["flash_bwd_dq"] == cfg.n_layers
+    assert fa.LAUNCHES["flash_bwd_dkv"] - before["flash_bwd_dkv"] == cfg.n_layers
+    assert fa.LAUNCHES["flash_fwd"] - before["flash_fwd"] == 2 * cfg.n_layers
+    plain = T.loss_fn(params, tokens, dataclasses.replace(cfg, attention="plain"))
+    plain, loss = float(plain.detach()), float(loss.detach())
+    assert abs(plain - loss) <= 2.0 ** -7 * abs(plain)

@@ -16,6 +16,11 @@ from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.serving.engine import SlotEngine
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+from gpushare_device_plugin_tpu_torch.workloads.trainer import (
+    DecoderTask,
+    TrainLoopConfig,
+    run_train_loop,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gpushare_device_plugin_tpu_torch"
@@ -81,6 +86,10 @@ def test_entry_points_refuse_to_drop_to_cpu(monkeypatch):
         SlotEngine(params, cfg, slots=1, max_len=8, prefill_chunk=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         G.generate(params, [[1, 2]], cfg, max_new=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_train_state(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_train_loop(DecoderTask(cfg, batch=1, seq=4), TrainLoopConfig(total_steps=1), 0)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -92,4 +101,4 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("flash_fwd")
     assert not (tmp_path / "build").exists()
-    assert _build.sources() == ["flash_fwd"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd"]
