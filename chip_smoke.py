@@ -22,19 +22,26 @@ Phases, each of which fails the run with a non-zero exit:
    against the port's solo greedy ``generate``, and one full-depth
    prefill's last-position logits with ``attention="flash"`` against
    ``"plain"``.
-4. The backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) against
-   ``flash_bwd_plain`` at the same attention shapes, bf16 and f32: causal
-   S in {512, 2048}, the training shape B=4 x S=2048 (bf16), a ``start``
-   batch with dead rows, a ``kv_len`` batch, and one
-   ``flash_attention_lse`` backward with a nonzero lse cotangent. Times
-   each kernel, the plain version, the backward of
-   ``F.scaled_dot_product_attention`` (a yardstick) and the bound.
+4. The backward kernels against ``flash_bwd_plain`` at the same attention
+   shapes, each case through the entries ``flash_bwd`` picks for its dtype
+   and head dim (bf16 at D in {64, 128}: the tensor-core ``flash_bwd_dq``
+   / ``flash_bwd_dkv``; f32: ``flash_bwd_dq_scalar`` /
+   ``flash_bwd_dkv_scalar``): causal S in {512, 2048}, the training shape
+   B=4 x S=2048 (bf16, where the scalar entries run too, on the same
+   inputs), a ``start`` batch with dead rows, a ``kv_len`` batch, bf16 at
+   D=64, and one ``flash_attention_lse`` backward with a nonzero lse
+   cotangent. Every entry runs twice and must give the same bits. Times
+   each kernel (with its TFLOP/s and the fraction of its bound), the plain
+   version, the backward of ``F.scaled_dot_product_attention`` (a
+   yardstick that computes all three gradients in one call) and the
+   bound.
 5. Train: ``llama3_8b()`` at full width cut to 4 layers, bf16 compute, f32
    params made on the card from a seeded generator, remat "full", the
    default AdamW: ``run_train_loop(DecoderTask(batch=4, seq=2048))`` for 8
    steps. Launch counts are zeroed just before and read just after; the
-   loss must be finite and fall, each backward kernel must run once per
-   layer per step and the forward twice (once more in the recompute).
+   loss must be finite and fall, each tensor-core backward kernel must
+   run once per layer per step, the scalar ones never, and the forward
+   twice (once more in the recompute).
 6. Flash against plain, gradient end to end: one ``loss_fn`` backward at
    the same width and depth (B=1, S=2048) with ``attention="flash"`` and
    with ``"plain"``: every leaf gets a nonzero gradient, losses and
@@ -363,21 +370,25 @@ def bwd_close(got, want, dtype) -> bool:
     return bool(((got - want).abs() <= tol).all()) and bool(torch.isfinite(got).all())
 
 
+DQ_ENTRIES = ("flash_bwd_dq", "flash_bwd_dq_scalar")
+
+
 def bwd_bound(entry, q, k, v, *, causal, start, kv_len):
     """Least time for one backward kernel call: 6*D (dQ) or 8*D (dK/dV)
     flops per visible (query, key) pair per head, against q, k, v, dO,
-    lse and delta read once and the kernel's outputs written once."""
+    lse and delta read once and the kernel's outputs written once.
+    Returns (ms, what bounds it, flops)."""
     B, S, H, D = q.shape
     vis = fa._visible(B, S, causal=causal, start=start, kv_len=kv_len, device=q.device)
-    per_pair = 6.0 if entry == "flash_bwd_dq" else 8.0
+    per_pair = 6.0 if entry in DQ_ENTRIES else 8.0
     flops = per_pair * D * H * float(vis.sum())
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q)) + 2 * B * S * H * 4.0
     nbytes += sum(b.numel() * 4 for b in (start, kv_len) if b is not None)
-    nbytes += (q.numel() * q.element_size() if entry == "flash_bwd_dq"
+    nbytes += (q.numel() * q.element_size() if entry in DQ_ENTRIES
                else 2 * k.numel() * k.element_size())
     t_ops = flops / PEAK_OPS_PER_S[q.dtype]
     t_mem = nbytes / MEM_BYTES_PER_S
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), flops
 
 
 def sdpa_backward_ms(q, k, v, do, mask) -> float:
@@ -393,17 +404,20 @@ def sdpa_backward_ms(q, k, v, do, mask) -> float:
 
 
 def phase_backward() -> dict:
-    """Phase 4; returns the rows at the training shape, by kernel."""
+    """Phase 4; returns the rows at the training shape, by kernel entry."""
     print("phase 4: flash backward kernels vs plain", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
     failures = 0
     train_rows = {}
-    cases = [(torch.bfloat16, TRAIN_B, TRAIN_S, "causal")]
+    train_case = (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "causal")
+    cases = [train_case]
     for dtype in (torch.bfloat16, torch.float32):
-        cases += [(dtype, 1, 512, "causal"), (dtype, 1, 2048, "causal"),
-                  (dtype, 2, 512, "start"), (dtype, 2, 512, "kv_len")]
-    for dtype, B, S, mode in cases:
-        q, k, v = attention_inputs(gen, B, S, 32, 8, 128, dtype)
+        cases += [(dtype, 1, 512, 128, "causal"), (dtype, 1, 2048, 128, "causal"),
+                  (dtype, 2, 512, 128, "start"), (dtype, 2, 512, 128, "kv_len")]
+    cases.append((torch.bfloat16, 1, 2048, 64, "causal"))
+    for case in cases:
+        dtype, B, S, D, mode = case
+        q, k, v = attention_inputs(gen, B, S, 32, 8, D, dtype)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         start = kv_len = None
         if mode == "start":  # row 1's queries < 200 see nothing; keys < 200 no query sees
@@ -413,17 +427,8 @@ def phase_backward() -> dict:
         bounds = dict(causal=True, start=start, kv_len=kv_len)
         o, lse = fa.flash_fwd(q, k, v, **bounds)
         delta = (do.float() * o.float()).sum(-1)
-        dq, dk, dv = fa.flash_bwd(q, k, v, do, lse, delta, **bounds)
-        torch.cuda.synchronize()
-        plain = lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=128 ** -0.5, **bounds)  # noqa: E731
-        pdq, pdk, pdv = plain()
-        ok = all(bwd_close(g, w, dtype) for g, w in ((dq, pdq), (dk, pdk), (dv, pdv)))
-        if mode == "start":
-            ok &= not (dq[1, :200].any() or dk[1, :200].any() or dv[1, :200].any())
-        if mode == "kv_len":
-            ok &= not (dk[1, 300:].any() or dv[1, 300:].any())
-        errs = {n: float((g.float() - w.float()).abs().max())
-                for n, g, w in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv))}
+        plain = lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=D ** -0.5, **bounds)  # noqa: E731
+        want = dict(zip(("dq", "dk", "dv"), plain()))
         plain_ms = cuda_ms(plain, 3, warmup=1)
         lib_ms = None
         if mode != "start":  # SDPA's dead rows are NaN: no like-for-like call
@@ -431,19 +436,35 @@ def phase_backward() -> dict:
             if mode == "kv_len":
                 mask = fa._visible(B, S, causal=True, start=None, kv_len=kv_len, device="cuda")[:, None]
             lib_ms = sdpa_backward_ms(q, k, v, do, mask)
-        for entry, err in (("flash_bwd_dq", errs["dq"]), ("flash_bwd_dkv", max(errs["dk"], errs["dv"]))):
-            run = lambda: fa._launch_bwd(entry, q, k, v, do, lse, delta, scale=128 ** -0.5, **bounds)  # noqa: E731
-            bound_ms, bound_by = bwd_bound(entry, q, k, v, **bounds)
+        entries = list(fa.bwd_entries(dtype, D))
+        if case == train_case:  # the scalar entries too, on the same inputs
+            entries += fa.bwd_entries(torch.float32, D)
+        for entry in entries:
+            run = lambda: fa._launch_bwd(entry, q, k, v, do, lse, delta, scale=D ** -0.5, **bounds)  # noqa: E731
+            names = ("dq",) if entry in DQ_ENTRIES else ("dk", "dv")
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            got = dict(zip(names, got if isinstance(got, tuple) else (got,)))
+            again = dict(zip(names, again if isinstance(again, tuple) else (again,)))
+            ok = all(bwd_close(got[n], want[n], dtype) for n in names)
+            same_bits = all(torch.equal(got[n], again[n]) for n in names)
+            if mode == "start":  # dead rows' dq, unseen keys' dk and dv: exactly 0
+                ok &= not any(got[n][1, :200].any() for n in names)
+            if mode == "kv_len":
+                ok &= not any(got[n][1, 300:].any() for n in names if n != "dq")
+            err = max(float((got[n].float() - want[n].float()).abs().max()) for n in names)
+            ms = cuda_ms(run, 10)
+            bound_ms, bound_by, flops = bwd_bound(entry, q, k, v, **bounds)
             row = dict(
-                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, mode=mode,
-                max_abs_err=err, ok=ok, ms=cuda_ms(run, 10), plain_ms=plain_ms,
+                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, D=D, mode=mode,
+                max_abs_err=err, ok=ok, same_bits=same_bits, ms=ms,
+                tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
             )
             print("  ", json.dumps(row), flush=True)
-            if (dtype, B, S, mode) == cases[0]:
+            if case == train_case:
                 train_rows[entry] = row
-        print("    errors", json.dumps(errs), flush=True)
-        failures += not ok
+            failures += not (ok and same_bits)
 
     # The (O, lse) pair with a nonzero lse cotangent, through the autograd
     # Function: the kernels against the plain version given the same
@@ -472,8 +493,8 @@ def phase_backward() -> dict:
 
 def profile_train_step(step_fn, state, batch) -> dict:
     """Device busy share of one more training step: summed kernel time
-    from ``torch.profiler`` over the step's host wall time, and the
-    kernels that take most of it."""
+    from ``torch.profiler`` over the step's host wall time, the kernels
+    that take most of it, and each flash kernel's time and launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -486,12 +507,14 @@ def profile_train_step(step_fn, state, batch) -> dict:
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:8]
+    flash = [e for e in events if any(n in e.key for n in ("flash", "dq_kernel", "dkv_kernel"))]
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "kernels": sum(e.count for e in events),
         "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top},
+        "flash_kernels_ms_launches": {e.key[:60]: [dev_us(e) / 1e3, e.count] for e in flash},
     }
 
 
@@ -536,7 +559,8 @@ def phase_train() -> dict:
     per_run = TRAIN_LAYERS * TRAIN_STEPS
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"phase 5 failed: losses {losses}")
-    want = {"flash_fwd": 2 * per_run, "flash_bwd_dq": per_run, "flash_bwd_dkv": per_run}
+    want = {name: 0 for name in fa.LAUNCHES}  # the scalar entries: never
+    want.update(flash_fwd=2 * per_run, flash_bwd_dq=per_run, flash_bwd_dkv=per_run)
     if launches != want:
         raise SystemExit(f"phase 5 failed: launches {launches} != {want}")
     return launches
@@ -605,17 +629,20 @@ def main() -> int:
         **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
     }]
-    for entry, line in (("flash_bwd_dq", 251), ("flash_bwd_dkv", 309)):
+    main_path = fa.bwd_entries(torch.bfloat16, 128)
+    for entry in (*main_path, *fa.bwd_entries(torch.float32, 128)):
         row = backward[entry]
         kernels.append({
             "name": entry,
             "route": "cuda",
-            "source": "gpushare_device_plugin_tpu_torch/ops/csrc/flash_bwd.cu",
-            "replaces": f"gpushare_device_plugin_tpu/ops/flash_attention.py:{line}",
+            "source": f"gpushare_device_plugin_tpu_torch/ops/csrc/{fa._SOURCE[entry]}.cu",
+            "replaces": "gpushare_device_plugin_tpu/ops/flash_attention.py:"
+                        + ("251" if entry in DQ_ENTRIES else "309"),
             "launches": train_launches[entry],
             "launches_by_path": {k: v[entry] for k, v in paths.items()},
+            "on_main_path": entry in main_path,
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
+                                   "library_ms", "tflops", "bound_fraction")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

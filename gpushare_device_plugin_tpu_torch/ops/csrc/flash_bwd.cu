@@ -1,11 +1,15 @@
-// Flash attention backward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash attention backward on scalar FMAs (sm_90a), plain C interface for
+// ctypes: the entries for f32 and for head dims other than 64 and 128.
+// bf16 with D in {64, 128} (serving and training) goes to the tensor-core
+// kernels of flash_bwd_sm90.cu instead; f32 stays here because the tensor
+// cores' f32 route is TF32, which cannot meet the f32 tolerance.
 //
 // Replaces the two backward Pallas kernels of
 // gpushare_device_plugin_tpu/ops/flash_attention.py:
-//   flash_bwd_dq  <- _dq_kernel  (:251-306): P = exp(S*scale - lse),
+//   flash_bwd_dq_scalar  <- _dq_kernel  (:251-306): P = exp(S*scale - lse),
 //                    dP = dO V^T, dS = P (dP - delta) scale, dQ = sum_kv dS K;
-//   flash_bwd_dkv <- _dkv_kernel (:309-375): per KV head, summed over every
-//                    (group member, Q tile): dV += P^T dO, dK += dS^T Q.
+//   flash_bwd_dkv_scalar <- _dkv_kernel (:309-375): per KV head, summed over
+//                    every (group member, Q tile): dV += P^T dO, dK += dS^T Q.
 // Inputs: q, dO [B, S, H, D] and k, v [B, S, Hkv, D] (bf16 or f32, read by
 // stride), lse and delta = rowsum(dO * O) - dlse [B, S, H] f32 contiguous.
 // Outputs (contiguous): dq [B, S, H, D] in q's dtype, dk, dv [B, S, Hkv, D].
@@ -19,8 +23,8 @@
 // Bound on an H100: at the training shape (S = 2048, D = 128) both are
 // compute bound: dQ does 6*D flops and dK/dV 8*D flops per visible
 // (query, key) pair per head, against 989 TFLOP/s bf16, while the bytes are
-// O(S*D*H). This first version does not reach the tensor cores: it runs
-// scalar f32 FMAs from shared memory (67 TFLOP/s peak). What the design does
+// O(S*D*H). These kernels do not reach the tensor cores: they run scalar
+// f32 FMAs from shared memory (67 TFLOP/s peak). What the design does
 // about the bound: scores, P and dS never touch device memory (they are
 // recomputed from lse in shared memory); every block keeps its own 64-row
 // tile resident and streams the other side's 64-row tiles through shared
@@ -396,11 +400,11 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
 // strides: 12 element strides, (batch, seq, head) of q, k, v and dO in turn.
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() of its
 // launch.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const float* lse, const float* delta, const int* start,
-                            const int* kv_len, void* dq, int B, int S, int H, int Hkv,
-                            int D, const long long* strides, float scale, int causal,
-                            int dtype, void* stream) {
+extern "C" int flash_bwd_dq_scalar(const void* q, const void* k, const void* v,
+                                   const void* dout, const float* lse, const float* delta,
+                                   const int* start, const int* kv_len, void* dq, int B,
+                                   int S, int H, int Hkv, int D, const long long* strides,
+                                   float scale, int causal, int dtype, void* stream) {
   if (D > MAXD || D < 1 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, start, kv_len, dq, nullptr, B, S,
                               H, Hkv, D, strides, scale, causal);
@@ -411,11 +415,12 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const float* lse, const float* delta, const int* start,
-                             const int* kv_len, void* dk, void* dv, int B, int S, int H,
-                             int Hkv, int D, const long long* strides, float scale,
-                             int causal, int dtype, void* stream) {
+extern "C" int flash_bwd_dkv_scalar(const void* q, const void* k, const void* v,
+                                    const void* dout, const float* lse, const float* delta,
+                                    const int* start, const int* kv_len, void* dk, void* dv,
+                                    int B, int S, int H, int Hkv, int D,
+                                    const long long* strides, float scale, int causal,
+                                    int dtype, void* stream) {
   if (D > MAXD || D < 1 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, start, kv_len, dk, dv, B, S, H,
                               Hkv, D, strides, scale, causal);

@@ -4,11 +4,20 @@ them.
 
 Counterpart of ``gpushare_device_plugin_tpu/ops/flash_attention.py``: the
 forward Pallas kernel ``_fwd_kernel`` is ``csrc/flash_fwd.cu``; the
-backward kernels ``_dq_kernel`` and ``_dkv_kernel`` are ``csrc/flash_bwd.cu``
-(entries ``flash_bwd_dq`` and ``flash_bwd_dkv``); the reference's
-``custom_vjp`` pair ``_flash`` / ``_flash_pair`` is :class:`_Flash`. Each
-source's header states its bound on an H100 and what the design does
-about it.
+backward kernels ``_dq_kernel`` and ``_dkv_kernel`` are two entries each:
+``flash_bwd_dq`` / ``flash_bwd_dkv`` in ``csrc/flash_bwd_sm90.cu`` (the
+tensor cores: wgmma, asynchronous copies) and ``flash_bwd_dq_scalar`` /
+``flash_bwd_dkv_scalar`` in ``csrc/flash_bwd.cu`` (f32 FMAs). The
+reference's ``custom_vjp`` pair ``_flash`` / ``_flash_pair`` is
+:class:`_Flash`. Each source's header states its bound on an H100 and
+what the design does about it.
+
+The backward picks its entries by dtype and head dim alone
+(:func:`bwd_entries`): bf16 with D in {64, 128}, what serving and
+training run, takes the tensor-core kernels. f32 and every other head
+dim take the scalar ones. f32 stays scalar because the tensor cores'
+f32 route is TF32, whose 10-bit mantissa cannot meet the f32 tolerance
+the kernels are held to (1e-4 of the largest magnitude).
 
 Layout is the reference's public one: q ``[B, S, H, D]``, k/v
 ``[B, S, Hkv, D]`` (GQA: query head ``h`` reads KV head ``h // (H //
@@ -31,11 +40,19 @@ import torch
 
 from . import _build
 
-# Launches per kernel, counted where each wrapper launches it.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# Launches per kernel entry, counted where each wrapper launches it.
+LAUNCHES = {
+    "flash_fwd": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
+    "flash_bwd_dq_scalar": 0,
+    "flash_bwd_dkv_scalar": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+# Head dims the tensor-core backward kernels are built for (bf16 only).
+SM90_HEAD_DIMS = (64, 128)
 
 
 def fits_kernel(S: int, D: int) -> bool:
@@ -43,6 +60,15 @@ def fits_kernel(S: int, D: int) -> bool:
     ``D``: they mask their own ragged edges, so any ``S`` works; ``D`` must
     be a multiple of 8 and at most 128 (their register tile)."""
     return S >= 1 and D % 8 == 0 and 0 < D <= MAX_HEAD_DIM
+
+
+def bwd_entries(dtype: torch.dtype, D: int) -> tuple[str, str]:
+    """The (dQ, dK/dV) kernel entries the backward launches for inputs of
+    ``dtype`` and head dim ``D``: the tensor-core ones for bf16 with D in
+    :data:`SM90_HEAD_DIMS`, the scalar ones otherwise."""
+    if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS:
+        return "flash_bwd_dq", "flash_bwd_dkv"
+    return "flash_bwd_dq_scalar", "flash_bwd_dkv_scalar"
 
 
 def _visible(B, S, *, causal, start, kv_len, device):
@@ -161,9 +187,10 @@ def flash_bwd(
     scale: float | None = None, start: torch.Tensor | None = None,
     kv_len: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) through the two CUDA kernels for CUDA tensors, through
-    :func:`flash_bwd_plain` for CPU tensors. ``lse`` comes from the
-    forward, ``delta`` is rowsum(dO∘O) − dlse; both [B, S, H] f32."""
+    """(dq, dk, dv) through the two CUDA kernels :func:`bwd_entries` picks
+    for CUDA tensors, through :func:`flash_bwd_plain` for CPU tensors.
+    ``lse`` comes from the forward, ``delta`` is rowsum(dO∘O) − dlse; both
+    [B, S, H] f32."""
     _check(q, k, v, start, kv_len)
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} does not match q {tuple(q.shape)}")
@@ -175,21 +202,33 @@ def flash_bwd(
         return flash_bwd_plain(
             q, k, v, do, lse, delta, causal=causal, scale=sc, start=start, kv_len=kv_len
         )
-    dq = _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, causal=causal,
+    dq_entry, dkv_entry = bwd_entries(q.dtype, q.shape[3])
+    dq = _launch_bwd(dq_entry, q, k, v, do, lse, delta, causal=causal,
                      scale=sc, start=start, kv_len=kv_len)
-    dk, dv = _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, causal=causal,
+    dk, dv = _launch_bwd(dkv_entry, q, k, v, do, lse, delta, causal=causal,
                          scale=sc, start=start, kv_len=kv_len)
     return dq, dk, dv
 
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_BWD_DQ_ARGS = [_PTR] * 9 + [_INT] * 5 + [_PTR, ctypes.c_float, _INT, _INT, _PTR]
+_BWD_DKV_ARGS = [_PTR] * 10 + [_INT] * 5 + [_PTR, ctypes.c_float, _INT, _INT, _PTR]
 # Argument types of each C entry, in the order the sources declare them.
 _ARGTYPES = {
     "flash_fwd": [_PTR] * 7 + [_INT] * 5 + [_I64] * 9 + [ctypes.c_float, _INT, _INT, _PTR],
-    "flash_bwd_dq": [_PTR] * 9 + [_INT] * 5 + [_PTR, ctypes.c_float, _INT, _INT, _PTR],
-    "flash_bwd_dkv": [_PTR] * 10 + [_INT] * 5 + [_PTR, ctypes.c_float, _INT, _INT, _PTR],
+    "flash_bwd_dq": _BWD_DQ_ARGS,
+    "flash_bwd_dkv": _BWD_DKV_ARGS,
+    "flash_bwd_dq_scalar": _BWD_DQ_ARGS,
+    "flash_bwd_dkv_scalar": _BWD_DKV_ARGS,
 }
-_SOURCE = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd"}
+# The source (``csrc/<name>.cu``) that defines each entry.
+_SOURCE = {
+    "flash_fwd": "flash_fwd",
+    "flash_bwd_dq": "flash_bwd_sm90",
+    "flash_bwd_dkv": "flash_bwd_sm90",
+    "flash_bwd_dq_scalar": "flash_bwd",
+    "flash_bwd_dkv_scalar": "flash_bwd",
+}
 
 
 @functools.cache
@@ -203,6 +242,13 @@ def _kernel(entry: str):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _strides(t):
+    """Element strides of ``t``'s (batch, seq, head) dims, 0 for a dim of
+    size 1: its index is always 0, so whatever stride a view gave it is
+    never used."""
+    return [st if n > 1 else 0 for st, n in zip(t.stride()[:3], t.shape[:3])]
 
 
 def _check_cuda(name, q, k, v, bounds, *extra):
@@ -257,23 +303,29 @@ def _launch_fwd(q, k, v, *, causal, scale, start, kv_len):
 
 
 def _launch_bwd(entry, q, k, v, do, lse, delta, *, causal, scale, start, kv_len):
-    """Launch ``flash_bwd_dq`` (returns dq) or ``flash_bwd_dkv`` (returns
-    (dk, dv)); outputs are contiguous."""
+    """Launch a dQ entry (returns dq) or a dK/dV entry (returns (dk, dv));
+    outputs are contiguous."""
     B, S, H, D = q.shape
     bounds = [b for b in (start, kv_len) if b is not None]
     _check_cuda(entry, q, k, v, bounds, do)
     for t in (lse, delta):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{entry} needs contiguous lse/delta on {q.device}")
-    if entry == "flash_bwd_dq":
+    if _SOURCE[entry] == "flash_bwd_sm90":
+        if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
+            raise ValueError(f"{entry} takes bf16 with D in {SM90_HEAD_DIMS}, "
+                             f"got {q.dtype}, D={D}")
+        for t in (q, k, v, do):  # its copies move 16-byte rows
+            if t.data_ptr() % 16 or any(st % 8 for st in _strides(t)):
+                raise ValueError(f"{entry} needs 16-byte aligned rows: strides "
+                                 f"{t.stride()} of a tensor at {t.data_ptr():#x}")
+    if entry in ("flash_bwd_dq", "flash_bwd_dq_scalar"):
         outs = [torch.empty_like(q, memory_format=torch.contiguous_format)]
     else:
         outs = [torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2)]
     if q.numel() == 0:
         return outs[0] if len(outs) == 1 else tuple(outs)
-    strides = (ctypes.c_int64 * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]
-    )
+    strides = (ctypes.c_int64 * 12)(*_strides(q), *_strides(k), *_strides(v), *_strides(do))
     _call(
         entry, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

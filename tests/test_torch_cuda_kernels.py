@@ -77,8 +77,14 @@ def test_backward_kernels_match_plain_on_card(dtype, causal):
     before = dict(fa.LAUNCHES)
     got = fa.flash_bwd(q, k, v, do, lse, delta, **bounds)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
-    assert fa.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    # bf16 at D = 128 takes the tensor-core entries, f32 the scalar ones.
+    want_entries = {
+        torch.bfloat16: ("flash_bwd_dq", "flash_bwd_dkv"),
+        torch.float32: ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar"),
+    }[dt]
+    assert {n: c - before[n] for n, c in fa.LAUNCHES.items() if c != before[n]} == {
+        e: 1 for e in want_entries
+    }
     want = fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=128 ** -0.5, **bounds)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.shape == w.shape and g.dtype == dt, name
@@ -116,3 +122,91 @@ def test_decoder_backward_on_card_reaches_every_weight():
     plain = T.loss_fn(params, tokens, dataclasses.replace(cfg, attention="plain"))
     plain, loss = float(plain.detach()), float(loss.detach())
     assert abs(plain - loss) <= 2.0 ** -7 * abs(plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [300, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+def test_tensor_core_backward_matches_plain_on_card(D, S, causal, groups):
+    """The bf16 wgmma entries against ``flash_bwd_plain`` with a ragged
+    edge (S = 300) and at full length, GQA groups 1 and 4, and both masks:
+    row 1 has keys before 70 (left pad) and from S - 170 on (right pad).
+    Dead rows' dq and unseen keys' dk/dv are exactly zero, and two calls
+    give the same bits."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(D + S + groups + causal)
+    B, Hkv = 2, 2
+    H = Hkv * groups
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(B, S, 2, Hkv, D, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    start = torch.tensor([0, 70], dtype=torch.int32, device="cuda")
+    kv_len = torch.tensor([S, S - 170], dtype=torch.int32, device="cuda")
+    bounds = dict(causal=causal, start=start, kv_len=kv_len)
+    o, lse = fa.flash_fwd(q, k, v, **bounds)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_bwd(q, k, v, do, lse, delta, **bounds)
+    again = fa.flash_bwd(q, k, v, do, lse, delta, **bounds)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.LAUNCHES.items() if c != before[n]} == {
+        "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+    }
+    want = fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=D ** -0.5, **bounds)
+    for g, w, a, name in zip(got, want, again, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
+        assert bwd_close(g, w, torch.bfloat16), (name, float((g.float() - w.float()).abs().max()))
+        assert torch.equal(g, a), name  # no atomics: the same bits every run
+    dq, dk, dv = got
+    if causal:
+        assert not dq[1, :70].any()  # dead rows
+    assert not dk[1, :70].any() and not dv[1, :70].any()  # keys no query sees
+    assert not dk[1, S - 170:].any() and not dv[1, S - 170:].any()
+
+
+@pytest.mark.cuda
+def test_backward_entries_refuse_what_they_do_not_take():
+    """The tensor-core entries raise, and do not fall back, on inputs they
+    do not take; f32 goes to the scalar entries."""
+    _card()
+    q = torch.randn(1, 64, 2, 128, device="cuda").bfloat16()
+    lse = torch.zeros(1, 64, 2, device="cuda")
+    with pytest.raises(ValueError, match="bf16 with D"):
+        fa._launch_bwd("flash_bwd_dq", q.float(), q.float(), q.float(), q.float(), lse, lse,
+                       causal=True, scale=1.0, start=None, kv_len=None)
+    odd = torch.randn(1, 64, 2, 129, device="cuda").bfloat16()[..., 1:]  # rows off 16 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch_bwd("flash_bwd_dkv", odd, odd, odd, odd, lse, lse,
+                       causal=True, scale=1.0, start=None, kv_len=None)
+    before = dict(fa.LAUNCHES)
+    fa.flash_bwd(q.float(), q.float(), q.float(), q.float(), lse, lse)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.LAUNCHES.items() if c != before[n]} == {
+        "flash_bwd_dq_scalar": 1, "flash_bwd_dkv_scalar": 1,
+    }
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_ignores_strides_of_size_one_dims():
+    """A batch of one whose batch dim has stride 1 (as a permuted view
+    gives it) reaches the tensor-core entries: that stride is never used."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    S, H, Hkv, D = 256, 8, 2, 128
+    q = torch.randn(S, H, D, 1, generator=gen, device="cuda").bfloat16().permute(3, 0, 1, 2)
+    kv = torch.randn(1, S, 2, Hkv, D, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(1, S, H, D, generator=gen, device="cuda").bfloat16()
+    assert q.stride(0) == 1
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_bwd(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    want = fa.flash_bwd_plain(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert bwd_close(g, w, torch.bfloat16), name

@@ -8,6 +8,9 @@ The CUDA kernel itself is compared with its plain version on the card by
 tests/test_torch_cuda_kernels.py and by chip_smoke.py.
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,3 +144,29 @@ def test_chunk_prefill_attention_matches_reference():
         ).numpy()
         # pad rows (>= 40) differ by design between the routes; real rows agree
         np.testing.assert_allclose(got[:, :40], want[:, :40], atol=ATOL, rtol=0)
+
+
+def _extern_c_entries():
+    """{name: (source stem, [ctypes type per parameter])} for every
+    ``extern "C"`` function in ``ops/csrc/*.cu``, parsed from the sources."""
+    scalar = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_int64}
+    out = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
+            types = []
+            for param in m.group(2).split(","):
+                ctype = re.sub(r"\s+", " ", param).strip().rsplit(" ", 1)[0]
+                types.append(ctypes.c_void_p if ctype.endswith("*") else scalar[ctype])
+            out[m.group(1)] = (path.stem, types)
+    return out
+
+
+def test_argtypes_match_the_c_entries():
+    """Each C entry's ctypes declaration has its source's argument count,
+    order and types, and names the source that defines it; every entry
+    has a launch count."""
+    entries = _extern_c_entries()
+    assert set(entries) == set(fa._ARGTYPES) == set(fa._SOURCE) == set(fa.LAUNCHES)
+    for name, (stem, types) in entries.items():
+        assert fa._SOURCE[name] == stem, name
+        assert fa._ARGTYPES[name] == types, name

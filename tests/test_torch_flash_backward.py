@@ -6,7 +6,10 @@ On CPU tensors the Function's backward runs ``flash_bwd_plain``, the
 backward kernels' function in plain PyTorch. Blocks of 32 over S = 64
 give the reference several tiles and its causal skip. f32, atol 5e-5: the
 reference's own tolerance for its kernel's gradients against its oracle
-(tests/test_flash_attention.py).
+(tests/test_flash_attention.py). bf16, atol 5e-2: the reference's own
+tolerance for its bf16 gradients (``test_bf16_gradients`` there); both
+sides round P and dS to bf16 at the same places, so this closes the chain
+kernel -> plain version (on the card) -> reference in the working dtype.
 """
 
 import jax
@@ -23,6 +26,7 @@ from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
 
 ATOL = 5e-5
+BF16_ATOL = 5e-2
 B, S, D = 2, 64, 16
 
 
@@ -143,3 +147,71 @@ def test_bwd_wrapper_rejects_bad_stats():
         fa.flash_bwd(q, k, v, do[:, :10], lse, lse)
     with pytest.raises(ValueError, match="delta must be f32"):
         fa.flash_bwd(q, k, v, do, lse, lse.double())
+
+
+_BF16_BOUNDS = {
+    "causal": dict(causal=True),
+    "full": dict(causal=False),
+    "start": dict(causal=True, start=np.array([0, 40], np.int32)),
+    "kv_len": dict(causal=False, kv_len=np.array([64, 21], np.int32)),
+    "window": dict(causal=True, start=np.array([5, 10], np.int32),
+                   kv_len=np.array([50, 33], np.int32)),
+}
+
+
+@pytest.mark.parametrize("bounds", sorted(_BF16_BOUNDS))
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 1)])
+def test_bf16_gradients_match_reference(bounds, H, Hkv):
+    """The plain backward in bf16 (the dtype the tensor-core kernels run)
+    against ``jax.vjp`` of the reference's bf16 Pallas kernels."""
+    q, k, v, do, _ = _inputs(H, Hkv, seed=7)
+    kw = _BF16_BOUNDS[bounds]
+    jbounds = {n: jnp.asarray(b) for n, b in kw.items() if isinstance(b, np.ndarray)}
+
+    def f(q, k, v):
+        return jflash(q, k, v, causal=kw["causal"], block_q=32, block_k=32, interpret=True,
+                      **jbounds)
+
+    jq, jk, jv, jdo = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v, do))
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+
+    tq, tk, tv = (torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v))
+    tkw = {n: (torch.from_numpy(b) if isinstance(b, np.ndarray) else b) for n, b in kw.items()}
+    o = fa.flash_attention(tq, tk, tv, **tkw)
+    o.backward(torch.from_numpy(do).bfloat16())
+    for t, w, name in zip((tq, tk, tv), want, ("dq", "dk", "dv")):
+        assert t.grad.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(t.grad.float().numpy(), w, atol=BF16_ATOL, rtol=0, err_msg=name)
+
+
+_SM90 = ("flash_bwd_dq", "flash_bwd_dkv")
+_SCALAR = ("flash_bwd_dq_scalar", "flash_bwd_dkv_scalar")
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, _SM90),
+    (torch.bfloat16, 64, _SM90),
+    (torch.bfloat16, 32, _SCALAR),
+    (torch.bfloat16, 96, _SCALAR),
+    (torch.bfloat16, 120, _SCALAR),
+    (torch.float32, 128, _SCALAR),
+    (torch.float32, 64, _SCALAR),
+])
+def test_backward_entry_is_chosen_by_dtype_and_head_dim(monkeypatch, dtype, D, want):
+    """bf16 with D in {64, 128} takes the tensor-core entries, everything
+    else the scalar ones, and ``flash_bwd`` launches what ``bwd_entries``
+    names. Meta tensors reach the launch path without a card."""
+    assert fa.bwd_entries(dtype, D) == want
+    launched = []
+
+    def record(entry, q, k, v, *args, **kw):
+        launched.append(entry)
+        return q if entry in ("flash_bwd_dq", "flash_bwd_dq_scalar") else (k, v)
+
+    monkeypatch.setattr(fa, "_launch_bwd", record)
+    q = torch.empty(1, 8, 4, D, dtype=dtype, device="meta")
+    kv = torch.empty(1, 8, 2, D, dtype=dtype, device="meta")
+    stats = torch.empty(1, 8, 4, device="meta")
+    fa.flash_bwd(q, kv, kv, q, stats, stats)
+    assert launched == list(want)
