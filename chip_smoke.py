@@ -6,18 +6,28 @@ one NVIDIA card and check it.
 
 Phases, each of which fails the run with a non-zero exit:
 
-1. Build every CUDA kernel from ``ops/csrc`` and hold each against its
-   plain PyTorch version at Llama-3-8B attention shapes (H=32, Hkv=8,
-   D=128), bf16 and f32: S in {64, 512, 2048} causal, a left-padded
-   (``start``) batch with fully masked rows, a right-padded (``kv_len``)
-   batch. Times the kernel, the plain version, one PyTorch library call
-   on the same inputs (a yardstick the port never calls) and the bound.
+1. Build every CUDA kernel from ``ops/csrc`` and hold the forward
+   against its plain PyTorch version at Llama-3-8B attention shapes
+   (H=32, Hkv=8, D=128), each case through the entry ``flash_fwd`` picks
+   for its dtype and head dim (bf16 at D in {64, 128}: the tensor-core
+   ``flash_fwd``; f32: ``flash_fwd_scalar``), bf16 and f32: S in {64,
+   512, 2048} causal, a left-padded (``start``) batch with fully masked
+   rows, a right-padded (``kv_len``) batch; and in bf16 a ragged S=300,
+   D=64 at S=2048, and the training shape B=4 x S=2048 (causal, no
+   bounds). At the served shape (1 x 512) and the training shape
+   ``flash_fwd_scalar`` runs too, on the same inputs. Every entry runs
+   twice and must give the same bits. Times each kernel (with its TFLOP/s
+   and the fraction of its bound), the plain version, one PyTorch library
+   call on the same inputs (a yardstick the port never calls) and the
+   bound; kernel and library call also by device time alone
+   (``torch.profiler``), which leaves out the host's cost per call.
 2. Serve: ``llama3_8b()`` at full width and depth (32 layers, bf16,
    random weights made on the card from a seeded generator) in
    ``SlotEngine(slots=8, max_len=2048, prefill_chunk=512)`` over a
    16-request Poisson trace. Kernel launch counts are zeroed just before
-   the run and read just after; the shape guard must stay at one shape
-   per program.
+   the run and read just after: ``flash_fwd`` must run and
+   ``flash_fwd_scalar`` never. The shape guard must stay at one shape per
+   program.
 3. Engine vs solo and kernel vs plain, end to end: each request's tokens
    against the port's solo greedy ``generate``, and one full-depth
    prefill's last-position logits with ``attention="flash"`` against
@@ -134,6 +144,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the kernel time ``torch.profiler``
+    sums over ``iters`` calls, over ``iters``. Unlike :func:`cuda_ms` it
+    leaves out the gaps in which the device waits for the host, which set
+    the time of a small call made through a Python wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3 / iters
+
+
 def attention_inputs(gen, B, S, H, Hkv, D, dtype):
     """q [B,S,H,D] and k/v as strided views of one [B,S,2,Hkv,D] tensor,
     the layout the decoder's projection hands the kernel."""
@@ -145,7 +172,8 @@ def attention_inputs(gen, B, S, H, Hkv, D, dtype):
 def flash_bound(q, k, v, *, causal, start, kv_len):
     """Least time for this call on the card: each input read once, each
     output written once, against 4*D flops per visible (query, key) pair
-    per head, counted from these inputs' masks."""
+    per head, counted from these inputs' masks. Returns (ms, what bounds
+    it, flops)."""
     B, S, H, D = q.shape
     vis = fa._visible(B, S, causal=causal, start=start, kv_len=kv_len, device=q.device)
     flops = 4.0 * D * H * float(vis.sum())
@@ -154,7 +182,7 @@ def flash_bound(q, k, v, *, causal, start, kv_len):
     nbytes += sum(b.numel() * 4 for b in (start, kv_len) if b is not None)
     t_ops = flops / PEAK_OPS_PER_S[q.dtype]
     t_mem = nbytes / MEM_BYTES_PER_S
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), flops
 
 
 def compare(o, lse, po, plse, dtype):
@@ -172,17 +200,24 @@ def compare(o, lse, po, plse, dtype):
 
 
 def phase_kernels(gen) -> dict:
-    print("phase 1: flash_fwd kernel vs plain", flush=True)
+    """Phase 1; returns the rows at the served and the training shape, by
+    (kernel entry, "served" or "train")."""
+    print("phase 1: flash forward kernels vs plain", flush=True)
     failures = 0
-    served = None
+    rows = {}
+    train_case = (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "train")
+    served_case = (torch.bfloat16, 1, SERVED_S, 128, "causal")
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for S in (64, 512, 2048):
-            cases.append((dtype, 1, S, "causal"))
-        cases.append((dtype, 2, 512, "start"))
-        cases.append((dtype, 2, 512, "kv_len"))
-    for dtype, B, S, mode in cases:
-        q, k, v = attention_inputs(gen, B, S, 32, 8, 128, dtype)
+            cases.append((dtype, 1, S, 128, "causal"))
+        cases.append((dtype, 2, 512, 128, "start"))
+        cases.append((dtype, 2, 512, 128, "kv_len"))
+    cases += [(torch.bfloat16, 1, 300, 128, "causal"), (torch.bfloat16, 1, 2048, 64, "causal"),
+              train_case]
+    for case in cases:
+        dtype, B, S, D, mode = case
+        q, k, v = attention_inputs(gen, B, S, 32, 8, D, dtype)
         start = kv_len = None
         if mode == "causal":  # a full prompt chunk, as prefill_slot passes it
             kv_len = torch.tensor([S], dtype=torch.int32, device="cuda")
@@ -190,20 +225,11 @@ def phase_kernels(gen) -> dict:
             start = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
         if mode == "kv_len":
             kv_len = torch.tensor([S, 300], dtype=torch.int32, device="cuda")
-        run = lambda: fa.flash_fwd(q, k, v, causal=True, start=start, kv_len=kv_len)  # noqa: E731
-        o, lse = run()
-        torch.cuda.synchronize()
-        po, plse = fa.flash_fwd_plain(
-            q, k, v, causal=True, scale=128 ** -0.5, start=start, kv_len=kv_len
-        )
-        err, ok = compare(o, lse, po, plse, dtype)
-        ms = cuda_ms(run, 20)
-        plain_ms = cuda_ms(
-            lambda: fa.flash_fwd_plain(
-                q, k, v, causal=True, scale=128 ** -0.5, start=start, kv_len=kv_len
-            ), 3, warmup=1,
-        )
-        lib_ms = None
+        bounds = dict(causal=True, start=start, kv_len=kv_len)
+        plain = lambda: fa.flash_fwd_plain(q, k, v, scale=D ** -0.5, **bounds)  # noqa: E731
+        po, plse = plain()
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        lib_ms = lib_device_ms = None
         if mode != "start":  # SDPA's dead rows are NaN: no like-for-like call
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # same tensors, [B,H,S,D] views
             mask = None
@@ -214,19 +240,36 @@ def phase_kernels(gen) -> dict:
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True
             )
             lib_ms = cuda_ms(lib, 20)
-        bound_ms, bound_by = flash_bound(q, k, v, causal=True, start=start, kv_len=kv_len)
-        row = dict(
-            dtype=str(dtype).split(".")[-1], B=B, S=S, mode=mode,
-            max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
-        )
-        print("  flash_fwd", json.dumps(row), flush=True)
-        failures += not ok
-        if dtype == torch.bfloat16 and B == 1 and S == SERVED_S:
-            served = row
+            lib_device_ms = device_ms(lib)
+        bound_ms, bound_by, flops = flash_bound(q, k, v, **bounds)
+        entries = [fa.fwd_entry(dtype, D)]
+        if case in (served_case, train_case):  # the scalar entry too, on the same inputs
+            entries.append("flash_fwd_scalar")
+        for entry in entries:
+            run = lambda: fa._launch_fwd(entry, q, k, v, scale=D ** -0.5, **bounds)  # noqa: E731
+            (o, lse), (o2, lse2) = run(), run()
+            torch.cuda.synchronize()
+            err, ok = compare(o, lse, po, plse, dtype)
+            same_bits = torch.equal(o, o2) and torch.equal(lse, lse2)
+            ms = cuda_ms(run, 20)
+            dev_ms = device_ms(run)
+            row = dict(
+                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, D=D, mode=mode,
+                max_abs_err=err, ok=ok, same_bits=same_bits, ms=ms, device_ms=dev_ms,
+                tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms,
+                device_bound_fraction=bound_ms / dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_device_ms=lib_device_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            print("  ", json.dumps(row), flush=True)
+            failures += not (ok and same_bits)
+            if case == served_case:
+                rows[(entry, "served")] = row
+            if case == train_case:
+                rows[(entry, "train")] = row
     if failures:
-        raise SystemExit(f"phase 1 failed: {failures} case(s) out of tolerance")
-    return served
+        raise SystemExit(f"phase 1 failed: {failures} case(s) out of tolerance or not repeatable")
+    return rows
 
 
 def profile_decode_step(engine, steps: int = 3) -> dict:
@@ -318,8 +361,8 @@ def phase_serve(gen) -> dict:
     print("  decode step profile", json.dumps(serve["decode_step_profile"]), flush=True)
     if stats.trace_counts != {"prefill": 1, "extend": 1, "decode": 1}:
         raise SystemExit(f"phase 2 failed: shape guard moved: {stats.trace_counts}")
-    if launches["flash_fwd"] < 1:
-        raise SystemExit("phase 2 failed: the serving path never launched flash_fwd")
+    if launches["flash_fwd"] < 1 or launches["flash_fwd_scalar"]:
+        raise SystemExit(f"phase 2 failed: the serving path's forward launches {launches}")
     if len(stats.results) != len(trace):
         raise SystemExit("phase 2 failed: not every request was served")
 
@@ -507,7 +550,8 @@ def profile_train_step(step_fn, state, batch) -> dict:
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    flash = [e for e in events if any(n in e.key for n in ("flash", "dq_kernel", "dkv_kernel"))]
+    flash = [e for e in events
+             if any(n in e.key for n in ("flash", "fwd_kernel", "dq_kernel", "dkv_kernel"))]
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -559,7 +603,7 @@ def phase_train() -> dict:
     per_run = TRAIN_LAYERS * TRAIN_STEPS
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"phase 5 failed: losses {losses}")
-    want = {name: 0 for name in fa.LAUNCHES}  # the scalar entries: never
+    want = {name: 0 for name in fa.LAUNCHES}  # the scalar entries, flash_fwd_scalar too: never
     want.update(flash_fwd=2 * per_run, flash_bwd_dq=per_run, flash_bwd_dkv=per_run)
     if launches != want:
         raise SystemExit(f"phase 5 failed: launches {launches} != {want}")
@@ -611,7 +655,7 @@ def main() -> int:
         print(_build.build_log(name).strip(), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    served = phase_kernels(gen)
+    forward = phase_kernels(gen)
 
     serve_launches = phase_serve(gen)
     backward = phase_backward()
@@ -619,16 +663,27 @@ def main() -> int:
     phase_grad_parity()
 
     paths = {"serve": serve_launches, "train": train_launches}
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "gpushare_device_plugin_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "gpushare_device_plugin_tpu/ops/flash_attention.py:96",
-        "launches": serve_launches["flash_fwd"],
-        "launches_by_path": {k: v["flash_fwd"] for k, v in paths.items()},
-        **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")},
-    }]
+    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
+               "bound_fraction")
+    fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")
+    kernels = []
+    fwd_main = fa.fwd_entry(torch.bfloat16, 128)
+    for entry in (fwd_main, fa.fwd_entry(torch.float32, 128)):
+        kernels.append({
+            "name": entry,
+            "route": "cuda",
+            "source": f"gpushare_device_plugin_tpu_torch/ops/csrc/{fa._SOURCE[entry]}.cu",
+            "replaces": "gpushare_device_plugin_tpu/ops/flash_attention.py:96",
+            "launches": serve_launches[entry],
+            "launches_by_path": {k: v[entry] for k, v in paths.items()},
+            "on_main_path": entry == fwd_main,
+            "shape": "served: bf16 B=1 S=512 H=32 Hkv=8 D=128 causal kv_len",
+            **{k: forward[(entry, "served")][k] for k in fwd_numbers},
+            "at_training_shape": {
+                "shape": f"bf16 B={TRAIN_B} S={TRAIN_S} H=32 Hkv=8 D=128 causal",
+                **{k: forward[(entry, "train")][k] for k in fwd_numbers},
+            },
+        })
     main_path = fa.bwd_entries(torch.bfloat16, 128)
     for entry in (*main_path, *fa.bwd_entries(torch.float32, 128)):
         row = backward[entry]

@@ -2,9 +2,11 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``. Libraries land in
-``ops/build/`` (listed in ``.gitignore``), named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads
-at once. ``build()`` starts one ``nvcc`` per source, all together.
+``ops/build/`` (listed in ``.gitignore``), named by a hash of the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header rebuilds and an unchanged one loads at once. Headers are never
+compiled on their own. ``build()`` starts one ``nvcc`` per source, all
+together.
 
 There is no fallback: without ``nvcc`` or on a compile error the loader
 raises, and the caller's CUDA tensors never reach a substitute.
@@ -52,10 +54,14 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library path for ``csrc/<name>.cu``, named by a hash of the
+    source, every header in ``csrc`` (any source may include one) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, Path]:

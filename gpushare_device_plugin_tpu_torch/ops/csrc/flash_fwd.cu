@@ -263,7 +263,7 @@ int launch(const FwdArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
+extern "C" int flash_fwd_scalar(const void* q, const void* k, const void* v, void* o,
                          float* lse, const int* start, const int* kv_len,
                          int B, int S, int H, int Hkv, int D,
                          long long q_sb, long long q_ss, long long q_sh,

@@ -2,22 +2,30 @@
 Hopper, their plain PyTorch versions, and the autograd Function that joins
 them.
 
-Counterpart of ``gpushare_device_plugin_tpu/ops/flash_attention.py``: the
-forward Pallas kernel ``_fwd_kernel`` is ``csrc/flash_fwd.cu``; the
-backward kernels ``_dq_kernel`` and ``_dkv_kernel`` are two entries each:
-``flash_bwd_dq`` / ``flash_bwd_dkv`` in ``csrc/flash_bwd_sm90.cu`` (the
-tensor cores: wgmma, asynchronous copies) and ``flash_bwd_dq_scalar`` /
-``flash_bwd_dkv_scalar`` in ``csrc/flash_bwd.cu`` (f32 FMAs). The
-reference's ``custom_vjp`` pair ``_flash`` / ``_flash_pair`` is
+Counterpart of ``gpushare_device_plugin_tpu/ops/flash_attention.py``.
+Each of its three Pallas kernels is two kernel entries here: one on the
+tensor cores (wgmma, asynchronous copies; the helpers both sources share
+are in ``csrc/sm90.cuh``) and one of scalar f32 FMAs:
+
+- the forward ``_fwd_kernel``: ``flash_fwd`` in ``csrc/flash_fwd_sm90.cu``
+  and ``flash_fwd_scalar`` in ``csrc/flash_fwd.cu``;
+- the backward ``_dq_kernel`` and ``_dkv_kernel``: ``flash_bwd_dq`` /
+  ``flash_bwd_dkv`` in ``csrc/flash_bwd_sm90.cu`` and
+  ``flash_bwd_dq_scalar`` / ``flash_bwd_dkv_scalar`` in
+  ``csrc/flash_bwd.cu``.
+
+The reference's ``custom_vjp`` pair ``_flash`` / ``_flash_pair`` is
 :class:`_Flash`. Each source's header states its bound on an H100 and
 what the design does about it.
 
-The backward picks its entries by dtype and head dim alone
-(:func:`bwd_entries`): bf16 with D in {64, 128}, what serving and
-training run, takes the tensor-core kernels. f32 and every other head
-dim take the scalar ones. f32 stays scalar because the tensor cores'
-f32 route is TF32, whose 10-bit mantissa cannot meet the f32 tolerance
-the kernels are held to (1e-4 of the largest magnitude).
+Both directions pick their entries by dtype and head dim alone
+(:func:`fwd_entry`, :func:`bwd_entries`): bf16 with D in {64, 128}, what
+serving and training run, takes the tensor-core kernels. f32 and every
+other head dim take the scalar ones. f32 stays scalar because the tensor
+cores' f32 route is TF32, whose 10-bit mantissa cannot meet the f32
+tolerances the kernels are held to (1e-5 forward, 1e-4 of the largest
+magnitude backward). A tensor-core entry raises on rows that are not
+16-byte aligned; nothing drops to the scalar entry.
 
 Layout is the reference's public one: q ``[B, S, H, D]``, k/v
 ``[B, S, Hkv, D]`` (GQA: query head ``h`` reads KV head ``h // (H //
@@ -43,6 +51,7 @@ from . import _build
 # Launches per kernel entry, counted where each wrapper launches it.
 LAUNCHES = {
     "flash_fwd": 0,
+    "flash_fwd_scalar": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dq_scalar": 0,
@@ -51,7 +60,7 @@ LAUNCHES = {
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-# Head dims the tensor-core backward kernels are built for (bf16 only).
+# Head dims the tensor-core kernels are built for (bf16 only).
 SM90_HEAD_DIMS = (64, 128)
 
 
@@ -60,6 +69,15 @@ def fits_kernel(S: int, D: int) -> bool:
     ``D``: they mask their own ragged edges, so any ``S`` works; ``D`` must
     be a multiple of 8 and at most 128 (their register tile)."""
     return S >= 1 and D % 8 == 0 and 0 < D <= MAX_HEAD_DIM
+
+
+def fwd_entry(dtype: torch.dtype, D: int) -> str:
+    """The forward kernel entry for inputs of ``dtype`` and head dim ``D``:
+    the tensor-core one for bf16 with D in :data:`SM90_HEAD_DIMS`, the
+    scalar one otherwise."""
+    if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS:
+        return "flash_fwd"
+    return "flash_fwd_scalar"
 
 
 def bwd_entries(dtype: torch.dtype, D: int) -> tuple[str, str]:
@@ -170,15 +188,16 @@ def flash_fwd(
     scale: float | None = None, start: torch.Tensor | None = None,
     kv_len: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(O, lse) through the CUDA kernel for CUDA tensors, through
-    :func:`flash_fwd_plain` for CPU tensors."""
+    """(O, lse) through the CUDA kernel :func:`fwd_entry` picks for CUDA
+    tensors, through :func:`flash_fwd_plain` for CPU tensors."""
     _check(q, k, v, start, kv_len)
     sc = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_fwd_plain(
             q, k, v, causal=causal, scale=sc, start=start, kv_len=kv_len
         )
-    return _launch_fwd(q, k, v, causal=causal, scale=sc, start=start, kv_len=kv_len)
+    return _launch_fwd(fwd_entry(q.dtype, q.shape[3]), q, k, v, causal=causal, scale=sc,
+                       start=start, kv_len=kv_len)
 
 
 def flash_bwd(
@@ -213,9 +232,11 @@ def flash_bwd(
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _BWD_DQ_ARGS = [_PTR] * 9 + [_INT] * 5 + [_PTR, ctypes.c_float, _INT, _INT, _PTR]
 _BWD_DKV_ARGS = [_PTR] * 10 + [_INT] * 5 + [_PTR, ctypes.c_float, _INT, _INT, _PTR]
+_FWD_ARGS = [_PTR] * 7 + [_INT] * 5 + [_I64] * 9 + [ctypes.c_float, _INT, _INT, _PTR]
 # Argument types of each C entry, in the order the sources declare them.
 _ARGTYPES = {
-    "flash_fwd": [_PTR] * 7 + [_INT] * 5 + [_I64] * 9 + [ctypes.c_float, _INT, _INT, _PTR],
+    "flash_fwd": _FWD_ARGS,
+    "flash_fwd_scalar": _FWD_ARGS,
     "flash_bwd_dq": _BWD_DQ_ARGS,
     "flash_bwd_dkv": _BWD_DKV_ARGS,
     "flash_bwd_dq_scalar": _BWD_DQ_ARGS,
@@ -223,7 +244,8 @@ _ARGTYPES = {
 }
 # The source (``csrc/<name>.cu``) that defines each entry.
 _SOURCE = {
-    "flash_fwd": "flash_fwd",
+    "flash_fwd": "flash_fwd_sm90",
+    "flash_fwd_scalar": "flash_fwd",
     "flash_bwd_dq": "flash_bwd_sm90",
     "flash_bwd_dkv": "flash_bwd_sm90",
     "flash_bwd_dq_scalar": "flash_bwd",
@@ -277,6 +299,21 @@ def _check_cuda(name, q, k, v, bounds, *extra):
             raise ValueError("start/kv_len must be contiguous int32")
 
 
+def _check_sm90(entry, *tensors):
+    """Raise unless the tensor-core entry ``entry`` takes these CUDA
+    tensors: bf16, head dim in :data:`SM90_HEAD_DIMS`, and rows its
+    16-byte copies can move (16-byte aligned base, strides a multiple of 8
+    elements)."""
+    D = tensors[0].shape[-1]
+    if tensors[0].dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
+        raise ValueError(f"{entry} takes bf16 with D in {SM90_HEAD_DIMS}, "
+                         f"got {tensors[0].dtype}, D={D}")
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st % 8 for st in _strides(t)):
+            raise ValueError(f"{entry} needs 16-byte aligned rows: strides "
+                             f"{t.stride()} of a tensor at {t.data_ptr():#x}")
+
+
 def _call(entry, device, *args):
     err = _kernel(entry)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -284,19 +321,22 @@ def _call(entry, device, *args):
     LAUNCHES[entry] += 1
 
 
-def _launch_fwd(q, k, v, *, causal, scale, start, kv_len):
+def _launch_fwd(entry, q, k, v, *, causal, scale, start, kv_len):
+    """Launch a forward entry; returns (O, lse), both contiguous."""
     B, S, H, D = q.shape
     bounds = [b for b in (start, kv_len) if b is not None]
-    _check_cuda("flash_fwd", q, k, v, bounds)
+    _check_cuda(entry, q, k, v, bounds)
+    if _SOURCE[entry].endswith("_sm90"):
+        _check_sm90(entry, q, k, v)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
     _call(
-        "flash_fwd", q.device,
+        entry, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _ptr(start), _ptr(kv_len), B, S, H, k.shape[2], D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *_strides(q), *_strides(k), *_strides(v),
         float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
     )
     return o, lse
@@ -311,14 +351,8 @@ def _launch_bwd(entry, q, k, v, do, lse, delta, *, causal, scale, start, kv_len)
     for t in (lse, delta):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{entry} needs contiguous lse/delta on {q.device}")
-    if _SOURCE[entry] == "flash_bwd_sm90":
-        if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
-            raise ValueError(f"{entry} takes bf16 with D in {SM90_HEAD_DIMS}, "
-                             f"got {q.dtype}, D={D}")
-        for t in (q, k, v, do):  # its copies move 16-byte rows
-            if t.data_ptr() % 16 or any(st % 8 for st in _strides(t)):
-                raise ValueError(f"{entry} needs 16-byte aligned rows: strides "
-                                 f"{t.stride()} of a tensor at {t.data_ptr():#x}")
+    if _SOURCE[entry].endswith("_sm90"):
+        _check_sm90(entry, q, k, v, do)
     if entry in ("flash_bwd_dq", "flash_bwd_dq_scalar"):
         outs = [torch.empty_like(q, memory_format=torch.contiguous_format)]
     else:

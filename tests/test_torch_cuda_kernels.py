@@ -45,10 +45,11 @@ def test_kernel_matches_plain_on_card(dtype):
     kv = torch.randn(2, 300, 2, 2, 128, generator=gen, device="cuda").to(dt)
     start = torch.tensor([0, 70], dtype=torch.int32, device="cuda")
     kv_len = torch.tensor([300, 130], dtype=torch.int32, device="cuda")
-    before = fa.LAUNCHES["flash_fwd"]
+    entry = fa.fwd_entry(dt, 128)  # bf16: the tensor-core entry; f32: the scalar one
+    before = fa.LAUNCHES[entry]
     o, lse = fa.flash_fwd(q, kv[:, :, 0], kv[:, :, 1], start=start, kv_len=kv_len)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd"] == before + 1
+    assert fa.LAUNCHES[entry] == before + 1
     po, plse = fa.flash_fwd_plain(
         q, kv[:, :, 0], kv[:, :, 1], causal=True, scale=128 ** -0.5, start=start, kv_len=kv_len
     )
@@ -210,3 +211,85 @@ def test_tensor_core_backward_ignores_strides_of_size_one_dims():
     want = fa.flash_bwd_plain(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert bwd_close(g, w, torch.bfloat16), name
+
+
+def fwd_close(o, lse, po, plse) -> bool:
+    """bf16 O within two roundings of an 8-bit mantissa, 2^-7 * max(|plain|,
+    1); lse within 1e-4; the same dead rows (lse = -inf, O = 0)."""
+    ok = bool(((o.float() - po.float()).abs() <= 2.0 ** -7 * po.float().abs().clamp(min=1)).all())
+    dead = torch.isneginf(plse)
+    ok &= torch.equal(torch.isneginf(lse), dead)
+    ok &= bool(((lse - plse).abs()[~dead] <= 1e-4).all())
+    ok &= not o[dead].any()
+    return ok and bool(torch.isfinite(o.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounds", ["none", "start", "kv_len"])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [300, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+def test_tensor_core_forward_matches_plain_on_card(D, S, causal, groups, bounds):
+    """The bf16 wgmma forward against ``flash_fwd_plain`` with a ragged
+    edge (S = 300) and at full length, GQA groups 1 and 4, with no bounds,
+    a ``start`` batch (row 1's keys before 70 are pad: under causality its
+    queries before 70 see nothing) and a ``kv_len`` batch (row 1's keys
+    from S - 170 on are pad). Two calls give the same bits."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(D + S + groups + causal)
+    B, Hkv = 2, 2
+    H = Hkv * groups
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(B, S, 2, Hkv, D, generator=gen, device="cuda").bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    start = torch.tensor([0, 70], dtype=torch.int32, device="cuda") if bounds == "start" else None
+    kv_len = (torch.tensor([S, S - 170], dtype=torch.int32, device="cuda")
+              if bounds == "kv_len" else None)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, start=start, kv_len=kv_len)
+    o2, lse2 = fa.flash_fwd(q, k, v, causal=causal, start=start, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.LAUNCHES.items() if c != before[n]} == {"flash_fwd": 2}
+    po, plse = fa.flash_fwd_plain(q, k, v, causal=causal, scale=D ** -0.5, start=start,
+                                  kv_len=kv_len)
+    assert o.shape == po.shape and o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert fwd_close(o, lse, po, plse), float((o.float() - po.float()).abs().max())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # no atomics: the same bits
+    if bounds == "start" and causal:
+        assert torch.isneginf(lse[1, :70]).all() and not o[1, :70].any()  # dead rows
+
+
+@pytest.mark.cuda
+def test_tensor_core_forward_ignores_strides_of_size_one_dims():
+    """A batch of one whose batch dim has stride 1 (as a permuted view
+    gives it), the served shape's case, reaches the tensor-core entry."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    S, H, Hkv, D = 512, 8, 2, 128
+    q = torch.randn(S, H, D, 1, generator=gen, device="cuda").bfloat16().permute(3, 0, 1, 2)
+    kv = torch.randn(1, S, 2, Hkv, D, generator=gen, device="cuda").bfloat16()
+    assert q.stride(0) == 1
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    kv_len = torch.tensor([S], dtype=torch.int32, device="cuda")
+    before = fa.LAUNCHES["flash_fwd"]
+    o, lse = fa.flash_fwd(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == before + 1
+    po, plse = fa.flash_fwd_plain(q, k, v, causal=True, scale=D ** -0.5, kv_len=kv_len)
+    assert fwd_close(o, lse, po, plse)
+
+
+@pytest.mark.cuda
+def test_tensor_core_forward_refuses_misaligned_rows():
+    """bf16 at D = 128 with rows off 16 bytes raises, and launches neither
+    forward entry: nothing drops to the scalar kernel."""
+    _card()
+    odd = torch.randn(1, 64, 2, 129, device="cuda").bfloat16()[..., 1:]
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(odd, odd, odd)
+    with pytest.raises(ValueError, match="bf16 with D"):
+        fa._launch_fwd("flash_fwd", odd.float(), odd.float(), odd.float(), causal=True,
+                       scale=1.0, start=None, kv_len=None)
+    assert fa.LAUNCHES == before

@@ -170,3 +170,65 @@ def test_argtypes_match_the_c_entries():
     for name, (stem, types) in entries.items():
         assert fa._SOURCE[name] == stem, name
         assert fa._ARGTYPES[name] == types, name
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, "flash_fwd"),
+    (torch.bfloat16, 64, "flash_fwd"),
+    (torch.bfloat16, 96, "flash_fwd_scalar"),
+    (torch.bfloat16, 32, "flash_fwd_scalar"),
+    (torch.float32, 128, "flash_fwd_scalar"),
+    (torch.float32, 64, "flash_fwd_scalar"),
+])
+def test_forward_entry_is_chosen_by_dtype_and_head_dim(monkeypatch, dtype, D, want):
+    """bf16 with D in {64, 128} takes the tensor-core entry, everything
+    else the scalar one, and ``flash_fwd`` launches what ``fwd_entry``
+    names. Meta tensors reach the launch path without a card."""
+    assert fa.fwd_entry(dtype, D) == want
+    launched = []
+
+    def record(entry, q, k, v, **kw):
+        launched.append(entry)
+        return q, q[..., 0].float()
+
+    monkeypatch.setattr(fa, "_launch_fwd", record)
+    q = torch.empty(1, 8, 4, D, dtype=dtype, device="meta")
+    kv = torch.empty(1, 8, 2, D, dtype=dtype, device="meta")
+    fa.flash_fwd(q, kv, kv)
+    assert launched == [want]
+
+
+@pytest.mark.parametrize("entry", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_tensor_core_entries_refuse_misaligned_rows(entry):
+    """One check guards every tensor-core entry: bf16, D in {64, 128}, rows
+    16-byte aligned. It raises, so such inputs never reach the scalar
+    entry; a dim of size 1 may have any stride."""
+    ok = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
+    fa._check_sm90(entry, ok, ok)
+    odd = torch.zeros(1, 64, 2, 129, dtype=torch.bfloat16)[..., 1:]  # base off 16 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_sm90(entry, odd, ok)
+    strided = torch.zeros(1, 64, 2, 132, dtype=torch.bfloat16)[..., :128]  # row stride 132
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_sm90(entry, ok, strided)
+    with pytest.raises(ValueError, match="bf16 with D"):
+        fa._check_sm90(entry, ok[..., :96])
+    size_one = torch.zeros(64, 2, 128, 1, dtype=torch.bfloat16).permute(3, 0, 1, 2)
+    assert size_one.stride(0) == 1
+    fa._check_sm90(entry, size_one)
+
+
+def test_library_name_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """Editing a header in ``csrc`` renames every source's library, so a
+    stale build is never loaded; headers are not sources of their own."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build._target("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build._target("k") not in (first, second)
+    assert _build.sources() == ["k"]

@@ -101,4 +101,4 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("flash_fwd")
     assert not (tmp_path / "build").exists()
-    assert _build.sources() == ["flash_bwd", "flash_bwd_sm90", "flash_fwd"]
+    assert _build.sources() == ["flash_bwd", "flash_bwd_sm90", "flash_fwd", "flash_fwd_sm90"]
