@@ -56,6 +56,26 @@ Phases, each of which fails the run with a non-zero exit:
    the same width and depth (B=1, S=2048) with ``attention="flash"`` and
    with ``"plain"``: every leaf gets a nonzero gradient, losses and
    gradients agree.
+7. Paged serve, on phase 2's weights (run straight after phase 3): a
+   24-request ``shared_prefix_trace`` (two 1024-token system prompts,
+   64-512-token tails, half critical, half best-effort) through
+   ``PagedSlotEngine(max_len=2048, prefill_chunk=512, page_size=16)``
+   twice. Run A: 16 slots over the pages ``paged_plan_for_slice`` grants a
+   24 GiB slice. Run B: 8 slots over 256 pages (two max_len rows), so
+   requests preempt. Launch counts are zeroed just before each run and
+   read just after, and the prefill program's dispatches are counted.
+   Each run must serve every request, keep the shape guard at one shape
+   per program, leak no page (used pages == the radix cache's), launch
+   ``flash_fwd`` exactly 32 times per prefill dispatch (and more than
+   0) and ``flash_fwd_scalar`` never; run A must hit the prefix cache and
+   run B must preempt. Each run's decode step is profiled
+   (``torch.profiler``): kernels, busy share, page gather and scatter time.
+8. Paged correctness: every preempted request of run B and four prefix-hit
+   requests of run A against solo greedy decode by phase 3's near-tie
+   rule; run A's trace drained at half its ticks, the snapshot (through
+   JSON) restored on a fresh engine, the combined tokens held to the same
+   rule; one request's pages exported and imported into the second
+   engine's pool, the same bits back.
 
 Float32 matrix products run in full f32 (TF32 off, set below). The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it
@@ -72,12 +92,19 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
-from gpushare_device_plugin_tpu_torch.serving.engine import SlotEngine, poisson_trace
+from gpushare_device_plugin_tpu_torch.serving.engine import (
+    PagedSlotEngine,
+    SlotEngine,
+    poisson_trace,
+    shared_prefix_trace,
+)
+from gpushare_device_plugin_tpu_torch.serving.pages import paged_plan_for_slice
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
 from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
@@ -112,6 +139,12 @@ LSE_ATOL = 1e-4
 TOP2_GAP_REL = 2.0 ** -6
 LOGIT_REL = 2.0 ** -5
 SERVED_S = 512  # the engine's prompt chunk: the kernel's shape on the main path
+EOS_ID = 128001  # Llama-3's end-of-text token
+# Phase 7: run A sizes its pool for a 24 GiB slice of the card; run B gets
+# two max_len rows of pages (the minimum is one), so requests preempt.
+PAGED_SLICE_BYTES = 24 * 2**30
+PRESSURE_PAGES = 256
+PAGED_PROFILE_CONTEXT = 1536  # positions each row reads in the profiled decode step
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
 # up to g*S = 8192 terms, and expf against torch.exp: 1e-4 of the tensor's
 # largest magnitude. bf16: P and dS are rounded to an 8-bit mantissa in
@@ -144,21 +177,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10) -> float | None:
     """Device time of one call of ``fn``: the kernel time ``torch.profiler``
     sums over ``iters`` calls, over ``iters``. Unlike :func:`cuda_ms` it
     leaves out the gaps in which the device waits for the host, which set
-    the time of a small call made through a Python wrapper."""
+    the time of a small call made through a Python wrapper. The profiler
+    now and then records no kernel at all; such a window is taken again,
+    up to three times, and then the time is None ("not measured")."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    return sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        total = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+        if total > 0:
+            return total / 1e3 / iters
+    return None
 
 
 def attention_inputs(gen, B, S, H, Hkv, D, dtype):
@@ -257,7 +296,7 @@ def phase_kernels(gen) -> dict:
                 kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, D=D, mode=mode,
                 max_abs_err=err, ok=ok, same_bits=same_bits, ms=ms, device_ms=dev_ms,
                 tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms,
-                device_bound_fraction=bound_ms / dev_ms, plain_ms=plain_ms,
+                device_bound_fraction=bound_ms / dev_ms if dev_ms else None, plain_ms=plain_ms,
                 library_ms=lib_ms, library_device_ms=lib_device_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
             )
@@ -319,16 +358,51 @@ def solo_with_gaps(params, cfg, prompt, max_new):
     return toks, gaps
 
 
-def phase_serve(gen) -> dict:
-    """Phases 2 and 3; returns the kernel launches of the served run."""
+def check_vs_solo(phase, params, cfg, req, got, want=None, solos=None) -> list[dict]:
+    """Hold one request's served tokens against the port's solo greedy
+    decode by the near-tie rule: they may differ first only at a step where
+    the solo top-two gap is at most TOP2_GAP_REL * |top|. Tokens that equal
+    ``want`` (an earlier run's, already held) need no solo run; ``solos``
+    keeps each request's solo decode, so a request held twice decodes once.
+    Returns the divergence, if any, for the log."""
+    if want is not None and got == want:
+        return []
+    solos = {} if solos is None else solos
+    key = (req.prompt, req.max_new)
+    if key not in solos:
+        solos[key] = solo_with_gaps(params, cfg, list(req.prompt), req.max_new)
+    solo, gaps = solos[key]
+    if EOS_ID in solo:  # the engine retires a request at its EOS
+        solo = solo[: solo.index(EOS_ID) + 1]
+    j = next((i for i, (a, b) in enumerate(zip(got, solo)) if a != b), None)
+    if j is None:
+        if len(got) != len(solo):
+            raise SystemExit(f"{phase} failed: request {req.rid} length {len(got)} != {len(solo)}")
+        return []
+    gap, top = gaps[j]
+    if gap > TOP2_GAP_REL * top:
+        raise SystemExit(
+            f"{phase} failed: request {req.rid} diverges at step {j} "
+            f"where the solo top-two gap {gap} > {TOP2_GAP_REL} * {top}"
+        )
+    return [{"rid": req.rid, "step": j, "solo_top2_gap": gap, "top": top}]
+
+
+def tensor_bytes(params) -> int:
+    return sum(
+        t.numel() * t.element_size() for t in
+        [params["embed"], params["out"], params["final_norm"], *params["layers"].values()]
+    )
+
+
+def phase_serve(gen):
+    """Phases 2 and 3; returns the served run's kernel launches and decode
+    step p50 (ms), the 8B weights and their config."""
     print("phase 2: serve llama3_8b (32 layers, bf16)", flush=True)
     cfg = llama3_8b()
     params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
-    weight_gb = sum(
-        t.numel() * t.element_size() for t in
-        [params["embed"], params["out"], params["final_norm"], *params["layers"].values()]
-    ) / 1e9
-    engine = SlotEngine(params, cfg, slots=8, max_len=2048, prefill_chunk=512, eos_id=128001)
+    weight_gb = tensor_bytes(params) / 1e9
+    engine = SlotEngine(params, cfg, slots=8, max_len=2048, prefill_chunk=512, eos_id=EOS_ID)
     engine.warmup()
     trace = poisson_trace(
         16, seed=0, rate=0.5, vocab=cfg.vocab, prompt_lens=(128, 1536), max_new=(16, 64)
@@ -369,23 +443,12 @@ def phase_serve(gen) -> dict:
     print("phase 3: engine vs solo generate, flash vs plain prefill", flush=True)
     diverged = []
     for req, res in zip(trace, stats.results):
-        want, gaps = solo_with_gaps(params, cfg, list(req.prompt), req.max_new)
         if req.rid == 0:
+            want, _ = solo_with_gaps(params, cfg, list(req.prompt), req.max_new)
             ref = G.generate(params, [list(req.prompt)], cfg, max_new=req.max_new)
             if ref[0, len(req.prompt):].tolist() != want:
                 raise SystemExit("phase 3 failed: solo decode != generate")
-        got = res.tokens
-        if len(got) != len(want):
-            raise SystemExit(f"phase 3 failed: request {req.rid} length {len(got)} != {len(want)}")
-        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
-        if j is not None:
-            gap, top = gaps[j]
-            diverged.append({"rid": req.rid, "step": j, "solo_top2_gap": gap, "top": top})
-            if gap > TOP2_GAP_REL * top:
-                raise SystemExit(
-                    f"phase 3 failed: request {req.rid} diverges at step {j} "
-                    f"where the solo top-two gap {gap} > {TOP2_GAP_REL} * {top}"
-                )
+        diverged += check_vs_solo("phase 3", params, cfg, req, res.tokens)
     print("  engine vs solo:", len(trace) - len(diverged), "identical,",
           "diverged at near ties:", json.dumps(diverged), flush=True)
     prompt = torch.tensor([list(trace[0].prompt)], dtype=torch.long, device="cuda")
@@ -400,7 +463,206 @@ def phase_serve(gen) -> dict:
     if not math.isfinite(diff) or diff > tol:
         raise SystemExit(f"phase 3 failed: flash vs plain logits differ by {diff}")
 
-    return launches
+    return launches, serve["decode_step_p50_ms"], params, cfg
+
+
+def profile_paged_decode_step(engine, steps: int = 3) -> dict:
+    """Device busy share of a made-up pool-wide decode step of the paged
+    engine (not one of the trace's steps: all rows active, each reading
+    PAGED_PROFILE_CONTEXT positions of real pages through its table and
+    writing to the scratch page): summed kernel time from
+    ``torch.profiler`` over the host wall time of ``steps`` steps, the
+    kernel count, and the device time of the page gathers
+    (``aten::index_select``) and scatters (``aten::index_copy_``). Runs
+    after the trace; reads pages, writes only the scratch page, and puts
+    the rows' lengths back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, mp, ps = engine.n_slots, engine.row_pages, engine.page_size
+    ctx = min(mp - 1, PAGED_PROFILE_CONTEXT // ps)
+    tables = torch.zeros((n, mp), dtype=torch.int32)  # SCRATCH
+    tables[:, :ctx] = (torch.arange(n * ctx) % engine.total_pages + 1).reshape(n, ctx)
+    tables = tables.cuda()
+    toks = torch.ones(n, dtype=torch.long, device="cuda")
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+    saved = engine.cache["len"]
+
+    def step():
+        engine._decode(toks, tables, active)
+
+    engine.cache["len"] = torch.full((n,), ctx * ps, dtype=torch.int32, device="cuda")
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    engine.cache["len"] = saved
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type.name == "CUDA"]
+    busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels) / 1e3 / steps
+    op_ms = {e.key: getattr(e, "device_time_total", 0.0) / 1e3 / steps for e in averages
+             if e.key in ("aten::index_select", "aten::index_copy_")}
+    return {
+        "step": f"made up, not from the trace: all {n} rows active at {ctx * ps} positions",
+        "context": ctx * ps,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "kernels_per_step": sum(e.count for e in kernels) / steps,
+        "gather_ms": op_ms.get("aten::index_select", 0.0),
+        "scatter_ms": op_ms.get("aten::index_copy_", 0.0),
+    }
+
+
+def paged_run(label, make_engine, trace) -> tuple[object, dict, object, dict]:
+    """One measured run of the paged engine that ``make_engine`` builds:
+    launch counts zeroed just before and read just after, prefill
+    dispatches counted by wrapping the engine's prefill program, and the
+    run's own peak memory (its pool and activations: the peak less what
+    was held before the engine was built). Checks the run's gates; returns
+    the engine, its report, stats and launches."""
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # weights, earlier engines
+    engine = make_engine()
+    engine.warmup()
+    prefills = []
+    program = engine._prefill
+
+    def counted(*args):
+        prefills.append(1)
+        return program(*args)
+
+    engine._prefill = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    stats = engine.run(trace)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    del engine._prefill  # the class's program again, and no engine -> engine cycle
+    s = stats.summary()
+    report = {
+        "requests": s["requests"], "tokens": s["tokens"], "ticks": s["ticks"],
+        "wall_s": s["wall_s"], "goodput_tokens_per_s": s["goodput_tokens_per_s"],
+        "ttft_p50_ms": s["ttft_p50_ms"], "ttft_p99_ms": s["ttft_p99_ms"],
+        "ttft_p50_ticks": s["ttft_p50_ticks"], "ttft_p99_ticks": s["ttft_p99_ticks"],
+        "decode_step_p50_ms": engine.profiler.p50() * 1e3,
+        "decode_step_p99_ms": engine.profiler.p99() * 1e3,
+        "decode_steps": engine.profiler.count,
+        "own_peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9 - held_gb, 3),
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        "held_before_gb": round(held_gb, 3),
+        "prefill_dispatches": len(prefills),
+        "shape_guard": stats.trace_counts,
+        "launches": launches,
+        "cache_stats": engine.cache_stats(),
+        "tiers": s.get("tiers"),
+    }
+    print(f"  {label}", json.dumps(report), flush=True)
+    report["decode_step_profile"] = profile_paged_decode_step(engine)
+    print(f"  {label} made-up decode step profile", json.dumps(report["decode_step_profile"]),
+          flush=True)
+    fail = []
+    if len(stats.results) != len(trace):
+        fail.append("not every request was served")
+    if stats.trace_counts != {"prefill": 1, "extend": 1, "decode": 1}:
+        fail.append(f"shape guard moved: {stats.trace_counts}")
+    if engine.allocator.used_pages != engine.radix.cached_pages:
+        fail.append(f"pages leaked: {engine.allocator.used_pages} used, "
+                    f"{engine.radix.cached_pages} cached")
+    if not launches["flash_fwd"] == engine.cfg.n_layers * len(prefills) > 0:
+        fail.append(f"flash_fwd launches {launches['flash_fwd']} != "
+                    f"{engine.cfg.n_layers} x {len(prefills)} prefill dispatches")
+    if launches["flash_fwd_scalar"]:
+        fail.append(f"flash_fwd_scalar launched {launches['flash_fwd_scalar']} times")
+    if fail:
+        raise SystemExit(f"phase 7 failed ({label}): " + "; ".join(fail))
+    return engine, report, stats, launches
+
+
+def phase_paged(params, cfg, serve_decode_p50_ms) -> dict:
+    """Phases 7 and 8, on the 8B weights of phase 2; returns the kernel
+    launches of runs A and B together."""
+    print("phase 7: paged serve llama3_8b (32 layers, bf16)", flush=True)
+    weight_bytes = tensor_bytes(params)
+    plan = paged_plan_for_slice(
+        PAGED_SLICE_BYTES, cfg, 2048, page_size=16, prefill_chunk=512,
+        weight_bytes=weight_bytes, slots=16,
+    )
+    print("  plan", json.dumps(dataclasses.asdict(plan)), flush=True)
+    trace = shared_prefix_trace(
+        24, seed=0, rate=0.5, vocab=cfg.vocab, prefixes=(2, 1024), tail_lens=(64, 512),
+        max_new=(16, 64), tiers=[("critical", 0.5, 16, 4), ("best_effort", 0.5, None, None)],
+    )
+    geo = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
+    run_a, report_a, stats_a, launches_a = paged_run(
+        "run A (slice-sized)",
+        lambda: PagedSlotEngine(params, cfg, slots=16, total_pages=plan.total_pages, **geo),
+        trace,
+    )
+    if not report_a["cache_stats"]["prefix_hit_ratio"] > 0:
+        raise SystemExit("phase 7 failed (run A): no prefix hit")
+    run_b, report_b, stats_b, launches_b = paged_run(
+        "run B (pressured)",
+        lambda: PagedSlotEngine(params, cfg, slots=8, total_pages=PRESSURE_PAGES, **geo),
+        trace,
+    )
+    if report_b["cache_stats"]["preemptions"] < 1:
+        raise SystemExit("phase 7 failed (run B): no preemption")
+    print("  decode step p50 at 8 slots: paged", report_b["decode_step_p50_ms"],
+          "ms, contiguous (phase 2)", serve_decode_p50_ms, "ms", flush=True)
+    del run_b
+
+    print("phase 8: paged engine vs solo generate, drain/restore, page export/import",
+          flush=True)
+    by_rid = {r.rid: r for r in trace}
+    preempted = [r for r in stats_b.results if r.preemptions]
+    hits = [r for r in stats_a.results if r.prefix_tokens > 0][:4]
+    if len(hits) < 4:
+        raise SystemExit(f"phase 8 failed: only {len(hits)} run-A requests hit the prefix cache")
+    solos = {}
+    diverged = []
+    for res in preempted + hits:
+        diverged += check_vs_solo("phase 8", params, cfg, by_rid[res.rid], res.tokens,
+                                  solos=solos)
+    print(f"  {len(preempted)} preempted (run B) and {len(hits)} prefix-hit (run A) requests "
+          "vs solo; diverged at near ties:", json.dumps(diverged), flush=True)
+
+    served = {r.rid: r.tokens for r in stats_a.results}
+    part = run_a.run(trace, drain_at_tick=stats_a.ticks // 2)
+    snap = run_a.drain_snapshot()
+    if not snap or not snap["requests"]:
+        raise SystemExit("phase 8 failed: the drain captured nothing")
+    dst = PagedSlotEngine(params, cfg, slots=16, total_pages=plan.total_pages, **geo)
+    rest = dst.restore_snapshot(json.loads(json.dumps(snap)))
+    combined = {r.rid: r.tokens for r in part.results}
+    combined.update({r.rid: r.tokens for r in rest.results})
+    if sorted(combined) != sorted(served):
+        raise SystemExit("phase 8 failed: drain/restore lost or duplicated requests")
+    diverged = []
+    for rid, tokens in combined.items():
+        diverged += check_vs_solo("phase 8", params, cfg, by_rid[rid], tokens, want=served[rid],
+                                  solos=solos)
+    print(f"  drained at tick {snap['drain_tick']}: {len(part.results)} retired, "
+          f"{len(snap['requests'])} restored ({rest.ticks} ticks); {len(solos)} solo decodes in "
+          "phase 8; diverged from run A at near ties:", json.dumps(diverged), flush=True)
+
+    _, pages = run_a.radix.match(trace[0].prompt)
+    blobs = run_a.export_kv_pages(pages)
+    targets = dst.allocator.alloc(len(pages))
+    dst.import_kv_pages(targets, blobs)
+    back = dst.export_kv_pages(targets)
+    run_a.allocator.release(pages)
+    dst.allocator.release(targets)
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(back, blobs) for k in b)
+    print(f"  export/import of {len(pages)} pages of request 0: same bits {same}", flush=True)
+    if not pages or not same:
+        raise SystemExit("phase 8 failed: export/import did not round-trip")
+    return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}
 
 
 def bwd_close(got, want, dtype) -> bool:
@@ -657,12 +919,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     forward = phase_kernels(gen)
 
-    serve_launches = phase_serve(gen)
+    serve_launches, serve_decode_p50_ms, params, cfg = phase_serve(gen)
+    t0 = time.perf_counter()
+    paged_launches = phase_paged(params, cfg, serve_decode_p50_ms)
+    print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
     backward = phase_backward()
     train_launches = phase_train()
     phase_grad_parity()
 
-    paths = {"serve": serve_launches, "train": train_launches}
+    paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches}
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")

@@ -1,8 +1,10 @@
-"""Continuous-batching serving engine over a slot-pool KV cache, in PyTorch.
+"""Continuous-batching serving engines over slot-pool KV caches, in PyTorch.
 
 Counterpart of ``gpushare_device_plugin_tpu/serving/engine.py``
-(``SlotEngine``, the request/result/stats records, ``poisson_trace`` and
-slice sizing). A fixed pool of KV-cache rows (``init_slot_cache``):
+(``SlotEngine``, ``PagedSlotEngine`` in its base mode, the
+request/result/stats records, ``poisson_trace``, ``shared_prefix_trace``
+and slice sizing). ``SlotEngine`` keeps a fixed pool of KV-cache rows
+(``init_slot_cache``):
 
 - admission packs a waiting request into a free row, one fixed-width
   prompt chunk per loop turn (``prefill_slot`` for the first chunk, then
@@ -13,6 +15,10 @@ slice sizing). A fixed pool of KV-cache rows (``init_slot_cache``):
   its slot takes the next request;
 - greedy decoding: every request's tokens are those of a solo greedy
   ``generate()`` of its prompt.
+
+``PagedSlotEngine`` keeps the same loop over a paged cache
+(``init_paged_cache``, ``pages.py``), with a radix prefix cache, SLO-tier
+preemption and drain/restore.
 
 **Static shapes.** The pool, the chunk width and the step batch never
 change shape. PyTorch compiles nothing here, so ``trace_counts`` is a
@@ -28,6 +34,7 @@ tracing and ``/metrics`` hooks of the reference are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import time
 from collections import deque
@@ -40,7 +47,12 @@ from ..const import SLO_TIER_BEST_EFFORT, SLO_TIER_CRITICAL
 from ..device import resolve_device
 from ..workloads import generate as G
 from ..workloads.transformer import TransformerConfig
+from .drainproto import DrainHandshake
+from .pages import SCRATCH, PageAllocator, pages_for, row_span_for
 from .profiler import StepProfiler, ceil_rank_quantile
+from .radix import RadixCache
+
+log = logging.getLogger(__name__)
 
 TIER_CRITICAL = SLO_TIER_CRITICAL
 TIER_BEST_EFFORT = SLO_TIER_BEST_EFFORT
@@ -60,6 +72,9 @@ class Request:
     tier: str = TIER_CRITICAL
     slo_ttft_ticks: float | None = None
     slo_tpot_ticks: float | None = None
+    # the tenant's LoRA adapter ("" = the base model); no engine of the
+    # port serves adapters yet, so the paged engine rejects a non-empty id
+    adapter_id: str = ""
 
     def __post_init__(self):
         if len(self.prompt) < 1:
@@ -88,6 +103,10 @@ class RequestResult:
     tier: str = TIER_CRITICAL
     slo_ttft_ticks: float | None = None
     slo_tpot_ticks: float | None = None
+    # paged engine: prompt tokens served from the radix cache, and one dict
+    # per preemption ({evict,readmit}_{tick,s})
+    prefix_tokens: int = 0
+    preemptions: list[dict] = dataclasses.field(default_factory=list)
 
     @property
     def ttft_ticks(self) -> float:
@@ -125,6 +144,8 @@ class ServeStats:
     ticks: int
     wall_s: float
     trace_counts: dict[str, int]
+    # the paged engine's cache telemetry (PagedSlotEngine.cache_stats)
+    engine_cache: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def _quantile(vals: list[float], q: float) -> float:
@@ -142,6 +163,7 @@ class ServeStats:
                 "ttft_p99_ticks": self._quantile([r.ttft_ticks for r in rs], 0.99),
                 "tpot_p50_ticks": round(self._quantile(tpot, 0.50), 3) if tpot else None,
                 "tpot_p99_ticks": round(self._quantile(tpot, 0.99), 3) if tpot else None,
+                "preemptions": sum(len(r.preemptions) for r in rs),
                 "slo_attainment": round(sum(scored) / len(scored), 3) if scored else None,
             }
         return out
@@ -165,6 +187,8 @@ class ServeStats:
         }
         if any(r.tier != TIER_CRITICAL or r.meets_slo() is not None for r in self.results):
             out["tiers"] = self.tier_summary()
+        if self.engine_cache:
+            out["cache"] = dict(self.engine_cache)
         return out
 
 
@@ -219,10 +243,15 @@ class SlotEngine:
         self.chunk = prefill_chunk
         self.eos_id = eos_id
         self.kv_dtype = kv_dtype
-        self.cache = G.init_slot_cache(cfg, slots, max_len, kv_dtype=kv_dtype, device=self.device)
+        self.cache = self._make_cache(kv_dtype)
         self.ticks = 0
         self._shapes: dict[str, set] = {"prefill": set(), "extend": set(), "decode": set()}
         self.profiler = StepProfiler(capacity=profiler_capacity)
+
+    def _make_cache(self, kv_dtype: str | None) -> G.KVCache:
+        """The KV layout the engine runs on (the paged engine overrides it)."""
+        return G.init_slot_cache(self.cfg, self.n_slots, self.max_len, kv_dtype=kv_dtype,
+                                 device=self.device)
 
     @property
     def trace_counts(self) -> dict[str, int]:
@@ -389,6 +418,687 @@ class SlotEngine:
         )
 
 
+# ---------------------------------------------------------------------------
+# paged engine: page-table KV + radix prefix cache + SLO-tiered admission
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _PagedSlot:
+    state: str = "free"  # free | prefill | decode
+    req: Request | None = None
+    # effective prompt: the original prompt plus tokens generated before a
+    # preemption or a drain (re-admission prefills them again)
+    prompt: tuple[int, ...] = ()
+    done: int = 0  # prompt tokens materialized in the row (incl. prefix hits)
+    pos: int = 0  # logical row length (host mirror of len[slot])
+    last: int = 0
+    result: RequestResult | None = None
+    pages: list[int] = dataclasses.field(default_factory=list)
+    table: np.ndarray | None = None  # [row_pages] int32 physical page ids
+
+
+class PagedSlotEngine(SlotEngine):
+    """:class:`SlotEngine` over paged KV: rows read and write through
+    per-request page tables (``pages.py``) instead of owning a contiguous
+    ``max_len`` row, so a request pins only the pages its tokens occupy.
+    On top of the allocator:
+
+    - a radix prefix cache (``radix.py``): requests that share a system
+      prompt prefill it once and branch by reference-counted pages
+      (``radix=False`` disables it);
+    - SLO-tiered admission: :data:`TIER_CRITICAL` requests admit ahead of
+      :data:`TIER_BEST_EFFORT` ones and, under page pressure, evict radix
+      pages and then preempt best-effort rows, whose requests re-queue and
+      prefill again on re-admission;
+    - drain and restore (:meth:`request_drain`, :meth:`restore_snapshot`)
+      and the page export/import of a KV handoff.
+
+    Greedy tokens are those of a solo ``generate()``: each layer gathers a
+    row's pages into the contiguous layout before running the slot pool's
+    layer math, and page tables are data, so the shape guard stays at one
+    shape per program through churn and preemption.
+
+    Geometry: ``prefill_chunk`` must be a page-size multiple (radix
+    matches floor to chunk boundaries) and ``total_pages`` must cover one
+    ``max_len`` row (a lone request can always finish). The draft-model,
+    LoRA, handoff-seed, governor and metrics options of the reference are
+    not ported yet."""
+
+    def __init__(
+        self,
+        params,
+        cfg: TransformerConfig,
+        *,
+        slots: int,
+        max_len: int,
+        total_pages: int,
+        page_size: int,
+        prefill_chunk: int = 64,
+        eos_id: int | None = None,
+        kv_dtype: str | None = None,
+        radix: bool = True,
+        device: str | torch.device | None = None,
+        profiler_capacity: int = 1024,
+    ):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if prefill_chunk % page_size != 0:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be a multiple of "
+                f"page_size {page_size} (radix matches floor to chunk "
+                "boundaries, so shared pages must cover whole chunks)"
+            )
+        if total_pages < pages_for(max_len, page_size):
+            raise ValueError(
+                f"total_pages {total_pages} cannot cover one {max_len}"
+                f"-position row ({pages_for(max_len, page_size)} pages of "
+                f"{page_size}) — even a lone request could deadlock; size "
+                "the pool with paged_plan_for_slice"
+            )
+        self.page_size = page_size
+        self.total_pages = total_pages
+        # The table spans max_len rounded up to a chunk multiple, so the
+        # final chunk's pad tail maps to SCRATCH entries instead of the last
+        # real page; row_span_for keeps this width and the sizing math's
+        # the same.
+        self.row_pages = row_span_for(max_len, prefill_chunk) // page_size
+        super().__init__(
+            params, cfg, slots=slots, max_len=max_len, prefill_chunk=prefill_chunk,
+            eos_id=eos_id, kv_dtype=kv_dtype, device=device,
+            profiler_capacity=profiler_capacity,
+        )
+        self.allocator = PageAllocator(total_pages)
+        self.radix = RadixCache(page_size, self.allocator) if radix else None
+        self.preemptions = 0
+        self._drain = DrainHandshake()
+        self._restore_tokens: dict[int, tuple[int, ...]] = {}
+        # snapshot_ids this engine already restored: a mover may deliver the
+        # same snapshot twice, and the second delivery must not serve again
+        self._restored_ids: deque[str] = deque(maxlen=16)
+
+    def _make_cache(self, kv_dtype: str | None) -> G.KVCache:
+        # +1: physical page 0 is the scratch write sink (pages.SCRATCH)
+        return G.init_paged_cache(
+            self.cfg, self.n_slots, self.total_pages + 1, self.page_size,
+            kv_dtype=kv_dtype, device=self.device,
+        )
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """One host-to-device copy of ``arr``: through pinned memory on the
+        card, so the copy is asynchronous."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _prefill(self, tokens: torch.Tensor, slot: int, table: torch.Tensor,
+                 n_real: int) -> torch.Tensor:
+        self._guard("prefill", tokens, table, self.cache["k"], self.cache["len"])
+        logits, self.cache = G.paged_prefill_slot(
+            self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
+            n_real=n_real,
+        )
+        return torch.argmax(logits[0], -1)
+
+    def _extend(self, tokens: torch.Tensor, slot: int, table: torch.Tensor, pos: int,
+                n_real: int) -> torch.Tensor:
+        self._guard("extend", tokens, table, self.cache["k"], self.cache["len"])
+        logits, self.cache = G.paged_extend_slot(
+            self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
+            pos=pos, n_real=n_real,
+        )
+        return torch.argmax(logits[0], -1)
+
+    def _decode(self, tokens: torch.Tensor, tables: torch.Tensor,
+                active: torch.Tensor) -> torch.Tensor:
+        self._guard("decode", tokens, tables, active, self.cache["k"], self.cache["len"])
+        logits, new = G.paged_decode_step(
+            self.params, tokens, self.cache, self.cfg, page_tables=tables
+        )
+        new["len"] = torch.where(active, new["len"], self.cache["len"])
+        self.cache = new
+        return torch.argmax(logits, -1)
+
+    def validate(self, req: Request) -> None:
+        super().validate(req)
+        if req.adapter_id:
+            raise ValueError(
+                f"request {req.rid}: adapter {req.adapter_id!r} on an "
+                "engine with no lora_store — the router sent a tenant "
+                "request to a base-model replica"
+            )
+
+    def warmup(self) -> None:
+        """Run every paged program once off the clock, then flush the
+        synthetic request's footprint: radix adoptions, hit telemetry,
+        allocator counters and the preemption count start cold."""
+        super().warmup()
+        if self.radix is not None:
+            self.radix.clear()
+            self.radix.reset_stats()
+        self.allocator.reset_stats()
+        self.preemptions = 0
+
+    def cache_stats(self) -> dict:
+        """Page occupancy, prefix hits and preemptions
+        (``ServeStats.engine_cache``)."""
+        out = {
+            "total_pages": self.total_pages,
+            "free_pages": self.allocator.free_pages,
+            "used_pages": self.allocator.used_pages,
+            "high_water_pages": self.allocator.high_water,
+            "page_size": self.page_size,
+            "preemptions": self.preemptions,
+        }
+        if self.radix is not None:
+            out.update(
+                prefix_hit_ratio=round(self.radix.hit_ratio(), 4),
+                prefix_hit_requests=self.radix.hit_requests,
+                prefix_cached_pages=self.radix.cached_pages,
+                prefix_evicted_pages=self.radix.evicted_pages,
+            )
+        return out
+
+    # --- drain/restore: the defrag move's engine hand-off -------------------
+
+    def request_drain(self) -> None:
+        """Ask the run in progress (or the next one) to quiesce at its next
+        iteration boundary: admission stops, every unfinished request goes
+        into :meth:`drain_snapshot`, and its pages are freed. A caller on
+        another thread then collects with :meth:`wait_drained`."""
+        self._drain.request()
+
+    def wait_drained(self, timeout: float | None = None) -> dict | None:
+        """Block until the serving thread quiesced after
+        :meth:`request_drain` and return the snapshot (None when the run
+        retired everything). Raises ``TimeoutError`` after ``timeout``
+        seconds with no run at a boundary, and disarms the drain."""
+        return self._drain.wait(timeout)
+
+    def drain_snapshot(self) -> dict | None:
+        """The JSON-safe snapshot of the last drained run: engine geometry
+        and one row per unfinished request (prompt, tokens so far, tier and
+        SLO targets, queue state). KV bytes are not carried: a restore
+        prefills prompt + tokens again, and radix prefixes resolve against
+        the destination's own cache."""
+        return self._drain.snapshot()
+
+    def _drain_row(self, req: Request, res: RequestResult | None, state: str) -> dict:
+        return {
+            "rid": req.rid,
+            "state": state,
+            "prompt": list(req.prompt),
+            "max_new": req.max_new,
+            "arrival": float(req.arrival),
+            "tier": req.tier,
+            "slo_ttft_ticks": req.slo_ttft_ticks,
+            "slo_tpot_ticks": req.slo_tpot_ticks,
+            "adapter_id": req.adapter_id,
+            "tokens": list(res.tokens) if res is not None else [],
+        }
+
+    def restore_snapshot(self, snapshot: dict | None) -> ServeStats:
+        """Re-admit a drained snapshot on this engine and serve it to
+        completion. Each request prefills its prompt plus its pre-drain
+        tokens again, so the combined tokens are those of a run that was
+        never drained. Raises ``ValueError`` when the source engine's
+        ``eos_id`` or ``kv_dtype`` differs (the tokens would diverge); the
+        pool geometry may differ. A ``snapshot_id`` this engine already
+        restored is a no-op: delivery may repeat."""
+        empty = ServeStats(results=[], ticks=0, wall_s=0.0, trace_counts=self.trace_counts)
+        if not snapshot or not snapshot.get("requests"):
+            return empty
+        snap_id = snapshot.get("snapshot_id")
+        if snap_id is not None and snap_id in self._restored_ids:
+            log.warning("restore_snapshot: snapshot %s already restored on this "
+                        "engine; duplicate delivery ignored", snap_id)
+            return empty
+        eng = snapshot.get("engine") or {}
+        if eng.get("eos_id", self.eos_id) != self.eos_id or (
+            eng.get("kv_dtype", self.kv_dtype) != self.kv_dtype
+        ):
+            raise ValueError(
+                f"snapshot from engine {eng} cannot restore here "
+                f"(eos_id={self.eos_id}, kv_dtype={self.kv_dtype}) — "
+                "greedy tokens would silently diverge"
+            )
+        reqs: list[Request] = []
+        seeds: dict[int, tuple[int, ...]] = {}
+        for row in snapshot["requests"]:
+            req = Request(
+                rid=int(row["rid"]),
+                prompt=tuple(int(t) for t in row["prompt"]),
+                max_new=int(row["max_new"]),
+                arrival=0.0,  # every drained request has already arrived
+                tier=str(row.get("tier", TIER_CRITICAL)),
+                slo_ttft_ticks=row.get("slo_ttft_ticks"),
+                slo_tpot_ticks=row.get("slo_tpot_ticks"),
+                adapter_id=str(row.get("adapter_id") or ""),
+            )
+            reqs.append(req)
+            seeds[req.rid] = tuple(int(t) for t in row.get("tokens") or ())
+        self._restore_tokens = seeds
+        try:
+            stats = self.run(reqs)
+        finally:
+            self._restore_tokens = {}
+        # recorded once the run quiesced: a restore that died mid-run stays
+        # deliverable again
+        if snap_id is not None:
+            self._restored_ids.append(snap_id)
+        return stats
+
+    def export_kv_pages(self, page_ids: Sequence[int]) -> list[dict]:
+        """The KV contents of ``page_ids`` on the host, one dict of numpy
+        arrays per page (every cache buffer but ``len``, sliced on the page
+        axis). Pages are read, never written. numpy has no bf16, so bf16
+        pages leave as f32, which holds every bf16 value exactly."""
+        ids = torch.tensor([int(p) for p in page_ids], dtype=torch.long, device=self.device)
+        host = {}
+        for key, val in self.cache.items():
+            if key != "len":
+                pages = val.index_select(1, ids)
+                host[key] = (pages.float() if pages.dtype == torch.bfloat16 else pages).cpu().numpy()
+        return [{key: arr[:, n] for key, arr in host.items()} for n in range(len(ids))]
+
+    def import_kv_pages(self, page_ids: Sequence[int], blobs: Sequence[dict]) -> None:
+        """Write page contents made by :meth:`export_kv_pages` (on this or
+        another engine) into pages ``page_ids``. Raises ``ValueError`` on
+        any geometry mismatch before touching the cache."""
+        if len(page_ids) != len(blobs):
+            raise ValueError(
+                f"import_kv_pages: {len(page_ids)} pages but {len(blobs)} payloads"
+            )
+        if not page_ids:
+            return
+        staged = {}
+        for key, val in self.cache.items():
+            if key == "len":
+                continue
+            try:
+                stacked = np.stack([np.asarray(b[key]) for b in blobs], axis=1)
+            except KeyError as e:
+                raise ValueError(f"import_kv_pages: payload missing cache buffer {e}") from None
+            expected = (val.shape[0], len(blobs)) + tuple(val.shape[2:])
+            if tuple(stacked.shape) != expected:
+                raise ValueError(
+                    f"import_kv_pages: buffer {key!r} shape {stacked.shape} does "
+                    f"not fit this engine's {expected} (source engine geometry differs)"
+                )
+            # a bf16 blob from the reference's engine crosses as f32, exactly
+            staged[key] = stacked if stacked.dtype in (np.int8, np.float32) else stacked.astype(
+                np.float32)
+        ids = torch.tensor([int(p) for p in page_ids], dtype=torch.long, device=self.device)
+        for key, stacked in staged.items():
+            buf = self.cache[key]
+            buf.index_copy_(1, ids, torch.from_numpy(stacked).to(buf.device, buf.dtype))
+
+    # --- page bookkeeping ---------------------------------------------------
+
+    def _fresh_slot(self) -> _PagedSlot:
+        return _PagedSlot(table=np.full((self.row_pages,), SCRATCH, np.int32))
+
+    def _grow(self, s: _PagedSlot, got: list[int]) -> None:
+        """Append granted pages to a row and map them in its table
+        (allocated entries are always a prefix of the row)."""
+        base = len(s.pages)
+        s.pages.extend(got)
+        s.table[base : base + len(got)] = got
+
+    def run(self, requests: Sequence[Request], *, drain_at_tick: int | None = None) -> ServeStats:
+        """Serve to completion with paged admission. Each loop turn:
+        (1) enqueue arrivals; (2) admit pending requests in (tier, arrival)
+        order, radix-matching each prompt and granting its first chunk's
+        pages, evicting radix LRU pages and then preempting best-effort
+        rows when a critical request is short; (3) one prompt chunk for the
+        oldest mid-prefill row that can get its pages; (4) one pool-wide
+        decode step over rows whose next position has a page. A row that
+        cannot get its next page stalls in place while its neighbours
+        decode. A turn that dispatches nothing preempts the youngest row of
+        any tier and gives its pages to the oldest.
+
+        ``drain_at_tick`` (or a concurrent :meth:`request_drain`) ends the
+        run at the next boundary once the tick clock reaches it: unfinished
+        requests go into :meth:`drain_snapshot`, their pages are freed, and
+        only retired results are returned."""
+        for r in requests:
+            self.validate(r)
+        self.ticks = 0
+        # The drain handshake is not reset here: an uncollected capture of
+        # an earlier run survives until request_drain re-arms.
+        incoming = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        slots = [self._fresh_slot() for _ in range(self.n_slots)]
+        pending: list[Request] = []
+        results: list[RequestResult] = []
+        live: dict[int, RequestResult] = {}
+        i = 0
+        t0 = time.perf_counter()
+        ps = self.page_size
+
+        def now() -> float:
+            return time.perf_counter() - t0
+
+        def tier_key(req: Request) -> tuple:
+            return (0 if req.tier == TIER_CRITICAL else 1, req.arrival, req.rid)
+
+        def release_row(s: _PagedSlot) -> None:
+            if s.pages:
+                self.allocator.release(s.pages)
+            s.pages = []
+            s.table[:] = SCRATCH
+
+        def preempt_one(critical_only: bool = True, protect: int | None = None) -> bool:
+            """Free one victim's pages and re-queue its request. Victims are
+            best-effort rows, youngest admission first; with
+            ``critical_only=False`` (the zero-progress fallback) any tier may
+            be chosen but the protected (oldest) row, so the oldest request
+            makes progress and the loop ends."""
+            cands = [
+                (idx, s) for idx, s in enumerate(slots)
+                if s.state != "free" and idx != protect
+                and (s.req.tier == TIER_BEST_EFFORT or not critical_only)
+            ]
+            if not cands:
+                return False
+            idx, s = max(
+                cands,
+                key=lambda p: (p[1].req.tier == TIER_BEST_EFFORT, p[1].req.arrival, p[1].req.rid),
+            )
+            s.result.preemptions.append({"evict_tick": self.ticks, "evict_s": now()})
+            self.preemptions += 1
+            release_row(s)
+            pending.append(s.req)
+            slots[idx] = self._fresh_slot()
+            return True
+
+        def try_pages(n: int, tier: str) -> list[int] | None:
+            """All-or-nothing grant of ``n`` pages: the free list, then radix
+            LRU eviction (any tier), then best-effort preemption (critical
+            requesters only). Eviction and preemption happen only when
+            releasing the whole escalation set would cover ``n``
+            (``freeable``): a grant that would fail anyway destroys
+            nothing."""
+            got = self.allocator.alloc(n)
+            if got is not None:
+                return got
+            groups: list[list[int]] = []
+            if self.radix is not None:
+                groups.append(self.radix.pages())
+            if tier == TIER_CRITICAL:
+                groups.extend(
+                    s.pages for s in slots
+                    if s.state != "free" and s.req.tier == TIER_BEST_EFFORT
+                )
+            if self.allocator.free_pages + self.allocator.freeable(groups) < n:
+                return None
+            if self.radix is not None:
+                while self.allocator.free_pages < n:
+                    if not self.radix.evict(n - self.allocator.free_pages):
+                        break
+                got = self.allocator.alloc(n)
+                if got is not None:
+                    return got
+            if tier == TIER_CRITICAL:
+                while self.allocator.free_pages < n:
+                    if not preempt_one():
+                        break
+                got = self.allocator.alloc(n)
+            return got
+
+        def grant_oldest(s: _PagedSlot, protect: int) -> None:
+            """Give the protected row of a zero-progress turn the pages of
+            its next dispatch: from the free list, else by radix eviction,
+            else by preempting more rows. (The reference leaves the freed
+            pages on the free list, where the victim's re-admission can
+            take them back every turn and the run never ends.)"""
+            if s.state == "prefill":
+                need = pages_for(min(s.done + self.chunk, len(s.prompt)), ps) - len(s.pages)
+            else:
+                need = pages_for(s.pos + 1, ps) - len(s.pages)
+            while need > 0:
+                got = self.allocator.alloc(need)
+                if got is not None:
+                    self._grow(s, got)
+                    return
+                if self.radix is not None and self.radix.evict(need - self.allocator.free_pages):
+                    continue
+                if not preempt_one(critical_only=False, protect=protect):
+                    return
+
+        def retire(idx: int) -> None:
+            s = slots[idx]
+            res = s.result
+            res.finish_tick = self.ticks
+            res.finish_s = now()
+            results.append(res)
+            # Adopt the original prompt's full pages into the radix tree
+            # (pages past the prompt hold generated tokens and are freed);
+            # the tree takes its own reference, so releasing the row's
+            # recycles only the unshared tail.
+            if self.radix is not None and s.req.rid >= 0:
+                full = len(s.req.prompt) // ps
+                if full:
+                    self.radix.insert(tuple(s.req.prompt[: full * ps]), s.pages[:full])
+            release_row(s)
+            slots[idx] = self._fresh_slot()
+
+        while i < len(incoming) or pending or any(s.state != "free" for s in slots):
+            if self._drain.armed() or (drain_at_tick is not None and self.ticks >= drain_at_tick):
+                # Quiesce: capture in-flight rows, the pending queue (a
+                # preempted request waits there with its tokens) and arrivals
+                # not yet reached; free the pool and stop.
+                rows = []
+                for s in sorted((s for s in slots if s.state != "free"),
+                                key=lambda s: (s.req.arrival, s.req.rid)):
+                    rows.append(self._drain_row(s.req, live[s.req.rid], "slot"))
+                    release_row(s)
+                for req in sorted(pending, key=tier_key):
+                    rows.append(self._drain_row(req, live[req.rid], "pending"))
+                for req in incoming[i:]:
+                    row = self._drain_row(req, None, "queued")
+                    # a restored request not yet enqueued keeps its
+                    # pre-drain tokens, whose only copy is _restore_tokens
+                    seed = self._restore_tokens.get(req.rid)
+                    if seed:
+                        row["tokens"] = list(seed)
+                    rows.append(row)
+                self._drain.publish({
+                    "version": 1,
+                    "drain_tick": self.ticks,
+                    "engine": {
+                        "slots": self.n_slots, "max_len": self.max_len,
+                        "page_size": self.page_size, "prefill_chunk": self.chunk,
+                        "total_pages": self.total_pages,
+                        "eos_id": self.eos_id, "kv_dtype": self.kv_dtype,
+                    },
+                    "requests": rows,
+                })
+                break
+            while i < len(incoming) and incoming[i].arrival <= self.ticks:
+                req = incoming[i]
+                live[req.rid] = RequestResult(
+                    rid=req.rid, prompt_len=len(req.prompt),
+                    # restore: pre-drain tokens seed the result, admission
+                    # prefills prompt + tokens, and the retired token list
+                    # is the combined stream
+                    tokens=list(self._restore_tokens.get(req.rid, ())),
+                    arrival_tick=req.arrival, arrival_s=now(), tier=req.tier,
+                    slo_ttft_ticks=req.slo_ttft_ticks, slo_tpot_ticks=req.slo_tpot_ticks,
+                )
+                pending.append(req)
+                i += 1
+            if not pending and all(s.state == "free" for s in slots):
+                self.ticks = max(self.ticks, int(math.ceil(incoming[i].arrival)))
+                continue
+            dispatched = False
+
+            # --- admission in strict (tier, arrival) order: a blocked head
+            # blocks the line, so best-effort never overtakes a page-starved
+            # critical request
+            free_rows = [idx for idx, s in enumerate(slots) if s.state == "free"]
+            while pending and free_rows:
+                # re-sort each pass: a preemption in try_pages re-queues
+                pending.sort(key=tier_key)
+                req = pending[0]
+                res = live[req.rid]
+                eff = req.prompt + tuple(res.tokens)
+                matched, mpages = 0, []
+                if self.radix is not None:
+                    # count=False: a page-starved head re-matches every turn;
+                    # the lookup is recorded once, when the admission lands
+                    matched, mpages = self.radix.match(eff, count=False)
+                    # floor to a chunk boundary, so the chunk walk lands
+                    # where a fresh prefill's would
+                    aligned = (matched // self.chunk) * self.chunk
+                    keep = aligned // ps
+                    if keep < len(mpages):
+                        self.allocator.release(mpages[keep:])
+                        mpages = mpages[:keep]
+                        matched = aligned
+                first_real = min(self.chunk, len(eff) - matched)
+                need = pages_for(matched + first_real, ps) - len(mpages)
+                fresh = try_pages(max(need, 0), req.tier)
+                if fresh is None:
+                    if mpages:
+                        self.allocator.release(mpages)
+                    break
+                pending.pop(0)
+                if self.radix is not None:
+                    self.radix.record_lookup(len(eff), matched)
+                idx = free_rows.pop(0)
+                s = slots[idx]
+                s.state = "prefill"
+                s.req = req
+                s.prompt = eff
+                s.done = s.pos = matched
+                s.result = res
+                self._grow(s, mpages + fresh)
+                if res.preemptions and "readmit_tick" not in res.preemptions[-1]:
+                    res.preemptions[-1]["readmit_tick"] = self.ticks
+                    res.preemptions[-1]["readmit_s"] = now()
+                else:
+                    res.admit_tick = self.ticks
+                    res.admit_s = now()
+                if matched and req.rid >= 0:
+                    res.prefix_tokens += matched
+
+            # --- one prompt chunk for the oldest mid-prefill row that can
+            # get its pages. (The reference tries the oldest only: a stalled
+            # best-effort head then starves every critical row behind it,
+            # and the run can cycle forever.)
+            pre = [idx for idx, s in enumerate(slots) if s.state == "prefill"]
+            for idx in sorted(pre, key=lambda j: slots[j].result.arrival_tick):
+                s = slots[idx]
+                if s.state != "prefill":  # preempted by a grant in this pass
+                    continue
+                real = s.prompt[s.done : s.done + self.chunk]
+                n_real = len(real)
+                need = pages_for(s.done + n_real, ps) - len(s.pages)
+                got = try_pages(need, s.req.tier) if need > 0 else []
+                if got is None:  # the row stalls in place and retries next turn
+                    continue
+                self._grow(s, got)
+                buf = np.zeros((self.chunk,), np.int64)
+                buf[:n_real] = real
+                tokens, table = self._upload(buf), self._upload(s.table)
+                if s.done == 0:
+                    tok = self._prefill(tokens, idx, table, n_real)
+                else:
+                    tok = self._extend(tokens, idx, table, s.done, n_real)
+                self.ticks += 1
+                dispatched = True
+                s.done += n_real
+                s.pos = s.done
+                if s.done == len(s.prompt):
+                    t = int(tok)
+                    if not s.result.tokens:
+                        s.result.first_token_tick = self.ticks
+                        s.result.first_token_s = now()
+                    s.result.tokens.append(t)
+                    if (self.eos_id is not None and t == self.eos_id) or (
+                        len(s.result.tokens) >= s.req.max_new
+                    ):
+                        retire(idx)
+                    else:
+                        s.state = "decode"
+                        s.last = t
+                break
+
+            # --- pool-wide decode over the rows whose next position has a page
+            dec = [idx for idx, s in enumerate(slots) if s.state == "decode"]
+            for idx in dec:
+                s = slots[idx]
+                # a grant below may preempt a best-effort row later in this
+                # pass: its slot is fresh by then and gets no page
+                if s.state != "decode":
+                    continue
+                if pages_for(s.pos + 1, ps) > len(s.pages):
+                    got = try_pages(1, s.req.tier)
+                    if got is not None:
+                        self._grow(s, got)
+            active_rows = [
+                idx for idx in dec
+                if slots[idx].state == "decode"
+                and pages_for(slots[idx].pos + 1, ps) <= len(slots[idx].pages)
+            ]
+            if active_rows:
+                toks = np.zeros((self.n_slots,), np.int64)
+                active = np.zeros((self.n_slots,), bool)
+                # Rows not decoding get an all-SCRATCH table: their device
+                # len is stale (a retired occupant's, or mid-prefill), and
+                # the step's masked write must not land in a shared page.
+                tables = np.full((self.n_slots, self.row_pages), SCRATCH, np.int32)
+                for idx in dec:
+                    tables[idx] = slots[idx].table
+                for idx in active_rows:
+                    toks[idx] = slots[idx].last
+                    active[idx] = True
+                step_t0 = time.perf_counter()
+                nxt = self._decode(self._upload(toks), self._upload(tables), self._upload(active))
+                self.ticks += 1
+                dispatched = True
+                nxt = nxt.cpu().numpy()  # waits for the step's device work
+                self.profiler.record(time.perf_counter() - step_t0)
+                for idx in active_rows:
+                    s = slots[idx]
+                    s.pos += 1
+                    t = int(nxt[idx])
+                    s.result.tokens.append(t)
+                    s.last = t
+                    if (self.eos_id is not None and t == self.eos_id) or (
+                        len(s.result.tokens) >= s.req.max_new
+                    ):
+                        retire(idx)
+
+            if not dispatched:
+                # Zero progress: every occupied row (and the pending head)
+                # is page-starved, and the freeable gate already counted all
+                # a radix drain could free. Preempt the youngest row of any
+                # tier, never the oldest, and hand the freed pages to the
+                # oldest at once (one max_len row always fits the pool).
+                occupied = [
+                    (s.req.arrival, s.req.rid, idx)
+                    for idx, s in enumerate(slots) if s.state != "free"
+                ]
+                protect = min(occupied)[2] if occupied else None
+                if not preempt_one(critical_only=False, protect=protect):
+                    raise RuntimeError(
+                        "paged pool wedged: no dispatch possible, no preemptable "
+                        f"row — total_pages {self.total_pages} cannot make progress "
+                        f"(free {self.allocator.free_pages})"
+                    )
+                grant_oldest(slots[protect], protect)
+
+        results.sort(key=lambda r: r.rid)
+        # quiesced either way: a drain racing the run's end gets None
+        self._drain.finish_run()
+        return ServeStats(
+            results=results, ticks=self.ticks, wall_s=time.perf_counter() - t0,
+            trace_counts=self.trace_counts, engine_cache=self.cache_stats(),
+        )
+
+
 def poisson_trace(
     n: int,
     *,
@@ -423,6 +1133,54 @@ def poisson_trace(
             prompt=tuple(int(x) for x in rng.randint(0, vocab, size=plen)),
             max_new=mn,
             arrival=t,
+        ))
+    return out
+
+
+def shared_prefix_trace(
+    n: int,
+    *,
+    seed: int,
+    rate: float,
+    vocab: int,
+    prefixes: tuple[int, int],
+    tail_lens: tuple[int, int],
+    max_new: tuple[int, int] | Sequence[int],
+    tiers: Sequence[tuple[str, float, float | None, float | None]] | None = None,
+) -> list[Request]:
+    """Poisson arrivals whose prompts share system prompts: ``prefixes`` is
+    ``(count, length)``; ``count`` shared prefixes are drawn once, and each
+    request picks one uniformly and appends a tail of ``tail_lens`` (lo,
+    hi) tokens (the radix cache's workload). ``tiers`` rows ``(tier,
+    weight, slo_ttft_ticks, slo_tpot_ticks)`` are sampled by weight; None
+    keeps every request critical with no targets. ``max_new`` follows
+    :func:`poisson_trace`. Same draws per seed as the reference's."""
+    n_pre, pre_len = prefixes
+    if n_pre < 1 or pre_len < 0:
+        raise ValueError(f"prefixes must be (count>=1, len>=0), got {prefixes}")
+    rng = np.random.RandomState(seed)
+    pres = [tuple(int(x) for x in rng.randint(0, vocab, size=pre_len)) for _ in range(n_pre)]
+    choices = None if isinstance(max_new, tuple) else list(max_new)
+    if tiers is not None:
+        weights = np.asarray([t[1] for t in tiers], np.float64)
+        weights = weights / weights.sum()
+    t = 0.0
+    out = []
+    for rid in range(n):
+        t += float(rng.exponential(1.0 / rate))
+        pre = pres[rng.randint(n_pre)]
+        tlen = int(rng.randint(tail_lens[0], tail_lens[1] + 1))
+        tail = tuple(int(x) for x in rng.randint(0, vocab, size=tlen))
+        mn = (
+            int(choices[rng.randint(len(choices))]) if choices is not None
+            else int(rng.randint(max_new[0], max_new[1] + 1))
+        )
+        tier, slo_ttft, slo_tpot = TIER_CRITICAL, None, None
+        if tiers is not None:
+            tier, _, slo_ttft, slo_tpot = tiers[int(rng.choice(len(tiers), p=weights))]
+        out.append(Request(
+            rid=rid, prompt=pre + tail, max_new=mn, arrival=t, tier=tier,
+            slo_ttft_ticks=slo_ttft, slo_tpot_ticks=slo_tpot,
         ))
     return out
 

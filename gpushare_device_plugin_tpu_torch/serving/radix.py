@@ -1,0 +1,214 @@
+"""Radix-tree shared-prefix cache over KV pages.
+
+Counterpart of ``gpushare_device_plugin_tpu/serving/radix.py``. The tree
+maps prompt-token sequences to the physical pages holding their KV:
+
+- **Edges are one page wide.** Every node owns one page and the
+  ``page_size`` tokens it caches; a path from the root spells a prompt
+  prefix in full pages.
+- **Reference counting, not copying.** :meth:`RadixCache.match` returns
+  the matched pages and takes one allocator reference per page for the
+  requesting row; the tree holds its own reference from
+  :meth:`RadixCache.insert`. A page is recycled only when the tree evicts
+  it and no live request still reads it.
+- **LRU leaf eviction.** :meth:`RadixCache.evict` releases the least
+  recently matched leaves first, so every cached path stays contiguous
+  from the root.
+
+Sharing is exact: a page caches positions ``[i*ps, (i+1)*ps)`` of a
+prompt, and a position's K/V depend only on the tokens at or before it,
+so two prompts that agree on a page's tokens compute the same page.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Iterator
+
+from .pages import PageAllocator
+
+
+@dataclasses.dataclass
+class _Node:
+    """One cached page: ``tokens`` (exactly ``page_size`` of them) keyed
+    under the parent, holding physical page ``page``."""
+
+    tokens: tuple[int, ...]
+    page: int
+    parent: "_Node | None"
+    children: dict[tuple[int, ...], "_Node"] = dataclasses.field(default_factory=dict)
+    last_use: int = 0
+
+
+class RadixCache:
+    """Page-granular radix tree over prompt-token sequences. The tree owns
+    one allocator reference per cached page; ``match`` takes one more per
+    matched page for the caller, who releases it on retire or eviction."""
+
+    def __init__(self, page_size: int, allocator: PageAllocator) -> None:
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self._lock = threading.Lock()
+        self.page_size = page_size
+        self._alloc = allocator
+        self._root: dict[tuple[int, ...], _Node] = {}
+        self._clock = 0
+        self._cached = 0
+        # telemetry, in tokens (a 3-page hit counts 3*ps) and requests
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
+        self.hit_requests = 0
+        self.lookup_requests = 0
+        self.evicted_pages = 0
+
+    @property
+    def cached_pages(self) -> int:
+        with self._lock:
+            return self._cached
+
+    def reset_stats(self) -> None:
+        """Zero the hit/lookup/eviction telemetry (engine warmup); the tree
+        is untouched."""
+        with self._lock:
+            self.hit_tokens = 0
+            self.lookup_tokens = 0
+            self.hit_requests = 0
+            self.lookup_requests = 0
+            self.evicted_pages = 0
+
+    def hit_ratio(self) -> float:
+        """Cumulative fraction of looked-up prompt tokens served from the
+        cache (0.0 before any lookup)."""
+        with self._lock:
+            if self.lookup_tokens == 0:
+                return 0.0
+            return self.hit_tokens / self.lookup_tokens
+
+    def _chunks(self, tokens: tuple[int, ...]) -> Iterator[tuple[int, ...]]:
+        ps = self.page_size
+        for i in range(0, len(tokens) - len(tokens) % ps, ps):
+            yield tokens[i : i + ps]
+
+    def match(self, tokens: tuple[int, ...], *, count: bool = True) -> tuple[int, list[int]]:
+        """Longest cached full-page prefix of ``tokens``: ``(matched token
+        count, page ids)``, with one allocator reference taken per page.
+        Capped at ``len(tokens) - 1`` so at least one token still prefills
+        (the engine samples the first generated token from its logits).
+        ``count=False`` skips the hit/lookup telemetry (the LRU clock still
+        advances): the engine re-matches a page-starved head every turn
+        and records the lookup once, with :meth:`record_lookup`, when the
+        admission lands."""
+        ps = self.page_size
+        cap = (len(tokens) - 1) // ps
+        pages: list[int] = []
+        with self._lock:
+            self._clock += 1
+            if count:
+                self.lookup_requests += 1
+                self.lookup_tokens += len(tokens)
+            level = self._root
+            for chunk in self._chunks(tokens):
+                if len(pages) >= cap:
+                    break
+                node = level.get(chunk)
+                if node is None:
+                    break
+                node.last_use = self._clock
+                pages.append(node.page)
+                level = node.children
+            if pages and count:
+                self.hit_requests += 1
+                self.hit_tokens += len(pages) * ps
+        if pages:
+            self._alloc.share(pages)
+        return len(pages) * ps, pages
+
+    def record_lookup(self, looked_tokens: int, hit_tokens: int) -> None:
+        """Telemetry of a ``match(count=False)`` whose admission landed."""
+        with self._lock:
+            self.lookup_requests += 1
+            self.lookup_tokens += looked_tokens
+            if hit_tokens:
+                self.hit_requests += 1
+                self.hit_tokens += hit_tokens
+
+    def pages(self) -> list[int]:
+        """Every page id the tree holds a reference on."""
+        with self._lock:
+            return [n.page for n in self._walk_all()]
+
+    def insert(self, tokens: tuple[int, ...], pages: list[int]) -> int:
+        """Cache the full pages of ``tokens`` (a retiring request's
+        prompt), ``pages[i]`` holding tokens ``[i*ps, (i+1)*ps)``. Nodes
+        already present are refreshed and keep their page; new nodes take
+        one allocator reference each. Returns how many pages were adopted."""
+        adopted: list[int] = []
+        with self._lock:
+            self._clock += 1
+            level = self._root
+            parent: _Node | None = None
+            for i, chunk in enumerate(self._chunks(tokens)):
+                if i >= len(pages):
+                    break
+                node = level.get(chunk)
+                if node is None:
+                    node = _Node(tokens=chunk, page=pages[i], parent=parent)
+                    level[chunk] = node
+                    adopted.append(pages[i])
+                    self._cached += 1
+                node.last_use = self._clock
+                parent = node
+                level = node.children
+        if adopted:
+            self._alloc.share(adopted)
+        return len(adopted)
+
+    def _leaves(self) -> list[_Node]:
+        return [n for n in self._walk_all() if not n.children]
+
+    def evict(self, n_pages: int) -> int:
+        """Drop up to ``n_pages`` least recently used leaf pages, releasing
+        the tree's reference on each. Evicting a leaf can expose its
+        parent for the next round. Returns the pages released."""
+        if n_pages <= 0:
+            return 0
+        released: list[int] = []
+        with self._lock:
+            while len(released) < n_pages:
+                leaves = self._leaves()
+                if not leaves:
+                    break
+                leaves.sort(key=lambda n: n.last_use)
+                for node in leaves:
+                    if len(released) >= n_pages:
+                        break
+                    if node.parent is None:
+                        self._root.pop(node.tokens, None)
+                    else:
+                        node.parent.children.pop(node.tokens, None)
+                    released.append(node.page)
+                    self._cached -= 1
+            self.evicted_pages += len(released)
+        if released:
+            self._alloc.release(released)
+        return len(released)
+
+    def clear(self) -> int:
+        """Release every cached page (engine warmup)."""
+        with self._lock:
+            pages = [n.page for n in self._walk_all()]
+            self._root = {}
+            self._cached = 0
+        if pages:
+            self._alloc.release(pages)
+        return len(pages)
+
+    def _walk_all(self) -> list[_Node]:
+        out: list[_Node] = []
+        stack = list(self._root.values())
+        while stack:
+            n = stack.pop()
+            out.append(n)
+            stack.extend(n.children.values())
+        return out

@@ -1,8 +1,9 @@
 """Autoregressive generation with a KV cache, in PyTorch.
 
 Counterpart of ``gpushare_device_plugin_tpu/workloads/generate.py``:
-contiguous caches (``init_cache``) and slot-pool caches
-(``init_slot_cache``, one length per row), bf16/f32 or int8 KV; prefill
+contiguous caches (``init_cache``), slot-pool caches (``init_slot_cache``,
+one length per row) and paged pools (``init_paged_cache``, each row read
+and written through a page table), bf16/f32 or int8 KV; prefill
 through the flash kernel (left-padded batches via ``start``, right-padded
 slot chunks via ``kv_len``); cached decode over the plain grouped
 attention with an explicit visibility mask, as in the reference.
@@ -42,6 +43,12 @@ from .transformer import (
 # pools). int8 caches add {"k_scale","v_scale"}: [L, B, Smax, Hkv] f32.
 KVCache = dict[str, torch.Tensor]
 
+# Physical page id 0 of a paged pool: idle rows' page tables point every
+# entry here, so a pool-wide decode step's masked, never-read writes land
+# somewhere harmless without a dynamic dispatch shape. The page allocator
+# (``serving/pages.py``) never hands it out.
+SCRATCH = 0
+
 
 def init_cache(
     cfg: TransformerConfig, batch: int, max_len: int,
@@ -77,6 +84,21 @@ def init_slot_cache(
     :func:`init_cache` with ``len`` a ``[slots]`` vector, every row an
     independent sequence."""
     cache = init_cache(cfg, slots, max_len, kv_dtype=kv_dtype, device=device)
+    cache["len"] = torch.zeros((slots,), dtype=torch.int32, device=cache["k"].device)
+    return cache
+
+
+def init_paged_cache(
+    cfg: TransformerConfig, slots: int, pages: int, page_size: int,
+    kv_dtype: str | None = None, *, device: str | torch.device | None = None,
+) -> KVCache:
+    """Paged slot-pool cache for the paged serving engine: K/V live in
+    ``pages`` fixed-size pages, physical ``[L, pages, page_size, Hkv, Dh]``
+    (int8 scales ``[L, pages, page_size, Hkv]``), and each row reads and
+    writes through a page table. ``pages`` counts physical pages including
+    the scratch page (:data:`SCRATCH`, id 0). ``len`` is the
+    per-row ``[slots]`` vector of the slot pool."""
+    cache = init_cache(cfg, pages, page_size, kv_dtype=kv_dtype, device=device)
     cache["len"] = torch.zeros((slots,), dtype=torch.int32, device=cache["k"].device)
     return cache
 
@@ -244,7 +266,6 @@ def decode_block(
             positions = positions - start[:, None]
     positions = positions.expand(B, T)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)  # [B, T, d]
-    q8 = _cache_is_q8(cache)
     Smax = cache["k"].shape[2]
     idx = torch.arange(Smax, device=dev)
     # [B|1, T, Smax] visibility: cache prefix + block-causal, minus pads.
@@ -257,23 +278,31 @@ def decode_block(
     vis = vis.expand(B, T, Smax)
     wpos = pos0 if per_slot else pos0.expand(B)
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
-        if q8:
-            kq8, ks_new = quantize_kv(k)
-            vq8, vs_new = quantize_kv(v)
-            _row_update(cache["k"][i], kq8, wpos)
-            _row_update(cache["v"][i], vq8, wpos)
-            _row_update(cache["k_scale"][i], ks_new, wpos)
-            _row_update(cache["v_scale"][i], vs_new, wpos)
-            k_mat = dequantize_kv(cache["k"][i], cache["k_scale"][i], q.dtype)
-            v_mat = dequantize_kv(cache["v"][i], cache["v_scale"][i], q.dtype)
-        else:
-            k_mat = _row_update(cache["k"][i], k, wpos)
-            v_mat = _row_update(cache["v"][i], v, wpos)
-        attn = grouped_attention(q, k_mat, v_mat, causal=False, mask=vis)
-        x = _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+        rows = {key: val[i] for key, val in cache.items() if key != "len"}
+        x = _cached_layer(x, layer_params(params["layers"], i), cfg, positions, rows, wpos, vis)
     return _logits(params, x, cfg), {**cache, "len": pos0 + T}
+
+
+def _cached_layer(x, lp, cfg: TransformerConfig, positions, rows: KVCache, wpos, vis):
+    """One layer of a cached block: the block's K/V go into the layer's
+    cache rows ``rows`` ({"k", "v"} [B, Smax, Hkv, Dh], int8 scales
+    [B, Smax, Hkv]) at ``wpos`` in place, and its queries attend over the
+    rows under the visibility mask ``vis`` [B, T, Smax]."""
+    q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
+    if "k_scale" in rows:
+        kq8, ks_new = quantize_kv(k)
+        vq8, vs_new = quantize_kv(v)
+        _row_update(rows["k"], kq8, wpos)
+        _row_update(rows["v"], vq8, wpos)
+        _row_update(rows["k_scale"], ks_new, wpos)
+        _row_update(rows["v_scale"], vs_new, wpos)
+        k_mat = dequantize_kv(rows["k"], rows["k_scale"], q.dtype)
+        v_mat = dequantize_kv(rows["v"], rows["v_scale"], q.dtype)
+    else:
+        k_mat = _row_update(rows["k"], k, wpos)
+        v_mat = _row_update(rows["v"], v, wpos)
+    attn = grouped_attention(q, k_mat, v_mat, causal=False, mask=vis)
+    return _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
 
 
 def decode_step(
@@ -286,6 +315,193 @@ def decode_step(
     """One cached decode step: token [B] -> (logits [B, vocab], cache+1)."""
     logits, cache = decode_block(params, token[:, None], cache, cfg, start=start)
     return logits[:, 0], cache
+
+
+# --- paged caches -----------------------------------------------------------
+#
+# The reference gathers every row's whole logical view [L, B, MP*ps, ...]
+# before the layer loop and scatters the new positions back after it. Here
+# one layer's view [B, MP*ps, ...] is gathered inside the loop and that
+# layer's new positions are scattered back before the next layer: the same
+# arithmetic, without a view of every layer at once (at Llama-3-8B width,
+# 256 MiB per 2048-position row). The gathered view is a copy, so every
+# write reaches the pool only through _paged_write.
+
+
+def _gather_paged(cache: KVCache, layer: int, page_tables: torch.Tensor) -> KVCache:
+    """Layer ``layer``'s logical rows through ``page_tables`` [B, MP]
+    (physical page ids): ``{k, v, (scales)}`` of shape [B, MP*ps, ...],
+    the contiguous slot-pool layout of that layer."""
+    B, MP = page_tables.shape
+    ids = page_tables.reshape(-1).long()
+    out: KVCache = {}
+    for key, val in cache.items():
+        if key == "len":
+            continue
+        g = val[layer].index_select(0, ids)  # [B*MP, ps, ...]
+        out[key] = g.reshape((B, MP * g.shape[1]) + g.shape[2:])
+    return out
+
+
+def _paged_write(
+    cache: KVCache, layer: int, new: KVCache, pids: torch.Tensor, offs: torch.Tensor,
+) -> None:
+    """Write per-position entries (``new[key]`` [N, ...]) into layer
+    ``layer``'s pages at ``(pids[n], offs[n])``, in place. Duplicate
+    targets (idle rows parked on the scratch page) leave that page in an
+    undefined state; nothing reads it."""
+    ps = cache["k"].shape[2]
+    flat = (pids * ps + offs).long()
+    for key, val in new.items():
+        buf = cache[key][layer]
+        buf.view((-1,) + buf.shape[2:]).index_copy_(0, flat, val.to(buf.dtype))
+
+
+def _page_slots(
+    page_tables: torch.Tensor, logical: torch.Tensor, ps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(page id, offset) of each logical position ``logical`` [B, T] through
+    ``page_tables`` [B, MP]. A position past the table maps to the scratch
+    page (the reference's gather reads a fill value there, and its scatter
+    drops the write); an index is never out of range."""
+    MP = page_tables.shape[1]
+    pidx = logical // ps
+    pids = torch.gather(page_tables.long(), 1, pidx.clamp(max=MP - 1))
+    pids = torch.where(pidx < MP, pids, torch.full_like(pids, SCRATCH))
+    return pids, logical % ps
+
+
+def _kv_entries(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
+    """The cache entries of K/V [..., Hkv, Dh]: the values, or for an int8
+    cache the int8 values and their per-(token, head) scales."""
+    if _cache_is_q8(cache):
+        kq8, kscale = quantize_kv(k)
+        vq8, vscale = quantize_kv(v)
+        return {"k": kq8, "v": vq8, "k_scale": kscale, "v_scale": vscale}
+    return {"k": k, "v": v}
+
+
+def _paged_block(
+    params: Any,
+    tokens: torch.Tensor,
+    cache: KVCache,
+    cfg: TransformerConfig,
+    page_tables: torch.Tensor,
+    pos0: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`decode_block` of a T-token block (``tokens`` [B, T]) for rows
+    at logical lengths ``pos0`` [B], each read and written through its page
+    table (``page_tables`` [B, MP]). Each layer runs on its gathered view,
+    and the block's T entries per row go back into the pages. Returns
+    logits [B, T, vocab] f32; the pool is updated in place."""
+    B, T = tokens.shape
+    dev = tokens.device
+    ps = cache["k"].shape[2]
+    Smax = page_tables.shape[1] * ps
+    tables = page_tables.long()
+    steps = torch.arange(T, device=dev)
+    logical = pos0.long()[:, None] + steps[None, :]  # [B, T]
+    idx = torch.arange(Smax, device=dev)
+    vis = idx[None, None, :] < (logical + 1)[:, :, None]  # [B, T, Smax]
+    pids, offs = _page_slots(tables, logical, ps)
+    pids, offs = pids.reshape(-1), offs.reshape(-1)
+    # The view's entries at the block's positions, as the view's write left
+    # them (a position past the view reads the last one, bound for SCRATCH).
+    rows = torch.arange(B, device=dev)[:, None]
+    read = logical.clamp(max=Smax - 1)
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    for i in range(cfg.n_layers):
+        view = _gather_paged(cache, i, tables)
+        x = _cached_layer(x, layer_params(params["layers"], i), cfg, logical, view, pos0, vis)
+        new = {key: val[rows, read].reshape((B * T,) + val.shape[2:]) for key, val in view.items()}
+        _paged_write(cache, i, new, pids, offs)
+    return _logits(params, x, cfg)
+
+
+def paged_prefill_slot(
+    params: Any,
+    tokens: torch.Tensor,
+    cache: KVCache,
+    cfg: TransformerConfig,
+    *,
+    slot: int,
+    page_table: torch.Tensor,
+    n_real: int,
+) -> tuple[torch.Tensor, KVCache]:
+    """:func:`prefill_slot` through a page table: one request's opening
+    prompt chunk (``tokens`` [C] right-padded, ``n_real`` real) goes into
+    the pages of row ``slot`` (``page_table`` [MP] physical ids),
+    restarting the row at position 0. The chunk's attention is
+    :func:`prefill_slot`'s (the flash kernel on the card); positions
+    ``0..C-1`` scatter through the table, so the row pins only the pages
+    its tokens occupy. Returns the last real position's logits [1, vocab]
+    f32 and the cache with ``len[slot] = n_real``."""
+    slot, n_real = int(slot), int(n_real)
+    dt = cfg.compute_dtype
+    C = tokens.shape[0]
+    ps = cache["k"].shape[2]
+    logical = torch.arange(C, device=tokens.device)
+    pids, offs = _page_slots(page_table[None, :], logical[None, :], ps)
+    pids, offs = pids[0], offs[0]
+    kv_len = torch.tensor([n_real], dtype=torch.int32, device=tokens.device)
+    x = embed_lookup(params["embed"], tokens[None, :], dt)  # [1, C, d]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, logical[None, :])
+        attn = chunk_prefill_attention(q, k, v, n_real=kv_len, attention=cfg.attention)
+        x = _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+        _paged_write(cache, i, _kv_entries(cache, k[0], v[0]), pids, offs)
+    lens = cache["len"].clone()
+    lens[slot] = n_real
+    logits = _logits(params, x[:, n_real - 1 : n_real], cfg)
+    return logits[:, 0], {**cache, "len": lens}
+
+
+def paged_extend_slot(
+    params: Any,
+    tokens: torch.Tensor,
+    cache: KVCache,
+    cfg: TransformerConfig,
+    *,
+    slot: int,
+    page_table: torch.Tensor,
+    pos: int,
+    n_real: int,
+) -> tuple[torch.Tensor, KVCache]:
+    """:func:`extend_slot` through a page table: row ``slot`` continues
+    with its next prompt chunk (``tokens`` [C], ``n_real`` real) against
+    the prefix its pages hold. ``pos`` is the explicit continuation offset
+    (the engine's host-side prefix length), which is what lets a radix
+    prefix hit start a fresh occupant mid-row. The chunk attends to the
+    prefix and to itself (plain grouped attention, as in the reference);
+    only its C new positions are written, so shared prefix pages are read
+    and never written. Returns position ``n_real - 1``'s logits
+    [1, vocab] f32 and the cache with ``len[slot] = pos + n_real``."""
+    slot, pos, n_real = int(slot), int(pos), int(n_real)
+    pos0 = torch.tensor([pos], dtype=torch.int32, device=tokens.device)
+    logits = _paged_block(params, tokens[None, :], cache, cfg, page_table[None, :], pos0)
+    lens = cache["len"].clone()
+    lens[slot] = pos + n_real
+    return logits[:, n_real - 1], {**cache, "len": lens}
+
+
+def paged_decode_step(
+    params: Any,
+    token: torch.Tensor,
+    cache: KVCache,
+    cfg: TransformerConfig,
+    *,
+    page_tables: torch.Tensor,
+) -> tuple[torch.Tensor, KVCache]:
+    """Pool-wide decode step through per-row page tables (``page_tables``
+    [B, MP]): each row's one new entry lands at ``(page_tables[b,
+    len[b] // ps], len[b] % ps)``. Rows whose table points at the scratch
+    page (free, or mid-prefill) write there, never read. ``len`` advances
+    by one for every row; the engine freezes idle rows' lengths. Returns
+    logits [B, vocab] and the cache."""
+    pos0 = cache["len"]
+    logits = _paged_block(params, token[:, None], cache, cfg, page_tables, pos0)
+    return logits[:, 0], {**cache, "len": pos0 + 1}
 
 
 def _mask_after_eos(gen: torch.Tensor, eos_id: int) -> torch.Tensor:

@@ -13,6 +13,7 @@ way at slightly different f32 scores.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -293,3 +294,104 @@ def test_tensor_core_forward_refuses_misaligned_rows():
         fa._launch_fwd("flash_fwd", odd.float(), odd.float(), odd.float(), causal=True,
                        scale=1.0, start=None, kv_len=None)
     assert fa.LAUNCHES == before
+
+
+def _paged_model():
+    """A small bf16 decoder with head dim 128 (the tensor-core forward's),
+    its weights on the card and a CPU copy."""
+    cfg = T.TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                              d_ff=512, max_seq=128, compute_dtype=torch.bfloat16)
+    params = T.init_params(cfg, torch.Generator().manual_seed(5), device="cpu",
+                           dtype=torch.bfloat16)
+    on_card = {
+        key: ({k: v.cuda() for k, v in val.items()} if isinstance(val, dict) else val.cuda())
+        for key, val in params.items()
+    }
+    return cfg, params, on_card
+
+
+def _close_bf16(got, want, what):
+    """bf16 on the card against bf16 on the CPU (other summation orders and
+    GEMM algorithms, through 2 layers): within 2^-5 of the tensor's
+    largest magnitude."""
+    got, want = got.float().cpu(), want.float()
+    tol = 2.0 ** -5 * max(float(want.abs().max()), 1e-6)
+    assert float((got - want).abs().max()) <= tol, what
+
+
+@pytest.mark.cuda
+def test_paged_primitives_on_card_match_cpu():
+    """paged_prefill_slot (through flash_fwd), paged_extend_slot over a
+    shared prefix page, and paged_decode_step with an idle row at
+    ``len == row_span`` on an all-scratch table, on the card against the
+    same calls on the CPU: logits of the rows that read real pages, and
+    every page but the scratch page."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.workloads import generate as G
+
+    cfg, cpu_params, card_params = _paged_model()
+    ps, C, mp = 8, 16, 4
+    caches = {d: G.init_paged_cache(cfg, 3, 11, ps, device=d) for d in ("cpu", "cuda")}
+    params = {"cpu": cpu_params, "cuda": card_params}
+    toks = torch.randint(0, cfg.vocab, (3, C), generator=torch.Generator().manual_seed(6))
+    tables = torch.tensor([[7, 2, 0, 0], [7, 2, 9, 4], [0, 0, 0, 0]], dtype=torch.int32)
+    logits = {}
+    before = fa.LAUNCHES["flash_fwd"]
+    for d in ("cpu", "cuda"):
+        c = caches[d]
+        lp, c = G.paged_prefill_slot(params[d], toks[0].to(d), c, cfg, slot=0,
+                                     page_table=tables[0].to(d), n_real=C)
+        le, c = G.paged_extend_slot(params[d], toks[1].to(d), c, cfg, slot=1,
+                                    page_table=tables[1].to(d), pos=C, n_real=11)
+        c = {**c, "len": torch.tensor([C, 27, mp * ps], dtype=torch.int32, device=d)}
+        dec_tables = tables.clone()
+        dec_tables[0, 2] = 5
+        ld, c = G.paged_decode_step(params[d], toks[2, :3].to(d), c, cfg,
+                                    page_tables=dec_tables.to(d))
+        logits[d], caches[d] = (lp, le, ld[:2]), c
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] - before == cfg.n_layers  # one prefill, each layer
+    for got, want, what in zip(logits["cuda"], logits["cpu"], ("prefill", "extend", "decode")):
+        _close_bf16(got, want, what)
+    assert caches["cuda"]["len"].tolist() == caches["cpu"]["len"].tolist() == [C + 1, 28, mp * ps + 1]
+    for key in ("k", "v"):
+        _close_bf16(caches["cuda"][key][:, 1:], caches["cpu"][key][:, 1:], key)
+
+
+@pytest.mark.cuda
+def test_tiny_paged_engine_prefills_through_flash_fwd_on_card():
+    """A small bf16 PagedSlotEngine on the card: every prefill dispatch
+    launches flash_fwd once per layer (never the scalar entry), the shape
+    guard stays at one shape per program, radix hits happen, and no page
+    leaks."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, shared_prefix_trace
+
+    cfg, _, params = _paged_model()
+    eng = PagedSlotEngine(params, cfg, slots=3, max_len=96, total_pages=40, page_size=8,
+                          prefill_chunk=16, eos_id=None)
+    eng.warmup()
+    prefills = []
+    program = eng._prefill
+    eng._prefill = lambda *a: (prefills.append(1), program(*a))[1]
+    reqs = shared_prefix_trace(8, seed=1, rate=0.5, vocab=cfg.vocab, prefixes=(2, 32),
+                               tail_lens=(4, 30), max_new=(4, 12))
+    before = dict(fa.LAUNCHES)
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.LAUNCHES.items()}
+    assert len(stats.results) == len(reqs)
+    assert all(len(r.tokens) == q.max_new for r, q in zip(stats.results, reqs))
+    assert launched["flash_fwd"] == cfg.n_layers * len(prefills) > 0
+    assert launched["flash_fwd_scalar"] == 0
+    assert stats.trace_counts == {"prefill": 1, "extend": 1, "decode": 1}
+    assert stats.engine_cache["prefix_hit_requests"] > 0
+    assert eng.allocator.used_pages == eng.radix.cached_pages
+    # bf16 pages leave as f32 blobs and come back the same bits
+    pages = eng.radix.pages()
+    blobs = eng.export_kv_pages(pages)
+    assert blobs[0]["k"].dtype == np.float32
+    targets = eng.allocator.alloc(len(pages))
+    eng.import_kv_pages(targets, blobs)
+    assert torch.equal(eng.cache["k"][:, targets], eng.cache["k"][:, pages])
+    assert torch.equal(eng.cache["v"][:, targets], eng.cache["v"][:, pages])

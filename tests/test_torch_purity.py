@@ -13,7 +13,7 @@ import torch
 
 from gpushare_device_plugin_tpu_torch.device import resolve_device
 from gpushare_device_plugin_tpu_torch.ops import _build
-from gpushare_device_plugin_tpu_torch.serving.engine import SlotEngine
+from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, SlotEngine
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
 from gpushare_device_plugin_tpu_torch.workloads.trainer import (
@@ -91,6 +91,20 @@ def test_entry_points_refuse_to_drop_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_train_loop(DecoderTask(cfg, batch=1, seq=4), TrainLoopConfig(total_steps=1), 0)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_paged_entry_points_refuse_to_drop_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = T.TransformerConfig(vocab=8, d_model=16, n_layers=1, n_heads=2, d_ff=8,
+                              compute_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        G.init_paged_cache(cfg, 1, 3, 4)
+    params = T.init_params(cfg, torch.Generator(), device="cpu")
+    geo = dict(slots=1, max_len=8, total_pages=2, page_size=4, prefill_chunk=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedSlotEngine(params, cfg, **geo)
+    assert G.init_paged_cache(cfg, 1, 3, 4, device="cpu")["k"].shape == (1, 3, 4, 2, 8)
+    assert PagedSlotEngine(params, cfg, **geo, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
