@@ -60,8 +60,8 @@ Phases, each of which fails the run with a non-zero exit:
    24-request ``shared_prefix_trace`` (two 1024-token system prompts,
    64-512-token tails, half critical, half best-effort) through
    ``PagedSlotEngine(max_len=2048, prefill_chunk=512, page_size=16)``
-   twice. Run A: 16 slots over the pages ``paged_plan_for_slice`` grants a
-   24 GiB slice. Run B: 8 slots over 256 pages (two max_len rows), so
+   twice. Run A: 16 slots over the pages ``paged_plan_from_pod_env`` grants a
+   24 GiB slice (3,399 pages). Run B: 8 slots over 256 pages (two max_len rows), so
    requests preempt. Launch counts are zeroed just before each run and
    read just after, and the prefill program's dispatches are counted.
    Each run must serve every request, keep the shape guard at one shape
@@ -76,6 +76,45 @@ Phases, each of which fails the run with a non-zero exit:
    JSON) restored on a fresh engine, the combined tokens held to the same
    rule; one request's pages exported and imported into the second
    engine's pool, the same bits back.
+9. BERT-base alone: ``bert_base()`` at full width and depth (12 layers,
+   d 768, 12 heads, d_ff 3072, vocab 30522), bf16 compute over f32 params,
+   remat on, AdamW 1e-4: ``run_train_loop(BertTask(batch=32, seq=512))``
+   for 8 steps. Launch counts are zeroed just before and read just after:
+   each step must launch ``flash_fwd`` 24 times (forward and recompute,
+   non-causal, D=64) and ``flash_bwd_dq`` / ``flash_bwd_dkv`` 12 times each,
+   the scalar entries never; the loss must be finite and fall. Then one
+   full-depth ``loss_fn`` backward with ``attention="flash"`` against
+   ``"plain"`` by phase 6's rule. One step is profiled.
+10. ResNet-50 alone: ``resnet50()`` on ``demo_batch(batch=64, size=224)``
+   (ImageNet's training resolution), SGD with Nesterov momentum at 0.1,
+   32 steps through ``ResNetTask`` (see RESNET_STEPS): the loss finite and
+   falling, the BN running statistics changed and finite. One step is
+   profiled.
+11. Binpack on one card through the pod env: six child processes start
+   at once, each given only the plugin's env for its slice
+   (``TPU_VISIBLE_CHIPS=0``, ``ALIYUN_COM_TPU_MEM_{CONTAINER,DEV,IDX}``)
+   and each calling ``configure_torch_from_env()`` first, as the
+   ``demo/binpack-1`` pods do: four MNIST pods at 2 GiB (three
+   ``mnist.train(steps=200)``, one ``steps=100``), BERT-base as phase 9 at
+   16 GiB and ResNet-50 as phase 10 at 32 GiB (a model whose phase 9 or 10
+   peak exceeds 0.95 of its slice trains at half the batch, and says so).
+   Every child must exit 0 with a falling loss and its peak reserved
+   memory at or below its cap; each pod's step p50 prints beside its
+   phase 9/10 p50 alone.
+12. A pod that overruns its slice OOMs itself: a BERT-base child at half
+   phase 9's peak (whole GiB, rounded down) must die of
+   ``torch.cuda.OutOfMemoryError`` (a marker it prints), while an MNIST
+   control child at the same slice passes.
+
+Phase 1 and 4 also hold every entry at BERT-base's attention shape
+(bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
+same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
+in bf16. Phase 7's run A sizes its pool with ``paged_plan_from_pod_env``
+from a plugin-style env for a 24-unit slice.
+
+The children run ``python3 -c "import chip_smoke; chip_smoke.pod_main(...)"``
+(:func:`pod_main`) from the same directory; they load the kernels the
+parent built in phase 1.
 
 Float32 matrix products run in full f32 (TF32 off, set below). The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it
@@ -88,28 +127,41 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gpushare_device_plugin_tpu_torch import const
 from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
+from gpushare_device_plugin_tpu_torch.parallel.podenv import (
+    MEMORY_FRACTION,
+    PodTpuEnv,
+    configure_torch_from_env,
+)
 from gpushare_device_plugin_tpu_torch.serving.engine import (
     PagedSlotEngine,
     SlotEngine,
+    paged_plan_from_pod_env,
     poisson_trace,
     shared_prefix_trace,
 )
-from gpushare_device_plugin_tpu_torch.serving.pages import paged_plan_for_slice
+from gpushare_device_plugin_tpu_torch.workloads import bert as B
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
+from gpushare_device_plugin_tpu_torch.workloads import mnist
+from gpushare_device_plugin_tpu_torch.workloads import resnet as R
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
 from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
 from gpushare_device_plugin_tpu_torch.workloads.trainer import (
+    BertTask,
     DecoderTask,
+    ResNetTask,
     TrainLoopConfig,
     run_train_loop,
 )
@@ -140,9 +192,12 @@ TOP2_GAP_REL = 2.0 ** -6
 LOGIT_REL = 2.0 ** -5
 SERVED_S = 512  # the engine's prompt chunk: the kernel's shape on the main path
 EOS_ID = 128001  # Llama-3's end-of-text token
-# Phase 7: run A sizes its pool for a 24 GiB slice of the card; run B gets
-# two max_len rows of pages (the minimum is one), so requests preempt.
-PAGED_SLICE_BYTES = 24 * 2**30
+# Phase 7: run A sizes its pool for a 24-unit (GiB) slice of the card from
+# the env the plugin injects, which for the 8B weights buys 3,399 pages (the
+# plan PR 5 sized from 24 GiB directly); run B gets two max_len rows of
+# pages (the minimum is one), so requests preempt.
+PAGED_SLICE_UNITS = 24
+RUN_A_PAGES = 3399
 PRESSURE_PAGES = 256
 PAGED_PROFILE_CONTEXT = 1536  # positions each row reads in the profiled decode step
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
@@ -155,6 +210,27 @@ BWD_F32_REL = 1e-4
 BWD_BF16_REL = 2.0 ** -7
 BWD_BF16_TOP = 2.0 ** -8
 TRAIN_B, TRAIN_S, TRAIN_LAYERS, TRAIN_STEPS = 4, 2048, 4, 8
+# BERT-base's attention: the phase 1/4 cases at this shape, phases 9-12.
+BERT_B, BERT_S, BERT_H, BERT_D = 32, 512, 12, 64
+RESNET_B, RESNET_SIZE = 64, 224
+BERT_STEPS = 8  # alone and in a pod
+# ResNet-50 trains 32 steps, alone and in a pod: the reference's recipe
+# (SGD, Nesterov momentum 0.9 at 0.1, no warmup) on random images first
+# drives the loss up (the head's step grows with the squared norm of 2,048
+# nearly constant features) and brings it below the first step's only
+# after about 16 steps; tests/test_torch_resnet.py holds the first steps
+# to the JAX reference's, which rise the same way.
+RESNET_STEPS = 32
+# Phase 11's pods, as (name, workload, slice in GiB, steps): demo/binpack-1's
+# four MNIST pods (binpack-1.yaml runs 200 steps, job.yaml 100) and the
+# BASELINE.md config-3 pair.
+PODS = [("mnist-0", "mnist", 2, 200), ("mnist-1", "mnist", 2, 200),
+        ("mnist-2", "mnist", 2, 200), ("mnist-job", "mnist", 2, 100),
+        ("bert", "bert", 16, BERT_STEPS), ("resnet", "resnet", 32, RESNET_STEPS)]
+SLICE_FULL = 0.95  # a model alone past this share of its slice halves its batch
+OOM_MARK = "POD-OOM"
+READY = "POD-READY"
+POD_TIMEOUT_S = 600
 # Phase 6, flash vs plain at full width in bf16: the kernels round P and dS
 # to bf16 where the plain path keeps f32 softmax (and its bf16 scores), so
 # the losses may differ by one bf16 step and each gradient leaf by 2^-5 in
@@ -208,6 +284,41 @@ def attention_inputs(gen, B, S, H, Hkv, D, dtype):
     return q, kv[:, :, 0], kv[:, :, 1]
 
 
+def case_inputs(gen, dtype, B, S, D, mode):
+    """A kernel case's q, k, v and bounds. "noncausal" is BERT-base's
+    attention: H = Hkv = 12, q, k, v strided views of one [B,S,3,H,D]
+    tensor (BERT's fused projection), no bounds. The other modes are
+    Llama-3-8B's causal attention (H=32, Hkv=8): "causal" a full prompt
+    chunk (kv_len = S, as prefill_slot passes it), "train" no bounds,
+    "start" a left-padded batch whose row 1 has dead rows, "kv_len" a
+    right-padded one."""
+    if mode == "noncausal":
+        qkv = torch.randn((B, S, 3, BERT_H, D), generator=gen, device="cuda").to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dict(causal=False, start=None,
+                                                              kv_len=None)
+    q, k, v = attention_inputs(gen, B, S, 32, 8, D, dtype)
+    start = kv_len = None
+    if mode == "causal":
+        kv_len = torch.tensor([S], dtype=torch.int32, device="cuda")
+    if mode == "start":
+        start = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
+    if mode == "kv_len":
+        kv_len = torch.tensor([S, 300], dtype=torch.int32, device="cuda")
+    return q, k, v, dict(causal=True, start=start, kv_len=kv_len)
+
+
+def sdpa_mask(B, S, bounds):
+    """(attn_mask, is_causal) for ``F.scaled_dot_product_attention`` on a
+    case's bounds; None when SDPA has no like-for-like call (its dead rows
+    are NaN)."""
+    if bounds["start"] is not None:
+        return None
+    if bounds["kv_len"] is not None and bool((bounds["kv_len"] < S).any()):
+        return fa._visible(B, S, causal=True, start=None, kv_len=bounds["kv_len"],
+                           device="cuda")[:, None], False
+    return None, bounds["causal"]
+
+
 def flash_bound(q, k, v, *, causal, start, kv_len):
     """Least time for this call on the card: each input read once, each
     output written once, against 4*D flops per visible (query, key) pair
@@ -239,13 +350,14 @@ def compare(o, lse, po, plse, dtype):
 
 
 def phase_kernels(gen) -> dict:
-    """Phase 1; returns the rows at the served and the training shape, by
-    (kernel entry, "served" or "train")."""
+    """Phase 1; returns the rows at the served, the training and the BERT
+    shape, by (kernel entry, "served", "train" or "bert")."""
     print("phase 1: flash forward kernels vs plain", flush=True)
     failures = 0
     rows = {}
-    train_case = (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "train")
-    served_case = (torch.bfloat16, 1, SERVED_S, 128, "causal")
+    shapes = {(torch.bfloat16, 1, SERVED_S, 128, "causal"): "served",
+              (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "train"): "train",
+              (torch.bfloat16, BERT_B, BERT_S, BERT_D, "noncausal"): "bert"}
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for S in (64, 512, 2048):
@@ -253,36 +365,29 @@ def phase_kernels(gen) -> dict:
         cases.append((dtype, 2, 512, 128, "start"))
         cases.append((dtype, 2, 512, 128, "kv_len"))
     cases += [(torch.bfloat16, 1, 300, 128, "causal"), (torch.bfloat16, 1, 2048, 64, "causal"),
-              train_case]
+              (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "train"),
+              (torch.bfloat16, BERT_B, BERT_S, BERT_D, "noncausal"),
+              (torch.float32, BERT_B, BERT_S, BERT_D, "noncausal"),
+              (torch.bfloat16, BERT_B, 300, BERT_D, "noncausal")]
     for case in cases:
         dtype, B, S, D, mode = case
-        q, k, v = attention_inputs(gen, B, S, 32, 8, D, dtype)
-        start = kv_len = None
-        if mode == "causal":  # a full prompt chunk, as prefill_slot passes it
-            kv_len = torch.tensor([S], dtype=torch.int32, device="cuda")
-        if mode == "start":  # rows before start[b] see nothing: dead rows
-            start = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
-        if mode == "kv_len":
-            kv_len = torch.tensor([S, 300], dtype=torch.int32, device="cuda")
-        bounds = dict(causal=True, start=start, kv_len=kv_len)
+        q, k, v, bounds = case_inputs(gen, dtype, B, S, D, mode)
         plain = lambda: fa.flash_fwd_plain(q, k, v, scale=D ** -0.5, **bounds)  # noqa: E731
         po, plse = plain()
         plain_ms = cuda_ms(plain, 3, warmup=1)
         lib_ms = lib_device_ms = None
-        if mode != "start":  # SDPA's dead rows are NaN: no like-for-like call
+        sdpa = sdpa_mask(B, S, bounds)
+        if sdpa is not None:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # same tensors, [B,H,S,D] views
-            mask = None
-            if mode == "kv_len":
-                vis = fa._visible(B, S, causal=True, start=None, kv_len=kv_len, device="cuda")
-                mask = vis[:, None]
+            mask, is_causal = sdpa
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True
+                qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True
             )
             lib_ms = cuda_ms(lib, 20)
             lib_device_ms = device_ms(lib)
         bound_ms, bound_by, flops = flash_bound(q, k, v, **bounds)
         entries = [fa.fwd_entry(dtype, D)]
-        if case in (served_case, train_case):  # the scalar entry too, on the same inputs
+        if case in shapes:  # the scalar entry too, on the same inputs
             entries.append("flash_fwd_scalar")
         for entry in entries:
             run = lambda: fa._launch_fwd(entry, q, k, v, scale=D ** -0.5, **bounds)  # noqa: E731
@@ -293,19 +398,17 @@ def phase_kernels(gen) -> dict:
             ms = cuda_ms(run, 20)
             dev_ms = device_ms(run)
             row = dict(
-                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, D=D, mode=mode,
-                max_abs_err=err, ok=ok, same_bits=same_bits, ms=ms, device_ms=dev_ms,
-                tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms,
+                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, H=q.shape[2],
+                Hkv=k.shape[2], D=D, mode=mode, max_abs_err=err, ok=ok, same_bits=same_bits,
+                ms=ms, device_ms=dev_ms, tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms,
                 device_bound_fraction=bound_ms / dev_ms if dev_ms else None, plain_ms=plain_ms,
                 library_ms=lib_ms, library_device_ms=lib_device_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
             )
             print("  ", json.dumps(row), flush=True)
             failures += not (ok and same_bits)
-            if case == served_case:
-                rows[(entry, "served")] = row
-            if case == train_case:
-                rows[(entry, "train")] = row
+            if case in shapes:
+                rows[(entry, shapes[case])] = row
     if failures:
         raise SystemExit(f"phase 1 failed: {failures} case(s) out of tolerance or not repeatable")
     return rows
@@ -589,11 +692,15 @@ def phase_paged(params, cfg, serve_decode_p50_ms) -> dict:
     launches of runs A and B together."""
     print("phase 7: paged serve llama3_8b (32 layers, bf16)", flush=True)
     weight_bytes = tensor_bytes(params)
-    plan = paged_plan_for_slice(
-        PAGED_SLICE_BYTES, cfg, 2048, page_size=16, prefill_chunk=512,
-        weight_bytes=weight_bytes, slots=16,
+    pod = PodTpuEnv.from_env(plugin_env(PAGED_SLICE_UNITS))
+    plan = paged_plan_from_pod_env(
+        cfg, 2048, weight_bytes=weight_bytes, page_size=16, prefill_chunk=512, env=pod,
+        slots=16,
     )
-    print("  plan", json.dumps(dataclasses.asdict(plan)), flush=True)
+    print("  plan from the pod env", json.dumps(dataclasses.asdict(plan)), flush=True)
+    if plan.total_pages != RUN_A_PAGES:
+        raise SystemExit(f"phase 7 failed: the {PAGED_SLICE_UNITS}-unit slice's plan has "
+                         f"{plan.total_pages} pages, not {RUN_A_PAGES}")
     trace = shared_prefix_trace(
         24, seed=0, rate=0.5, vocab=cfg.vocab, prefixes=(2, 1024), tail_lens=(64, 512),
         max_new=(16, 64), tiers=[("critical", 0.5, 16, 4), ("best_effort", 0.5, None, None)],
@@ -696,53 +803,47 @@ def bwd_bound(entry, q, k, v, *, causal, start, kv_len):
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), flops
 
 
-def sdpa_backward_ms(q, k, v, do, mask) -> float:
+def sdpa_backward_ms(q, k, v, do, mask, is_causal) -> float:
     """Time of the backward of ``F.scaled_dot_product_attention`` on the
     same inputs (k/v [B, Hkv, S, D] views, GQA passed as enable_gqa=True),
     which computes dq, dk and dv in one call: a yardstick only."""
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True
+        qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True
     )
     dot = do.transpose(1, 2)
     return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 5)
 
 
 def phase_backward() -> dict:
-    """Phase 4; returns the rows at the training shape, by kernel entry."""
+    """Phase 4; returns the rows at the training and the BERT shape, by
+    (kernel entry, "train" or "bert")."""
     print("phase 4: flash backward kernels vs plain", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
     failures = 0
-    train_rows = {}
-    train_case = (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "causal")
-    cases = [train_case]
+    rows = {}
+    shapes = {(torch.bfloat16, TRAIN_B, TRAIN_S, 128, "train"): "train",
+              (torch.bfloat16, BERT_B, BERT_S, BERT_D, "noncausal"): "bert"}
+    cases = list(shapes)
     for dtype in (torch.bfloat16, torch.float32):
-        cases += [(dtype, 1, 512, 128, "causal"), (dtype, 1, 2048, 128, "causal"),
+        cases += [(dtype, 1, 512, 128, "train"), (dtype, 1, 2048, 128, "train"),
                   (dtype, 2, 512, 128, "start"), (dtype, 2, 512, 128, "kv_len")]
-    cases.append((torch.bfloat16, 1, 2048, 64, "causal"))
+    cases += [(torch.bfloat16, 1, 2048, 64, "train"),
+              (torch.float32, BERT_B, BERT_S, BERT_D, "noncausal"),
+              (torch.bfloat16, BERT_B, 300, BERT_D, "noncausal")]
     for case in cases:
         dtype, B, S, D, mode = case
-        q, k, v = attention_inputs(gen, B, S, 32, 8, D, dtype)
+        q, k, v, bounds = case_inputs(gen, dtype, B, S, D, mode)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        start = kv_len = None
-        if mode == "start":  # row 1's queries < 200 see nothing; keys < 200 no query sees
-            start = torch.tensor([0, 200], dtype=torch.int32, device="cuda")
-        if mode == "kv_len":  # row 1's keys >= 300 no query sees
-            kv_len = torch.tensor([S, 300], dtype=torch.int32, device="cuda")
-        bounds = dict(causal=True, start=start, kv_len=kv_len)
         o, lse = fa.flash_fwd(q, k, v, **bounds)
         delta = (do.float() * o.float()).sum(-1)
         plain = lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=D ** -0.5, **bounds)  # noqa: E731
         want = dict(zip(("dq", "dk", "dv"), plain()))
         plain_ms = cuda_ms(plain, 3, warmup=1)
-        lib_ms = None
-        if mode != "start":  # SDPA's dead rows are NaN: no like-for-like call
-            mask = None
-            if mode == "kv_len":
-                mask = fa._visible(B, S, causal=True, start=None, kv_len=kv_len, device="cuda")[:, None]
-            lib_ms = sdpa_backward_ms(q, k, v, do, mask)
+        sdpa = sdpa_mask(B, S, bounds)
+        lib_ms = None if sdpa is None else sdpa_backward_ms(q, k, v, do, *sdpa)
         entries = list(fa.bwd_entries(dtype, D))
-        if case == train_case:  # the scalar entries too, on the same inputs
+        if case in shapes:  # the scalar entries too, on the same inputs
             entries += fa.bwd_entries(torch.float32, D)
         for entry in entries:
             run = lambda: fa._launch_bwd(entry, q, k, v, do, lse, delta, scale=D ** -0.5, **bounds)  # noqa: E731
@@ -759,16 +860,18 @@ def phase_backward() -> dict:
                 ok &= not any(got[n][1, 300:].any() for n in names if n != "dq")
             err = max(float((got[n].float() - want[n].float()).abs().max()) for n in names)
             ms = cuda_ms(run, 10)
+            dev_ms = device_ms(run) if case in shapes else None
             bound_ms, bound_by, flops = bwd_bound(entry, q, k, v, **bounds)
             row = dict(
-                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, D=D, mode=mode,
-                max_abs_err=err, ok=ok, same_bits=same_bits, ms=ms,
-                tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                kernel=entry, dtype=str(dtype).split(".")[-1], B=B, S=S, H=q.shape[2],
+                Hkv=k.shape[2], D=D, mode=mode, max_abs_err=err, ok=ok, same_bits=same_bits,
+                ms=ms, device_ms=dev_ms, tflops=flops / ms / 1e9, bound_fraction=bound_ms / ms,
+                device_bound_fraction=bound_ms / dev_ms if dev_ms else None,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
             )
             print("  ", json.dumps(row), flush=True)
-            if case == train_case:
-                train_rows[entry] = row
+            if case in shapes:
+                rows[(entry, shapes[case])] = row
             failures += not (ok and same_bits)
 
     # The (O, lse) pair with a nonzero lse cotangent, through the autograd
@@ -793,7 +896,7 @@ def phase_backward() -> dict:
         failures += not ok
     if failures:
         raise SystemExit(f"phase 4 failed: {failures} case(s) out of tolerance")
-    return train_rows
+    return rows
 
 
 def profile_train_step(step_fn, state, batch) -> dict:
@@ -839,10 +942,7 @@ def phase_train() -> dict:
         clock[0] = now
         losses.append(loss)
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    fresh_run()
     state, _ = run_train_loop(
         task, TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1), 0, on_metrics=on_metrics
     )
@@ -901,6 +1001,292 @@ def phase_grad_parity() -> None:
         raise SystemExit(f"phase 6 failed: gradients differ: {bad}")
 
 
+def card_gib() -> int:
+    """The card's whole GiB: what the plugin advertises as its units."""
+    return torch.cuda.get_device_properties(0).total_memory >> 30
+
+
+def plugin_env(units: int) -> dict[str, str]:
+    """What the plugin's Allocate() injects for a ``units``-GiB slice of
+    card 0 (``ALIYUN_COM_TPU_MEM_DEV`` is the card's whole GiB)."""
+    return {
+        const.ENV_TPU_VISIBLE_CHIPS: "0",
+        const.ENV_MEM_IDX: "0",
+        const.ENV_MEM_CONTAINER: str(units),
+        const.ENV_MEM_DEV: str(card_gib()),
+    }
+
+
+def train_pod(workload: str, batch: int, steps: int) -> tuple[dict, object, object]:
+    """Train one pod's workload on the card: MNIST through ``mnist.train``,
+    BERT-base and ResNet-50 through ``run_train_loop``. Returns (report,
+    task, state); the report has the losses, each step's wall time (the
+    loss is read every step, which waits for it), the step p50 over steps
+    1.., and the peak memory."""
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_metrics(step, loss):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(loss)
+
+    task = state = None
+    if workload == "mnist":
+        mnist.train(steps=steps, batch=batch, on_metrics=on_metrics)
+    else:
+        if workload == "bert":
+            task = BertTask(B.bert_base(), batch=batch, seq=BERT_S)
+        else:
+            task = ResNetTask(R.resnet50(), batch=batch, image_size=RESNET_SIZE)
+        state, _ = run_train_loop(task, TrainLoopConfig(total_steps=steps, log_every=1), 0,
+                                  on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    rest = sorted(step_s[1:] or step_s)
+    p50 = rest[len(rest) // 2]
+    report = {
+        "workload": workload, "batch": batch, "steps": steps, "losses": losses,
+        "step_s": step_s, "step_p50_s": p50,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+    }
+    if workload == "bert":
+        report["tokens_per_s"] = batch * BERT_S / p50
+    if workload == "resnet":
+        report["images_per_s"] = batch / p50
+    return report, task, state
+
+
+def falling(losses) -> bool:
+    return all(math.isfinite(x) for x in losses) and len(losses) > 1 and losses[-1] < losses[0]
+
+
+def fresh_run() -> None:
+    """Free what earlier phases cached and zero the peak and the launch
+    counts, just before a phase's measured run."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+
+
+def phase_bert() -> tuple[dict, dict]:
+    """Phase 9; returns the run's report and its kernel launches."""
+    print(f"phase 9: train bert_base alone, B={BERT_B} S={BERT_S}, {BERT_STEPS} steps", flush=True)
+    fresh_run()
+    report, task, state = train_pod("bert", BERT_B, BERT_STEPS)
+    launches = dict(fa.LAUNCHES)
+    report["launches"] = launches
+    print("  bert", json.dumps({k: v for k, v in report.items() if k != "peak_reserved_bytes"}),
+          flush=True)
+    cfg = task.cfg
+    batch = tuple(t.cuda() for t in task.make_batch(torch.Generator().manual_seed(99), 0))
+    print("  bert step profile",
+          json.dumps(profile_train_step(task.make_step(), state, batch)), flush=True)
+    want = {name: 0 for name in fa.LAUNCHES}
+    per_run = cfg.n_layers * BERT_STEPS
+    want.update(flash_fwd=2 * per_run, flash_bwd_dq=per_run, flash_bwd_dkv=per_run)
+    if launches != want:
+        raise SystemExit(f"phase 9 failed: launches {launches} != {want}")
+    if not falling(report["losses"]):
+        raise SystemExit(f"phase 9 failed: losses {report['losses']}")
+    del state
+    torch.cuda.empty_cache()
+
+    # flash against plain, one full-depth loss_fn backward (phase 6's rule)
+    params = B.init_params(cfg, torch.Generator(device="cuda").manual_seed(9))
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    names = list(T._flatten(params))
+    batch = tuple(t.cuda() for t in B.demo_batch(torch.Generator().manual_seed(9), 8, BERT_S, cfg))
+    loss, grads = {}, {}
+    for attention in ("flash", "plain"):
+        out = B.loss_fn(params, *batch, dataclasses.replace(cfg, attention=attention))
+        grads[attention] = torch.autograd.grad(out, leaves, materialize_grads=True)
+        loss[attention] = float(out.detach())
+    rel = {n: float((f - p).float().norm() / p.float().norm())
+           for n, f, p in zip(names, grads["flash"], grads["plain"]) if n != "seg_embed"}
+    zero = [n for n, g in zip(names, grads["flash"])
+            if n != "seg_embed" and not (torch.isfinite(g).all() and g.any())]
+    print("  flash vs plain: losses", json.dumps(loss), "relative Frobenius error by leaf",
+          json.dumps(rel), "zero or non-finite flash gradients", zero, flush=True)
+    if zero:
+        raise SystemExit(f"phase 9 failed: no gradient reached {zero}")
+    if abs(loss["flash"] - loss["plain"]) > GRAD_LOSS_REL * abs(loss["plain"]):
+        raise SystemExit(f"phase 9 failed: flash vs plain losses {loss}")
+    bad = {n: r for n, r in rel.items() if not r <= GRAD_LEAF_REL}
+    if bad:
+        raise SystemExit(f"phase 9 failed: flash vs plain gradients differ: {bad}")
+    return report, launches
+
+
+def phase_resnet() -> dict:
+    """Phase 10; returns the run's report."""
+    print(f"phase 10: train resnet50 alone, B={RESNET_B} at {RESNET_SIZE}x{RESNET_SIZE}, "
+          f"{RESNET_STEPS} steps", flush=True)
+    fresh_run()
+    report, task, state = train_pod("resnet", RESNET_B, RESNET_STEPS)
+    print("  resnet", json.dumps({k: v for k, v in report.items()
+                                  if k != "peak_reserved_bytes"}), flush=True)
+    bn = T._flatten(state[1])  # running mean starts at 0, var at 1
+    moved = [n for n, t in bn.items()
+             if not torch.equal(t, torch.full_like(t, float(n.endswith("__var"))))]
+    finite = all(bool(torch.isfinite(t).all()) for t in bn.values())
+    print(f"  BN running statistics: {len(moved)} of {len(bn)} changed, all finite {finite}",
+          flush=True)
+    batch = tuple(t.cuda() for t in task.make_batch(torch.Generator().manual_seed(99), 0))
+    print("  resnet step profile",
+          json.dumps(profile_train_step(task.make_step(), state, batch)), flush=True)
+    if not falling(report["losses"]):
+        raise SystemExit(f"phase 10 failed: losses {report['losses']}")
+    if len(moved) != len(bn) or not finite:
+        raise SystemExit("phase 10 failed: BN running statistics did not all change, or "
+                         "are not finite")
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
+def pod_main(argv: list[str]) -> int:
+    """One pod, in a child process whose env is the plugin's: cap the
+    process from the env first, then train ``argv = [workload, batch,
+    steps]``. Prints one JSON line; a pod that runs out of its slice
+    prints the OOM marker and exits 3."""
+    workload, batch, steps = argv[0], int(argv[1]), int(argv[2])
+    settings = configure_torch_from_env()
+    pod = PodTpuEnv.from_env()
+    fraction = float(settings[MEMORY_FRACTION])
+    doc = {"workload": workload, "slice_gib": pod.mem_units_container, "fraction": fraction,
+           "cap_bytes": int(fraction * torch.cuda.get_device_properties(0).total_memory),
+           "visible": os.environ.get(const.ENV_CUDA_VISIBLE_DEVICES)}
+    try:
+        # One untimed step sets up the libraries and loads the kernels; then
+        # wait for the parent's go, so the pods' timed steps run together.
+        train_pod(workload, batch, 1)
+        print(READY, flush=True)
+        sys.stdin.readline()
+        doc["window_s"] = [time.time()]
+        report, _, _ = train_pod(workload, batch, steps)
+        doc["window_s"].append(time.time())
+    except torch.cuda.OutOfMemoryError as e:
+        doc.update(oom=OOM_MARK, error=str(e).splitlines()[0][:300],
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved())
+        print(json.dumps(doc), flush=True)
+        return 3
+    doc.update(report)
+    print(json.dumps(doc), flush=True)
+    return 0
+
+
+def start_pod(name, workload, units, batch, steps):
+    """Start one pod child with only the plugin's env for its slice on top
+    of the parent's (no CUDA_VISIBLE_DEVICES)."""
+    env = {k: v for k, v in os.environ.items() if k != const.ENV_CUDA_VISIBLE_DEVICES}
+    env.update(plugin_env(units))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.pod_main(sys.argv[1:]))"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, workload, str(batch), str(steps)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return name, units, proc
+
+
+def finish_pods(started) -> dict:
+    """Let the pods train together once each has capped itself and is
+    ready, then wait for every one (a watchdog kills all of them past
+    POD_TIMEOUT_S); returns each pod's (exit code, JSON document or None,
+    stderr tail) by name."""
+    watchdog = threading.Timer(POD_TIMEOUT_S, lambda: [p.kill() for _, _, p in started])
+    watchdog.start()
+    early = {}
+    try:
+        for name, _, proc in started:  # a pod that dies first ends its stdout: no hang
+            early[name] = []
+            while (line := proc.stdout.readline()) and line.strip() != READY:
+                early[name].append(line)
+        for _, _, proc in started:
+            try:
+                proc.stdin.write("go\n")
+                proc.stdin.flush()
+            except BrokenPipeError:
+                pass  # it died before the barrier; its exit code tells
+        out = {}
+        for name, _, proc in started:
+            stdout, stderr = proc.communicate()
+            lines = early[name] + stdout.splitlines()
+            docs = [line for line in lines if line.startswith("{")]
+            out[name] = (proc.returncode, json.loads(docs[-1]) if docs else None, stderr[-2000:])
+        return out
+    finally:
+        watchdog.cancel()
+
+
+def phase_binpack(alone: dict) -> None:
+    """Phase 11; ``alone`` holds phases 9 and 10's reports by workload."""
+    print("phase 11: six pods binpacked on one card through the pod env", flush=True)
+    fresh_run()
+    batches = {"mnist": 256, "bert": BERT_B, "resnet": RESNET_B}
+    for name, workload, units, _ in PODS:
+        if workload in alone and alone[workload]["peak_reserved_bytes"] > SLICE_FULL * units * 2**30:
+            batches[workload] //= 2
+            print(f"  {workload} alone peaked at {alone[workload]['peak_reserved_gb']:.3f} GB, "
+                  f"above {SLICE_FULL} of its {units} GiB slice: its pod trains at batch "
+                  f"{batches[workload]}", flush=True)
+    t0 = time.perf_counter()
+    started = [start_pod(name, workload, units, batches[workload], steps)
+               for name, workload, units, steps in PODS]
+    results = finish_pods(started)
+    wall = time.perf_counter() - t0
+    go = min((doc["window_s"][0] for _, doc, _ in results.values() if doc and "window_s" in doc),
+             default=0.0)
+    fail = []
+    for name, workload, units, _ in PODS:
+        rc, doc, err = results[name]
+        if rc != 0 or doc is None:
+            fail.append(f"{name} exited {rc}: {err}")
+            continue
+        row = {
+            "pod": name, "slice_gib": units, "batch": doc["batch"],
+            "cap_gb": doc["cap_bytes"] / 1e9, "peak_reserved_gb": doc["peak_reserved_gb"],
+            "first_loss": doc["losses"][0], "last_loss": doc["losses"][-1],
+            "steps": len(doc["losses"]), "step_p50_s": doc["step_p50_s"],
+            "alone_step_p50_s": alone[workload]["step_p50_s"] if workload in alone else None,
+            "window_s": [t - go for t in doc["window_s"]],  # timed steps, from the first go
+        }
+        print("  ", json.dumps(row), flush=True)
+        if not falling(doc["losses"]):
+            fail.append(f"{name}: losses do not fall ({doc['losses'][0]} -> {doc['losses'][-1]})")
+        if doc["peak_reserved_bytes"] > doc["cap_bytes"]:
+            fail.append(f"{name}: peak reserved {doc['peak_reserved_bytes']} > cap "
+                        f"{doc['cap_bytes']}")
+    print(f"  phase 11: {wall:.1f} s", flush=True)
+    if fail:
+        raise SystemExit("phase 11 failed: " + "; ".join(fail))
+
+
+def phase_overrun(bert_peak_bytes: int) -> None:
+    """Phase 12: BERT-base at half its phase-9 peak OOMs itself; an MNIST
+    control at the same slice passes."""
+    units = int(bert_peak_bytes / 2 / 2**30)
+    print(f"phase 12: bert_base in a {units} GiB slice (half its peak alone) must OOM itself",
+          flush=True)
+    results = finish_pods([start_pod("bert-overrun", "bert", units, BERT_B, BERT_STEPS),
+                           start_pod("mnist-control", "mnist", units, 256, 100)])
+    rc, doc, err = results["bert-overrun"]
+    print("   bert-overrun", rc, json.dumps(doc), flush=True)
+    if rc != 3 or doc is None or doc.get("oom") != OOM_MARK:
+        raise SystemExit(f"phase 12 failed: the overrunning pod did not OOM itself "
+                         f"(exit {rc}): {err}")
+    rc, doc, err = results["mnist-control"]
+    summary = doc and {k: doc[k] for k in ("slice_gib", "cap_bytes", "peak_reserved_bytes",
+                                           "step_p50_s")}
+    print("   mnist-control", rc, json.dumps(summary), flush=True)
+    if rc != 0 or doc is None or not falling(doc["losses"]):
+        raise SystemExit(f"phase 12 failed: the control pod failed (exit {rc}): {err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -929,10 +1315,20 @@ def main() -> int:
     train_launches = phase_train()
     phase_grad_parity()
 
-    paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches}
+    t0 = time.perf_counter()
+    bert, bert_launches = phase_bert()
+    resnet = phase_resnet()
+    phase_binpack({"bert": bert, "resnet": resnet})
+    phase_overrun(bert["peak_reserved_bytes"])
+    print(f"phases 9-12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
+             "train_bert": bert_launches}
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")
+    bert_shape = (f"bf16 B={BERT_B} S={BERT_S} H={BERT_H} Hkv={BERT_H} D={BERT_D} non-causal "
+                  "(BERT-base)")
     kernels = []
     fwd_main = fa.fwd_entry(torch.bfloat16, 128)
     for entry in (fwd_main, fa.fwd_entry(torch.float32, 128)):
@@ -950,10 +1346,13 @@ def main() -> int:
                 "shape": f"bf16 B={TRAIN_B} S={TRAIN_S} H=32 Hkv=8 D=128 causal",
                 **{k: forward[(entry, "train")][k] for k in fwd_numbers},
             },
+            "at_bert_shape": {"shape": bert_shape,
+                              **{k: forward[(entry, "bert")][k] for k in fwd_numbers}},
         })
     main_path = fa.bwd_entries(torch.bfloat16, 128)
+    bwd_numbers = (*numbers, "device_ms", "device_bound_fraction")
     for entry in (*main_path, *fa.bwd_entries(torch.float32, 128)):
-        row = backward[entry]
+        row = backward[(entry, "train")]
         kernels.append({
             "name": entry,
             "route": "cuda",
@@ -963,8 +1362,9 @@ def main() -> int:
             "launches": train_launches[entry],
             "launches_by_path": {k: v[entry] for k, v in paths.items()},
             "on_main_path": entry in main_path,
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "tflops", "bound_fraction")},
+            **{k: row[k] for k in bwd_numbers},
+            "at_bert_shape": {"shape": bert_shape,
+                              **{k: backward[(entry, "bert")][k] for k in bwd_numbers}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

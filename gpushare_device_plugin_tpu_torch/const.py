@@ -1,8 +1,59 @@
 """Constants the port shares with the reference's ``const.py``.
 
-SLO tier names: latency-critical requests admit ahead of best-effort ones.
 Copies, not imports: the port imports nothing of the reference package.
+The env names stay the plugin's own (``TPU_VISIBLE_CHIPS``,
+``ALIYUN_COM_TPU_MEM_*``, ...), because that is what the device plugin's
+Allocate() injects into a pod, whatever card the pod runs on
+(``parallel/podenv.py`` reads them).
 """
 
+from __future__ import annotations
+
+import enum
+
+# --- The memory-slice env the plugin injects (reference const.py:49-60) ----
+ENV_MEM_IDX = "ALIYUN_COM_TPU_MEM_IDX"  # assigned physical chip index
+ENV_MEM_POD = "ALIYUN_COM_TPU_MEM_POD"  # this pod's tpu-mem request
+ENV_MEM_CONTAINER = "ALIYUN_COM_TPU_MEM_CONTAINER"  # container's request
+ENV_MEM_DEV = "ALIYUN_COM_TPU_MEM_DEV"  # total units on the assigned chip
+
+# --- Multi-chip gang grant (reference const.py:93-95) -----------------------
+ENV_GANG_CHIPS = "ALIYUN_COM_TPU_GANG_CHIPS"
+ENV_GANG_SHAPE = "ALIYUN_COM_TPU_GANG_SHAPE"
+ENV_GANG_PER_CHIP = "ALIYUN_COM_TPU_GANG_PER_CHIP"
+
+# --- Workload env (reference const.py:102-104, 121) -------------------------
+ENV_TPU_VISIBLE_CHIPS = "TPU_VISIBLE_CHIPS"
+ENV_TPU_PROCESS_BOUNDS = "TPU_PROCESS_BOUNDS"
+ENV_TPU_CHIPS_PER_PROCESS_BOUNDS = "TPU_CHIPS_PER_PROCESS_BOUNDS"
+# The plugin's cooperative memory cap, a fraction of the chip.
+ENV_XLA_MEM_FRACTION = "TPU_HBM_LIMIT_FRACTION"
+# What the port sets from TPU_VISIBLE_CHIPS (configure_torch_from_env).
+ENV_CUDA_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
+
+# --- Workload classes (reference const.py:146-149) --------------------------
+# Unknown or absent values normalize to latency-critical: the safe default
+# is to protect, never to throttle.
+WORKLOAD_LATENCY_CRITICAL = "latency-critical"
+WORKLOAD_BEST_EFFORT = "best-effort"
+WORKLOAD_CLASSES = (WORKLOAD_LATENCY_CRITICAL, WORKLOAD_BEST_EFFORT)
+ENV_WORKLOAD_CLASS = "ALIYUN_COM_TPU_WORKLOAD_CLASS"
+
+# Per-tenant LoRA adapter id (reference const.py:159): "" = the base model.
+ENV_LORA_ADAPTER = "ALIYUN_COM_TPU_LORA_ADAPTER"
+
+# SLO tier names: latency-critical requests admit ahead of best-effort ones.
 SLO_TIER_CRITICAL = "critical"
 SLO_TIER_BEST_EFFORT = "best_effort"
+
+
+class MemoryUnit(str, enum.Enum):
+    """Granularity of one unit of ``aliyun.com/tpu-mem`` (reference
+    ``const.py:222``): GiB unless the cluster runs ``--memory-unit=MiB``."""
+
+    GiB = "GiB"
+    MiB = "MiB"
+
+    @property
+    def num_bytes(self) -> int:
+        return 1 << 30 if self is MemoryUnit.GiB else 1 << 20

@@ -8,6 +8,12 @@ header rebuilds and an unchanged one loads at once. Headers are never
 compiled on their own. ``build()`` starts one ``nvcc`` per source, all
 together.
 
+Several processes may load the kernels at once (pods sharing a card).
+A build holds an exclusive ``flock`` on ``build/lock`` (the kernel drops
+it when the process ends, however it ends), and each library lands by an
+atomic rename, so a process either finds a whole library or waits for
+the one build of it.
+
 There is no fallback: without ``nvcc`` or on a compile error the loader
 raises, and the caller's CUDA tensors never reach a substitute.
 """
@@ -15,6 +21,7 @@ raises, and the caller's CUDA tensors never reach a substitute.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -70,11 +77,17 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
     library paths; raises with the compiler's output on any failure."""
     names = sources() if names is None else names
     out = {n: _target(n) for n in names}
-    todo = [n for n in names if not out[n].exists()]
-    if not todo:
+    if all(out[n].exists() for n in names):
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _compile(nvcc, [n for n in names if not out[n].exists()], out)
+    return out
+
+
+def _compile(nvcc: str, todo: list[str], out: dict[str, Path]) -> None:
     procs = {}
     for n in todo:
         tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
@@ -93,7 +106,6 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
             os.replace(tmp, out[n])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return out
 
 
 def build_log(name: str) -> str:

@@ -3,7 +3,8 @@
 Counterpart of ``gpushare_device_plugin_tpu/serving/engine.py``
 (``SlotEngine``, ``PagedSlotEngine`` in its base mode, the
 request/result/stats records, ``poisson_trace``, ``shared_prefix_trace``
-and slice sizing). ``SlotEngine`` keeps a fixed pool of KV-cache rows
+and slice sizing, from a byte count or from the plugin's env:
+``slots_from_pod_env``, ``slots_for_gang``, ``paged_plan_from_pod_env``). ``SlotEngine`` keeps a fixed pool of KV-cache rows
 (``init_slot_cache``):
 
 - admission packs a waiting request into a free row, one fixed-width
@@ -43,12 +44,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..const import SLO_TIER_BEST_EFFORT, SLO_TIER_CRITICAL
+from ..const import SLO_TIER_BEST_EFFORT, SLO_TIER_CRITICAL, MemoryUnit
 from ..device import resolve_device
+from ..parallel.podenv import PodTpuEnv
 from ..workloads import generate as G
 from ..workloads.transformer import TransformerConfig
 from .drainproto import DrainHandshake
-from .pages import SCRATCH, PageAllocator, pages_for, row_span_for
+from .pages import SCRATCH, PagedPlan, PageAllocator, paged_plan_for_slice, pages_for, row_span_for
 from .profiler import StepProfiler, ceil_rank_quantile
 from .radix import RadixCache
 
@@ -1214,3 +1216,112 @@ def slots_for_slice(
     if usable <= 0:
         return 0
     return int(usable // kv_slot_bytes(cfg, max_len, kv_dtype))
+
+
+def slots_for_gang(
+    per_chip_bytes: int,
+    n_chips: int,
+    cfg: TransformerConfig,
+    max_len: int,
+    *,
+    weight_bytes: int,
+    kv_dtype: str | None = None,
+    headroom: float = 0.90,
+) -> int:
+    """Slot-pool size a multi-chip gang sustains, over the per-chip
+    shares: a tensor-parallel engine pins about ``weight_bytes / n`` and
+    ``kv_slot_bytes / n`` per slot on each chip when the kv heads divide
+    by the gang size, and the full amounts when they do not (the cache
+    then replicates). 0 means the gang cannot serve this config."""
+    if n_chips < 1:
+        raise ValueError(f"n_chips must be >= 1, got {n_chips}")
+    if not 0.0 < headroom <= 1.0:
+        raise ValueError(f"headroom must be in (0, 1], got {headroom}")
+    per_slot = kv_slot_bytes(cfg, max_len, kv_dtype)
+    if n_chips > 1 and cfg.kv_heads % n_chips == 0:
+        per_slot = -(-per_slot // n_chips)
+        weight_bytes = -(-weight_bytes // n_chips)
+    usable = per_chip_bytes * headroom - weight_bytes
+    if usable <= 0:
+        return 0
+    return int(usable // per_slot)
+
+
+def _pod_slice(pod: PodTpuEnv, unit: MemoryUnit) -> tuple[int, int, str]:
+    """(bytes to size over, chips they span, a description for errors):
+    a gang sizes over this container's per-chip share, a single-chip pod
+    over its whole slice."""
+    if pod.is_gang:
+        per_chip = pod.gang_container_per_chip_bytes(unit)
+        desc = (f"gang slice of {per_chip / unit.num_bytes:g} {unit.value}/chip x "
+                f"{len(pod.gang_chips)} chips")
+        return per_chip, len(pod.gang_chips), desc
+    return pod.mem_bytes(unit), 1, f"slice of {pod.mem_units_container} {unit.value}"
+
+
+def slots_from_pod_env(
+    cfg: TransformerConfig,
+    max_len: int,
+    *,
+    weight_bytes: int,
+    env: PodTpuEnv | None = None,
+    kv_dtype: str | None = None,
+    headroom: float = 0.90,
+    unit: MemoryUnit = MemoryUnit.GiB,
+) -> int:
+    """Slot pool for this pod's ``aliyun.com/tpu-mem`` slice, read from
+    the plugin-injected env (``PodTpuEnv.from_env()`` unless ``env`` is
+    given). A gang sizes over its per-chip share (:func:`slots_for_gang`).
+    Raises when the slice cannot hold one slot: a misconfigured pod fails
+    at startup, not mid-serve."""
+    pod = env if env is not None else PodTpuEnv.from_env()
+    nbytes, n_chips, desc = _pod_slice(pod, unit)
+    if pod.is_gang:
+        n = slots_for_gang(nbytes, n_chips, cfg, max_len, weight_bytes=weight_bytes,
+                           kv_dtype=kv_dtype, headroom=headroom)
+    else:
+        n = slots_for_slice(nbytes, cfg, max_len, weight_bytes=weight_bytes,
+                            kv_dtype=kv_dtype, headroom=headroom)
+    if n < 1:
+        raise ValueError(
+            f"{desc} cannot hold weights ({weight_bytes / 2**30:.2f} GiB) plus one "
+            f"{max_len}-position KV slot ({kv_slot_bytes(cfg, max_len, kv_dtype) / 2**30:.3f} "
+            f"GiB) at headroom {headroom} — request a larger aliyun.com/tpu-mem "
+            "slice, shrink max_len, or quantize (kv_dtype='int8')"
+        )
+    return n
+
+
+def paged_plan_from_pod_env(
+    cfg: TransformerConfig,
+    max_len: int,
+    *,
+    weight_bytes: int,
+    page_size: int,
+    prefill_chunk: int = 64,
+    env: PodTpuEnv | None = None,
+    kv_dtype: str | None = None,
+    headroom: float = 0.90,
+    unit: MemoryUnit = MemoryUnit.GiB,
+    slots: int | None = None,
+) -> PagedPlan:
+    """The paged mode of :func:`slots_from_pod_env`: a
+    :class:`PagedSlotEngine` pool (dispatch rows and KV pages) sized by
+    :func:`~.pages.paged_plan_for_slice` to this pod's slice, a gang over
+    its per-chip share. Raises when the slice cannot hold one ``max_len``
+    row of pages, the least the paged engine needs to make progress."""
+    pod = env if env is not None else PodTpuEnv.from_env()
+    nbytes, n_chips, desc = _pod_slice(pod, unit)
+    plan = paged_plan_for_slice(
+        nbytes, cfg, max_len, page_size=page_size, prefill_chunk=prefill_chunk,
+        weight_bytes=weight_bytes, kv_dtype=kv_dtype, headroom=headroom, slots=slots,
+        n_chips=n_chips,
+    )
+    if plan.total_pages < pages_for(max_len, page_size):
+        raise ValueError(
+            f"{desc} cannot hold weights ({weight_bytes / 2**30:.2f} GiB) plus one "
+            f"{max_len}-position row of {page_size}-token KV pages at headroom {headroom} "
+            "— request a larger aliyun.com/tpu-mem slice, shrink max_len, or quantize "
+            "(kv_dtype='int8')"
+        )
+    return plan

@@ -173,14 +173,17 @@ def paged_plan_for_slice(
     kv_dtype: str | None = None,
     headroom: float = 0.90,
     slots: int | None = None,
+    n_chips: int = 1,
 ) -> PagedPlan:
     """Size a paged pool for a ``slice_bytes`` device-memory slice, with
     the reference's arithmetic: weights come off the top, ``headroom``
     covers activations and workspace, the rest buys KV pages (plus one
     scratch page) with page tables and free list charged against it.
     ``slots`` defaults to 4x what the contiguous slot math would grant,
-    capped at the page count. ``total_pages == 0`` means the slice cannot
-    hold one page."""
+    capped at the page count. ``n_chips > 1`` sizes over a gang's
+    per-chip share: page bytes and weights divide by the gang size when
+    the kv heads do (as :func:`~.engine.slots_for_gang`).
+    ``total_pages == 0`` means the slice cannot hold one page."""
     # Late import: engine imports this module; the per-page byte math
     # lives there (kv_slot_bytes).
     from .engine import kv_slot_bytes
@@ -191,10 +194,16 @@ def paged_plan_for_slice(
         raise ValueError(f"max_len {max_len} smaller than page_size {page_size}")
     if not 0.0 < headroom <= 1.0:
         raise ValueError(f"headroom must be in (0, 1], got {headroom}")
+    if n_chips < 1:
+        raise ValueError(f"n_chips must be >= 1, got {n_chips}")
     if prefill_chunk < 1:
         raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
     page_b = kv_slot_bytes(cfg, page_size, kv_dtype)
     row_b = kv_slot_bytes(cfg, max_len, kv_dtype)
+    if n_chips > 1 and cfg.kv_heads % n_chips == 0:
+        page_b = -(-page_b // n_chips)
+        row_b = -(-row_b // n_chips)
+        weight_bytes = -(-weight_bytes // n_chips)
     max_pages = pages_for(row_span_for(max_len, prefill_chunk), page_size)
 
     def zero() -> PagedPlan:

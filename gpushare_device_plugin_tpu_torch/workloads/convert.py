@@ -1,10 +1,15 @@
-"""JAX decoder weights -> the port's params tree, by value.
+"""JAX weights -> the port's params trees, by value.
 
-The reference's tree, turned into numpy arrays (``np.asarray`` on every
-leaf), has the same stacked layout as the port's (``transformer.py``), so
-conversion is a copy per leaf: no reshape, no transpose. Quantized leaves
-(``{"q8", "scale"}`` dicts) cross as int8 and f32. bfloat16 arrays, which
-numpy holds as the 2-byte ``ml_dtypes`` type, cross bit for bit.
+The reference's trees, turned into numpy arrays (``np.asarray`` on every
+leaf), have the port's layouts, so conversion is a copy per leaf, checked
+against the shapes the port's config gives: the decoder
+(:func:`from_jax_numpy`; quantized ``{"q8", "scale"}`` leaves cross as
+int8 and f32), BERT (:func:`bert_from_jax_numpy`) and the MNIST MLP
+(:func:`mnist_from_jax_numpy`). The one transpose is ResNet's
+(:func:`resnet_from_jax_numpy`): convolution kernels cross from the
+reference's HWIO to PyTorch's OIHW, its BN state with them. bfloat16
+arrays, which numpy holds as the 2-byte ``ml_dtypes`` type, cross bit for
+bit.
 """
 
 from __future__ import annotations
@@ -15,6 +20,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import bert as B
+from . import mnist as M
+from . import resnet as R
 from .quant import is_qtensor
 from .transformer import Params, TransformerConfig
 
@@ -78,3 +86,67 @@ def from_jax_numpy(
         "final_norm": leaf("final_norm", tree["final_norm"]),
         "out": leaf("out", tree["out"]),
     }
+
+
+def _copy_tree(tree: Mapping[str, Any], shapes: Mapping[str, Any], dev: torch.device,
+               prefix: str = "", transform=None) -> Params:
+    """``tree`` (numpy leaves) as tensors on ``dev`` in the nesting of
+    ``shapes``, each leaf passed through ``transform`` (if any) and then
+    checked against its shape there."""
+    if set(tree) != set(shapes):
+        raise ValueError(f"{prefix or 'tree'}: keys {sorted(tree)} != {sorted(shapes)}")
+    out = {}
+    for key, want in shapes.items():
+        name = f"{prefix}{key}"
+        if isinstance(want, dict):
+            out[key] = _copy_tree(tree[key], want, dev, name + ".", transform)
+            continue
+        t = _tensor(tree[key], dev)
+        if transform is not None:
+            t = transform(t)
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(want)}")
+        out[key] = t.contiguous()
+    return out
+
+
+def bert_from_jax_numpy(
+    tree: Mapping[str, Any], cfg: B.BertConfig, *, device: str | torch.device | None = None,
+) -> Params:
+    """A reference BERT params tree of numpy arrays as the port's tree on
+    ``device``; the layouts are the same, shapes are checked against
+    ``cfg``."""
+    return _copy_tree(tree, B.param_shapes(cfg), resolve_device(device))
+
+
+def _hwio_to_oihw(t: torch.Tensor) -> torch.Tensor:
+    """Convolution kernels ``[(L,) kh, kw, cin, cout]`` -> ``[(L,) cout, cin,
+    kh, kw]``; other leaves unchanged."""
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    if t.dim() == 5:
+        return t.permute(0, 4, 3, 1, 2)
+    return t
+
+
+def resnet_from_jax_numpy(
+    params: Mapping[str, Any], state: Mapping[str, Any], cfg: R.ResNetConfig, *,
+    device: str | torch.device | None = None,
+) -> tuple[Params, Params]:
+    """A reference ResNet (params, BN state) pair of numpy trees as the
+    port's on ``device``: convolution kernels HWIO -> OIHW, the rest as
+    they are; shapes are checked against ``cfg``."""
+    dev = resolve_device(device)
+    pshapes, sshapes = R.param_shapes(cfg)
+    return (_copy_tree(params, pshapes, dev, transform=_hwio_to_oihw),
+            _copy_tree(state, sshapes, dev))
+
+
+def mnist_from_jax_numpy(
+    tree: Mapping[str, Any], hidden: int = 128, *, device: str | torch.device | None = None,
+) -> Params:
+    """A reference MNIST MLP params tree of numpy arrays as the port's on
+    ``device``; shapes are checked against ``hidden``."""
+    shapes = {"w1": (M.IMAGE_DIM, hidden), "b1": (hidden,),
+              "w2": (hidden, M.N_CLASSES), "b2": (M.N_CLASSES,)}
+    return _copy_tree(tree, shapes, resolve_device(device))

@@ -564,16 +564,22 @@ def generate(
 
     Returns [B, Tp + max_new]; with ``prompt_lens`` (right-padded
     variable-length batch, re-packed left-padded inside) only the
-    generated [B, max_new]. ``eos_id`` overwrites positions after the
+    generated [B, max_new]. ``max_new == 0`` returns the prompt, or an
+    empty [B, 0] block with ``prompt_lens``, as the reference's
+    zero-length scan does. ``eos_id`` overwrites positions after the
     first EOS with EOS. The reference's scan also runs a decode step
     after the last emitted token whose result it drops; this loop skips
     that step, which leaves the tokens unchanged.
     """
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling needs a generator")
+    if max_new < 0:
+        raise ValueError(f"max_new must be >= 0, got {max_new}")
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).long()
     B, Tp = prompt.shape
+    if max_new == 0:
+        return prompt[:, :0] if prompt_lens is not None else prompt
     cache = init_cache(cfg, B, Tp + max_new, kv_dtype=kv_dtype, device=dev)
     pad = None
     if prompt_lens is not None:

@@ -16,6 +16,11 @@ written out with optax's arithmetic, in optax's order:
 
 It updates params and moments in place (the reference donates them), so a
 step holds no second copy of the optimizer state.
+
+:class:`SGD` is ``optax.sgd(lr, momentum, nesterov)``, which the ResNet
+and MNIST workloads use: the trace ``t = g + m·t``, the update ``g + m·t``
+with Nesterov momentum or ``t`` without, then ``p += -lr·update``. No
+weight decay.
 """
 
 from __future__ import annotations
@@ -37,6 +42,12 @@ def tree_leaves(tree: Any) -> list[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [x for val in tree for x in tree_leaves(val)]
     raise TypeError(f"not a tensor tree leaf: {type(tree).__name__}")
+
+
+def tree_index(tree: dict, i: int) -> dict:
+    """Entry ``i`` along the leading (stacking) axis of every tensor of a
+    tree of dicts: one layer's or one block's weights, as views."""
+    return {k: tree_index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 def warmup_cosine(
@@ -104,6 +115,35 @@ class AdamW:
             u.add_(self.weight_decay * p)
             p.add_(u.mul_(step).to(p.dtype))
         state["count"] += 1
+        return params, state
+
+
+class SGD:
+    """``optax.sgd(lr, momentum, nesterov)`` with optax's arithmetic:
+    ``init(params)`` makes ``{"trace": [...]}`` (one buffer per leaf in its
+    dtype, none without momentum); ``update(grads, state, params)``
+    applies one step in place and returns ``(params, state)``."""
+
+    def __init__(self, lr: float, momentum: float | None = None, nesterov: bool = False):
+        self.lr, self.momentum, self.nesterov = lr, momentum, nesterov
+
+    def init(self, params: Any) -> dict[str, Any]:
+        if self.momentum is None:
+            return {"trace": []}
+        return {"trace": [torch.zeros_like(p) for p in tree_leaves(params)]}
+
+    @torch.no_grad()
+    def update(self, grads: Any, state: dict[str, Any], params: Any):
+        leaves, gs = tree_leaves(params), tree_leaves(grads)
+        if len(gs) != len(leaves):
+            raise ValueError(f"{len(gs)} gradients for {len(leaves)} parameters")
+        traces = state["trace"] or [None] * len(leaves)
+        for p, g, t in zip(leaves, gs, traces):
+            u = g
+            if t is not None:
+                t.mul_(self.momentum).add_(g)
+                u = g + self.momentum * t if self.nesterov else t
+            p.add_(u.mul(-self.lr).to(p.dtype))
         return params, state
 
 

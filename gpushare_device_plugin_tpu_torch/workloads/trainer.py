@@ -7,7 +7,10 @@ interrupted and resumed run reproduces the uninterrupted one, and opt-in
 checkpoints. Where the reference saves asynchronously with orbax, this
 writes one ``torch.save`` file of the state's tensors and the step per
 checkpoint, through a temporary file and an atomic rename, keeps the
-newest ``ckpt_keep`` and resumes from the latest.
+newest ``ckpt_keep`` and resumes from the latest. The tasks are the
+reference's three: :class:`DecoderTask`, :class:`BertTask` and
+:class:`ResNetTask` (whose state carries the batch-norm running
+statistics, so a checkpoint holds them too).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import bert as B
+from . import resnet as R
 from . import transformer as T
 from .optim import tree_leaves
 
@@ -160,3 +165,55 @@ class DecoderTask:
 
     def make_batch(self, generator: torch.Generator, step: int) -> torch.Tensor:
         return T.demo_batch(generator, self.batch, self.seq, self.cfg.vocab)
+
+
+def _on(device: torch.device, batch: tuple) -> tuple:
+    return tuple(t.to(device) for t in batch)
+
+
+class BertTask:
+    """BERT MLM encoder (``workloads/bert.py``) on ``demo_batch`` batches;
+    state ``(params, opt_state)``."""
+
+    def __init__(self, cfg: B.BertConfig, batch: int, seq: int):
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+
+    def init_state(self, generator: torch.Generator):
+        return B.init_train_state(self.cfg, generator, device=generator.device)
+
+    def make_step(self):
+        step = B.make_train_step(self.cfg)
+
+        def fn(state, batch):
+            params, opt_state, loss = step(*state, *_on(state[0]["embed"].device, batch))
+            return (params, opt_state), loss
+
+        return fn
+
+    def make_batch(self, generator: torch.Generator, step: int):
+        return B.demo_batch(generator, self.batch, self.seq, self.cfg)
+
+
+class ResNetTask:
+    """ResNet classifier (``workloads/resnet.py``) on ``demo_batch``
+    images; state ``(params, bn_state, opt_state)``."""
+
+    def __init__(self, cfg: R.ResNetConfig, batch: int, image_size: int = 32):
+        self.cfg, self.batch, self.image_size = cfg, batch, image_size
+
+    def init_state(self, generator: torch.Generator):
+        return R.init_train_state(self.cfg, generator, device=generator.device)
+
+    def make_step(self):
+        step = R.make_train_step(self.cfg)
+
+        def fn(state, batch):
+            params, bn, opt_state, loss = step(
+                *state, *_on(state[0]["head"]["kernel"].device, batch)
+            )
+            return (params, bn, opt_state), loss
+
+        return fn
+
+    def make_batch(self, generator: torch.Generator, step: int):
+        return R.demo_batch(generator, self.batch, self.image_size)

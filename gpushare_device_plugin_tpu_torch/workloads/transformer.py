@@ -12,7 +12,9 @@ every function takes; :class:`Decoder` is the ``nn.Module`` that holds
 one (as buffers to serve, as ``nn.Parameter``s to train). The layer loop
 is a Python loop over the stacked weights (the reference's ``lax.scan``);
 ``remat`` recomputes each layer in the backward
-(``torch.utils.checkpoint``). No sharding or LoRA here.
+(``torch.utils.checkpoint``): "full" saves only the layer inputs, "dots"
+saves the projections' outputs and recomputes only elementwise work. No
+sharding or LoRA here.
 """
 
 from __future__ import annotations
@@ -23,10 +25,15 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve_device
-from .attention import flash_or_plain
+from ..ops.flash_attention import flash_attention
+from .attention import flash_or_plain, grouped_full_attention, use_flash
 from .optim import AdamW, make_optimizer, tree_leaves
 from .quant import embed_lookup, is_qtensor, matmul_weight
 
@@ -50,8 +57,10 @@ class TransformerConfig:
     attention: str = "auto"
     # Under autograd, recompute each layer in the backward instead of
     # keeping its activations. "full" saves only the layer inputs (the
-    # flash forward then runs twice per layer per step); the reference's
-    # "dots" (save the named projections) is not ported.
+    # flash forward then runs twice per layer per step). "dots" saves the
+    # reference's named outputs (q/k/v, the attention output, the wo
+    # projection, the MLP gate/up) and recomputes only the elementwise
+    # work: norms, RoPE, SiLU, residual adds.
     remat: bool = True
     remat_policy: str = "full"
 
@@ -173,17 +182,61 @@ def _layer(x, lp, cfg: TransformerConfig, positions):
     return _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(n: int) -> Callable:
+    """A ``context_fn`` for ``checkpoint``: save the outputs of the first
+    ``n`` matrix products of the checkpointed function, recompute every
+    other op in the backward."""
+
+    def context_fn():
+        seen = {False: 0, True: 0}  # products so far, in the forward and in the recompute
+
+        def policy(ctx, op, *args, **kwargs):
+            if op in _MATMULS:
+                seen[ctx.is_recompute] += 1
+                if seen[ctx.is_recompute] <= n:
+                    return CheckpointPolicy.MUST_SAVE
+            return CheckpointPolicy.PREFER_RECOMPUTE
+
+        return create_selective_checkpoint_contexts(policy)
+
+    return context_fn
+
+
+def _qkv_part(x, lp, cfg: TransformerConfig, positions):
+    return _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
+
+
+def _dots_layer(x, lp, cfg: TransformerConfig, positions):
+    """The decoder block under the reference's "dots" policy, as three
+    pieces: ln1 and the q/kv products (their outputs saved, the norm and
+    RoPE recomputed); attention, outside any recompute on the flash path
+    (the kernel saves q, k, v, O and lse itself, so it runs once) and
+    recomputed whole on the plain path (no [S, S] matrix is kept); then
+    the wo product and residual (which save only the attention output)
+    and the MLP (its gate/up output saved, ln2 and SiLU recomputed)."""
+    q, k, v = checkpoint(_qkv_part, x, lp, cfg, positions, use_reentrant=False,
+                         context_fn=_save_matmuls(2))
+    if use_flash(cfg.attention, q):
+        attn = flash_attention(q, k, v, causal=True)
+    else:
+        attn = checkpoint(grouped_full_attention, q, k, v, causal=True, use_reentrant=False)
+    x = x + _attn_out(attn, lp, cfg)
+    return checkpoint(_mlp_block, x, lp, cfg, use_reentrant=False, context_fn=_save_matmuls(1))
+
+
 def _layer_fn(cfg: TransformerConfig) -> Callable:
     """The layer, wrapped for the backward as ``cfg.remat`` asks."""
     if not cfg.remat:
         return _layer
-    if cfg.remat_policy != "full":
-        raise ValueError(
-            f"unknown remat_policy={cfg.remat_policy!r}: expected full "
-            "(the reference's dots policy is not ported)"
-        )
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy={cfg.remat_policy!r}: expected full|dots")
     if not torch.is_grad_enabled():
         return _layer  # nothing to save, nothing to recompute
+    if cfg.remat_policy == "dots":
+        return _dots_layer
     return lambda *args: checkpoint(_layer, *args, use_reentrant=False)
 
 

@@ -395,3 +395,95 @@ def test_tiny_paged_engine_prefills_through_flash_fwd_on_card():
     eng.import_kv_pages(targets, blobs)
     assert torch.equal(eng.cache["k"][:, targets], eng.cache["k"][:, pages])
     assert torch.equal(eng.cache["v"][:, targets], eng.cache["v"][:, pages])
+
+
+def _bert_qkv(gen, B, S, H, D):
+    """q, k, v as strided views of one [B, S, 3, H, D] tensor, the layout
+    BERT's fused projection hands the kernels."""
+    qkv = torch.randn(B, S, 3, H, D, generator=gen, device="cuda").bfloat16()
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [300, 512])
+def test_noncausal_bert_shape_entries_match_plain_on_card(S):
+    """BERT-base's attention (H = Hkv = 12, D = 64, non-causal, no bounds)
+    through the tensor-core forward and backward entries against their
+    plain versions, each run twice for the same bits."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    q, k, v = _bert_qkv(gen, 4, S, 12, 64)
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, causal=False)
+    o2, lse2 = fa.flash_fwd(q, k, v, causal=False)
+    delta = (do.float() * o.float()).sum(-1)
+    got = fa.flash_bwd(q, k, v, do, lse, delta, causal=False)
+    again = fa.flash_bwd(q, k, v, do, lse, delta, causal=False)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.LAUNCHES.items() if c != before[n]} == {
+        "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+    }
+    po, plse = fa.flash_fwd_plain(q, k, v, causal=False, scale=0.125)
+    assert ((o.float() - po.float()).abs() <= 2.0 ** -7 * po.float().abs().clamp(min=1)).all()
+    assert ((lse - plse).abs() <= 1e-4).all()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want = fa.flash_bwd_plain(q, k, v, do, lse, delta, causal=False, scale=0.125)
+    for g, w, a, name in zip(got, want, again, ("dq", "dk", "dv")):
+        assert bwd_close(g, w, torch.bfloat16), (name, float((g.float() - w.float()).abs().max()))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+def test_bert_base_auto_attention_takes_the_tensor_core_kernels_on_card():
+    """BERT-base's width at two layers, bf16 over f32 params, remat on,
+    attention "auto": one loss_fn backward launches the tensor-core
+    forward twice per layer (forward and recompute) and each backward
+    entry once per layer; the scalar entries never."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.workloads import bert as B
+    from gpushare_device_plugin_tpu_torch.workloads.attention import use_flash
+
+    cfg = dataclasses.replace(B.bert_base(), n_layers=2)
+    params, _ = B.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = [t.cuda() for t in B.demo_batch(torch.Generator().manual_seed(1), 4, 512, cfg)]
+    assert use_flash("auto", torch.empty(4, 512, 12, 64, device="cuda", dtype=torch.bfloat16))
+    before = dict(fa.LAUNCHES)
+    loss = B.loss_fn(params, *batch, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.LAUNCHES.items() if c != before[n]} == {
+        "flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+    }
+    assert torch.isfinite(loss) and params["layers"]["wqkv"].grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_pod_over_its_memory_fraction_ooms_itself_on_card():
+    """A child process given a 1-unit slice by the plugin's env caps
+    itself with configure_torch_from_env(): half a GiB fits, 2 GiB raises
+    torch.cuda.OutOfMemoryError in the child."""
+    _card()
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    whole = torch.cuda.get_device_properties(0).total_memory >> 30
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    env.update(TPU_VISIBLE_CHIPS="0", ALIYUN_COM_TPU_MEM_IDX="0",
+               ALIYUN_COM_TPU_MEM_CONTAINER="1", ALIYUN_COM_TPU_MEM_DEV=str(whole))
+    code = (
+        "import torch\n"
+        "from gpushare_device_plugin_tpu_torch.parallel.podenv import configure_torch_from_env\n"
+        "print(configure_torch_from_env())\n"
+        "small = torch.empty(1 << 29, dtype=torch.uint8, device='cuda')\n"
+        "try:\n"
+        "    torch.empty(2 << 30, dtype=torch.uint8, device='cuda')\n"
+        "except torch.cuda.OutOfMemoryError:\n"
+        "    print('OOM-RAISED')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         cwd=Path(__file__).resolve().parents[1], timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "OOM-RAISED" in out.stdout, out.stdout

@@ -110,6 +110,20 @@ def test_generate_prompt_lens_and_eos_equal_reference(model, kv_dtype):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("with_lens", [False, True])
+def test_generate_max_new_zero_equals_reference(model, with_lens):
+    """max_new=0: the prompt alone ([B, Tp]), or an empty [B, 0] block with
+    prompt_lens, as the reference's zero-length scan returns."""
+    jcfg, tcfg, jp, tp = model
+    prompt = tokens((2, 5), seed=8)
+    kw = dict(prompt_lens=np.array([5, 3], np.int32)) if with_lens else {}
+    want = np.asarray(JG.generate(jp, jnp.asarray(prompt), jcfg, max_new=0,
+                                  **{k: jnp.asarray(v) for k, v in kw.items()}))
+    got = G.generate(tp, prompt, tcfg, max_new=0, device="cpu", **kw)
+    assert got.shape == want.shape == ((2, 0) if with_lens else (2, 5))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_generate_int8_weights_equal_reference():
     jcfg, tcfg = configs()
     jp, tp = params_pair(jcfg, tcfg, seed=2, transform=JQ.quantize_decoder)

@@ -116,3 +116,25 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
         _build.load("flash_fwd")
     assert not (tmp_path / "build").exists()
     assert _build.sources() == ["flash_bwd", "flash_bwd_sm90", "flash_fwd", "flash_fwd_sm90"]
+
+
+def test_pod_workload_entry_points_refuse_to_drop_to_cpu(monkeypatch):
+    from gpushare_device_plugin_tpu_torch.workloads import bert as B
+    from gpushare_device_plugin_tpu_torch.workloads import mnist
+    from gpushare_device_plugin_tpu_torch.workloads import resnet as R
+    from gpushare_device_plugin_tpu_torch.workloads.trainer import BertTask, ResNetTask
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bcfg = B.BertConfig(vocab=16, d_model=8, n_layers=1, n_heads=2, d_ff=8, max_seq=8)
+    rcfg = R.ResNetConfig(stage_sizes=(1,), width=4, num_classes=4)
+    for call in (
+        lambda: B.init_params(bcfg, torch.Generator()),
+        lambda: R.init_params(rcfg, torch.Generator()),
+        lambda: mnist.init_params(torch.Generator()),
+        lambda: mnist.train(steps=1, batch=2),
+        lambda: run_train_loop(BertTask(bcfg, 1, 4), TrainLoopConfig(total_steps=1), 0),
+        lambda: run_train_loop(ResNetTask(rcfg, 1, 8), TrainLoopConfig(total_steps=1), 0),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert mnist.train(steps=1, batch=2, device="cpu") > 0

@@ -6,8 +6,12 @@ Tolerances: loss rtol 1e-5 and gradients atol 1e-5 (f32 sums in another
 order over two layers); optimizer updates atol 1e-6 on the same gradients
 (f32 rounding of the same formula); params after train steps atol 5e-4,
 the reference's own reason (tests/test_workloads.py): Adam turns a sign
-flip of a near-zero gradient into a step of up to 2·lr.
+flip of a near-zero gradient into a step of up to 2·lr. The "dots" remat
+policy recomputes the same ops in the same order as no remat: its loss
+and gradients are held to bitwise equality with "full" and with none.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from gpushare_device_plugin_tpu.parallel import MeshSpec, make_mesh
 from gpushare_device_plugin_tpu.workloads import optim as JO
@@ -106,6 +111,57 @@ def test_optimizer_constant_lr_and_validation_like_reference():
         optim.make_optimizer(warmup_steps=5, total_steps=5)
     with pytest.raises(ValueError, match="3 gradients"):
         opt.update([torch.zeros(1)] * 3, opt.init([torch.zeros(1)]), [torch.zeros(1)])
+
+
+@pytest.mark.parametrize("momentum,nesterov", [(None, False), (0.9, False), (0.9, True)])
+def test_sgd_matches_optax_over_three_steps(momentum, nesterov):
+    rng = np.random.RandomState(1)
+    tree = {"w": rng.randn(8, 4).astype(np.float32), "b": rng.randn(4).astype(np.float32)}
+    jopt = optax.sgd(0.1, momentum=momentum, nesterov=nesterov)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jstate = jopt.init(jparams)
+    opt = optim.SGD(0.1, momentum=momentum, nesterov=nesterov)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+    tstate = opt.init(tparams)
+    assert len(tstate["trace"]) == (0 if momentum is None else 2)
+    for _ in range(3):
+        grads = {k: rng.randn(*v.shape).astype(np.float32) for k, v in tree.items()}
+        updates, jstate = jopt.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opt.update({k: torch.from_numpy(v) for k, v in grads.items()}, tstate, tparams)
+        _assert_trees_close(tparams, to_numpy(jparams), atol=1e-6)
+    with pytest.raises(ValueError, match="1 gradients for 2"):
+        opt.update([torch.zeros(1)], tstate, tparams)
+
+
+def _loss_grads_flops(cfg, params, toks):
+    loss = T.loss_fn(params, toks, cfg)
+    with FlopCounterMode(display=False) as flops:
+        grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+    return loss.detach(), grads, flops.get_total_flops()
+
+
+@pytest.mark.parametrize("attention", ["plain", "flash"])
+def test_dots_remat_equals_full_and_no_remat_and_recomputes_no_projection(attention):
+    jcfg, tcfg = configs(attention=attention, remat_policy="dots")
+    jp, tp = params_pair(jcfg, tcfg)
+    tp = _trainable(tp)
+    toks = torch.from_numpy(tokens((2, 24), seed=1))
+    dots = _loss_grads_flops(tcfg, tp, toks)
+    full = _loss_grads_flops(dataclasses.replace(tcfg, remat_policy="full"), tp, toks)
+    none = _loss_grads_flops(dataclasses.replace(tcfg, remat=False), tp, toks)
+    for other in (full, none):
+        assert torch.equal(dots[0], other[0])
+        assert all(torch.equal(a, b) for a, b in zip(dots[1], other[1], strict=True))
+    # The backward's products: "full" recomputes every projection; "dots"
+    # none of them, and on the plain path only attention's two products.
+    if attention == "flash":
+        assert none[2] == dots[2] < full[2]
+    else:
+        assert none[2] < dots[2] < full[2]
+    jloss, jgrads = jax.value_and_grad(JT.loss_fn)(jp, jnp.asarray(toks.numpy()), jcfg)
+    np.testing.assert_allclose(float(dots[0]), float(jloss), rtol=1e-5)
+    _assert_trees_close(dict(zip(T._flatten(tp), dots[1])), to_numpy(jgrads), atol=1e-5)
 
 
 def _reference_steps(jcfg, batches, accum_steps=1):
