@@ -105,7 +105,37 @@ Phases, each of which fails the run with a non-zero exit:
    phase 9's peak (whole GiB, rounded down) must die of
    ``torch.cuda.OutOfMemoryError`` (a marker it prints), while an MNIST
    control child at the same slice passes.
+13. Multi-LoRA paged serve, on phase 2's weights (run straight after
+   phase 8): four tenants' adapters (rank 8, alpha 16, on wq, wkv, wo, wi
+   and wdown; seeded, ``b`` random, each target's delta scaled to 0.2 of
+   its weight in Frobenius norm) serve phase 7's trace with
+   ``adapters=["t0", "t1", "t2", "t3", ""]``. Run A: 16 slots over
+   ``paged_plan_from_pod_env(lora=True)`` for the 24-unit env. Run B: 8
+   slots over 832 pages (two max_len rows and two adapters), so adapters
+   evict and rows preempt. Each run has phase 7's gates (leaks counted with
+   the resident adapters' pages), and at least four adapter misses; run A
+   must hit and run B must evict. Every request of run A is held to
+   merged-solo (``merge_lora`` of its tenant, solo greedy decode) by phase
+   3's near-tie rule, one tenant's merged weights on the card at a time;
+   run B and a drain/restore of run A (through JSON, ``adapter_id`` rows
+   included) are held to run A the same way; each tenant must differ from
+   the base model on one of its requests; t0's full-depth paged prefill
+   logits through the BGMV path must agree with ``merge_lora`` + ``prefill``
+   within LORA_LOGIT_REL of the largest logit. The profiled decode step
+   reports the adapter slab's gather apart from the page gathers.
+14. LoRA fine-tuning in a pod: a child with the plugin's env for a
+   32-unit slice, ``configure_torch_from_env()`` first, makes ``llama3_8b()``
+   at full depth in bf16 on the card and trains the reference's default
+   adapters (rank 8 on wq and wo) with ``make_lora_train_step(lr=1e-3)``
+   on one fixed B=2 x S=2048 batch for 8 steps, remat "full". The loss must
+   fall, every base leaf's checksum stay, ``b`` move off zero, each step
+   launch 64 ``flash_fwd`` and 32 ``flash_bwd_dq`` / ``flash_bwd_dkv`` (the
+   scalar entries never), and the peak reserved memory stay within the cap
+   (past it the pod trains at half the batch, and says so). Then, in this
+   process, one ``lora_loss_fn`` backward at full width cut to 4 layers,
+   B=1, flash against plain by phase 6's rule.
 
+The phases run in the order 1, 2, 3, 7, 8, 13, 14, 4, 5, 6, 9-12.
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -119,7 +149,9 @@ parent built in phase 1.
 Float32 matrix products run in full f32 (TF32 off, set below). The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit from ``nvidia-smi``; before that, one
-JSON line ``{"kernels": [...]}``.
+JSON line ``{"kernels": [...]}``, whose launches per path include
+``lora_serve`` (phase 13, runs A and B) and ``lora_train`` (phase 14's
+pod, from its JSON line).
 """
 
 from __future__ import annotations
@@ -154,6 +186,7 @@ from gpushare_device_plugin_tpu_torch.serving.engine import (
 )
 from gpushare_device_plugin_tpu_torch.workloads import bert as B
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
+from gpushare_device_plugin_tpu_torch.workloads import lora as L
 from gpushare_device_plugin_tpu_torch.workloads import mnist
 from gpushare_device_plugin_tpu_torch.workloads import resnet as R
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
@@ -200,6 +233,37 @@ PAGED_SLICE_UNITS = 24
 RUN_A_PAGES = 3399
 PRESSURE_PAGES = 256
 PAGED_PROFILE_CONTEXT = 1536  # positions each row reads in the profiled decode step
+# Phase 13: four tenants' adapters on every target the hooks have, each
+# target's delta scaled to LORA_RATIO of its weight (Frobenius norms over
+# the layer stack), so every tenant's tokens leave the base model's. At
+# rank 8 an adapter is 18,874,368 floats, 288 slab pages of 16 x 4096; run
+# B's pool holds two max_len rows and two adapters, so adapters evict and
+# rows preempt.
+LORA_TENANTS = ("t0", "t1", "t2", "t3")
+LORA_TARGETS = ("wq", "wkv", "wo", "wi", "wdown")
+LORA_RANK, LORA_ALPHA, LORA_RATIO = 8, 16.0, 0.2
+LORA_PRESSURE_PAGES = 2 * 128 + 2 * 288
+# Phase 7's trace but for the seed: seed 0's 24 draws from the five ids name
+# no request for t2, so phase 13 takes seed 1, the first whose requests
+# name all four tenants and the base model (6, 4, 5, 4, 5 of them).
+LORA_TRACE_SEED = 1
+# BGMV against merge_lora + prefill, last-position logits of a full-depth
+# bf16 prefill: the merged path rounds every adapted weight (W + delta) to
+# bf16, a relative change of up to 2^-9 in each entry of five of the seven
+# matrices of all 32 layers, where the BGMV path rounds W, x·A and the
+# delta apart. Phase 3's flash vs plain (which rounds P otherwise) reaches
+# 2^-5.6 of the largest logit and is held to 2^-5 (four bf16 steps); this
+# allows as much again: 2^-4 of the largest logit.
+LORA_LOGIT_REL = 2.0 ** -4
+# The same rounding moves each served logit by up to four bf16 steps at the
+# top (0.121 at a top logit of 4.34 on one H100), twice what phase 3's
+# engine-vs-solo differences reach, so a tenant's tokens may first leave
+# merged-solo's at a step whose solo top-two gap is up to four bf16 steps,
+# 2^-5 of the top logit (phase 3's rule: 2^-6). A request of this trace
+# first diverges at a gap of three steps (0.094 at 4.34).
+LORA_TOP2_GAP_REL = 2.0 ** -5
+# Phase 14: the LoRA pod's slice, batch and steps.
+LORA_TRAIN_UNITS, LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 32, 2, 2048, 8
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
 # up to g*S = 8192 terms, and expf against torch.exp: 1e-4 of the tensor's
 # largest magnitude. bf16: P and dS are rounded to an 8-bit mantissa in
@@ -461,10 +525,11 @@ def solo_with_gaps(params, cfg, prompt, max_new):
     return toks, gaps
 
 
-def check_vs_solo(phase, params, cfg, req, got, want=None, solos=None) -> list[dict]:
+def check_vs_solo(phase, params, cfg, req, got, want=None, solos=None,
+                  gap_rel=TOP2_GAP_REL) -> list[dict]:
     """Hold one request's served tokens against the port's solo greedy
     decode by the near-tie rule: they may differ first only at a step where
-    the solo top-two gap is at most TOP2_GAP_REL * |top|. Tokens that equal
+    the solo top-two gap is at most ``gap_rel`` * |top|. Tokens that equal
     ``want`` (an earlier run's, already held) need no solo run; ``solos``
     keeps each request's solo decode, so a request held twice decodes once.
     Returns the divergence, if any, for the log."""
@@ -483,12 +548,13 @@ def check_vs_solo(phase, params, cfg, req, got, want=None, solos=None) -> list[d
             raise SystemExit(f"{phase} failed: request {req.rid} length {len(got)} != {len(solo)}")
         return []
     gap, top = gaps[j]
-    if gap > TOP2_GAP_REL * top:
+    if gap > gap_rel * top:
         raise SystemExit(
             f"{phase} failed: request {req.rid} diverges at step {j} "
-            f"where the solo top-two gap {gap} > {TOP2_GAP_REL} * {top}"
+            f"where the solo top-two gap {gap} > {gap_rel} * {top}"
         )
-    return [{"rid": req.rid, "step": j, "solo_top2_gap": gap, "top": top}]
+    return [{"rid": req.rid, "step": j, "solo_top2_gap": gap, "top": top,
+             "gap_over_top": gap / top if top else 0.0}]
 
 
 def tensor_bytes(params) -> int:
@@ -576,9 +642,12 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
     writing to the scratch page): summed kernel time from
     ``torch.profiler`` over the host wall time of ``steps`` steps, the
     kernel count, and the device time of the page gathers
-    (``aten::index_select``) and scatters (``aten::index_copy_``). Runs
-    after the trace; reads pages, writes only the scratch page, and puts
-    the rows' lengths back."""
+    (``aten::index_select``) and scatters (``aten::index_copy_``). On a
+    multi-LoRA engine every row runs a resident adapter (round robin, a
+    base-model row among them), and the adapter slab's gather (the one
+    ``index_select`` whose input is the slab) is reported apart from the
+    page gathers, with its bytes. Runs after the trace; reads pages,
+    writes only the scratch page, and puts the rows' lengths back."""
     from torch.profiler import ProfilerActivity, profile
 
     n, mp, ps = engine.n_slots, engine.row_pages, engine.page_size
@@ -589,14 +658,21 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
     toks = torch.ones(n, dtype=torch.long, device="cuda")
     active = torch.ones(n, dtype=torch.bool, device="cuda")
     saved = engine.cache["len"]
+    atab = None
+    if engine.adapters is not None:
+        ids = [a for a in sorted(engine.lora_store) if engine.adapters.resident(a)] + [""]
+        rows = [engine.adapters.pages_of(ids[i % len(ids)]) if ids[i % len(ids)]
+                else [0] * engine.pages_per_adapter for i in range(n)]
+        atab = torch.tensor(rows, dtype=torch.int32, device="cuda")
 
     def step():
-        engine._decode(toks, tables, active)
+        engine._decode(toks, tables, active, atab)
 
     engine.cache["len"] = torch.full((n,), ctx * ps, dtype=torch.int32, device="cuda")
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -608,7 +684,7 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
     busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels) / 1e3 / steps
     op_ms = {e.key: getattr(e, "device_time_total", 0.0) / 1e3 / steps for e in averages
              if e.key in ("aten::index_select", "aten::index_copy_")}
-    return {
+    out = {
         "step": f"made up, not from the trace: all {n} rows active at {ctx * ps} positions",
         "context": ctx * ps,
         "wall_ms": wall_ms,
@@ -618,14 +694,38 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
         "gather_ms": op_ms.get("aten::index_select", 0.0),
         "scatter_ms": op_ms.get("aten::index_copy_", 0.0),
     }
+    if atab is not None:
+        slab_shape = list(engine._lora_slab.shape)
+        adapter = [e for e in prof.key_averages(group_by_input_shape=True)
+                   if e.key == "aten::index_select" and e.input_shapes
+                   and list(e.input_shapes[0]) == slab_shape]
+        adapter_ms = sum(getattr(e, "device_time_total", 0.0) for e in adapter) / 1e3 / steps
+        # each slab row the tables name read once, each of the n * pages_per_adapter
+        # output rows written once
+        row_b = slab_shape[1] * 4
+        adapter_bytes = (len(set(atab.reshape(-1).tolist())) + atab.numel()) * row_b
+        # every layer gathers each row's mp pages of K and V: the distinct
+        # pages the tables name read once, the n * mp output pages written once
+        pages_read = len(set(tables.reshape(-1).tolist())) + tables.numel()
+        kv_bytes = sum(pages_read * v.shape[0] * v[0, 0].numel() * v.element_size()
+                       for k, v in engine.cache.items() if k != "len")
+        # the same gather alone, by CUDA events: a check on the profiler's split
+        gather_alone_ms = cuda_ms(
+            lambda: G.lora_bgmv_views(engine._lora_slab, atab, engine.cfg, engine.lora_cfg), 10)
+        out.update(adapter_gather_ms=adapter_ms, adapter_gather_alone_ms=gather_alone_ms,
+                   adapter_gather_bytes=adapter_bytes,
+                   page_gather_ms=out["gather_ms"] - adapter_ms, page_gather_bytes=kv_bytes,
+                   adapter_gather_bound_ms=adapter_bytes / MEM_BYTES_PER_S * 1e3)
+    return out
 
 
-def paged_run(label, make_engine, trace) -> tuple[object, dict, object, dict]:
+def paged_run(label, make_engine, trace, phase="phase 7") -> tuple[object, dict, object, dict]:
     """One measured run of the paged engine that ``make_engine`` builds:
     launch counts zeroed just before and read just after, prefill
     dispatches counted by wrapping the engine's prefill program, and the
     run's own peak memory (its pool and activations: the peak less what
-    was held before the engine was built). Checks the run's gates; returns
+    was held before the engine was built). Checks the run's gates (a
+    multi-LoRA engine's resident adapters count as used pages); returns
     the engine, its report, stats and launches."""
     torch.cuda.synchronize()
     held_gb = torch.cuda.memory_allocated() / 1e9  # weights, earlier engines
@@ -674,16 +774,19 @@ def paged_run(label, make_engine, trace) -> tuple[object, dict, object, dict]:
         fail.append("not every request was served")
     if stats.trace_counts != {"prefill": 1, "extend": 1, "decode": 1}:
         fail.append(f"shape guard moved: {stats.trace_counts}")
-    if engine.allocator.used_pages != engine.radix.cached_pages:
-        fail.append(f"pages leaked: {engine.allocator.used_pages} used, "
-                    f"{engine.radix.cached_pages} cached")
+    held = engine.radix.cached_pages
+    if engine.adapters is not None:
+        held += engine.adapters.cached_pages
+    if engine.allocator.used_pages != held:
+        fail.append(f"pages leaked: {engine.allocator.used_pages} used, {held} held by the "
+                    "radix cache and resident adapters")
     if not launches["flash_fwd"] == engine.cfg.n_layers * len(prefills) > 0:
         fail.append(f"flash_fwd launches {launches['flash_fwd']} != "
                     f"{engine.cfg.n_layers} x {len(prefills)} prefill dispatches")
     if launches["flash_fwd_scalar"]:
         fail.append(f"flash_fwd_scalar launched {launches['flash_fwd_scalar']} times")
     if fail:
-        raise SystemExit(f"phase 7 failed ({label}): " + "; ".join(fail))
+        raise SystemExit(f"{phase} failed ({label}): " + "; ".join(fail))
     return engine, report, stats, launches
 
 
@@ -769,6 +872,184 @@ def phase_paged(params, cfg, serve_decode_p50_ms) -> dict:
     print(f"  export/import of {len(pages)} pages of request 0: same bits {same}", flush=True)
     if not pages or not same:
         raise SystemExit("phase 8 failed: export/import did not round-trip")
+    return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}
+
+
+def lora_store_for(params, cfg, lcfg) -> tuple[dict, dict]:
+    """Phase 13's four tenants: adapters drawn on the host from a seeded
+    generator with ``b`` random, each target scaled so that
+    ||scale·A·B||_F / ||W||_F is LORA_RATIO over the layer stack. Returns
+    the store (on the host, where a serving pod keeps its tenants) and the
+    ratios as measured after scaling."""
+    gen = torch.Generator().manual_seed(13)
+    store, ratios = {}, {}
+    w_norm = {
+        name: math.sqrt(sum(float(params["layers"][name][i].float().square().sum())
+                            for i in range(cfg.n_layers)))
+        for name in lcfg.targets
+    }
+    for aid in LORA_TENANTS:
+        lora = L.init_lora(cfg, lcfg, gen, device="cpu")
+        ratios[aid] = {}
+        for name in lcfg.targets:
+            ab = lora[name]
+            ab["b"] = torch.randn(ab["b"].shape, generator=gen)
+            a, b = ab["a"].cuda(), ab["b"].cuda()
+            d_norm = lambda b: math.sqrt(sum(  # noqa: E731
+                float(L._delta(a[i : i + 1], b[i : i + 1], lcfg.scale).square().sum())
+                for i in range(cfg.n_layers)))
+            ab["b"].mul_(LORA_RATIO * w_norm[name] / d_norm(b))
+            ratios[aid][name] = round(d_norm(ab["b"].cuda()) / w_norm[name], 4)
+        store[aid] = lora
+    return store, ratios
+
+
+def lora_logits_check(params, merged, cfg, lcfg, adapter, prompt) -> dict:
+    """One full-depth paged prefill of ``prompt`` (one chunk) through the
+    BGMV path with ``adapter`` in a slab, against ``merge_lora`` +
+    ``prefill``: last-position logits, max |diff| against max |logit|."""
+    ps = 16
+    n = len(prompt)
+    ppa = -(-L.lora_flat_len(cfg, lcfg) // (ps * cfg.d_model))
+    slab = torch.zeros((ppa + 1, ps * cfg.d_model), dtype=torch.float32, device="cuda")
+    flat = L.flatten_lora(adapter, cfg, lcfg).cuda()
+    slab.view(-1)[ps * cfg.d_model : ps * cfg.d_model + flat.numel()] = flat
+    views = G.lora_bgmv_views(slab, torch.arange(1, ppa + 1, device="cuda")[None], cfg, lcfg)
+    cache = G.init_paged_cache(cfg, 1, n // ps + 1, ps)
+    table = torch.arange(1, n // ps + 1, dtype=torch.int32, device="cuda")
+    toks = torch.tensor(prompt, dtype=torch.long, device="cuda")
+    got, _ = G.paged_prefill_slot(params, toks, cache, cfg, slot=0, page_table=table, n_real=n,
+                                  lora=views, lora_scale=lcfg.scale)
+    want, _ = G.prefill(merged, toks[None], G.init_cache(cfg, 1, n), cfg)
+    diff = float((got - want).abs().max())
+    top = float(want.abs().max())
+    return {"max_abs_diff": diff, "max_abs_logit": top, "bound": LORA_LOGIT_REL * top,
+            "same_argmax": bool(torch.equal(got.argmax(-1), want.argmax(-1)))}
+
+
+def phase_lora_serve(params, cfg) -> dict:
+    """Phase 13, on phase 2's weights; returns the launches of runs A and
+    B together."""
+    print("phase 13: multi-LoRA paged serve llama3_8b (32 layers, bf16)", flush=True)
+    lcfg = L.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=LORA_TARGETS)
+    store, ratios = lora_store_for(params, cfg, lcfg)
+    ppa = -(-L.lora_flat_len(cfg, lcfg) // (16 * cfg.d_model))
+    print(f"  adapters: {L.lora_flat_len(cfg, lcfg)} floats each ({ppa} pages of 16 x "
+          f"{cfg.d_model}); ||scale·A·B||_F / ||W||_F by target:", json.dumps(ratios), flush=True)
+    weight_bytes = tensor_bytes(params)
+    pod = PodTpuEnv.from_env(plugin_env(PAGED_SLICE_UNITS))
+    plan = paged_plan_from_pod_env(
+        cfg, 2048, weight_bytes=weight_bytes, page_size=16, prefill_chunk=512, env=pod,
+        slots=16, lora=True,
+    )
+    print("  plan from the pod env (lora=True)", json.dumps(dataclasses.asdict(plan)), flush=True)
+    trace = shared_prefix_trace(
+        24, seed=LORA_TRACE_SEED, rate=0.5, vocab=cfg.vocab, prefixes=(2, 1024),
+        tail_lens=(64, 512), max_new=(16, 64),
+        tiers=[("critical", 0.5, 16, 4), ("best_effort", 0.5, None, None)],
+        adapters=[*LORA_TENANTS, ""],
+    )
+    geo = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID, lora_store=store,
+               lora_cfg=lcfg)
+    run_a, report_a, stats_a, launches_a = paged_run(
+        "run A (slice-sized, multi-LoRA)",
+        lambda: PagedSlotEngine(params, cfg, slots=16, total_pages=plan.total_pages, **geo),
+        trace, phase="phase 13",
+    )
+    run_b, report_b, stats_b, launches_b = paged_run(
+        "run B (pressured, multi-LoRA)",
+        lambda: PagedSlotEngine(params, cfg, slots=8, total_pages=LORA_PRESSURE_PAGES, **geo),
+        trace, phase="phase 13",
+    )
+    fail = []
+    for name, rep_, want in (("A", report_a, "hits"), ("B", report_b, "evictions")):
+        row = rep_["cache_stats"]["adapters"]
+        if row["misses"] < len(LORA_TENANTS) or not row[want] > 0:
+            fail.append(f"run {name}: adapters {row} (want misses >= {len(LORA_TENANTS)}, "
+                        f"{want} > 0)")
+    if fail:
+        raise SystemExit("phase 13 failed: " + "; ".join(fail))
+    del run_b
+
+    served = {r.rid: r.tokens for r in stats_a.results}
+    part = run_a.run(trace, drain_at_tick=stats_a.ticks // 2)
+    snap = run_a.drain_snapshot()
+    del run_a
+    if not snap or not snap["requests"]:
+        raise SystemExit("phase 13 failed: the drain captured nothing")
+    dst = PagedSlotEngine(params, cfg, slots=16, total_pages=plan.total_pages, **geo)
+    rest = dst.restore_snapshot(json.loads(json.dumps(snap)))
+    del dst
+    combined = {r.rid: r.tokens for r in part.results}
+    combined.update({r.rid: r.tokens for r in rest.results})
+    if sorted(combined) != sorted(served):
+        raise SystemExit("phase 13 failed: drain/restore lost or duplicated requests")
+    print(f"  drained at tick {snap['drain_tick']}: {len(part.results)} retired, "
+          f"{len(snap['requests'])} restored ({rest.ticks} ticks), adapter rows "
+          f"{sorted({r['adapter_id'] for r in snap['requests']})}", flush=True)
+    torch.cuda.empty_cache()
+
+    # Merged-solo, one tenant's merged weights on the card at a time: run A
+    # against solo decode; run B and the restored run against run A.
+    by_rid = {r.rid: r for r in trace}
+    diverged, differs, logits = [], {}, None
+    for aid in ("", *LORA_TENANTS):
+        t0 = time.perf_counter()
+        adapter = {n: {k: v.cuda() for k, v in ab.items()} for n, ab in store[aid].items()} \
+            if aid else None
+        merged = L.merge_lora(params, adapter, lcfg) if aid else params
+        solos = {}
+        for res in stats_a.results:
+            req = by_rid[res.rid]
+            if req.adapter_id == aid:
+                diverged += check_vs_solo("phase 13", merged, cfg, req, res.tokens, solos=solos,
+                                          gap_rel=LORA_TOP2_GAP_REL)
+        for run, got in (("B", {r.rid: r.tokens for r in stats_b.results}), ("restore", combined)):
+            for rid, tokens in got.items():
+                if by_rid[rid].adapter_id == aid:
+                    diverged += [dict(d, run=run) for d in check_vs_solo(
+                        "phase 13", merged, cfg, by_rid[rid], tokens, want=served[rid],
+                        solos=solos, gap_rel=LORA_TOP2_GAP_REL)]
+        if aid == LORA_TENANTS[0]:
+            first = next(r for r in trace if r.adapter_id == aid)
+            logits = lora_logits_check(params, merged, cfg, lcfg, adapter,
+                                       list(first.prompt[:512]))
+        del merged, adapter
+        torch.cuda.empty_cache()
+        print(f"  merged-solo {aid or 'base'}: {len(solos)} solo decodes, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    base_solos = {}
+    for aid in LORA_TENANTS:
+        own = [r for r in stats_a.results if by_rid[r.rid].adapter_id == aid]
+        checked = 0
+        for res in own:
+            req = by_rid[res.rid]
+            key = (req.prompt, req.max_new)
+            if key not in base_solos:
+                base_solos[key] = solo_with_gaps(params, cfg, list(req.prompt), req.max_new)[0]
+            base = base_solos[key]
+            base = base[: base.index(EOS_ID) + 1] if EOS_ID in base else base
+            checked += 1
+            if res.tokens != base:
+                break
+        else:
+            raise SystemExit(f"phase 13 failed: tenant {aid}'s {len(own)} requests all equal the "
+                             "base model's tokens: the adapter does not show")
+        differs[aid] = f"differs from base-model solo on request {res.rid} ({checked} checked, " \
+                       f"{len(own)} requests)"
+    print("  run A, run B and the restored run vs merged-solo; diverged at near ties:",
+          json.dumps(diverged), flush=True)
+    print("  tenants vs the base model:", json.dumps(differs), flush=True)
+    print("  t0's paged prefill logits, BGMV vs merge_lora + prefill:", json.dumps(logits),
+          flush=True)
+    if not logits["max_abs_diff"] <= logits["bound"]:
+        raise SystemExit(f"phase 13 failed: BGMV vs merged logits differ by {logits}")
+    prof = report_a["decode_step_profile"]
+    print(f"  decode step: adapter gather {prof['adapter_gather_ms']:.4f} ms "
+          f"({prof['adapter_gather_alone_ms']:.4f} ms alone, by CUDA events) for "
+          f"{prof['adapter_gather_bytes'] / 1e9:.3f} GB (bound "
+          f"{prof['adapter_gather_bound_ms']:.4f} ms); page gather {prof['page_gather_ms']:.4f} "
+          f"ms for {prof['page_gather_bytes'] / 1e9:.3f} GB", flush=True)
     return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}
 
 
@@ -1148,6 +1429,61 @@ def phase_resnet() -> dict:
     return report
 
 
+def checksums(params, chunk: int = 1 << 26) -> list[int]:
+    """An exact checksum of every leaf: the sum of its raw bits as integers,
+    taken ``chunk`` entries at a time (a leaf of the 8B model as int64 would
+    take 28 GiB)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    out = []
+    for t in tree_leaves(params):
+        flat = t.reshape(-1).view(ints[t.element_size()])
+        out.append(sum(int(flat[i : i + chunk].long().sum()) for i in range(0, flat.numel(), chunk)))
+    return out
+
+
+def train_lora_pod(batch: int, steps: int) -> dict:
+    """Phase 14's pod: LoRA fine-tuning of ``llama3_8b()`` at full depth,
+    seeded bf16 base weights made on the card, the reference's default
+    ``LoraConfig()``, ``make_lora_train_step(lr=1e-3)`` on one fixed
+    ``demo_batch`` of ``batch`` x LORA_TRAIN_S, remat "full". Builds the
+    model, says READY and waits for the go, then trains ``steps`` steps
+    with the launch counts zeroed just before; returns the report."""
+    cfg = llama3_8b()
+    lcfg = L.LoraConfig()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    lora = L.init_lora(cfg, lcfg, gen, device="cuda")
+    tokens = T.demo_batch(torch.Generator().manual_seed(14), batch, LORA_TRAIN_S, cfg.vocab).cuda()
+    step, init_opt = L.make_lora_train_step(cfg, lcfg, lr=1e-3)
+    opt_state = init_opt(lora)
+    before = checksums(params)
+    print(READY, flush=True)
+    sys.stdin.readline()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lora, opt_state, loss = step(params, lora, opt_state, tokens)
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    rest = sorted(step_s[1:])
+    p50 = rest[len(rest) // 2]
+    return {
+        "workload": "lora", "batch": batch, "steps": steps, "losses": losses, "step_s": step_s,
+        "step_p50_s": p50, "tokens_per_s": batch * LORA_TRAIN_S / p50,
+        "weights_gb": tensor_bytes(params) / 1e9,
+        "adapter_params": L.lora_param_count(lora),
+        "base_unchanged": checksums(params) == before,
+        "b_abs_sum": {n: float(ab["b"].detach().abs().sum()) for n, ab in lora.items()},
+        "launches": launches,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+    }
+
+
 def pod_main(argv: list[str]) -> int:
     """One pod, in a child process whose env is the plugin's: cap the
     process from the env first, then train ``argv = [workload, batch,
@@ -1161,6 +1497,10 @@ def pod_main(argv: list[str]) -> int:
            "cap_bytes": int(fraction * torch.cuda.get_device_properties(0).total_memory),
            "visible": os.environ.get(const.ENV_CUDA_VISIBLE_DEVICES)}
     try:
+        if workload == "lora":
+            doc.update(train_lora_pod(batch, steps))
+            print(json.dumps(doc), flush=True)
+            return 0
         # One untimed step sets up the libraries and loads the kernels; then
         # wait for the parent's go, so the pods' timed steps run together.
         train_pod(workload, batch, 1)
@@ -1266,6 +1606,74 @@ def phase_binpack(alone: dict) -> None:
         raise SystemExit("phase 11 failed: " + "; ".join(fail))
 
 
+def phase_lora_train() -> dict:
+    """Phase 14; returns the pod's kernel launches over its run."""
+    print(f"phase 14: LoRA fine-tune llama3_8b at full depth in a {LORA_TRAIN_UNITS} GiB pod, "
+          f"B={LORA_TRAIN_B} S={LORA_TRAIN_S}, {LORA_TRAIN_STEPS} steps", flush=True)
+    fresh_run()
+    batch = LORA_TRAIN_B
+    rc, doc, err = finish_pods([start_pod("lora", "lora", LORA_TRAIN_UNITS, batch,
+                                          LORA_TRAIN_STEPS)])["lora"]
+    if rc == 3 and doc is not None and doc.get("oom") == OOM_MARK:
+        batch //= 2  # past its slice: half the batch, as phase 11 does
+        print(f"  the pod ran out of its slice at B={LORA_TRAIN_B} ({doc['error']}): "
+              f"training at B={batch}", flush=True)
+        rc, doc, err = finish_pods([start_pod("lora", "lora", LORA_TRAIN_UNITS, batch,
+                                              LORA_TRAIN_STEPS)])["lora"]
+    if rc != 0 or doc is None:
+        raise SystemExit(f"phase 14 failed: the pod exited {rc}: {err or (doc or {}).get('error')}")
+    print("  lora pod", json.dumps({k: v for k, v in doc.items() if k != "peak_reserved_bytes"}),
+          flush=True)
+    per_run = llama3_8b().n_layers * LORA_TRAIN_STEPS
+    want = {name: 0 for name in fa.LAUNCHES}
+    want.update(flash_fwd=2 * per_run, flash_bwd_dq=per_run, flash_bwd_dkv=per_run)
+    fail = []
+    if not falling(doc["losses"]):
+        fail.append(f"losses {doc['losses']}")
+    if not doc["base_unchanged"]:
+        fail.append("the frozen base changed")
+    if not all(v > 0 for v in doc["b_abs_sum"].values()):
+        fail.append(f"b did not move: {doc['b_abs_sum']}")
+    if doc["launches"] != want:
+        fail.append(f"launches {doc['launches']} != {want}")
+    if doc["peak_reserved_bytes"] > doc["cap_bytes"]:
+        fail.append(f"peak reserved {doc['peak_reserved_bytes']} > cap {doc['cap_bytes']}")
+    if fail:
+        raise SystemExit("phase 14 failed: " + "; ".join(fail))
+
+    # flash against plain: one lora_loss_fn backward at full width, 4 layers
+    cfg = dataclasses.replace(llama3_8b(), n_layers=TRAIN_LAYERS)
+    lcfg = L.LoraConfig()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    lora = L.init_lora(cfg, lcfg, gen, device="cuda")
+    for ab in lora.values():  # b off zero, so a's gradient is not zero
+        ab["b"].normal_(0.0, 0.01, generator=gen)
+    leaves = [t.requires_grad_() for t in tree_leaves(lora)]
+    names = list(T._flatten(lora))
+    tokens = T.demo_batch(torch.Generator().manual_seed(15), 1, TRAIN_S, cfg.vocab).cuda()
+    loss, grads = {}, {}
+    for attention in ("flash", "plain"):
+        out = L.lora_loss_fn(lora, params, tokens, dataclasses.replace(cfg, attention=attention),
+                             lcfg)
+        grads[attention] = torch.autograd.grad(out, leaves)
+        loss[attention] = float(out.detach())
+    rel = {n: float((f - p).float().norm() / p.float().norm())
+           for n, f, p in zip(names, grads["flash"], grads["plain"])}
+    zero = [n for n, g in zip(names, grads["flash"]) if not (torch.isfinite(g).all() and g.any())]
+    print("  flash vs plain lora_loss_fn, 4 layers, B=1: losses", json.dumps(loss),
+          "relative Frobenius error by adapter leaf", json.dumps(rel),
+          "zero or non-finite flash gradients", zero, flush=True)
+    if zero:
+        raise SystemExit(f"phase 14 failed: no gradient reached {zero}")
+    if abs(loss["flash"] - loss["plain"]) > GRAD_LOSS_REL * abs(loss["plain"]):
+        raise SystemExit(f"phase 14 failed: flash vs plain losses {loss}")
+    bad = {n: r for n, r in rel.items() if not r <= GRAD_LEAF_REL}
+    if bad:
+        raise SystemExit(f"phase 14 failed: flash vs plain gradients differ: {bad}")
+    return doc["launches"]
+
+
 def phase_overrun(bert_peak_bytes: int) -> None:
     """Phase 12: BERT-base at half its phase-9 peak OOMs itself; an MNIST
     control at the same slice passes."""
@@ -1309,8 +1717,16 @@ def main() -> int:
     t0 = time.perf_counter()
     paged_launches = phase_paged(params, cfg, serve_decode_p50_ms)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lora_serve_launches = phase_lora_serve(params, cfg)
+    t13 = time.perf_counter() - t0
+    print(f"phase 13: {t13:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lora_train_launches = phase_lora_train()
+    t14 = time.perf_counter() - t0
+    print(f"phase 14: {t14:.1f} s; phases 13-14: {t13 + t14:.1f} s", flush=True)
     backward = phase_backward()
     train_launches = phase_train()
     phase_grad_parity()
@@ -1323,7 +1739,8 @@ def main() -> int:
     print(f"phases 9-12: {time.perf_counter() - t0:.1f} s", flush=True)
 
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
-             "train_bert": bert_launches}
+             "train_bert": bert_launches, "lora_serve": lora_serve_launches,
+             "lora_train": lora_train_launches}
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")

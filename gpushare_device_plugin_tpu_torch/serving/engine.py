@@ -19,7 +19,9 @@ and slice sizing, from a byte count or from the plugin's env:
 
 ``PagedSlotEngine`` keeps the same loop over a paged cache
 (``init_paged_cache``, ``pages.py``), with a radix prefix cache, SLO-tier
-preemption and drain/restore.
+preemption, drain/restore, and multi-LoRA serving: many tenants' adapters
+paged beside the KV (``adapters.py``), one dispatch for any mix of
+tenants and base-model rows.
 
 **Static shapes.** The pool, the chunk width and the step batch never
 change shape. PyTorch compiles nothing here, so ``trace_counts`` is a
@@ -44,11 +46,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..const import SLO_TIER_BEST_EFFORT, SLO_TIER_CRITICAL, MemoryUnit
+from ..const import (
+    SLO_TIER_BEST_EFFORT,
+    SLO_TIER_CRITICAL,
+    WORKLOAD_BEST_EFFORT,
+    WORKLOAD_LATENCY_CRITICAL,
+    MemoryUnit,
+)
 from ..device import resolve_device
 from ..parallel.podenv import PodTpuEnv
 from ..workloads import generate as G
+from ..workloads.lora import LoraConfig, flatten_lora, lora_flat_len
 from ..workloads.transformer import TransformerConfig
+from .adapters import AdapterCache
 from .drainproto import DrainHandshake
 from .pages import SCRATCH, PagedPlan, PageAllocator, paged_plan_for_slice, pages_for, row_span_for
 from .profiler import StepProfiler, ceil_rank_quantile
@@ -59,6 +69,8 @@ log = logging.getLogger(__name__)
 TIER_CRITICAL = SLO_TIER_CRITICAL
 TIER_BEST_EFFORT = SLO_TIER_BEST_EFFORT
 _TIERS = (TIER_CRITICAL, TIER_BEST_EFFORT)
+# The AdapterCache speaks workload-class names; a request's tier maps 1:1.
+_TIER_CLASS = {TIER_CRITICAL: WORKLOAD_LATENCY_CRITICAL, TIER_BEST_EFFORT: WORKLOAD_BEST_EFFORT}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +86,9 @@ class Request:
     tier: str = TIER_CRITICAL
     slo_ttft_ticks: float | None = None
     slo_tpot_ticks: float | None = None
-    # the tenant's LoRA adapter ("" = the base model); no engine of the
-    # port serves adapters yet, so the paged engine rejects a non-empty id
+    # the tenant's LoRA adapter ("" = the base model, the null adapter): a
+    # multi-LoRA PagedSlotEngine pins it from its lora_store for the
+    # request's lifetime; an engine without a store rejects a non-empty id
     adapter_id: str = ""
 
     def __post_init__(self):
@@ -438,6 +451,9 @@ class _PagedSlot:
     result: RequestResult | None = None
     pages: list[int] = dataclasses.field(default_factory=list)
     table: np.ndarray | None = None  # [row_pages] int32 physical page ids
+    # [pages_per_adapter] int32 slab page ids of the row's adapter (None
+    # without a lora_store; all SCRATCH = the null adapter, a zero delta)
+    atable: np.ndarray | None = None
 
 
 class PagedSlotEngine(SlotEngine):
@@ -454,18 +470,30 @@ class PagedSlotEngine(SlotEngine):
       pages and then preempt best-effort rows, whose requests re-queue and
       prefill again on re-admission;
     - drain and restore (:meth:`request_drain`, :meth:`restore_snapshot`)
-      and the page export/import of a KV handoff.
+      and the page export/import of a KV handoff;
+    - multi-LoRA serving (``lora_store`` and ``lora_cfg``, given
+      together): each request's ``adapter_id`` names its tenant's adapter
+      in ``lora_store`` (``""`` runs the base model). Adapters live as
+      flat f32 vectors in a slab ``[total_pages + 1, page_size * d_model]``
+      whose rows are pages of the same allocator as the KV, with an
+      :class:`~.adapters.AdapterCache` as the ledger; every dispatch
+      gathers each row's adapter through its adapter page table, so a
+      batch that mixes tenants and base rows is one dispatch per step.
+      Idle adapters are the first rung of the eviction ladder, before
+      radix pages and preemption. Radix pages are shared only within one
+      adapter id. Size the pool with ``paged_plan_for_slice(lora=True)``.
 
-    Greedy tokens are those of a solo ``generate()``: each layer gathers a
-    row's pages into the contiguous layout before running the slot pool's
-    layer math, and page tables are data, so the shape guard stays at one
-    shape per program through churn and preemption.
+    Greedy tokens are those of a solo ``generate()`` (of ``merge_lora``'s
+    weights for a tenant's request): each layer gathers a row's pages into
+    the contiguous layout before running the slot pool's layer math, and
+    page tables and adapter tables are data, so the shape guard stays at
+    one shape per program through churn, preemption and any tenant mix.
 
     Geometry: ``prefill_chunk`` must be a page-size multiple (radix
     matches floor to chunk boundaries) and ``total_pages`` must cover one
     ``max_len`` row (a lone request can always finish). The draft-model,
-    LoRA, handoff-seed, governor and metrics options of the reference are
-    not ported yet."""
+    handoff-seed, governor and metrics options of the reference are not
+    ported yet."""
 
     def __init__(
         self,
@@ -482,9 +510,16 @@ class PagedSlotEngine(SlotEngine):
         radix: bool = True,
         device: str | torch.device | None = None,
         profiler_capacity: int = 1024,
+        lora_store: dict | None = None,
+        lora_cfg: LoraConfig | None = None,
     ):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if (lora_store is None) != (lora_cfg is None):
+            raise ValueError(
+                "lora_store and lora_cfg enable multi-LoRA serving "
+                "together — passing one without the other is a config bug"
+            )
         if prefill_chunk % page_size != 0:
             raise ValueError(
                 f"prefill_chunk {prefill_chunk} must be a multiple of "
@@ -505,6 +540,14 @@ class PagedSlotEngine(SlotEngine):
         # real page; row_span_for keeps this width and the sizing math's
         # the same.
         self.row_pages = row_span_for(max_len, prefill_chunk) // page_size
+        self.lora_store = lora_store
+        self.lora_cfg = lora_cfg
+        if lora_cfg is not None:
+            # one slab row per pool page; an adapter's flat vector stripes
+            # over ceil(len / row) pages of the KV pool's id space
+            self._adapter_page_floats = page_size * cfg.d_model
+            self.pages_per_adapter = max(
+                1, -(-lora_flat_len(cfg, lora_cfg) // self._adapter_page_floats))
         super().__init__(
             params, cfg, slots=slots, max_len=max_len, prefill_chunk=prefill_chunk,
             eos_id=eos_id, kv_dtype=kv_dtype, device=device,
@@ -513,6 +556,14 @@ class PagedSlotEngine(SlotEngine):
         self.allocator = PageAllocator(total_pages)
         self.radix = RadixCache(page_size, self.allocator) if radix else None
         self.preemptions = 0
+        self.adapters = None
+        if lora_cfg is not None:
+            self.adapters = AdapterCache(self.allocator, self.pages_per_adapter)
+            # row SCRATCH is the null adapter and stays zero
+            self._lora_slab = torch.zeros(
+                (total_pages + 1, self._adapter_page_floats), dtype=torch.float32,
+                device=self.device,
+            )
         self._drain = DrainHandshake()
         self._restore_tokens: dict[int, tuple[int, ...]] = {}
         # snapshot_ids this engine already restored: a mover may deliver the
@@ -534,29 +585,50 @@ class PagedSlotEngine(SlotEngine):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _lora_kw(self, atab: torch.Tensor | None) -> dict:
+        """The programs' LoRA arguments: with a store, every dispatch
+        gathers its rows' adapters (``atab`` [B, AP] adapter page tables;
+        all SCRATCH for base-model rows) from the slab."""
+        if (self.adapters is None) != (atab is None):
+            raise ValueError("adapter tables go to the programs of an engine with a "
+                             "lora_store, and only to those")
+        if atab is None:
+            return {}
+        return {
+            "lora": G.lora_bgmv_views(self._lora_slab, atab, self.cfg, self.lora_cfg),
+            "lora_scale": self.lora_cfg.scale,
+        }
+
+    def _lora_guard(self, atab: torch.Tensor | None) -> tuple:
+        return () if atab is None else (atab, self._lora_slab)
+
     def _prefill(self, tokens: torch.Tensor, slot: int, table: torch.Tensor,
-                 n_real: int) -> torch.Tensor:
-        self._guard("prefill", tokens, table, self.cache["k"], self.cache["len"])
+                 n_real: int, atab: torch.Tensor | None = None) -> torch.Tensor:
+        self._guard("prefill", tokens, table, self.cache["k"], self.cache["len"],
+                    *self._lora_guard(atab))
         logits, self.cache = G.paged_prefill_slot(
             self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
-            n_real=n_real,
+            n_real=n_real, **self._lora_kw(atab),
         )
         return torch.argmax(logits[0], -1)
 
     def _extend(self, tokens: torch.Tensor, slot: int, table: torch.Tensor, pos: int,
-                n_real: int) -> torch.Tensor:
-        self._guard("extend", tokens, table, self.cache["k"], self.cache["len"])
+                n_real: int, atab: torch.Tensor | None = None) -> torch.Tensor:
+        self._guard("extend", tokens, table, self.cache["k"], self.cache["len"],
+                    *self._lora_guard(atab))
         logits, self.cache = G.paged_extend_slot(
             self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
-            pos=pos, n_real=n_real,
+            pos=pos, n_real=n_real, **self._lora_kw(atab),
         )
         return torch.argmax(logits[0], -1)
 
     def _decode(self, tokens: torch.Tensor, tables: torch.Tensor,
-                active: torch.Tensor) -> torch.Tensor:
-        self._guard("decode", tokens, tables, active, self.cache["k"], self.cache["len"])
+                active: torch.Tensor, atab: torch.Tensor | None = None) -> torch.Tensor:
+        self._guard("decode", tokens, tables, active, self.cache["k"], self.cache["len"],
+                    *self._lora_guard(atab))
         logits, new = G.paged_decode_step(
-            self.params, tokens, self.cache, self.cfg, page_tables=tables
+            self.params, tokens, self.cache, self.cfg, page_tables=tables,
+            **self._lora_kw(atab),
         )
         new["len"] = torch.where(active, new["len"], self.cache["len"])
         self.cache = new
@@ -565,20 +637,66 @@ class PagedSlotEngine(SlotEngine):
     def validate(self, req: Request) -> None:
         super().validate(req)
         if req.adapter_id:
-            raise ValueError(
-                f"request {req.rid}: adapter {req.adapter_id!r} on an "
-                "engine with no lora_store — the router sent a tenant "
-                "request to a base-model replica"
-            )
+            if self.lora_cfg is None:
+                raise ValueError(
+                    f"request {req.rid}: adapter {req.adapter_id!r} on an "
+                    "engine with no lora_store — the router sent a tenant "
+                    "request to a base-model replica"
+                )
+            if req.adapter_id not in self.lora_store:
+                raise ValueError(
+                    f"request {req.rid}: unknown adapter "
+                    f"{req.adapter_id!r} — not in this engine's lora_store"
+                )
+
+    # --- multi-LoRA adapters (adapters.py) ------------------------------------
+
+    def _write_adapter_pages(self, adapter_id: str, pages: list[int]) -> None:
+        """Stripe the adapter's flat vector (``workloads/lora.py``'s layout,
+        zero-padded to whole slab rows) into its fresh slab pages: the
+        device half of an :class:`~.adapters.AdapterCache` miss."""
+        flat = flatten_lora(self.lora_store[adapter_id], self.cfg, self.lora_cfg)
+        buf = torch.zeros((len(pages), self._adapter_page_floats), dtype=torch.float32,
+                          device=self.device)
+        buf.view(-1)[: flat.numel()] = flat.to(self.device)
+        ids = torch.tensor(pages, dtype=torch.long, device=self.device)
+        self._lora_slab.index_copy_(0, ids, buf)
+
+    def _admit_adapter(self, req: Request) -> list[int] | None:
+        """Pin ``req``'s adapter for one row, loading it on a miss. None:
+        the pool cannot hold it now; the request stays at the head of the
+        queue and retries next turn."""
+        got = self.adapters.acquire(req.adapter_id, tier=_TIER_CLASS[req.tier])
+        if got is None:
+            return None
+        pages, loaded = got
+        if loaded:
+            self._write_adapter_pages(req.adapter_id, pages)
+        return pages
+
+    def _prefetch_adapter(self, req: Request) -> None:
+        """Load on arrival, so the slab write overlaps the queue wait. The
+        adapter is left resident and unpinned (admission's acquire is then
+        a hit); only free pages are taken, nothing is evicted."""
+        if self.adapters.resident(req.adapter_id):
+            return
+        if self.allocator.free_pages < self.pages_per_adapter:
+            return
+        if self._admit_adapter(req) is not None:
+            self.adapters.release(req.adapter_id)
 
     def warmup(self) -> None:
-        """Run every paged program once off the clock, then flush the
-        synthetic request's footprint: radix adoptions, hit telemetry,
+        """Run every paged program once off the clock (with the null
+        adapter on a multi-LoRA engine), then flush the synthetic
+        request's footprint: radix adoptions, adapters, hit telemetry,
         allocator counters and the preemption count start cold."""
         super().warmup()
         if self.radix is not None:
             self.radix.clear()
             self.radix.reset_stats()
+        if self.adapters is not None:
+            self.adapters.clear()
+            self.adapters.reset_stats()
         self.allocator.reset_stats()
         self.preemptions = 0
 
@@ -600,6 +718,12 @@ class PagedSlotEngine(SlotEngine):
                 prefix_cached_pages=self.radix.cached_pages,
                 prefix_evicted_pages=self.radix.evicted_pages,
             )
+        if self.adapters is not None:
+            out["adapters"] = {
+                "enabled": True,
+                "pages_per_adapter": self.adapters.pages_per_adapter,
+                **self.adapters.stats(),
+            }
         return out
 
     # --- drain/restore: the defrag move's engine hand-off -------------------
@@ -739,7 +863,10 @@ class PagedSlotEngine(SlotEngine):
     # --- page bookkeeping ---------------------------------------------------
 
     def _fresh_slot(self) -> _PagedSlot:
-        return _PagedSlot(table=np.full((self.row_pages,), SCRATCH, np.int32))
+        s = _PagedSlot(table=np.full((self.row_pages,), SCRATCH, np.int32))
+        if self.adapters is not None:
+            s.atable = np.full((self.pages_per_adapter,), SCRATCH, np.int32)
+        return s
 
     def _grow(self, s: _PagedSlot, got: list[int]) -> None:
         """Append granted pages to a row and map them in its table
@@ -789,6 +916,11 @@ class PagedSlotEngine(SlotEngine):
                 self.allocator.release(s.pages)
             s.pages = []
             s.table[:] = SCRATCH
+            if self.adapters is not None and s.req is not None and s.req.adapter_id:
+                # unpin the tenant's adapter: it stays resident (the next
+                # request for it is a hit) but becomes evictable
+                self.adapters.release(s.req.adapter_id)
+                s.atable[:] = SCRATCH
 
         def preempt_one(critical_only: bool = True, protect: int | None = None) -> bool:
             """Free one victim's pages and re-queue its request. Victims are
@@ -815,16 +947,20 @@ class PagedSlotEngine(SlotEngine):
             return True
 
         def try_pages(n: int, tier: str) -> list[int] | None:
-            """All-or-nothing grant of ``n`` pages: the free list, then radix
-            LRU eviction (any tier), then best-effort preemption (critical
-            requesters only). Eviction and preemption happen only when
-            releasing the whole escalation set would cover ``n``
-            (``freeable``): a grant that would fail anyway destroys
-            nothing."""
+            """All-or-nothing grant of ``n`` pages: the free list, then idle
+            adapters (LRU, tier-shielded), then radix LRU eviction (any
+            tier), then best-effort preemption (critical requesters only).
+            An idle adapter is one reload away, a cached prefix a
+            re-prefill, a preempted row its decode progress. Eviction and
+            preemption happen only when releasing the whole escalation set
+            would cover ``n`` (``freeable``): a grant that would fail anyway
+            destroys nothing."""
             got = self.allocator.alloc(n)
             if got is not None:
                 return got
             groups: list[list[int]] = []
+            if self.adapters is not None:
+                groups.extend(self.adapters.evictable(tier=_TIER_CLASS[tier]))
             if self.radix is not None:
                 groups.append(self.radix.pages())
             if tier == TIER_CRITICAL:
@@ -834,6 +970,14 @@ class PagedSlotEngine(SlotEngine):
                 )
             if self.allocator.free_pages + self.allocator.freeable(groups) < n:
                 return None
+            if self.adapters is not None:
+                while self.allocator.free_pages < n:
+                    if not self.adapters.evict(n - self.allocator.free_pages,
+                                               tier=_TIER_CLASS[tier]):
+                        break
+                got = self.allocator.alloc(n)
+                if got is not None:
+                    return got
             if self.radix is not None:
                 while self.allocator.free_pages < n:
                     if not self.radix.evict(n - self.allocator.free_pages):
@@ -850,10 +994,12 @@ class PagedSlotEngine(SlotEngine):
 
         def grant_oldest(s: _PagedSlot, protect: int) -> None:
             """Give the protected row of a zero-progress turn the pages of
-            its next dispatch: from the free list, else by radix eviction,
-            else by preempting more rows. (The reference leaves the freed
-            pages on the free list, where the victim's re-admission can
-            take them back every turn and the run never ends.)"""
+            its next dispatch: from the free list, else by evicting idle
+            adapters (past the tier shield: this is the last resort), else
+            by radix eviction, else by preempting more rows. (The reference
+            leaves the freed pages on the free list, where the victim's
+            re-admission can take them back every turn and the run never
+            ends.)"""
             if s.state == "prefill":
                 need = pages_for(min(s.done + self.chunk, len(s.prompt)), ps) - len(s.pages)
             else:
@@ -863,10 +1009,27 @@ class PagedSlotEngine(SlotEngine):
                 if got is not None:
                     self._grow(s, got)
                     return
-                if self.radix is not None and self.radix.evict(need - self.allocator.free_pages):
+                short = need - self.allocator.free_pages
+                if self.adapters is not None and self.adapters.evict(short):
+                    continue
+                if self.radix is not None and self.radix.evict(short):
                     continue
                 if not preempt_one(critical_only=False, protect=protect):
                     return
+
+        def reclaim_idle() -> bool:
+            """The last rung of a zero-progress turn that has no row to
+            preempt (multi-LoRA only): evict one idle adapter past the tier
+            shield, else one adapter's worth of radix pages. Without it a
+            best-effort head, or a lone best-effort row, can wait for
+            pages that only shielded idle adapters or radix pages hold,
+            which neither an adapter load nor its tier may reclaim, and
+            the run raises (``ROADMAP.md`` §3 fault 5)."""
+            if self.adapters is None:
+                return False
+            if self.adapters.evict(1):
+                return True
+            return self.radix is not None and self.radix.evict(self.pages_per_adapter) > 0
 
         def retire(idx: int) -> None:
             s = slots[idx]
@@ -881,7 +1044,8 @@ class PagedSlotEngine(SlotEngine):
             if self.radix is not None and s.req.rid >= 0:
                 full = len(s.req.prompt) // ps
                 if full:
-                    self.radix.insert(tuple(s.req.prompt[: full * ps]), s.pages[:full])
+                    self.radix.insert(tuple(s.req.prompt[: full * ps]), s.pages[:full],
+                                      adapter_id=s.req.adapter_id)
             release_row(s)
             slots[idx] = self._fresh_slot()
 
@@ -929,6 +1093,8 @@ class PagedSlotEngine(SlotEngine):
                     slo_ttft_ticks=req.slo_ttft_ticks, slo_tpot_ticks=req.slo_tpot_ticks,
                 )
                 pending.append(req)
+                if self.adapters is not None and req.adapter_id:
+                    self._prefetch_adapter(req)  # the slab load overlaps the wait
                 i += 1
             if not pending and all(s.state == "free" for s in slots):
                 self.ticks = max(self.ticks, int(math.ceil(incoming[i].arrival)))
@@ -944,12 +1110,22 @@ class PagedSlotEngine(SlotEngine):
                 pending.sort(key=tier_key)
                 req = pending[0]
                 res = live[req.rid]
+                apages = None
+                if self.adapters is not None and req.adapter_id:
+                    # pin the tenant's adapter before any KV grant, so the
+                    # KV rungs below cannot evict it; no room: the head
+                    # blocks the line and retries next turn
+                    apages = self._admit_adapter(req)
+                    if apages is None:
+                        break
                 eff = req.prompt + tuple(res.tokens)
                 matched, mpages = 0, []
                 if self.radix is not None:
                     # count=False: a page-starved head re-matches every turn;
-                    # the lookup is recorded once, when the admission lands
-                    matched, mpages = self.radix.match(eff, count=False)
+                    # the lookup is recorded once, when the admission lands.
+                    # Only pages this request's adapter wrote can match.
+                    matched, mpages = self.radix.match(eff, count=False,
+                                                       adapter_id=req.adapter_id)
                     # floor to a chunk boundary, so the chunk walk lands
                     # where a fresh prefill's would
                     aligned = (matched // self.chunk) * self.chunk
@@ -964,6 +1140,10 @@ class PagedSlotEngine(SlotEngine):
                 if fresh is None:
                     if mpages:
                         self.allocator.release(mpages)
+                    if apages is not None:
+                        # unpin, so the idle adapter stays evictable for a
+                        # row that can make progress (a re-pin is a hit)
+                        self.adapters.release(req.adapter_id)
                     break
                 pending.pop(0)
                 if self.radix is not None:
@@ -975,6 +1155,8 @@ class PagedSlotEngine(SlotEngine):
                 s.prompt = eff
                 s.done = s.pos = matched
                 s.result = res
+                if apages is not None:
+                    s.atable[:] = apages
                 self._grow(s, mpages + fresh)
                 if res.preemptions and "readmit_tick" not in res.preemptions[-1]:
                     res.preemptions[-1]["readmit_tick"] = self.ticks
@@ -1004,10 +1186,11 @@ class PagedSlotEngine(SlotEngine):
                 buf = np.zeros((self.chunk,), np.int64)
                 buf[:n_real] = real
                 tokens, table = self._upload(buf), self._upload(s.table)
+                atab = None if s.atable is None else self._upload(s.atable[None])
                 if s.done == 0:
-                    tok = self._prefill(tokens, idx, table, n_real)
+                    tok = self._prefill(tokens, idx, table, n_real, atab)
                 else:
-                    tok = self._extend(tokens, idx, table, s.done, n_real)
+                    tok = self._extend(tokens, idx, table, s.done, n_real, atab)
                 self.ticks += 1
                 dispatched = True
                 s.done += n_real
@@ -1056,8 +1239,16 @@ class PagedSlotEngine(SlotEngine):
                 for idx in active_rows:
                     toks[idx] = slots[idx].last
                     active[idx] = True
+                atab = None
+                if self.adapters is not None:
+                    # rows not decoding gather the null adapter
+                    at = np.full((self.n_slots, self.pages_per_adapter), SCRATCH, np.int32)
+                    for idx in dec:
+                        at[idx] = slots[idx].atable
+                    atab = self._upload(at)
                 step_t0 = time.perf_counter()
-                nxt = self._decode(self._upload(toks), self._upload(tables), self._upload(active))
+                nxt = self._decode(self._upload(toks), self._upload(tables), self._upload(active),
+                                   atab)
                 self.ticks += 1
                 dispatched = True
                 nxt = nxt.cpu().numpy()  # waits for the step's device work
@@ -1084,13 +1275,14 @@ class PagedSlotEngine(SlotEngine):
                     for idx, s in enumerate(slots) if s.state != "free"
                 ]
                 protect = min(occupied)[2] if occupied else None
-                if not preempt_one(critical_only=False, protect=protect):
+                if not (preempt_one(critical_only=False, protect=protect) or reclaim_idle()):
                     raise RuntimeError(
                         "paged pool wedged: no dispatch possible, no preemptable "
                         f"row — total_pages {self.total_pages} cannot make progress "
                         f"(free {self.allocator.free_pages})"
                     )
-                grant_oldest(slots[protect], protect)
+                if protect is not None:
+                    grant_oldest(slots[protect], protect)
 
         results.sort(key=lambda r: r.rid)
         # quiesced either way: a drain racing the run's end gets None
@@ -1109,11 +1301,14 @@ def poisson_trace(
     vocab: int,
     prompt_lens: tuple[int, int],
     max_new: tuple[int, int] | Sequence[int],
+    adapters: Sequence[str] | None = None,
 ) -> list[Request]:
     """Poisson arrivals at ``rate`` requests/tick, prompt lengths uniform
     over (lo, hi) inclusive; ``max_new`` a (lo, hi) tuple draws uniformly,
-    a list draws from it as choices. Same draws per seed as the
-    reference's (numpy ``RandomState``)."""
+    a list draws from it as choices. ``adapters`` gives each request a
+    LoRA adapter id drawn uniformly from the list (``""`` is the base
+    model). Same draws per seed as the reference's (numpy
+    ``RandomState``)."""
     if isinstance(max_new, tuple) and len(max_new) != 2:
         raise ValueError(
             f"max_new tuple must be (lo, hi), got {max_new!r}; pass a list "
@@ -1130,13 +1325,17 @@ def poisson_trace(
             int(choices[rng.randint(len(choices))]) if choices is not None
             else int(rng.randint(max_new[0], max_new[1] + 1))
         )
+        prompt = tuple(int(x) for x in rng.randint(0, vocab, size=plen))
         out.append(Request(
-            rid=rid,
-            prompt=tuple(int(x) for x in rng.randint(0, vocab, size=plen)),
-            max_new=mn,
-            arrival=t,
+            rid=rid, prompt=prompt, max_new=mn, arrival=t,
+            adapter_id=_draw_adapter(rng, adapters),
         ))
     return out
+
+
+def _draw_adapter(rng: np.random.RandomState, adapters: Sequence[str] | None) -> str:
+    """One uniform draw from ``adapters`` (no draw without a list)."""
+    return "" if adapters is None else str(adapters[rng.randint(len(adapters))])
 
 
 def shared_prefix_trace(
@@ -1149,14 +1348,17 @@ def shared_prefix_trace(
     tail_lens: tuple[int, int],
     max_new: tuple[int, int] | Sequence[int],
     tiers: Sequence[tuple[str, float, float | None, float | None]] | None = None,
+    adapters: Sequence[str] | None = None,
 ) -> list[Request]:
     """Poisson arrivals whose prompts share system prompts: ``prefixes`` is
     ``(count, length)``; ``count`` shared prefixes are drawn once, and each
     request picks one uniformly and appends a tail of ``tail_lens`` (lo,
     hi) tokens (the radix cache's workload). ``tiers`` rows ``(tier,
     weight, slo_ttft_ticks, slo_tpot_ticks)`` are sampled by weight; None
-    keeps every request critical with no targets. ``max_new`` follows
-    :func:`poisson_trace`. Same draws per seed as the reference's."""
+    keeps every request critical with no targets. ``max_new`` and
+    ``adapters`` follow :func:`poisson_trace`: tenants then share the
+    system prompts, but each adapter prefills its own copy of their pages
+    (``radix.py``). Same draws per seed as the reference's."""
     n_pre, pre_len = prefixes
     if n_pre < 1 or pre_len < 0:
         raise ValueError(f"prefixes must be (count>=1, len>=0), got {prefixes}")
@@ -1183,6 +1385,7 @@ def shared_prefix_trace(
         out.append(Request(
             rid=rid, prompt=pre + tail, max_new=mn, arrival=t, tier=tier,
             slo_ttft_ticks=slo_ttft, slo_tpot_ticks=slo_tpot,
+            adapter_id=_draw_adapter(rng, adapters),
         ))
     return out
 
@@ -1304,9 +1507,11 @@ def paged_plan_from_pod_env(
     headroom: float = 0.90,
     unit: MemoryUnit = MemoryUnit.GiB,
     slots: int | None = None,
+    lora: bool = False,
 ) -> PagedPlan:
     """The paged mode of :func:`slots_from_pod_env`: a
-    :class:`PagedSlotEngine` pool (dispatch rows and KV pages) sized by
+    :class:`PagedSlotEngine` pool (dispatch rows and KV pages, and with
+    ``lora=True`` the adapter slab's row per page) sized by
     :func:`~.pages.paged_plan_for_slice` to this pod's slice, a gang over
     its per-chip share. Raises when the slice cannot hold one ``max_len``
     row of pages, the least the paged engine needs to make progress."""
@@ -1315,7 +1520,7 @@ def paged_plan_from_pod_env(
     plan = paged_plan_for_slice(
         nbytes, cfg, max_len, page_size=page_size, prefill_chunk=prefill_chunk,
         weight_bytes=weight_bytes, kv_dtype=kv_dtype, headroom=headroom, slots=slots,
-        n_chips=n_chips,
+        n_chips=n_chips, lora=lora,
     )
     if plan.total_pages < pages_for(max_len, page_size):
         raise ValueError(

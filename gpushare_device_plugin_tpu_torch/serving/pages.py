@@ -9,7 +9,8 @@ Counterpart of ``gpushare_device_plugin_tpu/serving/pages.py``:
   page returns to the free list when its last reference drops.
 - :class:`PagedPlan` / :func:`paged_plan_for_slice`: the sizing math that
   turns a byte slice into (dispatch slots, page count), with the page
-  tables and the free list charged against the same budget.
+  tables, the free list and (for a multi-LoRA engine) the adapter slab
+  charged against the same budget.
 
 On the device the cache is ``[L, pages, page_size, Hkv, Dh]``; page id
 :data:`SCRATCH` (0) is the write sink of idle rows, never allocated and
@@ -125,8 +126,9 @@ class PagedPlan:
     ``total_pages`` KV pages of ``page_size`` positions. Weights +
     ``kv_bytes`` (pages incl. the scratch page) + ``table_bytes`` (int32
     page tables + per-row len) + ``freelist_bytes`` never exceed the slice
-    at the chosen headroom. The draft-model and LoRA-slab fields keep the
-    reference's layout; they stay 0 until those engines are ported."""
+    at the chosen headroom. ``adapter_*`` is the multi-LoRA slab
+    (``lora=True``), one row per page; the draft-model fields keep the
+    reference's layout and stay 0 until the draft engine is ported."""
 
     slots: int
     total_pages: int
@@ -174,6 +176,7 @@ def paged_plan_for_slice(
     headroom: float = 0.90,
     slots: int | None = None,
     n_chips: int = 1,
+    lora: bool = False,
 ) -> PagedPlan:
     """Size a paged pool for a ``slice_bytes`` device-memory slice, with
     the reference's arithmetic: weights come off the top, ``headroom``
@@ -182,7 +185,11 @@ def paged_plan_for_slice(
     ``slots`` defaults to 4x what the contiguous slot math would grant,
     capped at the page count. ``n_chips > 1`` sizes over a gang's
     per-chip share: page bytes and weights divide by the gang size when
-    the kv heads do (as :func:`~.engine.slots_for_gang`).
+    the kv heads do (as :func:`~.engine.slots_for_gang`). ``lora=True``
+    sizes the multi-LoRA adapter slab too: every page (the scratch page
+    included) also pays for ``page_size * d_model`` f32 slab floats, the
+    same page-id space as the KV pool; over a gang those bytes divide by
+    its size only when ``d_model`` does.
     ``total_pages == 0`` means the slice cannot hold one page."""
     # Late import: engine imports this module; the per-page byte math
     # lives there (kv_slot_bytes).
@@ -204,10 +211,15 @@ def paged_plan_for_slice(
         page_b = -(-page_b // n_chips)
         row_b = -(-row_b // n_chips)
         weight_bytes = -(-weight_bytes // n_chips)
+    apage_b = 0
+    if lora:
+        apage_b = page_size * cfg.d_model * 4  # f32 slab floats per page
+        if n_chips > 1 and cfg.d_model % n_chips == 0:
+            apage_b = -(-apage_b // n_chips)
     max_pages = pages_for(row_span_for(max_len, prefill_chunk), page_size)
 
     def zero() -> PagedPlan:
-        return PagedPlan(0, 0, page_size, page_b, 0, 0, 0)
+        return PagedPlan(0, 0, page_size, page_b, 0, 0, 0, adapter_page_bytes=apage_b)
 
     usable = int(slice_bytes * headroom) - weight_bytes
     if usable <= 0:
@@ -215,12 +227,12 @@ def paged_plan_for_slice(
 
     def pages_at(n_slots: int) -> int:
         table = n_slots * (max_pages * 4 + 4)
-        # the scratch page off the top, then each page costs its bytes plus
-        # its free-list share
-        left = usable - table - page_b
+        # the scratch page off the top (KV and slab row), then each page
+        # costs its bytes in every pool plus its free-list share
+        left = usable - table - (page_b + apage_b)
         if left <= 0:
             return 0
-        return left // (page_b + FREELIST_BYTES_PER_PAGE)
+        return left // (page_b + apage_b + FREELIST_BYTES_PER_PAGE)
 
     if slots is None:
         contiguous = max(usable // row_b, 1)
@@ -243,4 +255,6 @@ def paged_plan_for_slice(
         kv_bytes=(int(pages) + 1) * page_b,
         table_bytes=int(slots) * (max_pages * 4 + 4),
         freelist_bytes=int(pages) * FREELIST_BYTES_PER_PAGE,
+        adapter_page_bytes=apage_b,
+        adapter_bytes=(int(pages) + 1) * apage_b,
     )

@@ -14,10 +14,20 @@ maps prompt-token sequences to the physical pages holding their KV:
 - **LRU leaf eviction.** :meth:`RadixCache.evict` releases the least
   recently matched leaves first, so every cached path stays contiguous
   from the root.
+- **One tree per adapter.** A page's K/V depend on the weights that
+  computed it as well as on its tokens, so the cache keeps a root per
+  LoRA adapter id (``""``, the default, is the base model): a page that
+  one adapter's prefill wrote is matched only by requests of the same
+  adapter. The roots share one ledger: :meth:`RadixCache.pages`,
+  :meth:`~RadixCache.evict`, :meth:`~RadixCache.clear`, ``cached_pages``
+  and the hit counters span every tree.
 
-Sharing is exact: a page caches positions ``[i*ps, (i+1)*ps)`` of a
-prompt, and a position's K/V depend only on the tokens at or before it,
-so two prompts that agree on a page's tokens compute the same page.
+Sharing is then exact: a page caches positions ``[i*ps, (i+1)*ps)`` of a
+prompt, and a position's K/V depend only on the weights and the tokens
+at or before it, so two prompts of one adapter that agree on a page's
+tokens compute the same page. (The reference keys its tree by tokens
+alone, so one tenant reads pages another tenant's adapter, or the base
+model, computed: ``ROADMAP.md`` §3 fault 4.)
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ class _Node:
     parent: "_Node | None"
     children: dict[tuple[int, ...], "_Node"] = dataclasses.field(default_factory=dict)
     last_use: int = 0
+    adapter_id: str = ""  # the tree (root) this node hangs under
 
 
 class RadixCache:
@@ -52,7 +63,8 @@ class RadixCache:
         self._lock = threading.Lock()
         self.page_size = page_size
         self._alloc = allocator
-        self._root: dict[tuple[int, ...], _Node] = {}
+        # adapter id -> that adapter's tree of first pages
+        self._roots: dict[str, dict[tuple[int, ...], _Node]] = {}
         self._clock = 0
         self._cached = 0
         # telemetry, in tokens (a 3-page hit counts 3*ps) and requests
@@ -90,11 +102,13 @@ class RadixCache:
         for i in range(0, len(tokens) - len(tokens) % ps, ps):
             yield tokens[i : i + ps]
 
-    def match(self, tokens: tuple[int, ...], *, count: bool = True) -> tuple[int, list[int]]:
-        """Longest cached full-page prefix of ``tokens``: ``(matched token
-        count, page ids)``, with one allocator reference taken per page.
-        Capped at ``len(tokens) - 1`` so at least one token still prefills
-        (the engine samples the first generated token from its logits).
+    def match(self, tokens: tuple[int, ...], *, count: bool = True,
+              adapter_id: str = "") -> tuple[int, list[int]]:
+        """Longest cached full-page prefix of ``tokens`` in adapter
+        ``adapter_id``'s tree: ``(matched token count, page ids)``, with
+        one allocator reference taken per page. Capped at
+        ``len(tokens) - 1`` so at least one token still prefills (the
+        engine samples the first generated token from its logits).
         ``count=False`` skips the hit/lookup telemetry (the LRU clock still
         advances): the engine re-matches a page-starved head every turn
         and records the lookup once, with :meth:`record_lookup`, when the
@@ -107,7 +121,7 @@ class RadixCache:
             if count:
                 self.lookup_requests += 1
                 self.lookup_tokens += len(tokens)
-            level = self._root
+            level = self._roots.get(adapter_id, {})
             for chunk in self._chunks(tokens):
                 if len(pages) >= cap:
                     break
@@ -138,22 +152,25 @@ class RadixCache:
         with self._lock:
             return [n.page for n in self._walk_all()]
 
-    def insert(self, tokens: tuple[int, ...], pages: list[int]) -> int:
+    def insert(self, tokens: tuple[int, ...], pages: list[int], *,
+               adapter_id: str = "") -> int:
         """Cache the full pages of ``tokens`` (a retiring request's
-        prompt), ``pages[i]`` holding tokens ``[i*ps, (i+1)*ps)``. Nodes
+        prompt, prefilled under adapter ``adapter_id``) in that adapter's
+        tree, ``pages[i]`` holding tokens ``[i*ps, (i+1)*ps)``. Nodes
         already present are refreshed and keep their page; new nodes take
         one allocator reference each. Returns how many pages were adopted."""
         adopted: list[int] = []
         with self._lock:
             self._clock += 1
-            level = self._root
+            level = self._roots.setdefault(adapter_id, {})
             parent: _Node | None = None
             for i, chunk in enumerate(self._chunks(tokens)):
                 if i >= len(pages):
                     break
                 node = level.get(chunk)
                 if node is None:
-                    node = _Node(tokens=chunk, page=pages[i], parent=parent)
+                    node = _Node(tokens=chunk, page=pages[i], parent=parent,
+                                 adapter_id=adapter_id)
                     level[chunk] = node
                     adopted.append(pages[i])
                     self._cached += 1
@@ -184,7 +201,10 @@ class RadixCache:
                     if len(released) >= n_pages:
                         break
                     if node.parent is None:
-                        self._root.pop(node.tokens, None)
+                        root = self._roots[node.adapter_id]
+                        root.pop(node.tokens, None)
+                        if not root:
+                            del self._roots[node.adapter_id]
                     else:
                         node.parent.children.pop(node.tokens, None)
                     released.append(node.page)
@@ -198,7 +218,7 @@ class RadixCache:
         """Release every cached page (engine warmup)."""
         with self._lock:
             pages = [n.page for n in self._walk_all()]
-            self._root = {}
+            self._roots = {}
             self._cached = 0
         if pages:
             self._alloc.release(pages)
@@ -206,7 +226,7 @@ class RadixCache:
 
     def _walk_all(self) -> list[_Node]:
         out: list[_Node] = []
-        stack = list(self._root.values())
+        stack = [n for root in self._roots.values() for n in root.values()]
         while stack:
             n = stack.pop()
             out.append(n)

@@ -4,7 +4,8 @@ The reference's trees, turned into numpy arrays (``np.asarray`` on every
 leaf), have the port's layouts, so conversion is a copy per leaf, checked
 against the shapes the port's config gives: the decoder
 (:func:`from_jax_numpy`; quantized ``{"q8", "scale"}`` leaves cross as
-int8 and f32), BERT (:func:`bert_from_jax_numpy`) and the MNIST MLP
+int8 and f32), its LoRA adapters (:func:`lora_from_jax_numpy`), BERT
+(:func:`bert_from_jax_numpy`) and the MNIST MLP
 (:func:`mnist_from_jax_numpy`). The one transpose is ResNet's
 (:func:`resnet_from_jax_numpy`): convolution kernels cross from the
 reference's HWIO to PyTorch's OIHW, its BN state with them. bfloat16
@@ -21,6 +22,7 @@ import torch
 
 from ..device import resolve_device
 from . import bert as B
+from . import lora as La
 from . import mnist as M
 from . import resnet as R
 from .quant import is_qtensor
@@ -140,6 +142,16 @@ def resnet_from_jax_numpy(
     pshapes, sshapes = R.param_shapes(cfg)
     return (_copy_tree(params, pshapes, dev, transform=_hwio_to_oihw),
             _copy_tree(state, sshapes, dev))
+
+
+def lora_from_jax_numpy(
+    tree: Mapping[str, Any], cfg: TransformerConfig, lcfg: La.LoraConfig, *,
+    device: str | torch.device | None = None,
+) -> Params:
+    """A reference LoRA adapter tree of numpy arrays as the port's on
+    ``device``: exactly ``lcfg.targets``, each ``{"a", "b"}`` checked
+    against its shape for ``cfg`` and ``lcfg``."""
+    return _copy_tree(tree, La.target_shapes(cfg, lcfg), resolve_device(device))
 
 
 def mnist_from_jax_numpy(

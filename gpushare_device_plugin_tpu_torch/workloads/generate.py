@@ -6,7 +6,9 @@ one length per row) and paged pools (``init_paged_cache``, each row read
 and written through a page table), bf16/f32 or int8 KV; prefill
 through the flash kernel (left-padded batches via ``start``, right-padded
 slot chunks via ``kv_len``); cached decode over the plain grouped
-attention with an explicit visibility mask, as in the reference.
+attention with an explicit visibility mask, as in the reference. The
+paged functions take per-row LoRA adapters gathered from a paged slab
+(:func:`lora_bgmv_views`), as the multi-LoRA engine runs them.
 
 Unlike the reference's pure functions, the cache's K/V buffers are
 written IN PLACE (one copy of a slot pool on the card, where the JAX
@@ -28,10 +30,12 @@ from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring import grouped_attention
 from .attention import chunk_prefill_attention, flash_or_plain, use_flash
+from .lora import LoraConfig, lora_flat_len, unflatten_lora
 from .quant import dequantize_kv, embed_lookup, quantize_kv
 from .transformer import (
     TransformerConfig,
     _attn_out,
+    _bgmv_delta,
     _logits,
     _mlp_block,
     _project_qkv,
@@ -283,12 +287,15 @@ def decode_block(
     return _logits(params, x, cfg), {**cache, "len": pos0 + T}
 
 
-def _cached_layer(x, lp, cfg: TransformerConfig, positions, rows: KVCache, wpos, vis):
+def _cached_layer(x, lp, cfg: TransformerConfig, positions, rows: KVCache, wpos, vis,
+                  lora_l=None, lora_scale: float = 1.0):
     """One layer of a cached block: the block's K/V go into the layer's
     cache rows ``rows`` ({"k", "v"} [B, Smax, Hkv, Dh], int8 scales
     [B, Smax, Hkv]) at ``wpos`` in place, and its queries attend over the
-    rows under the visibility mask ``vis`` [B, T, Smax]."""
-    q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
+    rows under the visibility mask ``vis`` [B, T, Smax]. ``lora_l``: this
+    layer's per-row adapter views, applied at every projection."""
+    q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions,
+                           lora=lora_l, lora_scale=lora_scale)
     if "k_scale" in rows:
         kq8, ks_new = quantize_kv(k)
         vq8, vs_new = quantize_kv(v)
@@ -302,7 +309,8 @@ def _cached_layer(x, lp, cfg: TransformerConfig, positions, rows: KVCache, wpos,
         k_mat = _row_update(rows["k"], k, wpos)
         v_mat = _row_update(rows["v"], v, wpos)
     attn = grouped_attention(q, k_mat, v_mat, causal=False, mask=vis)
-    return _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+    x = x + _wo(attn, lp, cfg, lora_l, lora_scale)
+    return _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale)
 
 
 def decode_step(
@@ -315,6 +323,54 @@ def decode_step(
     """One cached decode step: token [B] -> (logits [B, vocab], cache+1)."""
     logits, cache = decode_block(params, token[:, None], cache, cfg, start=start)
     return logits[:, 0], cache
+
+
+# --- per-row LoRA adapters (the multi-LoRA engine) ----------------------------
+
+
+def lora_bgmv_views(
+    slab: torch.Tensor, tables: torch.Tensor, cfg: TransformerConfig, lcfg: LoraConfig,
+) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """Per-row adapters from the paged slab, as layer-major views.
+
+    ``slab`` ``[pages, page_floats]`` f32 holds every resident adapter's
+    flat vector (``lora.flatten_lora``) striped across pages of the KV
+    pool's id space; row :data:`SCRATCH` stays zero. ``tables`` ``[B, AP]``
+    int32 are the rows' adapter page ids; an all-SCRATCH table gathers
+    zeros, the null adapter, whose delta is exactly zero. One
+    ``index_select`` per dispatch, cut to ``lora_flat_len``. Returns
+    ``{target: (a [L, B, fi, r], b [L, B, r, fo])}``. Which adapter a row
+    runs is table data, never a shape."""
+    B = tables.shape[0]
+    flat = slab.index_select(0, tables.reshape(-1).long()).reshape(B, -1)
+    flat = flat[:, : lora_flat_len(cfg, lcfg)]
+    return {
+        name: (a.movedim(1, 0), b.movedim(1, 0))
+        for name, (a, b) in unflatten_lora(flat, cfg, lcfg).items()
+    }
+
+
+def _layer_lora(lora, i: int):
+    """Layer ``i``'s views of :func:`lora_bgmv_views`' output (or None)."""
+    if lora is None:
+        return None
+    return {name: (a[i], b[i]) for name, (a, b) in lora.items()}
+
+
+def _lora_wo_delta(attn, lora_l, lora_scale: float, dt):
+    """The wo projection's delta: attn [B, T, H, Dh] -> [B, T, d], or None
+    without a wo target."""
+    if lora_l is None or "wo" not in lora_l:
+        return None
+    flat = attn.reshape(attn.shape[0], attn.shape[1], -1)  # [B, T, H*Dh]
+    return _bgmv_delta(flat, *lora_l["wo"], lora_scale, dt)
+
+
+def _wo(attn, lp, cfg: TransformerConfig, lora_l, lora_scale: float):
+    """The wo projection plus its adapter delta, before the residual."""
+    wo = _attn_out(attn, lp, cfg)
+    delta = _lora_wo_delta(attn, lora_l, lora_scale, cfg.compute_dtype)
+    return wo if delta is None else wo + delta
 
 
 # --- paged caches -----------------------------------------------------------
@@ -388,12 +444,15 @@ def _paged_block(
     cfg: TransformerConfig,
     page_tables: torch.Tensor,
     pos0: torch.Tensor,
+    lora=None,
+    lora_scale: float = 1.0,
 ) -> torch.Tensor:
     """:func:`decode_block` of a T-token block (``tokens`` [B, T]) for rows
     at logical lengths ``pos0`` [B], each read and written through its page
     table (``page_tables`` [B, MP]). Each layer runs on its gathered view,
-    and the block's T entries per row go back into the pages. Returns
-    logits [B, T, vocab] f32; the pool is updated in place."""
+    and the block's T entries per row go back into the pages. ``lora``:
+    :func:`lora_bgmv_views` for the B rows. Returns logits [B, T, vocab]
+    f32; the pool is updated in place."""
     B, T = tokens.shape
     dev = tokens.device
     ps = cache["k"].shape[2]
@@ -412,7 +471,8 @@ def _paged_block(
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     for i in range(cfg.n_layers):
         view = _gather_paged(cache, i, tables)
-        x = _cached_layer(x, layer_params(params["layers"], i), cfg, logical, view, pos0, vis)
+        x = _cached_layer(x, layer_params(params["layers"], i), cfg, logical, view, pos0, vis,
+                          _layer_lora(lora, i), lora_scale)
         new = {key: val[rows, read].reshape((B * T,) + val.shape[2:]) for key, val in view.items()}
         _paged_write(cache, i, new, pids, offs)
     return _logits(params, x, cfg)
@@ -427,6 +487,8 @@ def paged_prefill_slot(
     slot: int,
     page_table: torch.Tensor,
     n_real: int,
+    lora=None,
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, KVCache]:
     """:func:`prefill_slot` through a page table: one request's opening
     prompt chunk (``tokens`` [C] right-padded, ``n_real`` real) goes into
@@ -434,8 +496,10 @@ def paged_prefill_slot(
     restarting the row at position 0. The chunk's attention is
     :func:`prefill_slot`'s (the flash kernel on the card); positions
     ``0..C-1`` scatter through the table, so the row pins only the pages
-    its tokens occupy. Returns the last real position's logits [1, vocab]
-    f32 and the cache with ``len[slot] = n_real``."""
+    its tokens occupy. ``lora``: the row's views (:func:`lora_bgmv_views`
+    of a [1, AP] table), applied at every projection. Returns the last
+    real position's logits [1, vocab] f32 and the cache with
+    ``len[slot] = n_real``."""
     slot, n_real = int(slot), int(n_real)
     dt = cfg.compute_dtype
     C = tokens.shape[0]
@@ -447,9 +511,12 @@ def paged_prefill_slot(
     x = embed_lookup(params["embed"], tokens[None, :], dt)  # [1, C, d]
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
-        q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, logical[None, :])
+        lora_l = _layer_lora(lora, i)
+        q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, logical[None, :],
+                               lora=lora_l, lora_scale=lora_scale)
         attn = chunk_prefill_attention(q, k, v, n_real=kv_len, attention=cfg.attention)
-        x = _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+        x = x + _wo(attn, lp, cfg, lora_l, lora_scale)
+        x = _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale)
         _paged_write(cache, i, _kv_entries(cache, k[0], v[0]), pids, offs)
     lens = cache["len"].clone()
     lens[slot] = n_real
@@ -467,6 +534,8 @@ def paged_extend_slot(
     page_table: torch.Tensor,
     pos: int,
     n_real: int,
+    lora=None,
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, KVCache]:
     """:func:`extend_slot` through a page table: row ``slot`` continues
     with its next prompt chunk (``tokens`` [C], ``n_real`` real) against
@@ -475,11 +544,13 @@ def paged_extend_slot(
     prefix hit start a fresh occupant mid-row. The chunk attends to the
     prefix and to itself (plain grouped attention, as in the reference);
     only its C new positions are written, so shared prefix pages are read
-    and never written. Returns position ``n_real - 1``'s logits
-    [1, vocab] f32 and the cache with ``len[slot] = pos + n_real``."""
+    and never written. ``lora`` as in :func:`paged_prefill_slot`. Returns
+    position ``n_real - 1``'s logits [1, vocab] f32 and the cache with
+    ``len[slot] = pos + n_real``."""
     slot, pos, n_real = int(slot), int(pos), int(n_real)
     pos0 = torch.tensor([pos], dtype=torch.int32, device=tokens.device)
-    logits = _paged_block(params, tokens[None, :], cache, cfg, page_table[None, :], pos0)
+    logits = _paged_block(params, tokens[None, :], cache, cfg, page_table[None, :], pos0,
+                          lora, lora_scale)
     lens = cache["len"].clone()
     lens[slot] = pos + n_real
     return logits[:, n_real - 1], {**cache, "len": lens}
@@ -492,15 +563,19 @@ def paged_decode_step(
     cfg: TransformerConfig,
     *,
     page_tables: torch.Tensor,
+    lora=None,
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, KVCache]:
     """Pool-wide decode step through per-row page tables (``page_tables``
     [B, MP]): each row's one new entry lands at ``(page_tables[b,
     len[b] // ps], len[b] % ps)``. Rows whose table points at the scratch
     page (free, or mid-prefill) write there, never read. ``len`` advances
-    by one for every row; the engine freezes idle rows' lengths. Returns
-    logits [B, vocab] and the cache."""
+    by one for every row; the engine freezes idle rows' lengths. ``lora``:
+    :func:`lora_bgmv_views` of the [B, AP] adapter tables. Returns logits
+    [B, vocab] and the cache."""
     pos0 = cache["len"]
-    logits = _paged_block(params, token[:, None], cache, cfg, page_tables, pos0)
+    logits = _paged_block(params, token[:, None], cache, cfg, page_tables, pos0,
+                          lora, lora_scale)
     return logits[:, 0], {**cache, "len": pos0 + 1}
 
 

@@ -14,7 +14,9 @@ is a Python loop over the stacked weights (the reference's ``lax.scan``);
 ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``): "full" saves only the layer inputs, "dots"
 saves the projections' outputs and recomputes only elementwise work. No
-sharding or LoRA here.
+sharding here. LoRA's serving hooks (per-row adapter deltas,
+:func:`_bgmv_delta`) sit in :func:`_project_qkv` and :func:`_mlp_block`;
+its training merges the adapter into the weights (``lora.py``).
 """
 
 from __future__ import annotations
@@ -147,22 +149,47 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _project_qkv(h, lp, cfg: TransformerConfig, positions):
-    """ln1-normalized hidden -> RoPE'd (q [B,T,H,Dh], k, v [B,T,Hkv,Dh])."""
+def _bgmv_delta(x, a, b, scale: float, dt) -> torch.Tensor:
+    """Per-row low-rank delta ``(x @ A) @ B * scale`` in the compute
+    dtype ``dt``, ``x @ A`` rounded to ``dt`` before the second product.
+    x [B, T, fi]; a [B, fi, r]; b [B, r, fo] -> [B, T, fo]. Each row
+    contracts against its own adapter, so a batch that mixes adapters is
+    one product; a row whose a/b are zero (the null adapter) gets an
+    exactly-zero delta."""
+    xa = torch.einsum("btd,bdr->btr", x, a.to(dt))
+    return torch.einsum("btr,bro->bto", xa, b.to(dt)) * scale
+
+
+def _project_qkv(h, lp, cfg: TransformerConfig, positions, lora=None,
+                 lora_scale: float = 1.0):
+    """ln1-normalized hidden -> RoPE'd (q [B,T,H,Dh], k, v [B,T,Hkv,Dh]).
+    ``lora`` (serving): this layer's per-row adapter views ``{target: (a
+    [B, fi, r], b [B, r, fo])}``; their deltas go on the raw projections
+    before RoPE, the order ``merge_lora`` bakes into the weights."""
     dt = cfg.compute_dtype
     q = torch.einsum("btd,dhn->bthn", h, matmul_weight(lp["wq"], dt))
     kv = torch.einsum("btd,dchn->btchn", h, matmul_weight(lp["wkv"], dt))
+    if lora is not None and "wq" in lora:
+        q = q + _bgmv_delta(h, *lora["wq"], lora_scale, dt).reshape(q.shape)
+    if lora is not None and "wkv" in lora:
+        kv = kv + _bgmv_delta(h, *lora["wkv"], lora_scale, dt).reshape(kv.shape)
     k, v = kv[:, :, 0], kv[:, :, 1]
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
-def _mlp_block(x, lp, cfg: TransformerConfig):
-    """Residual SwiGLU MLP (ln2 -> gate/up -> silu -> down)."""
+def _mlp_block(x, lp, cfg: TransformerConfig, lora=None, lora_scale: float = 1.0):
+    """Residual SwiGLU MLP (ln2 -> gate/up -> silu -> down); ``lora`` as
+    in :func:`_project_qkv`."""
     dt = cfg.compute_dtype
     h = _rms_norm(x, lp["ln2"])
     gate_up = torch.einsum("btd,dcf->btcf", h, matmul_weight(lp["wi"], dt))
+    if lora is not None and "wi" in lora:
+        gate_up = gate_up + _bgmv_delta(h, *lora["wi"], lora_scale, dt).reshape(gate_up.shape)
     ff = F.silu(gate_up[:, :, 0]) * gate_up[:, :, 1]
-    return x + torch.einsum("btf,fd->btd", ff, matmul_weight(lp["wdown"], dt))
+    down = torch.einsum("btf,fd->btd", ff, matmul_weight(lp["wdown"], dt))
+    if lora is not None and "wdown" in lora:
+        down = down + _bgmv_delta(ff, *lora["wdown"], lora_scale, dt)
+    return x + down
 
 
 def _attn_out(attn, lp, cfg: TransformerConfig):

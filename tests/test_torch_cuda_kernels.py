@@ -487,3 +487,103 @@ def test_pod_over_its_memory_fraction_ooms_itself_on_card():
                          cwd=Path(__file__).resolve().parents[1], timeout=300)
     assert out.returncode == 0, out.stderr
     assert "OOM-RAISED" in out.stdout, out.stdout
+
+
+def _card_lora_store(cfg, lcfg, tenants, device):
+    """Seeded adapters with every leaf random (``b`` too), so each
+    tenant's tokens leave the base model's."""
+    from gpushare_device_plugin_tpu_torch.workloads import lora as L
+
+    gen = torch.Generator().manual_seed(7)
+    store = {}
+    for aid in tenants:
+        lora = L.init_lora(cfg, lcfg, gen, device="cpu")
+        for ab in lora.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.5
+            ab["a"] = ab["a"] * 4.0
+        store[aid] = {n: {k: v.to(device) for k, v in ab.items()} for n, ab in lora.items()}
+    return store
+
+
+@pytest.mark.cuda
+def test_mixed_tenant_engine_on_card_matches_merged_solo():
+    """A multi-LoRA PagedSlotEngine on the card, f32 (TF32 off), every
+    LoRA target: a batch that mixes three tenants and base rows serves
+    each request the tokens of merge_lora + solo greedy generate on the
+    card, every prefill dispatch launches the forward kernel once per
+    layer, the shape guard holds, and the pool ends with every page held
+    by the radix cache or a resident adapter."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, shared_prefix_trace
+    from gpushare_device_plugin_tpu_torch.workloads import generate as G
+    from gpushare_device_plugin_tpu_torch.workloads import lora as L
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = T.TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                                  d_ff=512, max_seq=128, compute_dtype=torch.float32)
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(5), device="cuda")
+        lcfg = L.LoraConfig(rank=4, alpha=8.0, targets=("wq", "wkv", "wo", "wi", "wdown"))
+        store = _card_lora_store(cfg, lcfg, ("t0", "t1", "t2"), "cuda")
+        eng = PagedSlotEngine(params, cfg, slots=3, max_len=96, total_pages=160, page_size=8,
+                              prefill_chunk=16, eos_id=None, lora_store=store, lora_cfg=lcfg)
+        eng.warmup()
+        prefills = []
+        program = eng._prefill
+        eng._prefill = lambda *a: (prefills.append(1), program(*a))[1]
+        reqs = shared_prefix_trace(8, seed=1, rate=0.5, vocab=cfg.vocab, prefixes=(2, 32),
+                                   tail_lens=(4, 30), max_new=(4, 12),
+                                   adapters=["t0", "t1", "t2", ""])
+        before = dict(fa.LAUNCHES)
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in fa.LAUNCHES.items()}
+        entry = fa.fwd_entry(torch.float32, cfg.head_dim)
+        assert launched[entry] == cfg.n_layers * len(prefills) > 0
+        for req, res in zip(reqs, stats.results):
+            merged = L.merge_lora(params, store[req.adapter_id], lcfg) if req.adapter_id else params
+            solo = G.generate(merged, [list(req.prompt)], cfg, max_new=req.max_new)
+            assert res.tokens == solo[0, len(req.prompt):].tolist(), (req.rid, req.adapter_id)
+        assert stats.trace_counts == {"prefill": 1, "extend": 1, "decode": 1}
+        assert stats.engine_cache["adapters"]["misses"] >= 3
+        assert eng.allocator.used_pages == eng.radix.cached_pages + eng.adapters.cached_pages
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_lora_train_step_on_card_launches_the_tensor_core_kernels():
+    """LoRA fine-tuning on the card, bf16 base, head dim 128: one
+    ``lora_loss_fn`` backward gives every adapter leaf a nonzero gradient
+    and none to the base; one ``make_lora_train_step`` step launches
+    ``flash_fwd`` twice per layer (forward and recompute) and each
+    tensor-core backward kernel once per layer, the scalar entries never,
+    and leaves the base bitwise unchanged."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.workloads import lora as L
+    from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+
+    cfg = T.TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                              d_ff=512, max_seq=256)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = T.init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    lcfg = L.LoraConfig()
+    lora = L.init_lora(cfg, lcfg, gen, device="cuda")
+    for ab in lora.values():  # b off zero, so a's gradient is not zero either
+        ab["b"].normal_(0.0, 0.01, generator=gen)
+    leaves = [t.requires_grad_() for t in tree_leaves(lora)]
+    tokens = T.demo_batch(torch.Generator().manual_seed(1), 2, 128, cfg.vocab).cuda()
+    grads = torch.autograd.grad(L.lora_loss_fn(lora, params, tokens, cfg, lcfg), leaves)
+    assert all(torch.isfinite(g).all() and g.any() for g in grads)
+    base = {k: v.clone() for k, v in T._flatten(params).items()}
+    step, init_opt = L.make_lora_train_step(cfg, lcfg)
+    opt_state = init_opt(lora)
+    before = dict(fa.LAUNCHES)
+    lora, opt_state, loss = step(params, lora, opt_state, tokens)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.LAUNCHES.items()}
+    want = {n: 0 for n in fa.LAUNCHES}
+    want.update(flash_fwd=2 * cfg.n_layers, flash_bwd_dq=cfg.n_layers, flash_bwd_dkv=cfg.n_layers)
+    assert launched == want and torch.isfinite(loss)
+    assert all(torch.equal(base[k], v) for k, v in T._flatten(params).items())
