@@ -14,8 +14,10 @@ Phases, each of which fails the run with a non-zero exit:
    512, 2048} causal, a left-padded (``start``) batch with fully masked
    rows, a right-padded (``kv_len``) batch; and in bf16 a ragged S=300,
    D=64 at S=2048, and the training shape B=4 x S=2048 (causal, no
-   bounds). At the served shape (1 x 512) and the training shape
-   ``flash_fwd_scalar`` runs too, on the same inputs. Every entry runs
+   bounds), and the draft's served shape (1 x 512, D=64, causal,
+   ``kv_len``: phase 15's draft prefill). At the served shape (1 x 512),
+   the draft's and the training shape ``flash_fwd_scalar`` runs too, on
+   the same inputs. Every entry runs
    twice and must give the same bits. Times each kernel (with its TFLOP/s
    and the fraction of its bound), the plain version, one PyTorch library
    call on the same inputs (a yardstick the port never calls) and the
@@ -110,9 +112,9 @@ Phases, each of which fails the run with a non-zero exit:
    and wdown; seeded, ``b`` random, each target's delta scaled to 0.2 of
    its weight in Frobenius norm) serve phase 7's trace with
    ``adapters=["t0", "t1", "t2", "t3", ""]``. Run A: 16 slots over
-   ``paged_plan_from_pod_env(lora=True)`` for the 24-unit env. Run B: 8
-   slots over 832 pages (two max_len rows and two adapters), so adapters
-   evict and rows preempt. Each run has phase 7's gates (leaks counted with
+   ``paged_plan_from_pod_env(lora=True)`` for the 24-unit env. Run B: the
+   first 12 requests, 8 slots over 832 pages (two max_len rows and two
+   adapters), so adapters evict and rows preempt. Each run has phase 7's gates (leaks counted with
    the resident adapters' pages), and at least four adapter misses; run A
    must hit and run B must evict. Every request of run A is held to
    merged-solo (``merge_lora`` of its tenant, solo greedy decode) by phase
@@ -134,8 +136,26 @@ Phases, each of which fails the run with a non-zero exit:
    (past it the pod trains at half the batch, and says so). Then, in this
    process, one ``lora_loss_fn`` backward at full width cut to 4 layers,
    B=1, flash against plain by phase 6's rule.
+15. Speculative paged serve, on phase 2's weights (run straight after
+   phase 13): a draft of Llama-3.2-1B's published shape (16 layers, d 2048,
+   32/8 heads at head dim 64; seeded, see the constants) proposes
+   ``SPEC_K`` tokens a round. Run A: the 8B target with that draft, 16
+   slots over ``paged_plan_from_pod_env(draft_cfg=, draft_weight_bytes=)``
+   for the 24-unit env, on phase 7's trace. Run B: the target as its own
+   draft, 8 slots, the trace's first 8 requests, beside the plain engine
+   on the same requests and pool. Each run has phase 7's gates with five
+   programs in the shape guard and ``flash_fwd`` launched once per target
+   and draft layer per prefill dispatch (48 in run A, 64 in run B); run A
+   must roll back pages, run B must accept at least SPEC_ACCEPT_MIN of its
+   proposals and take fewer ticks than the plain engine. Every request's
+   tokens equal phase 7 run A's, or solo decode's by phase 3's near-tie
+   rule. Run A's spec engine is drained at mid-run into a plain engine,
+   and a plain engine's drained rows into the spec engine, each with the
+   same tokens and no request lost or twice. Then ``speculative_generate``
+   at B=1 on a 512-token prompt with each draft against ``generate``.
+   Each round's wall time is kept, and one round is profiled.
 
-The phases run in the order 1, 2, 3, 7, 8, 13, 14, 4, 5, 6, 9-12.
+The phases run in the order 1, 2, 3, 7, 8, 13, 15, 14, 4, 5, 6, 9-12.
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -150,8 +170,9 @@ Float32 matrix products run in full f32 (TF32 off, set below). The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit from ``nvidia-smi``; before that, one
 JSON line ``{"kernels": [...]}``, whose launches per path include
-``lora_serve`` (phase 13, runs A and B) and ``lora_train`` (phase 14's
-pod, from its JSON line).
+``lora_serve`` (phase 13, runs A and B), ``lora_train`` (phase 14's
+pod, from its JSON line) and ``spec_serve`` (phase 15, runs A and B);
+the forward rows carry ``at_draft_shape``.
 """
 
 from __future__ import annotations
@@ -179,6 +200,7 @@ from gpushare_device_plugin_tpu_torch.parallel.podenv import (
 )
 from gpushare_device_plugin_tpu_torch.serving.engine import (
     PagedSlotEngine,
+    Request,
     SlotEngine,
     paged_plan_from_pod_env,
     poisson_trace,
@@ -243,6 +265,10 @@ LORA_TENANTS = ("t0", "t1", "t2", "t3")
 LORA_TARGETS = ("wq", "wkv", "wo", "wi", "wdown")
 LORA_RANK, LORA_ALPHA, LORA_RATIO = 8, 16.0, 0.2
 LORA_PRESSURE_PAGES = 2 * 128 + 2 * 288
+# Run B serves the trace's first LORA_PRESSURE_REQUESTS requests (of 24),
+# to keep the script's time down: it then evicts 6 adapters in 364 ticks
+# (24 requests: 8 in 722), as the same lengths and pages give on the CPU.
+LORA_PRESSURE_REQUESTS = 12
 # Phase 7's trace but for the seed: seed 0's 24 draws from the five ids name
 # no request for t2, so phase 13 takes seed 1, the first whose requests
 # name all four tenants and the base model (6, 4, 5, 4, 5 of them).
@@ -262,6 +288,20 @@ LORA_LOGIT_REL = 2.0 ** -4
 # 2^-5 of the top logit (phase 3's rule: 2^-6). A request of this trace
 # first diverges at a gap of three steps (0.094 at 4.34).
 LORA_TOP2_GAP_REL = 2.0 ** -5
+# Phase 15: the draft has Llama-3.2-1B's published shape (vocab 128256, d
+# 2048, 16 layers, 32 heads over 8 kv heads, so head dim 64, d_ff 8192, RoPE
+# theta 500000), bf16, seeded random weights. It differs from the
+# published model where TransformerConfig models less: its output head is
+# a matrix of its own (the published one is tied to the embedding), and
+# RoPE has no llama3 frequency scaling. 1.50 B parameters, 3.0 GB; a page
+# of its KV (16 positions) is 0.5 MiB beside the target's 2 MiB. Run B's
+# self-draft accepts all but a few proposals (bf16 near ties between the
+# draft's one-token steps and the verify's block): at least SPEC_ACCEPT_MIN.
+SPEC_K = 4
+DRAFT_D = 64
+SPEC_B_REQUESTS = 8
+SPEC_ACCEPT_MIN = 0.9
+SPEC_MAX_NEW = 32  # the contiguous speculative_generate's run, on a 512-token prompt
 # Phase 14: the LoRA pod's slice, batch and steps.
 LORA_TRAIN_UNITS, LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 32, 2, 2048, 8
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
@@ -414,12 +454,14 @@ def compare(o, lse, po, plse, dtype):
 
 
 def phase_kernels(gen) -> dict:
-    """Phase 1; returns the rows at the served, the training and the BERT
-    shape, by (kernel entry, "served", "train" or "bert")."""
+    """Phase 1; returns the rows at the served, the draft's served, the
+    training and the BERT shape, by (kernel entry, "served", "draft",
+    "train" or "bert")."""
     print("phase 1: flash forward kernels vs plain", flush=True)
     failures = 0
     rows = {}
     shapes = {(torch.bfloat16, 1, SERVED_S, 128, "causal"): "served",
+              (torch.bfloat16, 1, SERVED_S, DRAFT_D, "causal"): "draft",
               (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "train"): "train",
               (torch.bfloat16, BERT_B, BERT_S, BERT_D, "noncausal"): "bert"}
     cases = []
@@ -429,6 +471,7 @@ def phase_kernels(gen) -> dict:
         cases.append((dtype, 2, 512, 128, "start"))
         cases.append((dtype, 2, 512, 128, "kv_len"))
     cases += [(torch.bfloat16, 1, 300, 128, "causal"), (torch.bfloat16, 1, 2048, 64, "causal"),
+              (torch.bfloat16, 1, SERVED_S, DRAFT_D, "causal"),
               (torch.bfloat16, TRAIN_B, TRAIN_S, 128, "train"),
               (torch.bfloat16, BERT_B, BERT_S, BERT_D, "noncausal"),
               (torch.float32, BERT_B, BERT_S, BERT_D, "noncausal"),
@@ -719,14 +762,51 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
     return out
 
 
-def paged_run(label, make_engine, trace, phase="phase 7") -> tuple[object, dict, object, dict]:
+def spec_round_probe(engine) -> dict:
+    """Wrap a speculative engine's round: each round's wall time (a round
+    ends in one copy to the host, which waits for its device work), and
+    one round after the eighth under ``torch.profiler`` (its kernels and
+    device busy time; that round's wall is not among the others)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"wall_s": [], "profile": None}
+    method = engine._spec_round
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        if out["profile"] is not None or len(out["wall_s"]) < 8:
+            rows = method(*args)
+            if rows:
+                out["wall_s"].append(time.perf_counter() - t0)
+            return rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rows = method(*args)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if rows:
+            kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels) / 1e3
+            out["profile"] = {"rows": len(rows), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                              "device_busy_share": busy_ms / wall_ms,
+                              "kernels": sum(e.count for e in kernels)}
+        return rows
+
+    engine._spec_round = timed
+    return out
+
+
+def paged_run(label, make_engine, trace, phase="phase 7",
+              profile=True) -> tuple[object, dict, object, dict]:
     """One measured run of the paged engine that ``make_engine`` builds:
     launch counts zeroed just before and read just after, prefill
     dispatches counted by wrapping the engine's prefill program, and the
     run's own peak memory (its pool and activations: the peak less what
-    was held before the engine was built). Checks the run's gates (a
-    multi-LoRA engine's resident adapters count as used pages); returns
-    the engine, its report, stats and launches."""
+    was held before the engine was built). A speculative engine's rounds
+    are timed (:func:`spec_round_probe`). Checks the run's gates (a
+    multi-LoRA engine's resident adapters count as used pages; a
+    speculative engine has five programs and its draft prefills with the
+    target); returns the engine, its report, stats and launches.
+    ``profile`` profiles a made-up decode step after the run."""
     torch.cuda.synchronize()
     held_gb = torch.cuda.memory_allocated() / 1e9  # weights, earlier engines
     engine = make_engine()
@@ -739,6 +819,8 @@ def paged_run(label, make_engine, trace, phase="phase 7") -> tuple[object, dict,
         return program(*args)
 
     engine._prefill = counted
+    spec = engine.draft_cfg is not None
+    rounds = spec_round_probe(engine) if spec else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for name in fa.LAUNCHES:
@@ -747,6 +829,8 @@ def paged_run(label, make_engine, trace, phase="phase 7") -> tuple[object, dict,
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     del engine._prefill  # the class's program again, and no engine -> engine cycle
+    if spec:
+        del engine._spec_round
     s = stats.summary()
     report = {
         "requests": s["requests"], "tokens": s["tokens"], "ticks": s["ticks"],
@@ -765,14 +849,24 @@ def paged_run(label, make_engine, trace, phase="phase 7") -> tuple[object, dict,
         "cache_stats": engine.cache_stats(),
         "tiers": s.get("tiers"),
     }
+    if spec:
+        walls = rounds["wall_s"]
+        report.update(rounds=len(walls) + (rounds["profile"] is not None),
+                      round_wall_p50_ms=float(np.median(walls)) * 1e3 if walls else None,
+                      round_profile=rounds["profile"],
+                      tokens_per_row_per_step=engine.profiler.tokens_per_step())
     print(f"  {label}", json.dumps(report), flush=True)
-    report["decode_step_profile"] = profile_paged_decode_step(engine)
-    print(f"  {label} made-up decode step profile", json.dumps(report["decode_step_profile"]),
-          flush=True)
+    if profile:
+        report["decode_step_profile"] = profile_paged_decode_step(engine)
+        print(f"  {label} made-up decode step profile",
+              json.dumps(report["decode_step_profile"]), flush=True)
     fail = []
     if len(stats.results) != len(trace):
         fail.append("not every request was served")
-    if stats.trace_counts != {"prefill": 1, "extend": 1, "decode": 1}:
+    guard = {"prefill": 1, "extend": 1, "decode": 1}
+    if spec:
+        guard.update(draft=1, verify=1)
+    if stats.trace_counts != guard:
         fail.append(f"shape guard moved: {stats.trace_counts}")
     held = engine.radix.cached_pages
     if engine.adapters is not None:
@@ -780,9 +874,10 @@ def paged_run(label, make_engine, trace, phase="phase 7") -> tuple[object, dict,
     if engine.allocator.used_pages != held:
         fail.append(f"pages leaked: {engine.allocator.used_pages} used, {held} held by the "
                     "radix cache and resident adapters")
-    if not launches["flash_fwd"] == engine.cfg.n_layers * len(prefills) > 0:
+    layers = engine.cfg.n_layers + (engine.draft_cfg.n_layers if spec else 0)
+    if not launches["flash_fwd"] == layers * len(prefills) > 0:
         fail.append(f"flash_fwd launches {launches['flash_fwd']} != "
-                    f"{engine.cfg.n_layers} x {len(prefills)} prefill dispatches")
+                    f"{layers} x {len(prefills)} prefill dispatches")
     if launches["flash_fwd_scalar"]:
         fail.append(f"flash_fwd_scalar launched {launches['flash_fwd_scalar']} times")
     if fail:
@@ -790,9 +885,20 @@ def paged_run(label, make_engine, trace, phase="phase 7") -> tuple[object, dict,
     return engine, report, stats, launches
 
 
-def phase_paged(params, cfg, serve_decode_p50_ms) -> dict:
+def paged_trace(cfg, seed=0, adapters=None) -> list:
+    """Phase 7's trace: 24 requests over two 1024-token system prompts with
+    64-512-token tails, half critical, half best-effort."""
+    return shared_prefix_trace(
+        24, seed=seed, rate=0.5, vocab=cfg.vocab, prefixes=(2, 1024), tail_lens=(64, 512),
+        max_new=(16, 64), tiers=[("critical", 0.5, 16, 4), ("best_effort", 0.5, None, None)],
+        adapters=adapters,
+    )
+
+
+def phase_paged(params, cfg, serve_decode_p50_ms) -> tuple[dict, object, dict]:
     """Phases 7 and 8, on the 8B weights of phase 2; returns the kernel
-    launches of runs A and B together."""
+    launches of runs A and B together, and run A's stats and report (phase
+    15 holds its tokens to run A's)."""
     print("phase 7: paged serve llama3_8b (32 layers, bf16)", flush=True)
     weight_bytes = tensor_bytes(params)
     pod = PodTpuEnv.from_env(plugin_env(PAGED_SLICE_UNITS))
@@ -804,10 +910,7 @@ def phase_paged(params, cfg, serve_decode_p50_ms) -> dict:
     if plan.total_pages != RUN_A_PAGES:
         raise SystemExit(f"phase 7 failed: the {PAGED_SLICE_UNITS}-unit slice's plan has "
                          f"{plan.total_pages} pages, not {RUN_A_PAGES}")
-    trace = shared_prefix_trace(
-        24, seed=0, rate=0.5, vocab=cfg.vocab, prefixes=(2, 1024), tail_lens=(64, 512),
-        max_new=(16, 64), tiers=[("critical", 0.5, 16, 4), ("best_effort", 0.5, None, None)],
-    )
+    trace = paged_trace(cfg)
     geo = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
     run_a, report_a, stats_a, launches_a = paged_run(
         "run A (slice-sized)",
@@ -872,7 +975,7 @@ def phase_paged(params, cfg, serve_decode_p50_ms) -> dict:
     print(f"  export/import of {len(pages)} pages of request 0: same bits {same}", flush=True)
     if not pages or not same:
         raise SystemExit("phase 8 failed: export/import did not round-trip")
-    return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}
+    return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}, stats_a, report_a
 
 
 def lora_store_for(params, cfg, lcfg) -> tuple[dict, dict]:
@@ -943,12 +1046,7 @@ def phase_lora_serve(params, cfg) -> dict:
         slots=16, lora=True,
     )
     print("  plan from the pod env (lora=True)", json.dumps(dataclasses.asdict(plan)), flush=True)
-    trace = shared_prefix_trace(
-        24, seed=LORA_TRACE_SEED, rate=0.5, vocab=cfg.vocab, prefixes=(2, 1024),
-        tail_lens=(64, 512), max_new=(16, 64),
-        tiers=[("critical", 0.5, 16, 4), ("best_effort", 0.5, None, None)],
-        adapters=[*LORA_TENANTS, ""],
-    )
+    trace = paged_trace(cfg, seed=LORA_TRACE_SEED, adapters=[*LORA_TENANTS, ""])
     geo = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID, lora_store=store,
                lora_cfg=lcfg)
     run_a, report_a, stats_a, launches_a = paged_run(
@@ -959,7 +1057,7 @@ def phase_lora_serve(params, cfg) -> dict:
     run_b, report_b, stats_b, launches_b = paged_run(
         "run B (pressured, multi-LoRA)",
         lambda: PagedSlotEngine(params, cfg, slots=8, total_pages=LORA_PRESSURE_PAGES, **geo),
-        trace, phase="phase 13",
+        trace[:LORA_PRESSURE_REQUESTS], phase="phase 13",
     )
     fail = []
     for name, rep_, want in (("A", report_a, "hits"), ("B", report_b, "evictions")):
@@ -1050,6 +1148,158 @@ def phase_lora_serve(params, cfg) -> dict:
           f"{prof['adapter_gather_bytes'] / 1e9:.3f} GB (bound "
           f"{prof['adapter_gather_bound_ms']:.4f} ms); page gather {prof['page_gather_ms']:.4f} "
           f"ms for {prof['page_gather_bytes'] / 1e9:.3f} GB", flush=True)
+    return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}
+
+
+def llama32_1b_shape() -> T.TransformerConfig:
+    """Llama-3.2-1B's published shape (see the constants of phase 15)."""
+    return T.TransformerConfig(
+        vocab=128256, d_model=2048, n_layers=16, n_heads=32, n_kv_heads=8, d_ff=8192,
+        max_seq=131072, rope_theta=500000.0,
+    )
+
+
+def phase_spec_serve(params, cfg, plain_stats, plain_report) -> dict:
+    """Phase 15, on phase 2's weights; ``plain_stats`` / ``plain_report``
+    are phase 7's run A. Returns the launches of runs A and B together."""
+    print("phase 15: speculative paged serve llama3_8b, a Llama-3.2-1B-shaped draft", flush=True)
+    dcfg = llama32_1b_shape()
+    dparams = init_params(dcfg, torch.Generator(device="cuda").manual_seed(15), device="cuda",
+                          dtype=torch.bfloat16)
+    draft_bytes = tensor_bytes(dparams)
+    pod = PodTpuEnv.from_env(plugin_env(PAGED_SLICE_UNITS))
+    plan_kw = dict(weight_bytes=tensor_bytes(params), page_size=16, prefill_chunk=512, env=pod)
+    plan_a = paged_plan_from_pod_env(cfg, 2048, slots=16, draft_cfg=dcfg,
+                                     draft_weight_bytes=draft_bytes, **plan_kw)
+    plan_b = paged_plan_from_pod_env(cfg, 2048, slots=SPEC_B_REQUESTS, draft_cfg=cfg,
+                                     draft_weight_bytes=0, **plan_kw)
+    print(f"  draft {draft_bytes / 1e9:.3f} GB; plan A (1B-shaped draft)",
+          json.dumps(dataclasses.asdict(plan_a)), "; plan B (self-draft)",
+          json.dumps(dataclasses.asdict(plan_b)), flush=True)
+    trace = paged_trace(cfg)
+    by_rid = {r.rid: r for r in trace}
+    served = {r.rid: r.tokens for r in plain_stats.results}
+    geo = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
+    solos, diverged, fail = {}, [], []
+
+    def spec_engine(draft_params, draft_cfg, slots, pages):
+        return lambda: PagedSlotEngine(params, cfg, slots=slots, total_pages=pages,
+                                       draft_params=draft_params, draft_cfg=draft_cfg,
+                                       spec_k=SPEC_K, **geo)
+
+    def hold(run, got):
+        """Each request's tokens (``got``, by rid) against phase 7 run A's,
+        or solo greedy decode's by phase 3's rule."""
+        for rid, tokens in got.items():
+            diverged.extend(dict(d, run=run) for d in check_vs_solo(
+                "phase 15", params, cfg, by_rid[rid], tokens, want=served[rid], solos=solos))
+
+    run_a, rep_a, stats_a, launches_a = paged_run(
+        "run A (1B-shaped draft, slice-sized)",
+        spec_engine(dparams, dcfg, 16, plan_a.total_pages), trace, phase="phase 15",
+        profile=False)
+    hold("A", {r.rid: r.tokens for r in stats_a.results})
+    spec_a = rep_a["cache_stats"]["speculative"]
+    if not spec_a["rollback_pages"] > 0:
+        fail.append(f"run A rolled back no page: {spec_a}")
+
+    first = trace[:SPEC_B_REQUESTS]
+    plain_b_engine = lambda: PagedSlotEngine(params, cfg, slots=SPEC_B_REQUESTS,  # noqa: E731
+                                             total_pages=plan_b.total_pages, **geo)
+    _, rep_plain_b, stats_plain_b, _ = paged_run(
+        "run B's plain engine", plain_b_engine, first, phase="phase 15", profile=False)
+    run_b, rep_b, stats_b, launches_b = paged_run(
+        "run B (self-draft)", spec_engine(params, cfg, SPEC_B_REQUESTS, plan_b.total_pages),
+        first, phase="phase 15", profile=False)
+    del run_b
+    hold("B", {r.rid: r.tokens for r in stats_b.results})
+    spec_b = rep_b["cache_stats"]["speculative"]
+    acceptance_b = spec_b["accepted"] / max(spec_b["proposed"], 1)
+    if not acceptance_b >= SPEC_ACCEPT_MIN:
+        fail.append(f"run B's self-draft accepted {acceptance_b:.4f} < {SPEC_ACCEPT_MIN}")
+    if not stats_b.ticks < stats_plain_b.ticks:
+        fail.append(f"run B took {stats_b.ticks} ticks, the plain engine {stats_plain_b.ticks}")
+
+    # Drain: run A's spec engine at mid-run into a plain engine, then a plain
+    # engine's drained rows into the spec engine.
+    moves = {}
+    plain = PagedSlotEngine(params, cfg, slots=16, total_pages=plan_a.total_pages, **geo)
+    for name, src, dst, tick in (("spec -> plain", run_a, plain, stats_a.ticks // 2),
+                                 ("plain -> spec", plain, run_a, plain_stats.ticks // 2)):
+        part = src.run(trace, drain_at_tick=tick)
+        snap = src.drain_snapshot()
+        if not snap or not snap["requests"]:
+            raise SystemExit(f"phase 15 failed: the {name} drain captured nothing")
+        rest = dst.restore_snapshot(json.loads(json.dumps(snap)))
+        combined = {r.rid: r.tokens for r in part.results}
+        combined.update({r.rid: r.tokens for r in rest.results})
+        if sorted(combined) != sorted(served) or len(part.results) + len(rest.results) != len(trace):
+            fail.append(f"{name}: drain/restore lost or duplicated requests")
+        hold(name, combined)
+        moves[name] = {"drain_tick": snap["drain_tick"], "retired": len(part.results),
+                       "restored": len(snap["requests"]), "restore_ticks": rest.ticks}
+    for name, eng in (("spec", run_a), ("plain", plain)):
+        if eng.allocator.used_pages != eng.radix.cached_pages:
+            fail.append(f"{name} engine leaked pages after the drains")
+    del run_a, plain
+
+    # Contiguous: speculative_generate at B=1 against generate's greedy tokens.
+    prompt = list(trace[0].prompt[:512])
+    req = Request(rid=-15, prompt=tuple(prompt), max_new=SPEC_MAX_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G.generate(params, [prompt], cfg, max_new=SPEC_MAX_NEW)
+    torch.cuda.synchronize()
+    contiguous = {"generate_wall_s": time.perf_counter() - t0}
+    for name, dp, dc in (("1B-shaped", dparams, dcfg), ("self", params, cfg)):
+        for n in fa.LAUNCHES:
+            fa.LAUNCHES[n] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = G.speculative_generate(params, dp, [prompt], cfg, dc, max_new=SPEC_MAX_NEW,
+                                         k=SPEC_K, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(fa.LAUNCHES)
+        got = out[0, len(prompt):].tolist()
+        found = check_vs_solo("phase 15", params, cfg, req, got, solos=solos)
+        diverged.extend(dict(d, run=f"contiguous {name}") for d in found)
+        if launched["flash_fwd"] != cfg.n_layers + dc.n_layers or launched["flash_fwd_scalar"]:
+            fail.append(f"contiguous {name}: launches {launched}")
+        contiguous[name] = {**st, "wall_s": wall, "acceptance": st["accepted"] / st["drafted"],
+                            "flash_fwd": launched["flash_fwd"],
+                            "perfect_draft_rounds": -(-(SPEC_MAX_NEW - 1) // (SPEC_K + 1))}
+    del dparams
+    torch.cuda.empty_cache()
+
+    per_prefill = {"A": launches_a["flash_fwd"] / rep_a["prefill_dispatches"],
+                   "B": launches_b["flash_fwd"] / rep_b["prefill_dispatches"]}
+    summary = {
+        "plan_pages": {"A": plan_a.total_pages, "B": plan_b.total_pages},
+        "acceptance": {"A": spec_a["accepted"] / max(spec_a["proposed"], 1), "B": acceptance_b},
+        "speculative": {"A": spec_a, "B": spec_b},
+        "ticks": {"A": stats_a.ticks, "B": stats_b.ticks, "B plain": stats_plain_b.ticks,
+                  "phase 7 A": plain_stats.ticks},
+        "round_wall_p50_ms": {"A": rep_a["round_wall_p50_ms"], "B": rep_b["round_wall_p50_ms"]},
+        "round_profile": {"A": rep_a["round_profile"], "B": rep_b["round_profile"]},
+        "decode_step_p50_ms": {"A": rep_a["decode_step_p50_ms"],
+                               "B plain": rep_plain_b["decode_step_p50_ms"],
+                               "phase 7 A": plain_report["decode_step_p50_ms"]},
+        "goodput_tokens_per_s": {"A": rep_a["goodput_tokens_per_s"],
+                                 "B": rep_b["goodput_tokens_per_s"],
+                                 "B plain": rep_plain_b["goodput_tokens_per_s"],
+                                 "phase 7 A": plain_report["goodput_tokens_per_s"]},
+        "flash_fwd_per_prefill": per_prefill,
+        "drain": moves,
+        "contiguous": contiguous,
+        "solo_decodes": len(solos),
+        "diverged_at_near_ties": diverged,
+    }
+    print("  phase 15 summary", json.dumps(summary), flush=True)
+    if per_prefill != {"A": cfg.n_layers + dcfg.n_layers, "B": 2 * cfg.n_layers}:
+        fail.append(f"flash_fwd launches per prefill dispatch {per_prefill}")
+    if fail:
+        raise SystemExit("phase 15 failed: " + "; ".join(fail))
     return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}
 
 
@@ -1715,12 +1965,15 @@ def main() -> int:
 
     serve_launches, serve_decode_p50_ms, params, cfg = phase_serve(gen)
     t0 = time.perf_counter()
-    paged_launches = phase_paged(params, cfg, serve_decode_p50_ms)
+    paged_launches, paged_stats, paged_report = phase_paged(params, cfg, serve_decode_p50_ms)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     lora_serve_launches = phase_lora_serve(params, cfg)
     t13 = time.perf_counter() - t0
     print(f"phase 13: {t13:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    spec_launches = phase_spec_serve(params, cfg, paged_stats, paged_report)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1740,7 +1993,7 @@ def main() -> int:
 
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
-             "lora_train": lora_train_launches}
+             "lora_train": lora_train_launches, "spec_serve": spec_launches}
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")
@@ -1765,6 +2018,10 @@ def main() -> int:
             },
             "at_bert_shape": {"shape": bert_shape,
                               **{k: forward[(entry, "bert")][k] for k in fwd_numbers}},
+            "at_draft_shape": {
+                "shape": f"bf16 B=1 S={SERVED_S} H=32 Hkv=8 D={DRAFT_D} causal kv_len "
+                         "(the Llama-3.2-1B-shaped draft's prefill, phase 15)",
+                **{k: forward[(entry, "draft")][k] for k in fwd_numbers}},
         })
     main_path = fa.bwd_entries(torch.bfloat16, 128)
     bwd_numbers = (*numbers, "device_ms", "device_bound_fraction")

@@ -19,15 +19,16 @@ and slice sizing, from a byte count or from the plugin's env:
 
 ``PagedSlotEngine`` keeps the same loop over a paged cache
 (``init_paged_cache``, ``pages.py``), with a radix prefix cache, SLO-tier
-preemption, drain/restore, and multi-LoRA serving: many tenants' adapters
-paged beside the KV (``adapters.py``), one dispatch for any mix of
-tenants and base-model rows.
+preemption, drain/restore, multi-LoRA serving (many tenants' adapters
+paged beside the KV, ``adapters.py``, one dispatch for any mix of
+tenants and base-model rows) and speculative decoding (a draft model's
+KV in the same pages, one draft and one verify dispatch a round).
 
 **Static shapes.** The pool, the chunk width and the step batch never
 change shape. PyTorch compiles nothing here, so ``trace_counts`` is a
-shape guard: each of the three programs (prefill, extend, decode) records
-the distinct input shapes it has run on, and slot churn must leave every
-count at 1.
+shape guard: each program (prefill, extend, decode; draft and verify on a
+speculative engine) records the distinct input shapes it has run on, and
+slot churn must leave every count at 1.
 
 **Clocks.** Ticks (one per model dispatch: a prompt chunk or a decode
 step) and wall seconds, as in the reference. The governor, SLO budget,
@@ -166,9 +167,13 @@ class ServeStats:
     def _quantile(vals: list[float], q: float) -> float:
         return ceil_rank_quantile(vals, q)
 
+    def _spec_tiers(self) -> dict:
+        return (self.engine_cache.get("speculative") or {}).get("tiers") or {}
+
     def tier_summary(self) -> dict:
         out: dict = {}
-        for tier in sorted({r.tier for r in self.results}):
+        spec_tiers = self._spec_tiers()
+        for tier in sorted({r.tier for r in self.results} | set(spec_tiers)):
             rs = [r for r in self.results if r.tier == tier]
             tpot = [r.tpot_ticks for r in rs if len(r.tokens) > 1]
             scored = [s for s in (r.meets_slo() for r in rs) if s is not None]
@@ -181,6 +186,10 @@ class ServeStats:
                 "preemptions": sum(len(r.preemptions) for r in rs),
                 "slo_attainment": round(sum(scored) / len(scored), 3) if scored else None,
             }
+            if tier in spec_tiers:
+                # which tier the draft's proposals pay off for
+                out[tier]["spec_proposed"] = spec_tiers[tier]["proposed"]
+                out[tier]["spec_accepted"] = spec_tiers[tier]["accepted"]
         return out
 
     def summary(self) -> dict:
@@ -200,7 +209,8 @@ class ServeStats:
             "ttft_p99_ms": round(self._quantile(ttft_s, 0.99) * 1e3, 2),
             "trace_counts": dict(self.trace_counts),
         }
-        if any(r.tier != TIER_CRITICAL or r.meets_slo() is not None for r in self.results):
+        if any(r.tier != TIER_CRITICAL or r.meets_slo() is not None
+               for r in self.results) or self._spec_tiers():
             out["tiers"] = self.tier_summary()
         if self.engine_cache:
             out["cache"] = dict(self.engine_cache)
@@ -481,7 +491,22 @@ class PagedSlotEngine(SlotEngine):
       batch that mixes tenants and base rows is one dispatch per step.
       Idle adapters are the first rung of the eviction ladder, before
       radix pages and preemption. Radix pages are shared only within one
-      adapter id. Size the pool with ``paged_plan_for_slice(lora=True)``.
+      adapter id. Size the pool with ``paged_plan_for_slice(lora=True)``;
+    - speculative decoding (``draft_params`` and ``draft_cfg``, given
+      together): a draft model proposes ``spec_k`` tokens per decoding row
+      a round (one draft dispatch of ``spec_k + 1`` steps), the target
+      scores every row's block in one verify dispatch
+      (``paged_verify_block``), and each row emits its longest accepted
+      prefix plus the target's own next token: the plain engine's tokens.
+      The draft's KV lives in a second pool indexed by the same page ids
+      and tables, so one allocator and one refcount cover both; every
+      program that writes the target's KV writes the draft's in the same
+      engine call. Lookahead pages come from a plain ``allocator.alloc``:
+      drafts sit below adapters, radix pages and rows on the eviction
+      ladder, and a starved row plain-decodes; rejected positions' tail
+      pages go back after the verify. Draft programs run the base model;
+      the verify carries each row's adapter. Size the pool with
+      ``paged_plan_for_slice(draft_cfg=..., draft_weight_bytes=...)``.
 
     Greedy tokens are those of a solo ``generate()`` (of ``merge_lora``'s
     weights for a tenant's request): each layer gathers a row's pages into
@@ -491,9 +516,8 @@ class PagedSlotEngine(SlotEngine):
 
     Geometry: ``prefill_chunk`` must be a page-size multiple (radix
     matches floor to chunk boundaries) and ``total_pages`` must cover one
-    ``max_len`` row (a lone request can always finish). The draft-model,
-    handoff-seed, governor and metrics options of the reference are not
-    ported yet."""
+    ``max_len`` row (a lone request can always finish). The handoff-seed,
+    governor and metrics options of the reference are not ported yet."""
 
     def __init__(
         self,
@@ -510,6 +534,9 @@ class PagedSlotEngine(SlotEngine):
         radix: bool = True,
         device: str | torch.device | None = None,
         profiler_capacity: int = 1024,
+        draft_params=None,
+        draft_cfg: TransformerConfig | None = None,
+        spec_k: int = 4,
         lora_store: dict | None = None,
         lora_cfg: LoraConfig | None = None,
     ):
@@ -520,6 +547,20 @@ class PagedSlotEngine(SlotEngine):
                 "lora_store and lora_cfg enable multi-LoRA serving "
                 "together — passing one without the other is a config bug"
             )
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError(
+                "draft_params and draft_cfg enable speculative decoding "
+                "together — passing one without the other is a config bug"
+            )
+        if draft_cfg is not None:
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab} != target vocab "
+                    f"{cfg.vocab} — draft proposals could never be compared "
+                    "token-for-token against target greedy picks"
+                )
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if prefill_chunk % page_size != 0:
             raise ValueError(
                 f"prefill_chunk {prefill_chunk} must be a multiple of "
@@ -540,6 +581,12 @@ class PagedSlotEngine(SlotEngine):
         # real page; row_span_for keeps this width and the sizing math's
         # the same.
         self.row_pages = row_span_for(max_len, prefill_chunk) // page_size
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_k = int(spec_k)
+        # True parks every row on the plain decode path (a suspended
+        # speculative engine emits the plain engine's stream)
+        self._spec_suspended = False
         self.lora_store = lora_store
         self.lora_cfg = lora_cfg
         if lora_cfg is not None:
@@ -564,6 +611,16 @@ class PagedSlotEngine(SlotEngine):
                 (total_pages + 1, self._adapter_page_floats), dtype=torch.float32,
                 device=self.device,
             )
+        self.draft_cache = None
+        if draft_cfg is not None:
+            self._shapes.update(draft=set(), verify=set())
+            # the draft's KV: a second pool under the same page ids, so a
+            # page exists in both pools or in neither
+            self.draft_cache = G.init_paged_cache(
+                draft_cfg, slots, total_pages + 1, page_size, kv_dtype=kv_dtype,
+                device=self.device,
+            )
+            self._reset_spec_stats()
         self._drain = DrainHandshake()
         self._restore_tokens: dict[int, tuple[int, ...]] = {}
         # snapshot_ids this engine already restored: a mover may deliver the
@@ -602,37 +659,105 @@ class PagedSlotEngine(SlotEngine):
     def _lora_guard(self, atab: torch.Tensor | None) -> tuple:
         return () if atab is None else (atab, self._lora_slab)
 
+    def _spec_guard(self) -> tuple:
+        return () if self.draft_cache is None else (self.draft_cache["k"],
+                                                    self.draft_cache["len"])
+
     def _prefill(self, tokens: torch.Tensor, slot: int, table: torch.Tensor,
                  n_real: int, atab: torch.Tensor | None = None) -> torch.Tensor:
+        """The fresh-row chunk; a speculative engine's draft prefills the
+        same chunk through the same table in the same call, so its pool
+        never falls out of step with the target's."""
         self._guard("prefill", tokens, table, self.cache["k"], self.cache["len"],
-                    *self._lora_guard(atab))
+                    *self._spec_guard(), *self._lora_guard(atab))
         logits, self.cache = G.paged_prefill_slot(
             self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
             n_real=n_real, **self._lora_kw(atab),
         )
+        if self.draft_cache is not None:
+            _, self.draft_cache = G.paged_prefill_slot(
+                self.draft_params, tokens, self.draft_cache, self.draft_cfg, slot=slot,
+                page_table=table, n_real=n_real,
+            )
         return torch.argmax(logits[0], -1)
 
     def _extend(self, tokens: torch.Tensor, slot: int, table: torch.Tensor, pos: int,
                 n_real: int, atab: torch.Tensor | None = None) -> torch.Tensor:
         self._guard("extend", tokens, table, self.cache["k"], self.cache["len"],
-                    *self._lora_guard(atab))
+                    *self._spec_guard(), *self._lora_guard(atab))
         logits, self.cache = G.paged_extend_slot(
             self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
             pos=pos, n_real=n_real, **self._lora_kw(atab),
         )
+        if self.draft_cache is not None:
+            _, self.draft_cache = G.paged_extend_slot(
+                self.draft_params, tokens, self.draft_cache, self.draft_cfg, slot=slot,
+                page_table=table, pos=pos, n_real=n_real,
+            )
         return torch.argmax(logits[0], -1)
 
     def _decode(self, tokens: torch.Tensor, tables: torch.Tensor,
                 active: torch.Tensor, atab: torch.Tensor | None = None) -> torch.Tensor:
         self._guard("decode", tokens, tables, active, self.cache["k"], self.cache["len"],
-                    *self._lora_guard(atab))
+                    *self._spec_guard(), *self._lora_guard(atab))
         logits, new = G.paged_decode_step(
             self.params, tokens, self.cache, self.cfg, page_tables=tables,
             **self._lora_kw(atab),
         )
         new["len"] = torch.where(active, new["len"], self.cache["len"])
         self.cache = new
+        if self.draft_cache is not None:
+            _, dnew = G.paged_decode_step(self.draft_params, tokens, self.draft_cache,
+                                          self.draft_cfg, page_tables=tables)
+            dnew["len"] = torch.where(active, dnew["len"], self.draft_cache["len"])
+            self.draft_cache = dnew
         return torch.argmax(logits, -1)
+
+    def _draft(self, tokens: torch.Tensor, tables: torch.Tensor,
+               active: torch.Tensor) -> torch.Tensor:
+        """``spec_k`` greedy proposals [B, spec_k] for the active rows from
+        their last tokens (``tokens`` [B]). The last of the ``spec_k + 1``
+        steps writes the last proposal's own KV, which a fully accepted
+        round leaves valid (an unwritten entry there would poison every
+        later proposal). Active rows' draft lengths advance by
+        ``spec_k + 1``; the others keep theirs."""
+        self._guard("draft", tokens, tables, active, *self._spec_guard())
+        lens0 = self.draft_cache["len"]
+        tok, props = tokens, []
+        for _ in range(self.spec_k + 1):
+            logits, self.draft_cache = G.paged_decode_step(
+                self.draft_params, tok, self.draft_cache, self.draft_cfg, page_tables=tables)
+            tok = torch.argmax(logits, -1)
+            props.append(tok)
+        self.draft_cache["len"] = torch.where(active, lens0 + self.spec_k + 1, lens0)
+        return torch.stack(props[: self.spec_k], dim=1)
+
+    def _verify(self, block: torch.Tensor, tables: torch.Tensor, active: torch.Tensor,
+                atab: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Score each active row's block (its last token and its proposals,
+        [B, spec_k + 1]) in one target forward. Returns the target's greedy
+        picks [B, spec_k + 1] and each row's accepted count ``a`` [B] (the
+        longest proposal prefix equal to the picks); both pools' lengths
+        become ``pos + a + 1`` for active rows, which rewinds past the
+        rejected entries, and stay for the others."""
+        self._guard("verify", block, tables, active, self.cache["k"], self.cache["len"],
+                    *self._spec_guard(), *self._lora_guard(atab))
+        pos0, dlen0 = self.cache["len"], self.draft_cache["len"]
+        logits, new = G.paged_verify_block(self.params, block, self.cache, self.cfg,
+                                           page_tables=tables, **self._lora_kw(atab))
+        greedy = torch.argmax(logits, -1)
+        match = (block[:, 1:] == greedy[:, : self.spec_k]).int()
+        accepted = torch.cumprod(match, dim=1).sum(dim=1)
+        new["len"] = torch.where(active, pos0 + accepted.int() + 1, pos0)
+        self.cache = new
+        self.draft_cache["len"] = torch.where(active, new["len"], dlen0)
+        return greedy, accepted
+
+    def _reset_spec_stats(self) -> None:
+        self._spec_draft_steps = 0
+        self._spec_rollback_pages = 0
+        self._spec_tiers: dict[str, dict[str, int]] = {}
+        self._spec_lookahead_high = 0
 
     def validate(self, req: Request) -> None:
         super().validate(req)
@@ -688,9 +813,25 @@ class PagedSlotEngine(SlotEngine):
     def warmup(self) -> None:
         """Run every paged program once off the clock (with the null
         adapter on a multi-LoRA engine), then flush the synthetic
-        request's footprint: radix adoptions, adapters, hit telemetry,
-        allocator counters and the preemption count start cold."""
+        requests' footprint: radix adoptions, adapters, hit telemetry,
+        allocator counters, the preemption count and the speculative
+        counters start cold.
+
+        A speculative engine takes a second synthetic request: the first
+        has one token left after its prefill, which never drafts (a round
+        costs two dispatches), so a ``spec_k + 2``-token request runs one
+        draft/verify round."""
         super().warmup()
+        if self.draft_cfg is not None:
+            plen = self.chunk + 1
+            if max(2 * self.chunk, plen + self.spec_k + 2) > self.max_len:
+                plen = min(self.chunk, self.max_len - (self.spec_k + 2))
+            if plen >= 1:
+                self.run([Request(rid=-1, prompt=tuple(range(1, plen + 1)),
+                                  max_new=self.spec_k + 2, arrival=0.0)])
+            self.ticks = 0
+            self.profiler.reset()
+            self._reset_spec_stats()
         if self.radix is not None:
             self.radix.clear()
             self.radix.reset_stats()
@@ -701,7 +842,8 @@ class PagedSlotEngine(SlotEngine):
         self.preemptions = 0
 
     def cache_stats(self) -> dict:
-        """Page occupancy, prefix hits and preemptions
+        """Page occupancy, prefix hits and preemptions, and the adapter
+        and speculative rows of engines that have them
         (``ServeStats.engine_cache``)."""
         out = {
             "total_pages": self.total_pages,
@@ -723,6 +865,21 @@ class PagedSlotEngine(SlotEngine):
                 "enabled": True,
                 "pages_per_adapter": self.adapters.pages_per_adapter,
                 **self.adapters.stats(),
+            }
+        if self.draft_cfg is not None:
+            tiers = {t: dict(row) for t, row in sorted(self._spec_tiers.items())}
+            out["speculative"] = {
+                "enabled": True,
+                "k": self.spec_k,
+                "draft_steps": self._spec_draft_steps,
+                "proposed": sum(r["proposed"] for r in tiers.values()),
+                "accepted": sum(r["accepted"] for r in tiers.values()),
+                "rollback_pages": self._spec_rollback_pages,
+                # one table and one refcount for both pools: the draft's
+                # occupancy is the KV occupancy
+                "draft_pool_used_pages": self.allocator.used_pages,
+                "lookahead_high_water_pages": self._spec_lookahead_high,
+                "tiers": tiers,
             }
         return out
 
@@ -875,14 +1032,103 @@ class PagedSlotEngine(SlotEngine):
         s.pages.extend(got)
         s.table[base : base + len(got)] = got
 
+    def _spec_round(self, slots: list[_PagedSlot], retire) -> list[int]:
+        """One draft and one verify dispatch (two ticks) over the decoding
+        rows that can take a round; returns those rows (none: no dispatch).
+        A row takes part when at least two of its tokens are left (a round
+        costs two dispatches), its block fits the row, and a plain
+        ``allocator.alloc`` covers its lookahead pages: a draft never
+        evicts or preempts. Each row emits its accepted proposals and the
+        target's next token, retires on EOS or ``max_new``, and otherwise
+        rolls back: its own tail pages past ``pages_for(pos)`` return to
+        the pool (shared prefix pages are never past ``pos``)."""
+        k, ps = self.spec_k, self.page_size
+        row_cap = min(self.row_pages * ps, self.max_len)
+        rows, lookahead = [], 0
+        for idx, s in enumerate(slots):
+            if s.state != "decode" or s.req.max_new - len(s.result.tokens) < 2:
+                continue
+            if s.pos + k + 1 > row_cap:  # the verify writes pos..pos+k
+                continue
+            need = pages_for(s.pos + k + 1, ps) - len(s.pages)
+            if need > 0:
+                got = self.allocator.alloc(need)
+                if got is None:
+                    continue
+                self._grow(s, got)
+                lookahead += need
+            rows.append(idx)
+        self._spec_lookahead_high = max(self._spec_lookahead_high, lookahead)
+        if not rows:
+            return rows
+        toks = np.zeros((self.n_slots,), np.int64)
+        active = np.zeros((self.n_slots,), bool)
+        tables = np.full((self.n_slots, self.row_pages), SCRATCH, np.int32)
+        for idx in rows:
+            tables[idx] = slots[idx].table
+            toks[idx] = slots[idx].last
+            active[idx] = True
+        atab = None
+        if self.adapters is not None:
+            at = np.full((self.n_slots, self.pages_per_adapter), SCRATCH, np.int32)
+            for idx in rows:
+                at[idx] = slots[idx].atable
+            atab = self._upload(at)
+        step_t0 = time.perf_counter()
+        toks_d, tables_d, active_d = self._upload(toks), self._upload(tables), self._upload(active)
+        drafts = self._draft(toks_d, tables_d, active_d)
+        self.ticks += 1
+        self._spec_draft_steps += 1
+        block = torch.cat([toks_d[:, None], drafts], dim=1)
+        greedy, accepted = self._verify(block, tables_d, active_d, atab)
+        self.ticks += 1
+        # one copy back, which waits for the round's device work
+        host = torch.cat([drafts, greedy, accepted[:, None]], dim=1).cpu().numpy()
+        drafts_np, greedy_np, acc_np = host[:, :k], host[:, k : 2 * k + 1], host[:, -1]
+        emitted = 0
+        for idx in rows:
+            s = slots[idx]
+            a = int(acc_np[idx])
+            trow = self._spec_tiers.setdefault(s.req.tier, {"proposed": 0, "accepted": 0})
+            trow["proposed"] += k
+            trow["accepted"] += a
+            done = False
+            # the accepted proposals, then the target's own pick: the
+            # stream sequential decode steps would emit
+            for j in range(a + 1):
+                t = int(drafts_np[idx, j]) if j < a else int(greedy_np[idx, a])
+                s.pos += 1
+                s.result.tokens.append(t)
+                s.last = t
+                emitted += 1
+                if (self.eos_id is not None and t == self.eos_id) or (
+                    len(s.result.tokens) >= s.req.max_new
+                ):
+                    done = True
+                    break
+            if done:
+                retire(idx)
+                continue
+            keep = pages_for(s.pos, ps)
+            tail = s.pages[keep:]
+            if tail:
+                self.allocator.release(tail)
+                del s.pages[keep:]
+                s.table[keep:] = SCRATCH
+                self._spec_rollback_pages += len(tail)
+        self.profiler.record(time.perf_counter() - step_t0, tokens=emitted / len(rows))
+        return rows
+
     def run(self, requests: Sequence[Request], *, drain_at_tick: int | None = None) -> ServeStats:
         """Serve to completion with paged admission. Each loop turn:
         (1) enqueue arrivals; (2) admit pending requests in (tier, arrival)
         order, radix-matching each prompt and granting its first chunk's
         pages, evicting radix LRU pages and then preempting best-effort
         rows when a critical request is short; (3) one prompt chunk for the
-        oldest mid-prefill row that can get its pages; (4) one pool-wide
-        decode step over rows whose next position has a page. A row that
+        oldest mid-prefill row that can get its pages; (4) on a
+        speculative engine, one draft/verify round over the decoding rows
+        that can take it; (5) one pool-wide decode step over the other
+        decoding rows whose next position has a page. A row that
         cannot get its next page stalls in place while its neighbours
         decode. A turn that dispatches nothing preempts the youngest row of
         any tier and gives its pages to the oldest.
@@ -1210,8 +1456,20 @@ class PagedSlotEngine(SlotEngine):
                         s.last = t
                 break
 
-            # --- pool-wide decode over the rows whose next position has a page
-            dec = [idx for idx, s in enumerate(slots) if s.state == "decode"]
+            # --- one speculative round: a draft dispatch proposes spec_k
+            # tokens for every eligible decoding row, a verify dispatch
+            # scores them, and each row emits up to spec_k + 1 tokens.
+            # Eligibility is data: the other rows plain-decode below.
+            spec_rows = []
+            if self.draft_cfg is not None and not self._spec_suspended:
+                spec_rows = self._spec_round(slots, retire)
+                if spec_rows:
+                    dispatched = True
+
+            # --- pool-wide decode over the rows whose next position has a
+            # page (rows of this turn's speculative round sit it out)
+            dec = [idx for idx, s in enumerate(slots)
+                   if s.state == "decode" and idx not in spec_rows]
             for idx in dec:
                 s = slots[idx]
                 # a grant below may preempt a best-effort row later in this
@@ -1507,20 +1765,24 @@ def paged_plan_from_pod_env(
     headroom: float = 0.90,
     unit: MemoryUnit = MemoryUnit.GiB,
     slots: int | None = None,
+    draft_cfg: TransformerConfig | None = None,
+    draft_weight_bytes: int = 0,
     lora: bool = False,
 ) -> PagedPlan:
     """The paged mode of :func:`slots_from_pod_env`: a
-    :class:`PagedSlotEngine` pool (dispatch rows and KV pages, and with
-    ``lora=True`` the adapter slab's row per page) sized by
+    :class:`PagedSlotEngine` pool (dispatch rows and KV pages; with
+    ``draft_cfg`` a speculative engine's draft weights and draft KV per
+    page, with ``lora=True`` the adapter slab's row per page) sized by
     :func:`~.pages.paged_plan_for_slice` to this pod's slice, a gang over
-    its per-chip share. Raises when the slice cannot hold one ``max_len``
-    row of pages, the least the paged engine needs to make progress."""
+    its per-chip share. A speculative engine asks for nothing beyond its
+    slice. Raises when the slice cannot hold one ``max_len`` row of
+    pages, the least the paged engine needs to make progress."""
     pod = env if env is not None else PodTpuEnv.from_env()
     nbytes, n_chips, desc = _pod_slice(pod, unit)
     plan = paged_plan_for_slice(
         nbytes, cfg, max_len, page_size=page_size, prefill_chunk=prefill_chunk,
         weight_bytes=weight_bytes, kv_dtype=kv_dtype, headroom=headroom, slots=slots,
-        n_chips=n_chips, lora=lora,
+        n_chips=n_chips, draft_cfg=draft_cfg, draft_weight_bytes=draft_weight_bytes, lora=lora,
     )
     if plan.total_pages < pages_for(max_len, page_size):
         raise ValueError(

@@ -9,8 +9,8 @@ Counterpart of ``gpushare_device_plugin_tpu/serving/pages.py``:
   page returns to the free list when its last reference drops.
 - :class:`PagedPlan` / :func:`paged_plan_for_slice`: the sizing math that
   turns a byte slice into (dispatch slots, page count), with the page
-  tables, the free list and (for a multi-LoRA engine) the adapter slab
-  charged against the same budget.
+  tables, the free list, a speculative engine's draft KV pool and a
+  multi-LoRA engine's adapter slab charged against the same budget.
 
 On the device the cache is ``[L, pages, page_size, Hkv, Dh]``; page id
 :data:`SCRATCH` (0) is the write sink of idle rows, never allocated and
@@ -126,9 +126,12 @@ class PagedPlan:
     ``total_pages`` KV pages of ``page_size`` positions. Weights +
     ``kv_bytes`` (pages incl. the scratch page) + ``table_bytes`` (int32
     page tables + per-row len) + ``freelist_bytes`` never exceed the slice
-    at the chosen headroom. ``adapter_*`` is the multi-LoRA slab
-    (``lora=True``), one row per page; the draft-model fields keep the
-    reference's layout and stay 0 until the draft engine is ported."""
+    at the chosen headroom. ``draft_*`` is a speculative engine's draft
+    KV pool (``draft_cfg``), indexed by the same page ids: every page then
+    costs ``page_bytes + draft_page_bytes``, and ``draft_bytes`` is the
+    whole draft pool with its scratch page. ``adapter_*`` is the
+    multi-LoRA slab (``lora=True``), one row per page. Both are 0 for plans
+    sized without them."""
 
     slots: int
     total_pages: int
@@ -176,6 +179,8 @@ def paged_plan_for_slice(
     headroom: float = 0.90,
     slots: int | None = None,
     n_chips: int = 1,
+    draft_cfg=None,
+    draft_weight_bytes: int = 0,
     lora: bool = False,
 ) -> PagedPlan:
     """Size a paged pool for a ``slice_bytes`` device-memory slice, with
@@ -185,7 +190,13 @@ def paged_plan_for_slice(
     ``slots`` defaults to 4x what the contiguous slot math would grant,
     capped at the page count. ``n_chips > 1`` sizes over a gang's
     per-chip share: page bytes and weights divide by the gang size when
-    the kv heads do (as :func:`~.engine.slots_for_gang`). ``lora=True``
+    the kv heads do (as :func:`~.engine.slots_for_gang`). ``draft_cfg``
+    sizes a speculative engine's draft pool too: the draft's weights
+    (``draft_weight_bytes``) come off the top with the target's, and every
+    page (the scratch page included) also pays the draft's KV bytes for
+    its ``page_size`` positions; over a gang those bytes and the draft's
+    weights divide by its size only when ``draft_cfg.kv_heads`` does.
+    ``lora=True``
     sizes the multi-LoRA adapter slab too: every page (the scratch page
     included) also pays for ``page_size * d_model`` f32 slab floats, the
     same page-id space as the KV pool; over a gang those bytes divide by
@@ -211,6 +222,15 @@ def paged_plan_for_slice(
         page_b = -(-page_b // n_chips)
         row_b = -(-row_b // n_chips)
         weight_bytes = -(-weight_bytes // n_chips)
+    dpage_b = 0
+    if draft_cfg is not None:
+        if draft_weight_bytes < 0:
+            raise ValueError(f"draft_weight_bytes must be >= 0, got {draft_weight_bytes}")
+        dpage_b = kv_slot_bytes(draft_cfg, page_size, kv_dtype)
+        if n_chips > 1 and draft_cfg.kv_heads % n_chips == 0:
+            dpage_b = -(-dpage_b // n_chips)
+            draft_weight_bytes = -(-draft_weight_bytes // n_chips)
+        weight_bytes += draft_weight_bytes
     apage_b = 0
     if lora:
         apage_b = page_size * cfg.d_model * 4  # f32 slab floats per page
@@ -219,7 +239,8 @@ def paged_plan_for_slice(
     max_pages = pages_for(row_span_for(max_len, prefill_chunk), page_size)
 
     def zero() -> PagedPlan:
-        return PagedPlan(0, 0, page_size, page_b, 0, 0, 0, adapter_page_bytes=apage_b)
+        return PagedPlan(0, 0, page_size, page_b, 0, 0, 0, draft_page_bytes=dpage_b,
+                         adapter_page_bytes=apage_b)
 
     usable = int(slice_bytes * headroom) - weight_bytes
     if usable <= 0:
@@ -227,12 +248,13 @@ def paged_plan_for_slice(
 
     def pages_at(n_slots: int) -> int:
         table = n_slots * (max_pages * 4 + 4)
-        # the scratch page off the top (KV and slab row), then each page
-        # costs its bytes in every pool plus its free-list share
-        left = usable - table - (page_b + apage_b)
+        # the scratch page off the top (target and draft KV, slab row),
+        # then each page costs its bytes in every pool plus its free-list
+        # share
+        left = usable - table - (page_b + dpage_b + apage_b)
         if left <= 0:
             return 0
-        return left // (page_b + apage_b + FREELIST_BYTES_PER_PAGE)
+        return left // (page_b + dpage_b + apage_b + FREELIST_BYTES_PER_PAGE)
 
     if slots is None:
         contiguous = max(usable // row_b, 1)
@@ -255,6 +277,8 @@ def paged_plan_for_slice(
         kv_bytes=(int(pages) + 1) * page_b,
         table_bytes=int(slots) * (max_pages * 4 + 4),
         freelist_bytes=int(pages) * FREELIST_BYTES_PER_PAGE,
+        draft_page_bytes=dpage_b,
+        draft_bytes=(int(pages) + 1) * dpage_b,
         adapter_page_bytes=apage_b,
         adapter_bytes=(int(pages) + 1) * apage_b,
     )

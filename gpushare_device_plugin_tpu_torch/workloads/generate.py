@@ -8,7 +8,9 @@ through the flash kernel (left-padded batches via ``start``, right-padded
 slot chunks via ``kv_len``); cached decode over the plain grouped
 attention with an explicit visibility mask, as in the reference. The
 paged functions take per-row LoRA adapters gathered from a paged slab
-(:func:`lora_bgmv_views`), as the multi-LoRA engine runs them.
+(:func:`lora_bgmv_views`), as the multi-LoRA engine runs them. Greedy
+speculative decoding: :func:`speculative_generate` for one sequence, and
+:func:`paged_verify_block`, the paged engine's verify step.
 
 Unlike the reference's pure functions, the cache's K/V buffers are
 written IN PLACE (one copy of a slot pool on the card, where the JAX
@@ -579,6 +581,31 @@ def paged_decode_step(
     return logits[:, 0], {**cache, "len": pos0 + 1}
 
 
+def paged_verify_block(
+    params: Any,
+    block: torch.Tensor,
+    cache: KVCache,
+    cfg: TransformerConfig,
+    *,
+    page_tables: torch.Tensor,
+    lora=None,
+    lora_scale: float = 1.0,
+) -> tuple[torch.Tensor, KVCache]:
+    """Pool-wide T-token verify step through per-row page tables, the
+    target's half of the paged engine's speculative decode. ``block``
+    [B, T] is each row's last verified token followed by its draft
+    proposal. Every position is scored in one forward, whose logits at
+    position ``t`` are those of ``t`` sequential :func:`paged_decode_step`
+    calls, and all T new entries go back through the tables. ``len``
+    advances by T; the engine rewinds it past rejected positions, whose
+    stale entries sit beyond every later read's visibility mask until
+    the row overwrites them. ``lora`` as in :func:`paged_decode_step`.
+    Returns logits [B, T, vocab] f32 and the cache."""
+    pos0 = cache["len"]
+    logits = _paged_block(params, block, cache, cfg, page_tables, pos0, lora, lora_scale)
+    return logits, {**cache, "len": pos0 + block.shape[1]}
+
+
 def _mask_after_eos(gen: torch.Tensor, eos_id: int) -> torch.Tensor:
     """Overwrite positions strictly after each row's first EOS with EOS."""
     is_eos = (gen == eos_id).int()
@@ -682,3 +709,106 @@ def generate(
     if prompt_lens is not None:
         return gen
     return torch.cat([prompt, gen], dim=1)
+
+
+def speculative_generate(
+    target_params: Any,
+    draft_params: Any,
+    prompt,
+    target_cfg: TransformerConfig,
+    draft_cfg: TransformerConfig,
+    *,
+    max_new: int,
+    k: int = 4,
+    eos_id: int | None = None,
+    return_stats: bool = False,
+    device: str | torch.device | None = None,
+):
+    """Greedy speculative decoding of one sequence (``prompt`` [1, Tp]):
+    each round the draft proposes ``k`` tokens, the target scores them in
+    one :func:`decode_block` forward, and the longest prefix it agrees
+    with plus its own next token are emitted. The tokens are the target's
+    greedy continuation, those of :func:`generate`; the draft changes only
+    how many target forwards it takes. Both caches rewind ``len`` past
+    the rejected entries each round. Both configs must share a vocab.
+
+    Returns [1, Tp + max_new]; with ``return_stats`` ``(tokens,
+    {"rounds", "drafted", "accepted"})``. A perfect draft finishes in
+    ceil((max_new - 1) / (k + 1)) rounds: an unwritten draft entry after
+    a fully accepted round would show as extra rounds, not in the tokens.
+    """
+    if target_cfg.vocab != draft_cfg.vocab:
+        raise ValueError(
+            f"target/draft vocab mismatch: {target_cfg.vocab} vs {draft_cfg.vocab}"
+        )
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    B, Tp = prompt.shape
+    if B != 1:
+        raise ValueError(f"speculative_generate is single-sequence; got B={B}")
+    if max_new < 0:
+        raise ValueError(f"max_new must be >= 0, got {max_new}")
+
+    width = max_new + k + 1  # the last round may overhang by <= k
+    t_cache = init_cache(target_cfg, B, Tp + width, device=dev)
+    d_cache = init_cache(draft_cfg, B, Tp + width, device=dev)
+    t_logits, t_cache = prefill(target_params, prompt, t_cache, target_cfg)
+    _, d_cache = prefill(draft_params, prompt, d_cache, draft_cfg)
+    last = torch.argmax(t_logits, -1)  # [1]
+    out = [int(last)]
+    stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+    while len(out) < max_new:
+        # k+1 draft steps for k proposals: the last step writes the last
+        # proposal's own KV, which a fully accepted round leaves valid (an
+        # unwritten entry there would poison every later proposal).
+        tok, props = last, []
+        for _ in range(k + 1):
+            logits, d_cache = decode_step(draft_params, tok, d_cache, draft_cfg)
+            tok = torch.argmax(logits, -1)
+            props.append(tok)
+        drafts = torch.stack(props[:k], dim=1)  # [1, k]
+        block = torch.cat([last[:, None], drafts], dim=1)  # [1, k+1]
+        logits, t_cache = decode_block(target_params, block, t_cache, target_cfg)
+        greedy = torch.argmax(logits, -1)  # [1, k+1]
+        # the longest agreeing prefix a, then drafts[:a] + greedy[a]
+        match = (drafts == greedy[:, :k]).int()
+        a = int(torch.cumprod(match, dim=1).sum())
+        out += drafts[0, :a].tolist() + [int(greedy[0, a])]
+        # the valid prefix ends before the new last token
+        valid = torch.tensor(Tp + len(out) - 1, dtype=torch.int32, device=dev)
+        t_cache = {**t_cache, "len": valid}
+        d_cache = {**d_cache, "len": valid}
+        last = greedy[:, a]
+        stats["rounds"] += 1
+        stats["drafted"] += k
+        stats["accepted"] += a
+    gen = torch.tensor([out[:max_new]], dtype=torch.long, device=dev)
+    if eos_id is not None:
+        gen = _mask_after_eos(gen, eos_id)
+    tokens = torch.cat([prompt, gen], dim=1)
+    return (tokens, stats) if return_stats else tokens
+
+
+def make_speculative_generate(
+    target_cfg: TransformerConfig,
+    draft_cfg: TransformerConfig,
+    *,
+    max_new: int,
+    k: int = 4,
+    eos_id: int | None = None,
+    return_stats: bool = False,
+    device: str | torch.device | None = None,
+):
+    """Closure (target_params, draft_params, prompt) -> [1, Tp + max_new]
+    (or (tokens, stats) with ``return_stats``). The reference jits it;
+    nothing compiles here."""
+
+    def run(target_params, draft_params, prompt):
+        return speculative_generate(
+            target_params, draft_params, prompt, target_cfg, draft_cfg, max_new=max_new, k=k,
+            eos_id=eos_id, return_stats=return_stats, device=device,
+        )
+
+    return run

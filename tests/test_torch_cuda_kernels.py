@@ -587,3 +587,53 @@ def test_lora_train_step_on_card_launches_the_tensor_core_kernels():
     want.update(flash_fwd=2 * cfg.n_layers, flash_bwd_dq=cfg.n_layers, flash_bwd_dkv=cfg.n_layers)
     assert launched == want and torch.isfinite(loss)
     assert all(torch.equal(base[k], v) for k, v in T._flatten(params).items())
+
+
+@pytest.mark.cuda
+def test_tiny_spec_engine_on_card_matches_its_cpu_tokens():
+    """A small speculative PagedSlotEngine, f32 (TF32 off), a target at head
+    dim 128 and a draft at head dim 64: on the card it serves the tokens
+    the same engine serves on the CPU, each prefill dispatch launches the
+    forward kernel once per target and draft layer, the shape guard holds
+    five programs, and every lookahead page comes back."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, shared_prefix_trace
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = T.TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                                  d_ff=512, max_seq=128, compute_dtype=torch.float32)
+        dcfg = T.TransformerConfig(vocab=256, d_model=128, n_layers=1, n_heads=2, n_kv_heads=1,
+                                   d_ff=256, max_seq=128, compute_dtype=torch.float32)
+        weights = {name: T.init_params(c, torch.Generator().manual_seed(seed), device="cpu")
+                   for name, c, seed in (("target", cfg, 5), ("draft", dcfg, 6))}
+        reqs = shared_prefix_trace(8, seed=1, rate=0.5, vocab=cfg.vocab, prefixes=(2, 32),
+                                   tail_lens=(4, 30), max_new=(4, 12))
+        tokens = {}
+        for device in ("cpu", "cuda"):
+            p = {name: {k: ({n: t.to(device) for n, t in v.items()} if isinstance(v, dict)
+                            else v.to(device)) for k, v in w.items()}
+                 for name, w in weights.items()}
+            eng = PagedSlotEngine(p["target"], cfg, slots=3, max_len=96, total_pages=40,
+                                  page_size=8, prefill_chunk=16, eos_id=None,
+                                  draft_params=p["draft"], draft_cfg=dcfg, spec_k=3,
+                                  device=device)
+            eng.warmup()
+            prefills = []
+            program = eng._prefill
+            eng._prefill = lambda *a, _p=program: (prefills.append(1), _p(*a))[1]
+            before = dict(fa.LAUNCHES)
+            stats = eng.run(reqs)
+            tokens[device] = [r.tokens for r in stats.results]
+            assert stats.trace_counts == {"prefill": 1, "extend": 1, "decode": 1, "draft": 1,
+                                          "verify": 1}
+            assert stats.engine_cache["speculative"]["draft_steps"] > 0
+            assert eng.allocator.used_pages == eng.radix.cached_pages
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in fa.LAUNCHES.items()}
+        entry = fa.fwd_entry(torch.float32, cfg.head_dim)
+        assert launched[entry] == (cfg.n_layers + dcfg.n_layers) * len(prefills) > 0
+        assert tokens["cuda"] == tokens["cpu"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
