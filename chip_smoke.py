@@ -154,8 +154,27 @@ Phases, each of which fails the run with a non-zero exit:
    same tokens and no request lost or twice. Then ``speculative_generate``
    at B=1 on a 512-token prompt with each draft against ``generate``.
    Each round's wall time is kept, and one round is profiled.
+16. Interference, on phase 2's weights (run straight after phase 15): a
+   latency-critical ``SlotEngine(slots=8, max_len=2048, prefill_chunk=512,
+   metrics_pod=CRIT_POD)`` beside a best-effort ``PagedSlotEngine(slots=16,
+   total_pages=1024, page_size=16, radix=False, metrics_pod=BE_POD)`` with
+   Llama-3-8B weights of its own (seed BE_SEED), in this process, with the
+   port's ``MetricsServer`` on localhost. Solo: a settle run and six trials
+   of the critical trace, the profiler's ring write on and off in turn.
+   Governor off: the best-effort trace loops on a thread while the
+   critical trace replays three times and a monitor thread grades the
+   critical rolling step p99 against 1.3x solo into an ``SloBudget``, which
+   must page. Governor on: the same, the best-effort
+   engine paced by a ``StepGovernor`` on that budget, which must engage and
+   throttle. A short profiled trial in each part gives the device busy
+   share. Fails unless the critical tokens are the same in every trial, the
+   drained best-effort tokens are a prefix of its ungoverned run's, both
+   shape guards hold, every page comes back, ``flash_fwd`` runs (the scalar
+   entry never), ``/metrics`` (scraped and parsed here) carries the step
+   p99 of both pods and the governor, SLO, page and preemption families,
+   and ``/traces`` holds each critical request's ``serve.request`` tree.
 
-The phases run in the order 1, 2, 3, 7, 8, 13, 15, 14, 4, 5, 6, 9-12.
+The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 14, 4, 5, 6, 9-12.
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -171,8 +190,9 @@ line of stdout is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit from ``nvidia-smi``; before that, one
 JSON line ``{"kernels": [...]}``, whose launches per path include
 ``lora_serve`` (phase 13, runs A and B), ``lora_train`` (phase 14's
-pod, from its JSON line) and ``spec_serve`` (phase 15, runs A and B);
-the forward rows carry ``at_draft_shape``.
+pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B) and
+``interference`` (phase 16, both tenants); the forward rows carry
+``at_draft_shape``. The line before the card's is the script's seconds.
 """
 
 from __future__ import annotations
@@ -198,7 +218,9 @@ from gpushare_device_plugin_tpu_torch.parallel.podenv import (
     PodTpuEnv,
     configure_torch_from_env,
 )
+from gpushare_device_plugin_tpu_torch.serving import StepGovernor
 from gpushare_device_plugin_tpu_torch.serving.engine import (
+    TIER_CRITICAL,
     PagedSlotEngine,
     Request,
     SlotEngine,
@@ -206,6 +228,11 @@ from gpushare_device_plugin_tpu_torch.serving.engine import (
     poisson_trace,
     shared_prefix_trace,
 )
+from gpushare_device_plugin_tpu_torch.serving.profiler import ceil_rank_quantile
+from gpushare_device_plugin_tpu_torch.utils import metric_catalog as MC
+from gpushare_device_plugin_tpu_torch.utils import tracing
+from gpushare_device_plugin_tpu_torch.utils.metrics import MetricsServer
+from gpushare_device_plugin_tpu_torch.utils.slo import SloBudget, SloObjective
 from gpushare_device_plugin_tpu_torch.workloads import bert as B
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
 from gpushare_device_plugin_tpu_torch.workloads import lora as L
@@ -302,6 +329,22 @@ DRAFT_D = 64
 SPEC_B_REQUESTS = 8
 SPEC_ACCEPT_MIN = 0.9
 SPEC_MAX_NEW = 32  # the contiguous speculative_generate's run, on a 512-token prompt
+# Phase 16: a latency-critical tenant's SlotEngine beside a best-effort
+# tenant's PagedSlotEngine, both Llama-3-8B, in one process on one card,
+# with the parameters of the reference's bench_mfu.py::bench_serve_interference
+# (the objective at 1.3x the solo step p99, goal 0.95; the governor at 0.2
+# dispatches a second, a bucket of 0.2, a poll every dispatch, no release).
+CRIT_POD, BE_POD = "smoke/critical", "smoke/besteffort"
+INTERFERENCE_OBJECTIVE = 1.3
+INTERFERENCE_GOAL = 0.95
+INTERFERENCE_TRIALS = 3
+GOVERNOR_KW = dict(throttled_steps_per_s=0.2, burst=0.2, poll_interval_steps=1,
+                   release_after=100_000)
+BE_SEED = 16  # the best-effort tenant's own weights
+# The busy-share windows profile a short critical trial: the same requests
+# with 16 new tokens, whose tokens are the first 16 of the full trial's (a
+# row's tokens depend on its own row only).
+BUSY_MAX_NEW = 16
 # Phase 14: the LoRA pod's slice, batch and steps.
 LORA_TRAIN_UNITS, LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 32, 2, 2048, 8
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
@@ -1734,6 +1777,310 @@ def train_lora_pod(batch: int, steps: int) -> dict:
     }
 
 
+def tpot_p99_ms(stats) -> float:
+    """Per-request wall time per output token after the first, p99 (ms)."""
+    vals = [(r.finish_s - r.first_token_s) / (len(r.tokens) - 1)
+            for r in stats.results if len(r.tokens) > 1]
+    return ceil_rank_quantile(vals, 0.99) * 1e3
+
+
+def busy_share(run_fn) -> tuple[object, dict | None]:
+    """Device busy share of the whole card while ``run_fn`` (a short
+    critical trial) runs beside whatever else runs: summed kernel time from
+    ``torch.profiler`` (CUDA activity, every thread's kernels) over the
+    trial's wall time. The engines dispatch on one stream, so summed kernel
+    time is busy time. Returns ``run_fn``'s result and the share, None
+    where the profiler recorded no kernel ("not measured")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernel_s = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e6
+    if kernel_s <= 0:
+        return out, None
+    return out, {"window_s": wall, "kernel_s": kernel_s, "busy_share": kernel_s / wall,
+                 "kernels": sum(e.count for e in events)}
+
+
+def scrape(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.read().decode()
+
+
+def parse_exposition(text: str) -> dict[str, list[tuple[dict, float]]]:
+    """Samples of a text-format exposition by sample name: (labels, value)."""
+    out: dict[str, list[tuple[dict, float]]] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, _, raw = head.partition("{")
+        labels = dict(part.split("=", 1) for part in raw.rstrip("}").split(",") if part)
+        out.setdefault(name, []).append(
+            ({k: v.strip('"') for k, v in labels.items()}, float(value)))
+    return out
+
+
+def phase_interference(params, cfg) -> tuple[dict, dict]:
+    """Phase 16, on phase 2's weights: a latency-critical SlotEngine beside
+    a best-effort PagedSlotEngine with weights of its own, governor off
+    and on. Returns the path's kernel launches and the phase's report."""
+    print("phase 16: interference, critical llama3_8b SlotEngine beside best-effort "
+          "llama3_8b PagedSlotEngine", flush=True)
+    t_phase = time.perf_counter()
+    fail: list[str] = []
+    be_params = init_params(cfg, torch.Generator(device="cuda").manual_seed(BE_SEED),
+                            device="cuda", dtype=torch.bfloat16)
+    crit = SlotEngine(params, cfg, slots=8, max_len=2048, prefill_chunk=512,
+                      metrics_pod=CRIT_POD, profiler_capacity=4096)
+    be = PagedSlotEngine(be_params, cfg, slots=16, max_len=2048, prefill_chunk=512,
+                         page_size=16, total_pages=1024, radix=False, metrics_pod=BE_POD)
+    crit_reqs = poisson_trace(8, seed=17, rate=0.5, vocab=cfg.vocab, prompt_lens=(128, 512),
+                              max_new=(64, 64))
+    busy_reqs = [dataclasses.replace(r, max_new=BUSY_MAX_NEW) for r in crit_reqs]
+    be_reqs = poisson_trace(16, seed=19, rate=1.0, vocab=cfg.vocab, prompt_lens=(512, 1536),
+                            max_new=(32, 64))
+    tracing.TRACER.configure(sample_ratio=1.0)
+    server = MetricsServer(host="127.0.0.1", port=0).start()
+    report: dict = {"weights_gb": round((tensor_bytes(params) + tensor_bytes(be_params)) / 1e9, 3)}
+    try:
+        crit.warmup()
+        be.warmup()
+        warm_c, warm_b = dict(crit.trace_counts), dict(be.trace_counts)
+        torch.cuda.synchronize()
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        streams = {"critical": torch.cuda.current_stream().cuda_stream}
+        be_ref = {r.rid: list(r.tokens) for r in be.run(be_reqs).results}
+
+        # --- solo: a settle run, then six trials, the ring write on and off
+        crit.run(crit_reqs)
+        crit_tokens = None
+        crit.profiler.reset()
+        tpot = {True: [], False: []}
+        for trial in range(6):
+            profiled = trial % 2 == 0
+            if not profiled:
+                crit.profiler.record = lambda *a, **k: None
+            stats = crit.run(crit_reqs)
+            crit.profiler.__dict__.pop("record", None)
+            toks = {r.rid: list(r.tokens) for r in stats.results}
+            crit_tokens = crit_tokens or toks
+            if toks != crit_tokens:
+                fail.append(f"solo trial {trial}: critical tokens differ")
+            tpot[profiled].append(tpot_p99_ms(stats))
+        p50_solo, p99_solo = crit.profiler.p50(), crit.profiler.p99()
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        overhead = (med(tpot[True]) / med(tpot[False]) - 1.0) * 100.0
+        steps_solo = crit.profiler.count
+
+        def check_tokens(stats, where, n=None):
+            """Every request's tokens equal solo's (their first ``n``)."""
+            got = {r.rid: list(r.tokens) for r in stats.results}
+            if got != {rid: toks[:n] for rid, toks in crit_tokens.items()}:
+                fail.append(f"{where}: critical tokens differ from solo")
+
+        busy_stats, busy_solo = busy_share(lambda: crit.run(busy_reqs))
+        check_tokens(busy_stats, "solo, busy window", BUSY_MAX_NEW)
+        report["solo"] = {"step_p50_ms": p50_solo * 1e3, "step_p99_ms": p99_solo * 1e3,
+                          "steps": steps_solo, "tpot_p99_ms_profiled": tpot[True],
+                          "tpot_p99_ms_unprofiled": tpot[False],
+                          "profiler_overhead_pct_tpot_p99": overhead, "busy": busy_solo}
+        print("  solo", json.dumps(report["solo"]), flush=True)
+
+        # --- the SLO budget, graded by a monitor thread against 1.3x solo
+        target_s = p99_solo * INTERFERENCE_OBJECTIVE
+        pages_fired: list[str] = []
+        budget = SloBudget(
+            {TIER_CRITICAL: SloObjective(tier=TIER_CRITICAL, goal=INTERFERENCE_GOAL)},
+            on_page=lambda tier, v: pages_fired.append(tier),
+        )
+
+        def monitor(stop: threading.Event) -> None:
+            while not stop.wait(0.01):
+                p99 = crit.profiler.p99()
+                if p99 == p99:  # not nan
+                    budget.record(TIER_CRITICAL, p99 <= target_s)
+
+        def window(label: str) -> dict:
+            """The critical trace INTERFERENCE_TRIALS times while the
+            best-effort tenant loops its own trace on a thread and the
+            monitor thread grades the critical tenant; then a short trial
+            inside a busy-share window. The co-tenant is drained at the
+            end."""
+            stop_be, stop_mon = threading.Event(), threading.Event()
+            be_out = {"tokens": 0, "runs": 0, "error": None, "retired_ok": True}
+
+            def be_loop() -> None:
+                streams["besteffort"] = torch.cuda.current_stream().cuda_stream
+                try:
+                    while not stop_be.is_set():
+                        st = be.run(be_reqs)
+                        be_out["runs"] += 1
+                        for r in st.results:
+                            be_out["tokens"] += len(r.tokens)
+                            be_out["retired_ok"] &= list(r.tokens) == be_ref[r.rid]
+                except BaseException as e:  # noqa: BLE001 — reported by the main thread
+                    be_out["error"] = repr(e)
+
+            crit.profiler.reset()
+            be_thread = threading.Thread(target=be_loop, name="besteffort", daemon=True)
+            mon = threading.Thread(target=monitor, args=(stop_mon,), name="monitor", daemon=True)
+            t0 = time.perf_counter()
+            be_thread.start()
+            mon.start()
+            try:
+                for _ in range(INTERFERENCE_TRIALS):
+                    last = crit.run(crit_reqs)
+                    check_tokens(last, label)
+                p50, p99, steps = crit.profiler.p50(), crit.profiler.p99(), crit.profiler.count
+                busy_stats, busy = busy_share(lambda: crit.run(busy_reqs))
+                check_tokens(busy_stats, f"{label}, busy window", BUSY_MAX_NEW)
+            finally:
+                stop_mon.set()
+                stop_be.set()
+                be.request_drain()
+                mon.join(timeout=5.0)
+                be_thread.join(timeout=120.0)
+            wall = time.perf_counter() - t0
+            out = {"step_p50_ms": p50 * 1e3, "step_p99_ms": p99 * 1e3, "steps": steps,
+                   "p50_over_solo": p50 / p50_solo, "p99_over_solo": p99 / p99_solo,
+                   "wall_s": wall, "busy": busy, "last_stats": last}
+            if be_thread.is_alive():
+                fail.append(f"{label}: the best-effort tenant did not drain")
+            if be_out["error"]:
+                fail.append(f"{label}: the best-effort tenant raised {be_out['error']}")
+            try:
+                snap = be.wait_drained(timeout=0.5)
+            except TimeoutError:
+                snap = None
+            rows = (snap or {}).get("requests", [])
+            drained_tokens = sum(len(row.get("tokens") or []) for row in rows)
+            prefix_ok = be_out["retired_ok"] and all(
+                list(row.get("tokens") or []) == be_ref[int(row["rid"])][: len(row.get("tokens") or [])]
+                for row in rows)
+            if not prefix_ok:
+                fail.append(f"{label}: best-effort tokens left its ungoverned run's")
+            return {**out, "besteffort_runs": be_out["runs"], "besteffort_drained_rows": len(rows),
+                    "besteffort_tokens": be_out["tokens"] + drained_tokens,
+                    "besteffort_tokens_per_s": (be_out["tokens"] + drained_tokens) / wall}
+
+        # --- governor off: one window, after which the budget must page
+        off = window("governor off")
+        off_verdict = budget.publish(pod=CRIT_POD)[TIER_CRITICAL]
+        report["off"] = {k: v for k, v in off.items() if k != "last_stats"}
+        report["off"].update(severity=off_verdict.severity,
+                             budget=off_verdict.to_dict(), pages_fired=len(pages_fired))
+        print("  governor off", json.dumps(report["off"]), flush=True)
+        if off_verdict.severity != "page" or not pages_fired:
+            fail.append(f"the budget did not page with the governor off ({off_verdict.to_dict()})")
+
+        # --- governor on: the same co-tenant, paced by the burning budget
+        gov = StepGovernor(lambda: budget.severity(TIER_CRITICAL), pod=BE_POD, **GOVERNOR_KW)
+        be.governor = gov
+        try:
+            on = window("governor on")
+        finally:
+            be.governor = None
+        on_verdict = budget.publish(pod=CRIT_POD)[TIER_CRITICAL]
+        report["on"] = {k: v for k, v in on.items() if k != "last_stats"}
+        report["on"].update(severity=on_verdict.severity, budget=on_verdict.to_dict())
+        report["governor"] = gov.stats()
+        report["streams"] = streams
+        print("  governor on", json.dumps(report["on"]), flush=True)
+        print("  governor", json.dumps(report["governor"]), "; streams (cuda_stream handles)",
+              json.dumps(streams), flush=True)
+        if gov.engagements < 1 or gov.throttled_steps <= 0:
+            fail.append(f"the governor did not throttle: {gov.stats()}")
+
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        if crit.trace_counts != warm_c or be.trace_counts != warm_b:
+            fail.append(f"shape guards moved: {crit.trace_counts} / {be.trace_counts}")
+        if be.allocator.used_pages != 0:
+            fail.append(f"{be.allocator.used_pages} pages not returned")
+        if launches["flash_fwd"] < 1 or launches["flash_fwd_scalar"]:
+            fail.append(f"the path's forward launches {launches}")
+
+        # --- /metrics and /traces from the port's MetricsServer
+        url = f"http://127.0.0.1:{server.port}"
+        samples = parse_exposition(scrape(f"{url}/metrics"))
+
+        def has(name, **labels):
+            return any(all(lab.get(k) == v for k, v in labels.items())
+                       for lab, _ in samples.get(name, []))
+
+        want = [(MC.ENGINE_STEP_P99_SECONDS, dict(pod=CRIT_POD)),
+                (MC.ENGINE_STEP_P99_SECONDS, dict(pod=BE_POD)),
+                (MC.ENGINE_STEP_SECONDS + "_count", dict(pod=CRIT_POD)),
+                (MC.GOVERNOR_ENGAGED, dict(pod=BE_POD)),
+                (MC.GOVERNOR_ENGAGEMENTS_TOTAL, dict(pod=BE_POD)),
+                (MC.GOVERNOR_THROTTLED_STEPS_TOTAL, dict(pod=BE_POD)),
+                (MC.GOVERNOR_THROTTLE_SECONDS_TOTAL, dict(pod=BE_POD)),
+                (MC.SLO_BURN_RATE, dict(pod=CRIT_POD, tier=TIER_CRITICAL, window="5m")),
+                (MC.SLO_ERROR_BUDGET_REMAINING, dict(pod=CRIT_POD, tier=TIER_CRITICAL)),
+                (MC.SLO_SEVERITY, dict(pod=CRIT_POD, tier=TIER_CRITICAL)),
+                (MC.ENGINE_KV_PAGES_TOTAL, dict(pod=BE_POD)),
+                (MC.ENGINE_KV_PAGES_FREE, dict(pod=BE_POD)),
+                (MC.ENGINE_KV_PAGES_USED, dict(pod=BE_POD)),
+                (MC.ENGINE_PREEMPTIONS, dict(pod=BE_POD)),
+                (MC.BUILD_INFO, dict(component="engine"))]
+        if be.preemptions:
+            want.append((MC.ENGINE_PREEMPTIONS_TOTAL, dict(pod=BE_POD)))
+        missing = [f"{n}{lab}" for n, lab in want if not has(n, **lab)]
+        # the best-effort engine runs without a radix cache (a warm cache
+        # would serve its looped trace from its own pages, and the tokens
+        # could leave the ungoverned run's), so it publishes no prefix family
+        prefix = sorted(n for n, v in samples.items() if n.startswith("tpushare_engine_prefix")
+                        and any(lab.get("pod") == BE_POD for lab, _ in v))
+        print(f"  /metrics: {sum(len(v) for v in samples.values())} samples, "
+              f"{len(want) - len(missing)} of {len(want)} wanted series; {BE_POD}'s prefix "
+              f"families {prefix} (it has no radix cache)", flush=True)
+        if missing:
+            fail.append(f"/metrics lacks {missing}")
+        trees = 0
+        for res in on["last_stats"].results:
+            spans = tracing.spans_from_otlp(json.loads(scrape(f"{url}/traces?trace_id={res.trace_id}")))
+            root = [s for s in spans if s["name"] == "serve.request"]
+            names = sorted(s["name"] for s in spans)
+            if res.trace_id and len(root) == 1 and names == [
+                    "serve.decode", "serve.prefill", "serve.queue", "serve.request",
+                    "serve.retire"] and all(
+                    s["parent_id"] == root[0]["span_id"] for s in spans if s is not root[0]):
+                trees += 1
+        print(f"  /traces: {trees} of {len(crit_reqs)} critical requests with a serve.request "
+              "tree", flush=True)
+        if trees != len(crit_reqs):
+            fail.append(f"/traces holds {trees} of {len(crit_reqs)} request trees")
+    finally:
+        server.stop()
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    print("  interference", json.dumps({
+        "p99_ms": {"solo": report["solo"]["step_p99_ms"], "off": report["off"]["step_p99_ms"],
+                   "on": report["on"]["step_p99_ms"]},
+        "p99_over_solo": {"off": report["off"]["p99_over_solo"],
+                          "on": report["on"]["p99_over_solo"]},
+        "besteffort_tokens_per_s": {"off": report["off"]["besteffort_tokens_per_s"],
+                                    "on": report["on"]["besteffort_tokens_per_s"]},
+        "busy_share": {k: (report[k]["busy"] or {}).get("busy_share")
+                       for k in ("solo", "off", "on")},
+        "flash_fwd_launches": launches["flash_fwd"], "seconds": report["seconds"],
+    }), flush=True)
+    del crit, be, be_params
+    torch.cuda.empty_cache()
+    if fail:
+        raise SystemExit("phase 16 failed: " + "; ".join(fail))
+    return launches, report
+
+
 def pod_main(argv: list[str]) -> int:
     """One pod, in a child process whose env is the plugin's: cap the
     process from the env first, then train ``argv = [workload, batch,
@@ -1954,6 +2301,7 @@ def main() -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "device", torch.cuda.get_device_name(0), flush=True)
 
+    t_script = time.perf_counter()
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1974,6 +2322,9 @@ def main() -> int:
     t0 = time.perf_counter()
     spec_launches = phase_spec_serve(params, cfg, paged_stats, paged_report)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    del paged_stats, paged_report
+    interference_launches, interference = phase_interference(params, cfg)
+    print(f"phase 16: {interference['seconds']:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1993,7 +2344,8 @@ def main() -> int:
 
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
-             "lora_train": lora_train_launches, "spec_serve": spec_launches}
+             "lora_train": lora_train_launches, "spec_serve": spec_launches,
+             "interference": interference_launches}
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")
@@ -2045,6 +2397,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

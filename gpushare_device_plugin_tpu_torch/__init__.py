@@ -6,3 +6,5 @@ package imports ``torch`` and ``numpy`` and nothing of JAX or of the
 reference package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (see :func:`.device.resolve_device`).
 """
+
+__version__ = "0.1.0"

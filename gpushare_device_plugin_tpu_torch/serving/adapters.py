@@ -1,7 +1,8 @@
 """Refcounted LRU cache of paged LoRA adapters for the serving engine.
 
 Counterpart of ``gpushare_device_plugin_tpu/serving/adapters.py``
-(:class:`AdapterCache`; publishing to ``/metrics`` is not ported yet).
+(:class:`AdapterCache`, with :meth:`AdapterCache.publish` of its
+residency gauges to ``/metrics``).
 Many tenants' fine-tunes share one base model: each adapter is one flat
 f32 vector (``workloads/lora.py::flatten_lora``) striped across
 ``pages_per_adapter`` pages of the same refcounted
@@ -36,6 +37,8 @@ import dataclasses
 import threading
 
 from ..const import WORKLOAD_LATENCY_CRITICAL
+from ..utils.metric_catalog import ENGINE_ADAPTER_CACHE_PAGES, ENGINE_ADAPTER_RESIDENT
+from ..utils.metrics import REGISTRY, MetricsRegistry
 from .pages import PageAllocator
 
 
@@ -229,3 +232,15 @@ class AdapterCache:
                 "evictions": self.evictions,
                 "hit_ratio": self.hits / total if total else 0.0,
             }
+
+    def publish(self, registry: MetricsRegistry = REGISTRY, pod: str = "") -> None:
+        """Export the residency gauges (read under the lock, written to the
+        registry outside it). The engine publishes the hit, miss and
+        eviction counters and the miss-stall histogram itself."""
+        with self._lock:
+            resident = len(self._entries)
+        labels = {"pod": pod} if pod else {}
+        registry.gauge_set(ENGINE_ADAPTER_RESIDENT, resident,
+                           "LoRA adapters resident in the paged slab", **labels)
+        registry.gauge_set(ENGINE_ADAPTER_CACHE_PAGES, resident * self.pages_per_adapter,
+                           "Pool pages holding resident LoRA adapters", **labels)

@@ -31,8 +31,19 @@ speculative engine) records the distinct input shapes it has run on, and
 slot churn must leave every count at 1.
 
 **Clocks.** Ticks (one per model dispatch: a prompt chunk or a decode
-step) and wall seconds, as in the reference. The governor, SLO budget,
-tracing and ``/metrics`` hooks of the reference are not ported yet.
+step) and wall seconds, as in the reference.
+
+**Observability** (the interference plane): every decode step's wall
+time goes into ``profiler`` (a ring), flushed to ``/metrics`` under
+``metrics_pod`` once per run; each retired request leaves a
+``serve.request`` span tree, rebuilt at retire from timestamps the loop
+keeps anyway, and its SLO verdict in ``slo_budget``; a best-effort
+engine's ``governor`` (``governor.py``) is asked before every model
+dispatch and may delay it, never alter it. The paged engine also
+publishes its pages, prefix cache, preemptions, adapters and speculative
+counters (:meth:`PagedSlotEngine.publish_metrics`). Warmup adds no
+sample to a histogram or counter (``_warming``); its gauges are
+overwritten by the next run.
 """
 
 from __future__ import annotations
@@ -56,6 +67,26 @@ from ..const import (
 )
 from ..device import resolve_device
 from ..parallel.podenv import PodTpuEnv
+from ..utils.metric_catalog import (
+    ENGINE_ADAPTER_ENABLED,
+    ENGINE_ADAPTER_EVICTIONS_TOTAL,
+    ENGINE_ADAPTER_HITS_TOTAL,
+    ENGINE_ADAPTER_MISS_STALL_SECONDS,
+    ENGINE_ADAPTER_MISSES_TOTAL,
+    ENGINE_PREEMPTIONS,
+    ENGINE_PREEMPTIONS_TOTAL,
+    ENGINE_PREFIX_CACHED_PAGES,
+    ENGINE_PREFIX_HIT_RATIO,
+    ENGINE_PREFIX_HIT_TOKENS,
+    ENGINE_SPEC_ACCEPTANCE_LEN,
+    ENGINE_SPEC_ACCEPTED_TOKENS_PER_STEP,
+    ENGINE_SPEC_DRAFT_STEPS_TOTAL,
+    ENGINE_SPEC_ENABLED,
+    ENGINE_SPEC_K,
+    ENGINE_SPEC_ROLLBACK_PAGES_TOTAL,
+)
+from ..utils.metrics import REGISTRY, publish_build_info
+from ..utils.tracing import TRACER
 from ..workloads import generate as G
 from ..workloads.lora import LoraConfig, flatten_lora, lora_flat_len
 from ..workloads.transformer import TransformerConfig
@@ -116,6 +147,7 @@ class RequestResult:
     finish_s: float = 0.0
     admit_tick: int = -1
     admit_s: float = 0.0
+    trace_id: str = ""  # the request's serve trace; "" when unsampled
     tier: str = TIER_CRITICAL
     slo_ttft_ticks: float | None = None
     slo_tpot_ticks: float | None = None
@@ -231,7 +263,11 @@ class SlotEngine:
     ``max_len`` positions, with ``prefill_chunk``-wide prompt chunks.
     ``params`` must already live on ``device`` (``cuda`` unless
     ``device="cpu"``). A request whose chunk-padded prompt or
-    ``prompt + max_new`` cannot fit a row is rejected at submit time."""
+    ``prompt + max_new`` cannot fit a row is rejected at submit time.
+    ``metrics_pod`` labels what the engine publishes (nothing is
+    exported without it), ``slo_budget`` (``utils/slo.py``) takes each
+    retired request's SLO verdict, and ``governor``
+    (:class:`~.governor.StepGovernor`) paces every model dispatch."""
 
     def __init__(
         self,
@@ -245,6 +281,9 @@ class SlotEngine:
         kv_dtype: str | None = None,
         device: str | torch.device | None = None,
         profiler_capacity: int = 1024,
+        metrics_pod: str = "",
+        slo_budget=None,
+        governor=None,
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -271,7 +310,12 @@ class SlotEngine:
         self.cache = self._make_cache(kv_dtype)
         self.ticks = 0
         self._shapes: dict[str, set] = {"prefill": set(), "extend": set(), "decode": set()}
+        self.metrics_pod = metrics_pod
         self.profiler = StepProfiler(capacity=profiler_capacity)
+        self.slo_budget = slo_budget
+        self.governor = governor
+        self._warming = False
+        publish_build_info(component="engine")
 
     def _make_cache(self, kv_dtype: str | None) -> G.KVCache:
         """The KV layout the engine runs on (the paged engine overrides it)."""
@@ -317,7 +361,11 @@ class SlotEngine:
         plen = self.chunk + 1
         if max(2 * self.chunk, plen + 2) > self.max_len:
             plen = min(self.chunk, self.max_len - 2)
-        self.run([Request(rid=-1, prompt=tuple(range(1, plen + 1)), max_new=2, arrival=0.0)])
+        self._warming = True
+        try:
+            self.run([Request(rid=-1, prompt=tuple(range(1, plen + 1)), max_new=2, arrival=0.0)])
+        finally:
+            self._warming = False
         self.ticks = 0
         self.profiler.reset()
 
@@ -333,6 +381,66 @@ class SlotEngine:
                 f"+ max_new {req.max_new} needs {need} positions, exceeding "
                 f"the slot row ({self.max_len}) — size the pool for the "
                 "workload or reject upstream (slice-aware admission)"
+            )
+
+    def _note_slo(self, res: RequestResult) -> None:
+        """The retired request's SLO verdict into ``slo_budget``; requests
+        without targets, and warmup's, record nothing."""
+        if self.slo_budget is None or res.rid < 0:
+            return
+        ok = res.meets_slo()
+        if ok is not None:
+            self.slo_budget.record(res.tier, ok)
+
+    def _flush_step_profile(self) -> None:
+        """Export the step profile once per run (never during warmup)."""
+        if not self._warming:
+            self.profiler.flush(REGISTRY, pod=self.metrics_pod)
+
+    def _record_request_trace(self, res: RequestResult, base_ns: int) -> None:
+        """The request's spans (queue wait, prefill, decode, retire, and
+        one per preemption), rebuilt at retire from the run's timestamps,
+        so the decode loop pays nothing. Unsampled requests, and warmup's,
+        record nothing."""
+        if res.rid < 0:
+            return
+
+        def at(seconds: float) -> int:
+            return base_ns + int(seconds * 1e9)
+
+        attrs = {
+            "rid": res.rid,
+            "prompt_len": res.prompt_len,
+            "tokens": len(res.tokens),
+            "ttft_ticks": res.ttft_ticks,
+            "slots": self.n_slots,
+            "tier": res.tier,
+        }
+        if res.prefix_tokens:
+            attrs["prefix_tokens"] = res.prefix_tokens
+        ctx = TRACER.record_span("serve.request", at(res.arrival_s), at(res.finish_s),
+                                 attributes=attrs, tier=res.tier)
+        if ctx is None:
+            return
+        res.trace_id = ctx.trace_id
+        admit = res.admit_s if res.admit_tick >= 0 else res.arrival_s
+        TRACER.record_span("serve.queue", at(res.arrival_s), at(admit), parent=ctx,
+                           attributes={"wait_ticks": max(0, res.admit_tick - res.arrival_tick)})
+        TRACER.record_span("serve.prefill", at(admit), at(res.first_token_s), parent=ctx,
+                           attributes={"chunks": -(-res.prompt_len // self.chunk),
+                                       "chunk_width": self.chunk})
+        TRACER.record_span("serve.decode", at(res.first_token_s), at(res.finish_s), parent=ctx,
+                           attributes={"decode_steps": max(0, len(res.tokens) - 1)})
+        TRACER.record_span("serve.retire", at(res.finish_s), at(res.finish_s), parent=ctx,
+                           attributes={"finish_tick": res.finish_tick})
+        for pre in res.preemptions:
+            # evict -> re-admission (or the finish of a request drained
+            # while preempted)
+            TRACER.record_span(
+                "serve.preempt", at(pre["evict_s"]), at(pre.get("readmit_s", res.finish_s)),
+                parent=ctx,
+                attributes={"evict_tick": pre["evict_tick"],
+                            "readmit_tick": pre.get("readmit_tick", -1), "tier": res.tier},
             )
 
     def _chunk(self, req: Request, done: int) -> tuple[torch.Tensor, int]:
@@ -356,6 +464,7 @@ class SlotEngine:
         live: dict[int, RequestResult] = {}
         i = 0
         t0 = time.perf_counter()
+        base_ns = time.time_ns()  # wall anchor of the request spans
 
         def now() -> float:
             return time.perf_counter() - t0
@@ -365,6 +474,8 @@ class SlotEngine:
             s.result.finish_tick = self.ticks
             s.result.finish_s = now()
             results.append(s.result)
+            self._record_request_trace(s.result, base_ns)
+            self._note_slo(s.result)
             slots[idx] = _Slot()
 
         while i < len(incoming) or pending or any(s.state != "free" for s in slots):
@@ -396,6 +507,9 @@ class SlotEngine:
                 idx = min(pre, key=lambda j: slots[j].result.arrival_tick)
                 s = slots[idx]
                 tokens, n_real = self._chunk(s.req, s.done)
+                if self.governor is not None:
+                    # a prompt chunk is a dispatch too: pace it like a step
+                    self.governor.before_step()
                 fn = self._prefill if s.done == 0 else self._extend
                 tok = fn(tokens, idx, n_real)
                 self.ticks += 1
@@ -418,6 +532,10 @@ class SlotEngine:
                 for idx in dec:
                     toks[idx] = slots[idx].last
                     active[idx] = True
+                if self.governor is not None:
+                    # may sleep, never skips: outside the timed step, so
+                    # pacing is not read as contention
+                    self.governor.before_step()
                 step_t0 = time.perf_counter()
                 nxt = self._decode(
                     torch.from_numpy(toks).to(self.device),
@@ -437,6 +555,7 @@ class SlotEngine:
                         retire(idx)
 
         results.sort(key=lambda r: r.rid)
+        self._flush_step_profile()
         return ServeStats(
             results=results, ticks=self.ticks, wall_s=time.perf_counter() - t0,
             trace_counts=self.trace_counts,
@@ -516,8 +635,11 @@ class PagedSlotEngine(SlotEngine):
 
     Geometry: ``prefill_chunk`` must be a page-size multiple (radix
     matches floor to chunk boundaries) and ``total_pages`` must cover one
-    ``max_len`` row (a lone request can always finish). The handoff-seed,
-    governor and metrics options of the reference are not ported yet."""
+    ``max_len`` row (a lone request can always finish). ``metrics_pod``,
+    ``slo_budget`` and ``governor`` are :class:`SlotEngine`'s; an engaged
+    governor sheds draft dispatches first (a round is optional work, the
+    plain step is not). The handoff-seed options of the reference are not
+    ported yet."""
 
     def __init__(
         self,
@@ -539,6 +661,9 @@ class PagedSlotEngine(SlotEngine):
         spec_k: int = 4,
         lora_store: dict | None = None,
         lora_cfg: LoraConfig | None = None,
+        metrics_pod: str = "",
+        slo_budget=None,
+        governor=None,
     ):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -598,7 +723,8 @@ class PagedSlotEngine(SlotEngine):
         super().__init__(
             params, cfg, slots=slots, max_len=max_len, prefill_chunk=prefill_chunk,
             eos_id=eos_id, kv_dtype=kv_dtype, device=device,
-            profiler_capacity=profiler_capacity,
+            profiler_capacity=profiler_capacity, metrics_pod=metrics_pod,
+            slo_budget=slo_budget, governor=governor,
         )
         self.allocator = PageAllocator(total_pages)
         self.radix = RadixCache(page_size, self.allocator) if radix else None
@@ -611,6 +737,7 @@ class PagedSlotEngine(SlotEngine):
                 (total_pages + 1, self._adapter_page_floats), dtype=torch.float32,
                 device=self.device,
             )
+            self._reset_adapter_pub()
         self.draft_cache = None
         if draft_cfg is not None:
             self._shapes.update(draft=set(), verify=set())
@@ -758,6 +885,21 @@ class PagedSlotEngine(SlotEngine):
         self._spec_rollback_pages = 0
         self._spec_tiers: dict[str, dict[str, int]] = {}
         self._spec_lookahead_high = 0
+        # counters go to /metrics as deltas past these watermarks, so a
+        # second run does not count the first one's again
+        self._spec_pub = {"draft_steps": 0, "rollback": 0}
+        # value -> multiplicity, flushed once per run: accepted proposals
+        # per row a round, and tokens emitted a round
+        self._spec_accept_hist: dict[int, int] = {}
+        self._spec_step_hist: dict[int, int] = {}
+
+    def _reset_adapter_pub(self) -> None:
+        self._adapter_pub = {"hits": 0, "misses": 0, "evictions": 0}
+        # seconds each slab load stalled a request (or overlapped its wait)
+        self._adapter_stalls: list[float] = []
+        # rid -> perf_counter of its first head-blocked acquire: the wait
+        # counts into the stall when the acquire lands
+        self._adapter_waits: dict[int, float] = {}
 
     def validate(self, req: Request) -> None:
         super().validate(req)
@@ -790,25 +932,40 @@ class PagedSlotEngine(SlotEngine):
     def _admit_adapter(self, req: Request) -> list[int] | None:
         """Pin ``req``'s adapter for one row, loading it on a miss. None:
         the pool cannot hold it now; the request stays at the head of the
-        queue and retries next turn."""
+        queue and retries next turn. The load's time, and the time the
+        head waited for it, go into the miss-stall histogram."""
+        t0 = time.perf_counter()
         got = self.adapters.acquire(req.adapter_id, tier=_TIER_CLASS[req.tier])
         if got is None:
+            self._adapter_waits.setdefault(req.rid, t0)
             return None
         pages, loaded = got
         if loaded:
             self._write_adapter_pages(req.adapter_id, pages)
+        waited = t0 - self._adapter_waits.pop(req.rid, t0)
+        stall = waited + (time.perf_counter() - t0 if loaded else 0.0)
+        if loaded or waited > 0.0:
+            self._adapter_stalls.append(stall)
         return pages
 
     def _prefetch_adapter(self, req: Request) -> None:
         """Load on arrival, so the slab write overlaps the queue wait. The
         adapter is left resident and unpinned (admission's acquire is then
-        a hit); only free pages are taken, nothing is evicted."""
+        a hit); only free pages are taken, nothing is evicted. The load
+        counts into the miss-stall histogram all the same."""
         if self.adapters.resident(req.adapter_id):
             return
         if self.allocator.free_pages < self.pages_per_adapter:
             return
-        if self._admit_adapter(req) is not None:
-            self.adapters.release(req.adapter_id)
+        got = self.adapters.acquire(req.adapter_id, tier=_TIER_CLASS[req.tier])
+        if got is None:
+            return
+        pages, loaded = got
+        t0 = time.perf_counter()
+        if loaded:
+            self._write_adapter_pages(req.adapter_id, pages)
+            self._adapter_stalls.append(time.perf_counter() - t0)
+        self.adapters.release(req.adapter_id)
 
     def warmup(self) -> None:
         """Run every paged program once off the clock (with the null
@@ -827,8 +984,12 @@ class PagedSlotEngine(SlotEngine):
             if max(2 * self.chunk, plen + self.spec_k + 2) > self.max_len:
                 plen = min(self.chunk, self.max_len - (self.spec_k + 2))
             if plen >= 1:
-                self.run([Request(rid=-1, prompt=tuple(range(1, plen + 1)),
-                                  max_new=self.spec_k + 2, arrival=0.0)])
+                self._warming = True
+                try:
+                    self.run([Request(rid=-1, prompt=tuple(range(1, plen + 1)),
+                                      max_new=self.spec_k + 2, arrival=0.0)])
+                finally:
+                    self._warming = False
             self.ticks = 0
             self.profiler.reset()
             self._reset_spec_stats()
@@ -838,8 +999,115 @@ class PagedSlotEngine(SlotEngine):
         if self.adapters is not None:
             self.adapters.clear()
             self.adapters.reset_stats()
+            self._reset_adapter_pub()
         self.allocator.reset_stats()
         self.preemptions = 0
+
+    def publish_metrics(self) -> None:
+        """Export pages, the step profile, prefix-cache and preemption
+        gauges, and the speculative and adapter families to ``/metrics``
+        (at the end of every run)."""
+        labels = {"pod": self.metrics_pod} if self.metrics_pod else {}
+        self.allocator.publish(REGISTRY, pod=self.metrics_pod)
+        self._flush_step_profile()
+        if self.radix is not None:
+            REGISTRY.gauge_set(
+                ENGINE_PREFIX_HIT_RATIO, self.radix.hit_ratio(),
+                "Fraction of looked-up prompt tokens served from the radix prefix cache",
+                **labels,
+            )
+            REGISTRY.gauge_set(ENGINE_PREFIX_CACHED_PAGES, self.radix.cached_pages,
+                               "KV pages held by the radix prefix cache", **labels)
+        REGISTRY.gauge_set(ENGINE_PREEMPTIONS, self.preemptions,
+                           "Requests preempted by page eviction since engine start", **labels)
+        self._publish_spec(labels)
+        self._publish_adapters(labels)
+
+    def _publish_adapters(self, labels: dict) -> None:
+        """The adapter families: residency gauges, counter deltas since the
+        last flush, and the miss-stall seconds inside a
+        ``serve.adapter_load`` span (so the buckets carry an exemplar).
+        Warmup publishes nothing."""
+        if self.adapters is None or self._warming:
+            return
+        REGISTRY.gauge_set(ENGINE_ADAPTER_ENABLED, 1.0,
+                           "1 when this engine serves per-request LoRA adapters "
+                           "(a lora_store is attached)", **labels)
+        self.adapters.publish(REGISTRY, pod=self.metrics_pod)
+        for fam, cur, key, help_ in (
+            (ENGINE_ADAPTER_HITS_TOTAL, self.adapters.hits, "hits",
+             "Adapter acquisitions served from the resident slab"),
+            (ENGINE_ADAPTER_MISSES_TOTAL, self.adapters.misses, "misses",
+             "Adapter acquisitions that had to load from the store"),
+            (ENGINE_ADAPTER_EVICTIONS_TOTAL, self.adapters.evictions, "evictions",
+             "Idle adapters evicted from the slab (LRU, tier-shielded)"),
+        ):
+            delta = cur - self._adapter_pub[key]
+            if delta:
+                REGISTRY.counter_inc(fam, help_, value=float(delta), **labels)
+                self._adapter_pub[key] = cur
+        stalls, self._adapter_stalls = self._adapter_stalls, []
+        if stalls:
+            with TRACER.span("serve.adapter_load", attributes={"loads": len(stalls)}):
+                for v in stalls:
+                    REGISTRY.observe(
+                        ENGINE_ADAPTER_MISS_STALL_SECONDS, float(v),
+                        "Seconds a request stalled on (or its queue wait overlapped "
+                        "with) its adapter's slab load",
+                        buckets=(0.0005, 0.002, 0.01, 0.05, 0.25, 1.0, 5.0), **labels,
+                    )
+
+    def _publish_spec(self, labels: dict) -> None:
+        """The speculative families: gauges, counter deltas since the last
+        flush, and the two acceptance histograms inside ``serve.draft`` /
+        ``serve.verify`` spans. Warmup's draft round publishes nothing."""
+        if self.draft_cfg is None or self._warming:
+            return
+        REGISTRY.gauge_set(ENGINE_SPEC_ENABLED, 1.0,
+                           "1 when this engine decodes speculatively (draft model loaded)",
+                           **labels)
+        REGISTRY.gauge_set(ENGINE_SPEC_K, float(self.spec_k),
+                           "Draft proposal length per speculative round", **labels)
+        delta = self._spec_draft_steps - self._spec_pub["draft_steps"]
+        if delta:
+            REGISTRY.counter_inc(
+                ENGINE_SPEC_DRAFT_STEPS_TOTAL,
+                "Draft-model lookahead dispatches (one per speculative round)",
+                value=float(delta), **labels,
+            )
+            self._spec_pub["draft_steps"] = self._spec_draft_steps
+        delta = self._spec_rollback_pages - self._spec_pub["rollback"]
+        if delta:
+            REGISTRY.counter_inc(
+                ENGINE_SPEC_ROLLBACK_PAGES_TOTAL,
+                "KV pages released by rejected-draft rollback (both pools' entries "
+                "freed by refcount)",
+                value=float(delta), **labels,
+            )
+            self._spec_pub["rollback"] = self._spec_rollback_pages
+        accept, self._spec_accept_hist = self._spec_accept_hist, {}
+        if accept:
+            with TRACER.span("serve.draft",
+                             attributes={"rounds": sum(accept.values()), "k": self.spec_k}):
+                for val, n in sorted(accept.items()):
+                    for _ in range(n):
+                        REGISTRY.observe(
+                            ENGINE_SPEC_ACCEPTANCE_LEN, float(val),
+                            "Accepted draft tokens per row per speculative round (0..k; "
+                            "the emitted correction token is not counted)",
+                            buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0), **labels,
+                        )
+        steps, self._spec_step_hist = self._spec_step_hist, {}
+        if steps:
+            with TRACER.span("serve.verify", attributes={"steps": sum(steps.values())}):
+                for val, n in sorted(steps.items()):
+                    for _ in range(n):
+                        REGISTRY.observe(
+                            ENGINE_SPEC_ACCEPTED_TOKENS_PER_STEP, float(val),
+                            "Tokens emitted per verify dispatch, summed over the round's "
+                            "speculating rows",
+                            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0), **labels,
+                        )
 
     def cache_stats(self) -> dict:
         """Page occupancy, prefix hits and preemptions, and the adapter
@@ -860,6 +1128,8 @@ class PagedSlotEngine(SlotEngine):
                 prefix_cached_pages=self.radix.cached_pages,
                 prefix_evicted_pages=self.radix.evicted_pages,
             )
+        if self.governor is not None:
+            out["governor"] = self.governor.stats()
         if self.adapters is not None:
             out["adapters"] = {
                 "enabled": True,
@@ -1074,11 +1344,15 @@ class PagedSlotEngine(SlotEngine):
             for idx in rows:
                 at[idx] = slots[idx].atable
             atab = self._upload(at)
+        if self.governor is not None:
+            self.governor.before_step()
         step_t0 = time.perf_counter()
         toks_d, tables_d, active_d = self._upload(toks), self._upload(tables), self._upload(active)
         drafts = self._draft(toks_d, tables_d, active_d)
         self.ticks += 1
         self._spec_draft_steps += 1
+        if self.governor is not None:
+            self.governor.before_step()
         block = torch.cat([toks_d[:, None], drafts], dim=1)
         greedy, accepted = self._verify(block, tables_d, active_d, atab)
         self.ticks += 1
@@ -1089,6 +1363,7 @@ class PagedSlotEngine(SlotEngine):
         for idx in rows:
             s = slots[idx]
             a = int(acc_np[idx])
+            self._spec_accept_hist[a] = self._spec_accept_hist.get(a, 0) + 1
             trow = self._spec_tiers.setdefault(s.req.tier, {"proposed": 0, "accepted": 0})
             trow["proposed"] += k
             trow["accepted"] += a
@@ -1116,6 +1391,7 @@ class PagedSlotEngine(SlotEngine):
                 del s.pages[keep:]
                 s.table[keep:] = SCRATCH
                 self._spec_rollback_pages += len(tail)
+        self._spec_step_hist[emitted] = self._spec_step_hist.get(emitted, 0) + 1
         self.profiler.record(time.perf_counter() - step_t0, tokens=emitted / len(rows))
         return rows
 
@@ -1149,6 +1425,7 @@ class PagedSlotEngine(SlotEngine):
         live: dict[int, RequestResult] = {}
         i = 0
         t0 = time.perf_counter()
+        base_ns = time.time_ns()  # wall anchor of the request spans
         ps = self.page_size
 
         def now() -> float:
@@ -1187,6 +1464,11 @@ class PagedSlotEngine(SlotEngine):
             )
             s.result.preemptions.append({"evict_tick": self.ticks, "evict_s": now()})
             self.preemptions += 1
+            REGISTRY.counter_inc(
+                ENGINE_PREEMPTIONS_TOTAL,
+                "Paged-engine preemptions (victim pages evicted for a higher-priority request)",
+                **({"pod": self.metrics_pod} if self.metrics_pod else {}),
+            )
             release_row(s)
             pending.append(s.req)
             slots[idx] = self._fresh_slot()
@@ -1283,6 +1565,8 @@ class PagedSlotEngine(SlotEngine):
             res.finish_tick = self.ticks
             res.finish_s = now()
             results.append(res)
+            self._record_request_trace(res, base_ns)
+            self._note_slo(res)
             # Adopt the original prompt's full pages into the radix tree
             # (pages past the prompt hold generated tokens and are freed);
             # the tree takes its own reference, so releasing the row's
@@ -1412,6 +1696,16 @@ class PagedSlotEngine(SlotEngine):
                     res.admit_s = now()
                 if matched and req.rid >= 0:
                     res.prefix_tokens += matched
+                    # one live span per admission, so the histogram bucket
+                    # carries an exemplar that links /metrics to /traces
+                    with TRACER.span("serve.prefix_hit",
+                                     attributes={"rid": req.rid, "tokens": matched}):
+                        REGISTRY.observe(
+                            ENGINE_PREFIX_HIT_TOKENS, float(matched),
+                            "Prompt tokens served from the radix prefix cache per admission",
+                            buckets=(1.0, 4.0, 16.0, 64.0, 256.0, 1024.0, 4096.0),
+                            **({"pod": self.metrics_pod} if self.metrics_pod else {}),
+                        )
 
             # --- one prompt chunk for the oldest mid-prefill row that can
             # get its pages. (The reference tries the oldest only: a stalled
@@ -1429,6 +1723,8 @@ class PagedSlotEngine(SlotEngine):
                 if got is None:  # the row stalls in place and retries next turn
                     continue
                 self._grow(s, got)
+                if self.governor is not None:
+                    self.governor.before_step()
                 buf = np.zeros((self.chunk,), np.int64)
                 buf[:n_real] = real
                 tokens, table = self._upload(buf), self._upload(s.table)
@@ -1461,7 +1757,12 @@ class PagedSlotEngine(SlotEngine):
             # scores them, and each row emits up to spec_k + 1 tokens.
             # Eligibility is data: the other rows plain-decode below.
             spec_rows = []
-            if self.draft_cfg is not None and not self._spec_suspended:
+            if self.draft_cfg is not None and not self._spec_suspended and (
+                # an engaged governor sheds draft dispatches first; warmup
+                # runs them anyway, or their first shape would land mid-run
+                # once the governor releases
+                self._warming or self.governor is None or not self.governor.engaged
+            ):
                 spec_rows = self._spec_round(slots, retire)
                 if spec_rows:
                     dispatched = True
@@ -1504,6 +1805,8 @@ class PagedSlotEngine(SlotEngine):
                     for idx in dec:
                         at[idx] = slots[idx].atable
                     atab = self._upload(at)
+                if self.governor is not None:
+                    self.governor.before_step()
                 step_t0 = time.perf_counter()
                 nxt = self._decode(self._upload(toks), self._upload(tables), self._upload(active),
                                    atab)
@@ -1542,6 +1845,7 @@ class PagedSlotEngine(SlotEngine):
                 if protect is not None:
                     grant_oldest(slots[protect], protect)
 
+        self.publish_metrics()
         results.sort(key=lambda r: r.rid)
         # quiesced either way: a drain racing the run's end gets None
         self._drain.finish_run()

@@ -18,7 +18,8 @@ never read (``workloads/generate.py``). The allocator hands out ids
 ``1..total_pages``.
 
 The counters sit behind a lock because a metrics scrape may read them
-from another thread. Publishing them to ``/metrics`` is not ported yet.
+from another thread; :meth:`PageAllocator.publish` exports occupancy to
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ from __future__ import annotations
 import dataclasses
 import threading
 
+from ..utils.metric_catalog import (
+    ENGINE_KV_PAGES_FREE,
+    ENGINE_KV_PAGES_TOTAL,
+    ENGINE_KV_PAGES_USED,
+)
+from ..utils.metrics import REGISTRY, MetricsRegistry
 from ..workloads.generate import SCRATCH  # noqa: F401  (re-exported)
 
 # Host bookkeeping bytes charged per page against the slice budget: a
@@ -46,6 +53,8 @@ class PageAllocator:
         # Stack of free ids (1..total; SCRATCH is never handed out).
         self._free: list[int] = list(range(total_pages, 0, -1))
         self._refs: dict[int, int] = {}
+        self.alloc_count = 0
+        self.free_count_total = 0
         self.high_water = 0
 
     @property
@@ -69,6 +78,7 @@ class PageAllocator:
             got = [self._free.pop() for _ in range(n)]
             for p in got:
                 self._refs[p] = 1
+            self.alloc_count += n
             self.high_water = max(self.high_water, self.total - len(self._free))
             return got
 
@@ -92,6 +102,7 @@ class PageAllocator:
                 if refs == 1:
                     del self._refs[p]
                     self._free.append(p)
+                    self.free_count_total += 1
                 else:
                     self._refs[p] = refs - 1
 
@@ -114,10 +125,25 @@ class PageAllocator:
             return sum(1 for p, c in counts.items() if self._refs.get(p, 0) <= c)
 
     def reset_stats(self) -> None:
-        """Restart the high-water mark from the current use (engine
-        warmup); the free list and live refcounts are untouched."""
+        """Zero the cumulative counters and restart the high-water mark
+        from the current use (engine warmup); the free list and live
+        refcounts are untouched."""
         with self._lock:
+            self.alloc_count = 0
+            self.free_count_total = 0
             self.high_water = self.total - len(self._free)
+
+    def publish(self, registry: MetricsRegistry = REGISTRY, pod: str = "") -> None:
+        """Export the occupancy gauges (read under the lock, written to
+        the registry outside it)."""
+        with self._lock:
+            free = len(self._free)
+        labels = {"pod": pod} if pod else {}
+        registry.gauge_set(ENGINE_KV_PAGES_TOTAL, self.total, "KV page-pool capacity (pages)",
+                           **labels)
+        registry.gauge_set(ENGINE_KV_PAGES_FREE, free, "KV pages on the free list", **labels)
+        registry.gauge_set(ENGINE_KV_PAGES_USED, self.total - free,
+                           "KV pages referenced by live requests or the prefix cache", **labels)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,103 @@
+"""The ``tpushare_*`` metric families the port's pods publish.
+
+Counterpart of ``gpushare_device_plugin_tpu/utils/metric_catalog.py``,
+cut to the families a serving pod exports: the engine's step profile,
+pages, prefix cache, preemptions, speculative decoding and adapters, the
+best-effort governor, SLO budgets and the build identity. Names, types
+and label sets are the reference's letter for letter, so the reference
+control plane's scrapers (``cluster/interference.py``, the inspect CLI)
+read a port pod as they read a reference pod. A site may emit a subset
+of a family's labels (the ``pod`` label only when the engine is
+pod-scoped).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+COUNTER = "counter"
+GAUGE = "gauge"
+HISTOGRAM = "histogram"
+
+
+@dataclasses.dataclass(frozen=True)
+class MetricSpec:
+    """One family: its exposition type and every label key it may carry."""
+
+    name: str
+    type: str
+    labels: tuple[str, ...]
+
+
+def _m(name: str, mtype: str, *labels: str) -> tuple[str, MetricSpec]:
+    return name, MetricSpec(name, mtype, tuple(sorted(labels)))
+
+
+BUILD_INFO = "tpushare_build_info"
+ENGINE_ADAPTER_CACHE_PAGES = "tpushare_engine_adapter_cache_pages"
+ENGINE_ADAPTER_ENABLED = "tpushare_engine_adapter_enabled"
+ENGINE_ADAPTER_EVICTIONS_TOTAL = "tpushare_engine_adapter_evictions_total"
+ENGINE_ADAPTER_HITS_TOTAL = "tpushare_engine_adapter_hits_total"
+ENGINE_ADAPTER_MISS_STALL_SECONDS = "tpushare_engine_adapter_miss_stall_seconds"
+ENGINE_ADAPTER_MISSES_TOTAL = "tpushare_engine_adapter_misses_total"
+ENGINE_ADAPTER_RESIDENT = "tpushare_engine_adapter_resident"
+ENGINE_KV_PAGES_FREE = "tpushare_engine_kv_pages_free"
+ENGINE_KV_PAGES_TOTAL = "tpushare_engine_kv_pages_total"
+ENGINE_KV_PAGES_USED = "tpushare_engine_kv_pages_used"
+ENGINE_PREEMPTIONS = "tpushare_engine_preemptions"
+ENGINE_PREEMPTIONS_TOTAL = "tpushare_engine_preemptions_total"
+ENGINE_PREFIX_CACHED_PAGES = "tpushare_engine_prefix_cached_pages"
+ENGINE_PREFIX_HIT_RATIO = "tpushare_engine_prefix_hit_ratio"
+ENGINE_PREFIX_HIT_TOKENS = "tpushare_engine_prefix_hit_tokens"
+ENGINE_SPEC_ACCEPTANCE_LEN = "tpushare_engine_spec_acceptance_len"
+ENGINE_SPEC_ACCEPTED_TOKENS_PER_STEP = "tpushare_engine_spec_accepted_tokens_per_step"
+ENGINE_SPEC_DRAFT_STEPS_TOTAL = "tpushare_engine_spec_draft_steps_total"
+ENGINE_SPEC_ENABLED = "tpushare_engine_spec_enabled"
+ENGINE_SPEC_K = "tpushare_engine_spec_k"
+ENGINE_SPEC_ROLLBACK_PAGES_TOTAL = "tpushare_engine_spec_rollback_pages_total"
+ENGINE_STEP_P50_SECONDS = "tpushare_engine_step_p50_seconds"
+ENGINE_STEP_P99_SECONDS = "tpushare_engine_step_p99_seconds"
+ENGINE_STEP_SECONDS = "tpushare_engine_step_seconds"
+GOVERNOR_ENGAGED = "tpushare_governor_engaged"
+GOVERNOR_ENGAGEMENTS_TOTAL = "tpushare_governor_engagements_total"
+GOVERNOR_THROTTLE_SECONDS_TOTAL = "tpushare_governor_throttle_seconds_total"
+GOVERNOR_THROTTLED_STEPS_TOTAL = "tpushare_governor_throttled_steps_total"
+SLO_BURN_RATE = "tpushare_slo_burn_rate"
+SLO_ERROR_BUDGET_REMAINING = "tpushare_slo_error_budget_remaining"
+SLO_SEVERITY = "tpushare_slo_severity"
+
+CATALOG: dict[str, MetricSpec] = dict((
+    _m(BUILD_INFO, GAUGE, "component", "version", "git_rev", "python", "jax"),
+    _m(ENGINE_ADAPTER_CACHE_PAGES, GAUGE, "pod"),
+    _m(ENGINE_ADAPTER_ENABLED, GAUGE, "pod"),
+    _m(ENGINE_ADAPTER_EVICTIONS_TOTAL, COUNTER, "pod"),
+    _m(ENGINE_ADAPTER_HITS_TOTAL, COUNTER, "pod"),
+    _m(ENGINE_ADAPTER_MISS_STALL_SECONDS, HISTOGRAM, "pod"),
+    _m(ENGINE_ADAPTER_MISSES_TOTAL, COUNTER, "pod"),
+    _m(ENGINE_ADAPTER_RESIDENT, GAUGE, "pod"),
+    _m(ENGINE_KV_PAGES_FREE, GAUGE, "pod"),
+    _m(ENGINE_KV_PAGES_TOTAL, GAUGE, "pod"),
+    _m(ENGINE_KV_PAGES_USED, GAUGE, "pod"),
+    _m(ENGINE_PREEMPTIONS, GAUGE, "pod"),
+    _m(ENGINE_PREEMPTIONS_TOTAL, COUNTER, "pod"),
+    _m(ENGINE_PREFIX_CACHED_PAGES, GAUGE, "pod"),
+    _m(ENGINE_PREFIX_HIT_RATIO, GAUGE, "pod"),
+    _m(ENGINE_PREFIX_HIT_TOKENS, HISTOGRAM, "pod"),
+    _m(ENGINE_SPEC_ACCEPTANCE_LEN, HISTOGRAM, "pod"),
+    _m(ENGINE_SPEC_ACCEPTED_TOKENS_PER_STEP, HISTOGRAM, "pod"),
+    _m(ENGINE_SPEC_DRAFT_STEPS_TOTAL, COUNTER, "pod"),
+    _m(ENGINE_SPEC_ENABLED, GAUGE, "pod"),
+    _m(ENGINE_SPEC_K, GAUGE, "pod"),
+    _m(ENGINE_SPEC_ROLLBACK_PAGES_TOTAL, COUNTER, "pod"),
+    _m(ENGINE_STEP_P50_SECONDS, GAUGE, "pod"),
+    _m(ENGINE_STEP_P99_SECONDS, GAUGE, "pod"),
+    _m(ENGINE_STEP_SECONDS, HISTOGRAM, "pod"),
+    _m(GOVERNOR_ENGAGED, GAUGE, "pod"),
+    _m(GOVERNOR_ENGAGEMENTS_TOTAL, COUNTER, "pod"),
+    _m(GOVERNOR_THROTTLE_SECONDS_TOTAL, COUNTER, "pod"),
+    _m(GOVERNOR_THROTTLED_STEPS_TOTAL, COUNTER, "pod"),
+    _m(SLO_BURN_RATE, GAUGE, "tier", "window", "pod"),
+    _m(SLO_ERROR_BUDGET_REMAINING, GAUGE, "tier", "pod"),
+    _m(SLO_SEVERITY, GAUGE, "tier", "pod"),
+))
+
