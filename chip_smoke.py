@@ -107,22 +107,22 @@ Phases, each of which fails the run with a non-zero exit:
    phase 9's peak (whole GiB, rounded down) must die of
    ``torch.cuda.OutOfMemoryError`` (a marker it prints), while an MNIST
    control child at the same slice passes.
-13. Multi-LoRA paged serve, on phase 2's weights (run straight after
-   phase 8): four tenants' adapters (rank 8, alpha 16, on wq, wkv, wo, wi
+13. Multi-LoRA paged serve, on phase 2's weights cut to their first 16
+   layers (run straight after phase 8): four tenants' adapters (rank 8, alpha 16, on wq, wkv, wo, wi
    and wdown; seeded, ``b`` random, each target's delta scaled to 0.2 of
    its weight in Frobenius norm) serve phase 7's trace with
    ``adapters=["t0", "t1", "t2", "t3", ""]``. Run A: 16 slots over
    ``paged_plan_from_pod_env(lora=True)`` for the 24-unit env. Run B: the
-   first 12 requests, 8 slots over 832 pages (two max_len rows and two
-   adapters), so adapters evict and rows preempt. Each run has phase 7's gates (leaks counted with
-   the resident adapters' pages), and at least four adapter misses; run A
+   first 12 requests, 8 slots over 544 pages (two max_len rows and two
+   adapters), so adapters evict and rows preempt. Each run has phase 7's
+   gates (leaks counted with the resident adapters' pages), and at least
+   four adapter misses; run A
    must hit and run B must evict. Every request of run A is held to
    merged-solo (``merge_lora`` of its tenant, solo greedy decode) by phase
    3's near-tie rule, one tenant's merged weights on the card at a time;
    run B and a drain/restore of run A (through JSON, ``adapter_id`` rows
    included) are held to run A the same way; each tenant must differ from
-   the base model on one of its requests; t0's full-depth paged prefill
-   logits through the BGMV path must agree with ``merge_lora`` + ``prefill``
+   the base model on one of its requests; t0's paged prefill logits through the BGMV path must agree with ``merge_lora`` + ``prefill``
    within LORA_LOGIT_REL of the largest logit. The profiled decode step
    reports the adapter slab's gather apart from the page gathers.
 14. LoRA fine-tuning in a pod: a child with the plugin's env for a
@@ -154,11 +154,12 @@ Phases, each of which fails the run with a non-zero exit:
    same tokens and no request lost or twice. Then ``speculative_generate``
    at B=1 on a 512-token prompt with each draft against ``generate``.
    Each round's wall time is kept, and one round is profiled.
-16. Interference, on phase 2's weights (run straight after phase 15): a
-   latency-critical ``SlotEngine(slots=8, max_len=2048, prefill_chunk=512,
+16. Interference, on phase 2's weights cut to their first 16 layers (run
+   straight after phase 15): a latency-critical ``SlotEngine(slots=8, max_len=2048, prefill_chunk=512,
    metrics_pod=CRIT_POD)`` beside a best-effort ``PagedSlotEngine(slots=16,
    total_pages=1024, page_size=16, radix=False, metrics_pod=BE_POD)`` with
-   Llama-3-8B weights of its own (seed BE_SEED), in this process, with the
+   Llama-3-8B-shaped weights of its own at the same depth (seed BE_SEED),
+   in this process, with the
    port's ``MetricsServer`` on localhost. Solo: a settle run and six trials
    of the critical trace, the profiler's ring write on and off in turn.
    Governor off: the best-effort trace loops on a thread while the
@@ -173,8 +174,33 @@ Phases, each of which fails the run with a non-zero exit:
    entry never), ``/metrics`` (scraped and parsed here) carries the step
    p99 of both pods and the governor, SLO, page and preemption families,
    and ``/traces`` holds each critical request's ``serve.request`` tree.
+17. Disaggregated prefill/decode serving, on phase 2's weights (run
+   straight after phase 16): the reference's ``bench_serve_disagg`` trace
+   at its full settings (24 requests, every 4th prompt 512-768 tokens, the
+   rest 16-64, max_new from (16, 32, 128); see the constants) through one
+   unified ``PagedSlotEngine(slots=8, total_pages=192, max_len=1024,
+   page_size=64, prefill_chunk=256)``, then through ``DisaggServer`` over a
+   prefill tier (4 slots, 64 pages) and a decode tier (8 slots, 128 pages)
+   with the same weights: the live handoff, journaled (a WAL and an
+   ``AssumeCache``), and the forced fallback (``BrokenTransport``, two
+   attempts) on the trace's first 12 requests. Launch counts are zeroed
+   just before each run and read just after. Fails unless no request is
+   dropped, every engine keeps its shape
+   guard and returns every page, the live run delivers at least one
+   handoff and leaves no pending journal entry, no staged page is left,
+   ``flash_fwd`` runs once per layer per prefill dispatch on both tiers
+   (and ``flash_fwd_scalar`` never), the fallback re-prefills every
+   request, and every request's tokens equal the unified engine's or pass
+   phase 3's near-tie rule (bit equality is counted, not gated). Prints
+   TTFT and TPOT p50/p99 (ticks and ms) of both runs beside the unified
+   engine's, handoffs by outcome, pages and bytes shipped, and a
+   handoff's wall time split into the device-to-host fetch, the encode,
+   the CRCs and protocol, the decode and the host-to-device write.
 
-The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 14, 4, 5, 6, 9-12.
+The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 17, 14, 4, 5, 6,
+9-12. ``python3 chip_smoke.py --phase 17`` builds the kernels and runs
+phase 17 alone on fresh weights (a quick check; it prints no contract
+lines).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -190,14 +216,16 @@ line of stdout is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit from ``nvidia-smi``; before that, one
 JSON line ``{"kernels": [...]}``, whose launches per path include
 ``lora_serve`` (phase 13, runs A and B), ``lora_train`` (phase 14's
-pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B) and
-``interference`` (phase 16, both tenants); the forward rows carry
+pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B),
+``interference`` (phase 16, both tenants) and ``disagg`` (phase 17's
+live handoff run, both tiers); the forward rows carry
 ``at_draft_shape``. The line before the card's is the script's seconds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -284,14 +312,16 @@ PRESSURE_PAGES = 256
 PAGED_PROFILE_CONTEXT = 1536  # positions each row reads in the profiled decode step
 # Phase 13: four tenants' adapters on every target the hooks have, each
 # target's delta scaled to LORA_RATIO of its weight (Frobenius norms over
-# the layer stack), so every tenant's tokens leave the base model's. At
-# rank 8 an adapter is 18,874,368 floats, 288 slab pages of 16 x 4096; run
-# B's pool holds two max_len rows and two adapters, so adapters evict and
-# rows preempt.
+# the layer stack), so every tenant's tokens leave the base model's. The
+# phase serves phase 2's model cut to its first LORA_SERVE_LAYERS layers
+# (full width): at 32 layers it took 197-243 s on one H100, which the
+# script's time limit cannot spare beside phase 17. At rank 8 and 16 layers an adapter
+# is 9,437,184 floats, 144 slab pages of 16 x 4096; run B's pool holds two
+# max_len rows and two adapters, so adapters evict and rows preempt.
 LORA_TENANTS = ("t0", "t1", "t2", "t3")
 LORA_TARGETS = ("wq", "wkv", "wo", "wi", "wdown")
 LORA_RANK, LORA_ALPHA, LORA_RATIO = 8, 16.0, 0.2
-LORA_PRESSURE_PAGES = 2 * 128 + 2 * 288
+LORA_SERVE_LAYERS = 16
 # Run B serves the trace's first LORA_PRESSURE_REQUESTS requests (of 24),
 # to keep the script's time down: it then evicts 6 adapters in 364 ticks
 # (24 requests: 8 in 722), as the same lengths and pages give on the CPU.
@@ -300,10 +330,10 @@ LORA_PRESSURE_REQUESTS = 12
 # no request for t2, so phase 13 takes seed 1, the first whose requests
 # name all four tenants and the base model (6, 4, 5, 4, 5 of them).
 LORA_TRACE_SEED = 1
-# BGMV against merge_lora + prefill, last-position logits of a full-depth
-# bf16 prefill: the merged path rounds every adapted weight (W + delta) to
+# BGMV against merge_lora + prefill, last-position logits of a bf16
+# prefill: the merged path rounds every adapted weight (W + delta) to
 # bf16, a relative change of up to 2^-9 in each entry of five of the seven
-# matrices of all 32 layers, where the BGMV path rounds W, x·A and the
+# matrices of every layer, where the BGMV path rounds W, x·A and the
 # delta apart. Phase 3's flash vs plain (which rounds P otherwise) reaches
 # 2^-5.6 of the largest logit and is held to 2^-5 (four bf16 steps); this
 # allows as much again: 2^-4 of the largest logit.
@@ -341,10 +371,32 @@ INTERFERENCE_TRIALS = 3
 GOVERNOR_KW = dict(throttled_steps_per_s=0.2, burst=0.2, poll_interval_steps=1,
                    release_after=100_000)
 BE_SEED = 16  # the best-effort tenant's own weights
+# Both tenants are Llama-3-8B at full width cut to their first
+# INTERFERENCE_LAYERS layers: at 32 layers the phase took 191-236 s on one
+# H100, which the script's time limit cannot spare beside phase 17.
+INTERFERENCE_LAYERS = 16
 # The busy-share windows profile a short critical trial: the same requests
 # with 16 new tokens, whose tokens are the first 16 of the full trial's (a
 # row's tokens depend on its own row only).
 BUSY_MAX_NEW = 16
+# Phase 17: the reference's bench_mfu.py::bench_serve_disagg at its full
+# settings: 24 requests, Poisson arrivals at 0.1 a tick from RandomState(17),
+# every 4th prompt long (512-768 tokens), the rest short (16-64), max_new
+# drawn from (16, 32, 128); max_len 1024, pages of 64 positions, prompt
+# chunks of 256. A prefill tier of 4 slots over 64 pages (4 max_len rows)
+# and a decode tier of 8 over 128, beside one unified engine of 8 slots over
+# the same 192 pages (a page of the 8B model's KV is 8 MiB, 32 layers x 64
+# positions x 8 kv heads x 128 x 2 bytes x K and V: 1.5 GiB in all). The
+# engines stop at Llama-3's EOS like every phase here (the bench's eos is 2).
+DISAGG_REQUESTS, DISAGG_RATE, DISAGG_SEED = 24, 0.1, 17
+DISAGG_SHORT, DISAGG_LONG, DISAGG_MIX = (16, 64), (512, 768), (16, 32, 128)
+DISAGG_MAX_LEN, DISAGG_PAGE, DISAGG_CHUNK = 1024, 64, 256
+DISAGG_PREFILL_SLOTS, DISAGG_DECODE_SLOTS = 4, 8
+# The forced fallback serves the trace's first 12 requests: every one
+# re-prefills, most then leave the unified engine's tokens at a bf16 near
+# tie and are held to solo decode one by one (22 of 24 on all 24, 166 s for
+# the phase on one H100), which the script's time limit cannot spare.
+DISAGG_FALLBACK_REQUESTS = 12
 # Phase 14: the LoRA pod's slice, batch and steps.
 LORA_TRAIN_UNITS, LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 32, 2, 2048, 8
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
@@ -1051,7 +1103,7 @@ def lora_store_for(params, cfg, lcfg) -> tuple[dict, dict]:
 
 
 def lora_logits_check(params, merged, cfg, lcfg, adapter, prompt) -> dict:
-    """One full-depth paged prefill of ``prompt`` (one chunk) through the
+    """One paged prefill of ``prompt`` (one chunk) through the
     BGMV path with ``adapter`` in a slab, against ``merge_lora`` +
     ``prefill``: last-position logits, max |diff| against max |logit|."""
     ps = 16
@@ -1074,9 +1126,12 @@ def lora_logits_check(params, merged, cfg, lcfg, adapter, prompt) -> dict:
 
 
 def phase_lora_serve(params, cfg) -> dict:
-    """Phase 13, on phase 2's weights; returns the launches of runs A and
-    B together."""
-    print("phase 13: multi-LoRA paged serve llama3_8b (32 layers, bf16)", flush=True)
+    """Phase 13, on phase 2's weights cut to their first LORA_SERVE_LAYERS
+    layers; returns the launches of runs A and B together."""
+    print(f"phase 13: multi-LoRA paged serve llama3_8b ({LORA_SERVE_LAYERS} of 32 layers, bf16)",
+          flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=LORA_SERVE_LAYERS)
+    params = {**params, "layers": {k: v[:LORA_SERVE_LAYERS] for k, v in params["layers"].items()}}
     lcfg = L.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=LORA_TARGETS)
     store, ratios = lora_store_for(params, cfg, lcfg)
     ppa = -(-L.lora_flat_len(cfg, lcfg) // (16 * cfg.d_model))
@@ -1099,7 +1154,7 @@ def phase_lora_serve(params, cfg) -> dict:
     )
     run_b, report_b, stats_b, launches_b = paged_run(
         "run B (pressured, multi-LoRA)",
-        lambda: PagedSlotEngine(params, cfg, slots=8, total_pages=LORA_PRESSURE_PAGES, **geo),
+        lambda: PagedSlotEngine(params, cfg, slots=8, total_pages=2 * 128 + 2 * ppa, **geo),
         trace[:LORA_PRESSURE_REQUESTS], phase="phase 13",
     )
     fail = []
@@ -1829,13 +1884,17 @@ def parse_exposition(text: str) -> dict[str, list[tuple[dict, float]]]:
 
 
 def phase_interference(params, cfg) -> tuple[dict, dict]:
-    """Phase 16, on phase 2's weights: a latency-critical SlotEngine beside
-    a best-effort PagedSlotEngine with weights of its own, governor off
-    and on. Returns the path's kernel launches and the phase's report."""
+    """Phase 16, on phase 2's weights cut to their first INTERFERENCE_LAYERS
+    layers: a latency-critical SlotEngine beside a best-effort
+    PagedSlotEngine with weights of its own, governor off and on. Returns
+    the path's kernel launches and the phase's report."""
     print("phase 16: interference, critical llama3_8b SlotEngine beside best-effort "
-          "llama3_8b PagedSlotEngine", flush=True)
+          f"llama3_8b PagedSlotEngine ({INTERFERENCE_LAYERS} of 32 layers, bf16)", flush=True)
     t_phase = time.perf_counter()
     fail: list[str] = []
+    cfg = dataclasses.replace(cfg, n_layers=INTERFERENCE_LAYERS)
+    params = {**params, "layers": {k: v[:INTERFERENCE_LAYERS]
+                                   for k, v in params["layers"].items()}}
     be_params = init_params(cfg, torch.Generator(device="cuda").manual_seed(BE_SEED),
                             device="cuda", dtype=torch.bfloat16)
     crit = SlotEngine(params, cfg, slots=8, max_len=2048, prefill_chunk=512,
@@ -2081,6 +2140,219 @@ def phase_interference(params, cfg) -> tuple[dict, dict]:
     return launches, report
 
 
+def disagg_trace(vocab: int) -> list:
+    """Phase 17's bimodal long-prefill trace, drawn as the reference's
+    ``bench_serve_disagg`` draws it."""
+    rng = np.random.RandomState(DISAGG_SEED)
+    reqs, t = [], 0.0
+    for rid in range(DISAGG_REQUESTS):
+        t += float(rng.exponential(1.0 / DISAGG_RATE))
+        lo, hi = DISAGG_LONG if rid % 4 == 3 else DISAGG_SHORT
+        plen = int(rng.randint(lo, hi + 1))
+        reqs.append(Request(
+            rid=rid, prompt=tuple(int(x) for x in rng.randint(0, vocab, plen)),
+            max_new=int(DISAGG_MIX[int(rng.randint(len(DISAGG_MIX)))]), arrival=t,
+        ))
+    return reqs
+
+
+def quantiles(vals) -> dict:
+    return {"p50": ceil_rank_quantile(vals, 0.5), "p99": ceil_rank_quantile(vals, 0.99)}
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_disagg(params, cfg) -> tuple[dict, dict]:
+    """Phase 17, on phase 2's weights: the reference's disaggregated-serving
+    bench at full width and depth. One unified engine (the control), then
+    a prefill and a decode tier behind ``DisaggServer`` twice: the live
+    handoff, journaled (a WAL in a temporary directory and an
+    ``AssumeCache``), and the forced fallback (``BrokenTransport``, two
+    attempts), where every request re-prefills on the decode tier. Returns
+    the live run's kernel launches and the phase's report."""
+    import tempfile
+
+    from gpushare_device_plugin_tpu_torch.allocator.assume import AssumeCache
+    from gpushare_device_plugin_tpu_torch.allocator.checkpoint import AllocationCheckpoint
+    from gpushare_device_plugin_tpu_torch.serving import BrokenTransport, DisaggServer
+
+    print("phase 17: disaggregated prefill/decode serve, llama3_8b (32 layers, bf16), "
+          f"{DISAGG_REQUESTS} requests of bench_serve_disagg", flush=True)
+    t_phase = time.perf_counter()
+    reqs = disagg_trace(cfg.vocab)
+    rows = -(-DISAGG_MAX_LEN // DISAGG_PAGE)
+    p_pages, d_pages = DISAGG_PREFILL_SLOTS * rows, DISAGG_DECODE_SLOTS * rows
+    guard = {"prefill": 1, "extend": 1, "decode": 1}
+    fail = []
+
+    def mk(slots, pages):
+        return PagedSlotEngine(params, cfg, slots=slots, max_len=DISAGG_MAX_LEN,
+                               total_pages=pages, page_size=DISAGG_PAGE,
+                               prefill_chunk=DISAGG_CHUNK, eos_id=EOS_ID)
+
+    def count_prefills(engine, box):
+        program = engine._prefill
+
+        def counted(*args):
+            box.append(1)
+            return program(*args)
+
+        engine._prefill = counted
+
+    def measured(run):
+        """``run()`` with the launch counts zeroed just before and read just
+        after; (its result, wall seconds, launches)."""
+        torch.cuda.synchronize()
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(fa.LAUNCHES)
+
+    def check_engine(label, eng):
+        if eng.trace_counts != guard:
+            fail.append(f"{label}: shape guard moved: {eng.trace_counts}")
+        if eng.allocator.used_pages != eng.radix.cached_pages:
+            fail.append(f"{label}: {eng.allocator.used_pages} pages used, "
+                        f"{eng.radix.cached_pages} held by the radix cache")
+
+    def check_launches(label, launches, prefills):
+        if not launches["flash_fwd"] == cfg.n_layers * prefills > 0:
+            fail.append(f"{label}: flash_fwd launches {launches['flash_fwd']} != "
+                        f"{cfg.n_layers} x {prefills} prefill dispatches")
+        if launches["flash_fwd_scalar"]:
+            fail.append(f"{label}: flash_fwd_scalar launched {launches['flash_fwd_scalar']} times")
+
+    # --- the control: one engine, the same pages in all
+    unified = mk(DISAGG_DECODE_SLOTS, p_pages + d_pages)
+    unified.warmup()
+    u_prefills: list = []
+    count_prefills(unified, u_prefills)
+    u_stats, u_wall, u_launches = measured(lambda: unified.run(reqs))
+    del unified._prefill
+    check_engine("unified", unified)
+    check_launches("unified", u_launches, len(u_prefills))
+    if len(u_stats.results) != len(reqs):
+        fail.append("unified: not every request was served")
+    u_tokens = {r.rid: list(r.tokens) for r in u_stats.results}
+    u_tick_ms = u_wall * 1e3 / max(u_stats.ticks, 1)
+    report = {"card": smi_line(), "requests": len(reqs),
+              "long_prompts": sum(len(r.prompt) >= DISAGG_LONG[0] for r in reqs),
+              "prompt_tokens": sum(len(r.prompt) for r in reqs),
+              "unified": {
+                  "slots": DISAGG_DECODE_SLOTS, "pages": p_pages + d_pages,
+                  "ticks": u_stats.ticks, "wall_s": u_wall, "tick_ms": u_tick_ms,
+                  "ttft_ticks": quantiles([r.ttft_ticks for r in u_stats.results]),
+                  "tpot_ticks": quantiles([r.tpot_ticks for r in u_stats.results
+                                           if len(r.tokens) > 1]),
+                  "flash_fwd": u_launches["flash_fwd"], "prefill_dispatches": len(u_prefills),
+              }}
+    del unified
+    torch.cuda.empty_cache()
+
+    solos: dict = {}
+    launches_live: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = AllocationCheckpoint(os.path.join(tmp, "handoff.wal"))
+        for label, kw in (("live", dict(checkpoint=ckpt, assume=AssumeCache())),
+                          ("fallback", dict(transport=BrokenTransport(),
+                                            peer_kwargs={"attempts": 2}))):
+            ds = DisaggServer(mk(DISAGG_PREFILL_SLOTS, p_pages), mk(DISAGG_DECODE_SLOTS, d_pages),
+                              node="smoke", **kw)
+            ds.warmup()
+            boxes: dict = {"prefill": [], "decode": []}
+            count_prefills(ds.prefill, boxes["prefill"])
+            count_prefills(ds.decode, boxes["decode"])
+            trace = reqs if label == "live" else reqs[:DISAGG_FALLBACK_REQUESTS]
+            out, wall, launches = measured(lambda: ds.serve(trace))
+            del ds.prefill._prefill, ds.decode._prefill
+            if label == "live":
+                launches_live = launches
+            for tier in ("prefill", "decode"):
+                check_engine(f"{label} {tier} tier", getattr(ds, tier))
+            dispatches = len(boxes["prefill"]) + len(boxes["decode"])
+            check_launches(label, launches, dispatches)
+            if out["dropped"] or len(out["results"]) != len(trace):
+                fail.append(f"{label}: dropped {out['dropped']}")
+            if ds.ledger.pages_in_flight:
+                fail.append(f"{label}: {ds.ledger.pages_in_flight} pages still in flight")
+            paths = {rid: e["path"] for rid, e in out["results"].items()}
+            if label == "live":
+                if ds.outcomes.get("delivered", 0) < 1:
+                    fail.append(f"live: no handoff delivered ({ds.outcomes})")
+                if ckpt.pending():
+                    fail.append(f"live: the journal holds {len(ckpt.pending())} pending entries")
+                ckpt.close()
+            elif any(p != "reprefill" for rid, p in paths.items() if len(u_tokens[rid]) > 1):
+                fail.append(f"fallback: not every request re-prefilled: {paths}")
+            bit_equal, divergences = 0, []
+            for r in trace:
+                got = out["results"][r.rid]["tokens"]
+                bit_equal += got == u_tokens[r.rid]
+                divergences += check_vs_solo(f"phase 17 ({label})", params, cfg, r, got,
+                                             want=u_tokens[r.rid], solos=solos)
+            pst, dst = out["prefill"], out["decode"]
+            tick_ms = (pst.wall_s + dst.wall_s) * 1e3 / max(pst.ticks + dst.ticks, 1)
+            w = ds.wire
+            handoffs = max(sum(ds.outcomes.values()), 1)
+            report[label] = {
+                "requests": len(trace),
+                "outcomes": dict(ds.outcomes),
+                "paths": {p: sum(v == p for v in paths.values())
+                          for p in sorted(set(paths.values()))},
+                "bit_equal_to_unified": bit_equal,
+                "divergences": divergences,
+                "max_gap_over_top": max((d["gap_over_top"] for d in divergences), default=None),
+                "ticks": {"prefill": pst.ticks, "decode": dst.ticks},
+                "wall_s": wall, "tick_ms": tick_ms,
+                "ttft_ticks": quantiles([e["ttft_ticks"] for e in out["results"].values()
+                                         if e["ttft_ticks"] is not None]),
+                "tpot_ticks": quantiles([e["tpot_ticks"] for e in out["results"].values()
+                                         if e["tpot_ticks"] is not None]),
+                "peer": out["peer"],
+                "wire": dict(w),
+                "per_handoff_ms": {
+                    "d2h": w["fetch_s"] * 1e3 / handoffs,
+                    "encode": w["encode_s"] * 1e3 / handoffs,
+                    "crc_journal_protocol":
+                        (w["mover_s"] - w["decode_s"] - w["h2d_s"]) * 1e3 / handoffs,
+                    "decode": w["decode_s"] * 1e3 / handoffs,
+                    "h2d": w["h2d_s"] * 1e3 / handoffs,
+                },
+                "d2h_gb_per_s": w["bytes"] / w["fetch_s"] / 1e9 if w["fetch_s"] else None,
+                "h2d_gb_per_s": w["bytes"] / w["h2d_s"] / 1e9 if w["h2d_s"] else None,
+                "flash_fwd": launches["flash_fwd"], "prefill_dispatches": dict(
+                    (k, len(v)) for k, v in boxes.items()),
+            }
+            for q in ("ttft_ticks", "tpot_ticks"):
+                report[label][q.replace("ticks", "ms")] = {
+                    k: v * tick_ms for k, v in report[label][q].items()}
+            # the sink's callbacks close a cycle through the server, which
+            # holds both engines (and the weights): collect it now, or the
+            # weights outlive `del params` into the training phases
+            del ds
+            gc.collect()
+            torch.cuda.empty_cache()
+    for q in ("ttft_ticks", "tpot_ticks"):
+        report["unified"][q.replace("ticks", "ms")] = {
+            k: v * u_tick_ms for k, v in report["unified"][q].items()}
+    report["disagg_ttft_p99_ms"] = report["live"]["ttft_ms"]["p99"]
+    report["disagg_tpot_p99_ms"] = report["live"]["tpot_ms"]["p99"]
+    report["seconds"] = time.perf_counter() - t_phase
+    print("  disagg", json.dumps(report), flush=True)
+    if fail:
+        raise SystemExit("phase 17 failed: " + "; ".join(fail))
+    return launches_live, report
+
+
 def pod_main(argv: list[str]) -> int:
     """One pod, in a child process whose env is the plugin's: cap the
     process from the env first, then train ``argv = [workload, batch,
@@ -2292,7 +2564,14 @@ def phase_overrun(bert_peak_bytes: int) -> None:
         raise SystemExit(f"phase 12 failed: the control pod failed (exit {rc}): {err}")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    ap.add_argument("--phase", type=int, choices=(17,),
+                    help="build the kernels and run only this phase (a quick check; "
+                         "the contract's lines are not printed)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2309,6 +2588,13 @@ def main() -> int:
         print(_build.build_log(name).strip(), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.phase == 17:
+        cfg = llama3_8b()
+        params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+        launches, disagg = phase_disagg(params, cfg)
+        print(f"phase 17: {disagg['seconds']:.1f} s; launches {json.dumps(launches)}; "
+              f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
+        return 0
     forward = phase_kernels(gen)
 
     serve_launches, serve_decode_p50_ms, params, cfg = phase_serve(gen)
@@ -2325,6 +2611,8 @@ def main() -> int:
     del paged_stats, paged_report
     interference_launches, interference = phase_interference(params, cfg)
     print(f"phase 16: {interference['seconds']:.1f} s", flush=True)
+    disagg_launches, disagg = phase_disagg(params, cfg)
+    print(f"phase 17: {disagg['seconds']:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2345,7 +2633,7 @@ def main() -> int:
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
              "lora_train": lora_train_launches, "spec_serve": spec_launches,
-             "interference": interference_launches}
+             "interference": interference_launches, "disagg": disagg_launches}
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")
@@ -2393,12 +2681,9 @@ def main() -> int:
                               **{k: backward[(entry, "bert")][k] for k in bwd_numbers}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
+    card = smi_line()
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -2408,4 +2693,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

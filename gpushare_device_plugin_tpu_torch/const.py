@@ -57,3 +57,9 @@ class MemoryUnit(str, enum.Enum):
     @property
     def num_bytes(self) -> int:
         return 1 << 30 if self is MemoryUnit.GiB else 1 << 20
+
+# "<generation>:<incarnation token>": the newest instance stamps its
+# journal's generation and a random per-open token on the node here; an
+# instance observing a higher generation, or its own under a foreign
+# token, is stale and refuses journal writes (allocator/checkpoint.py).
+ANN_FENCE_GENERATION = "tpushare.aliyun.com/fence-generation"

@@ -1,4 +1,6 @@
 """The slot-pool and paged continuous-batching engines, their step
-profiler, and the best-effort step governor of the interference plane."""
+profiler, the best-effort step governor of the interference plane, and
+disaggregated prefill/decode serving over a journaled KV handoff."""
 
 from .governor import StepGovernor  # noqa: F401
+from .handoff import BrokenTransport, DisaggServer  # noqa: F401

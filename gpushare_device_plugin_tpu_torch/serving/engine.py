@@ -583,6 +583,11 @@ class _PagedSlot:
     # [pages_per_adapter] int32 slab page ids of the row's adapter (None
     # without a lora_store; all SCRATCH = the null adapter, a zero delta)
     atable: np.ndarray | None = None
+    # True when the row's draft-pool KV is not to be trusted (a handoff
+    # import carries the target's KV only): the row plain-decodes for its
+    # lifetime and its pages never go into the radix tree, where a later
+    # prefix match would speculate over draft KV that was never written
+    draft_stale: bool = False
 
 
 class PagedSlotEngine(SlotEngine):
@@ -600,6 +605,13 @@ class PagedSlotEngine(SlotEngine):
       prefill again on re-admission;
     - drain and restore (:meth:`request_drain`, :meth:`restore_snapshot`)
       and the page export/import of a KV handoff;
+    - the two halves of disaggregated serving (``handoff.py``): on a
+      prefill tier (:meth:`set_handoff_sink`) a request whose prompt is
+      done with decode work left is exported at its first token — its
+      pages fetched to the host in the cache's own dtype — and retired;
+      on a decode tier, an imported request (:meth:`seed_handoff_import`)
+      is admitted straight into decode state on pages whose KV was
+      written by :meth:`import_kv_pages`, under its own adapter;
     - multi-LoRA serving (``lora_store`` and ``lora_cfg``, given
       together): each request's ``adapter_id`` names its tenant's adapter
       in ``lora_store`` (``""`` runs the base model). Adapters live as
@@ -638,8 +650,7 @@ class PagedSlotEngine(SlotEngine):
     ``max_len`` row (a lone request can always finish). ``metrics_pod``,
     ``slo_budget`` and ``governor`` are :class:`SlotEngine`'s; an engaged
     governor sheds draft dispatches first (a round is optional work, the
-    plain step is not). The handoff-seed options of the reference are not
-    ported yet."""
+    plain step is not)."""
 
     def __init__(
         self,
@@ -749,7 +760,14 @@ class PagedSlotEngine(SlotEngine):
             )
             self._reset_spec_stats()
         self._drain = DrainHandshake()
+        # rid -> tokens already generated elsewhere (a drained snapshot's,
+        # or a handoff's first token): the result starts with them and
+        # admission prefills prompt + tokens
         self._restore_tokens: dict[int, tuple[int, ...]] = {}
+        # the prefill tier's export sink, and rid -> a staged KV import of
+        # the decode tier (pages already written, adopted at admission)
+        self._handoff_sink = None
+        self._import_seeds: dict[int, dict] = {}
         # snapshot_ids this engine already restored: a mover may deliver the
         # same snapshot twice, and the second delivery must not serve again
         self._restored_ids: deque[str] = deque(maxlen=16)
@@ -1242,23 +1260,30 @@ class PagedSlotEngine(SlotEngine):
             self._restored_ids.append(snap_id)
         return stats
 
-    def export_kv_pages(self, page_ids: Sequence[int]) -> list[dict]:
-        """The KV contents of ``page_ids`` on the host, one dict of numpy
-        arrays per page (every cache buffer but ``len``, sliced on the page
-        axis). Pages are read, never written. numpy has no bf16, so bf16
-        pages leave as f32, which holds every bf16 value exactly."""
+    def fetch_kv_pages(self, page_ids: Sequence[int]) -> list[dict[str, torch.Tensor]]:
+        """The KV contents of ``page_ids`` as host tensors in the cache's
+        own dtypes (bf16 stays bf16), one dict per page (every cache
+        buffer but ``len``, sliced on the page axis): one gather and one
+        device-to-host copy per buffer. Pages are read, never written."""
         ids = torch.tensor([int(p) for p in page_ids], dtype=torch.long, device=self.device)
-        host = {}
-        for key, val in self.cache.items():
-            if key != "len":
-                pages = val.index_select(1, ids)
-                host[key] = (pages.float() if pages.dtype == torch.bfloat16 else pages).cpu().numpy()
+        host = {key: val.index_select(1, ids).cpu()
+                for key, val in self.cache.items() if key != "len"}
         return [{key: arr[:, n] for key, arr in host.items()} for n in range(len(ids))]
 
+    def export_kv_pages(self, page_ids: Sequence[int]) -> list[dict]:
+        """:meth:`fetch_kv_pages` as numpy arrays. numpy has no bf16, so
+        bf16 pages leave as f32, which holds every bf16 value exactly (the
+        KV handoff ships :meth:`fetch_kv_pages`' bf16 instead)."""
+        return [{key: (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+                 for key, t in page.items()} for page in self.fetch_kv_pages(page_ids)]
+
     def import_kv_pages(self, page_ids: Sequence[int], blobs: Sequence[dict]) -> None:
-        """Write page contents made by :meth:`export_kv_pages` (on this or
-        another engine) into pages ``page_ids``. Raises ``ValueError`` on
-        any geometry mismatch before touching the cache."""
+        """Write page contents into pages ``page_ids``: dicts of numpy
+        arrays or host tensors per cache buffer, as :meth:`export_kv_pages`,
+        :meth:`fetch_kv_pages` or ``handoff.decode_page`` give them (on this
+        or another engine, or the reference's, whose bf16 arrive as
+        ``ml_dtypes`` arrays). Raises ``ValueError`` on any geometry
+        mismatch before touching the cache."""
         if len(page_ids) != len(blobs):
             raise ValueError(
                 f"import_kv_pages: {len(page_ids)} pages but {len(blobs)} payloads"
@@ -1270,22 +1295,92 @@ class PagedSlotEngine(SlotEngine):
             if key == "len":
                 continue
             try:
-                stacked = np.stack([np.asarray(b[key]) for b in blobs], axis=1)
+                stacked = torch.stack([_host_tensor(b[key]) for b in blobs], dim=1)
             except KeyError as e:
                 raise ValueError(f"import_kv_pages: payload missing cache buffer {e}") from None
             expected = (val.shape[0], len(blobs)) + tuple(val.shape[2:])
             if tuple(stacked.shape) != expected:
                 raise ValueError(
-                    f"import_kv_pages: buffer {key!r} shape {stacked.shape} does "
+                    f"import_kv_pages: buffer {key!r} shape {tuple(stacked.shape)} does "
                     f"not fit this engine's {expected} (source engine geometry differs)"
                 )
-            # a bf16 blob from the reference's engine crosses as f32, exactly
-            staged[key] = stacked if stacked.dtype in (np.int8, np.float32) else stacked.astype(
-                np.float32)
+            staged[key] = stacked
         ids = torch.tensor([int(p) for p in page_ids], dtype=torch.long, device=self.device)
         for key, stacked in staged.items():
             buf = self.cache[key]
-            buf.index_copy_(1, ids, torch.from_numpy(stacked).to(buf.device, buf.dtype))
+            buf.index_copy_(1, ids, stacked.to(buf.device, buf.dtype))
+
+    # --- disaggregated prefill/decode handoff (handoff.py) ------------------
+
+    def set_handoff_sink(self, sink) -> None:
+        """Arm (or clear, with None) the prefill tier's export sink:
+        ``sink(export)`` is called from :meth:`run` for every request that
+        completes its prompt with decode work left, after the row retired
+        here (its pages already fetched to the host inside ``export``)."""
+        self._handoff_sink = sink
+
+    def seed_handoff_import(self, rid: int, *, pages: Sequence[int], pos: int, last: int,
+                            prompt: Sequence[int]) -> None:
+        """Stage one imported request for the next :meth:`run`: when the
+        request with this rid reaches the head of admission it adopts
+        ``pages`` (KV already written by :meth:`import_kv_pages`, covering
+        positions ``[0, pos)``) straight into decode state with ``last`` as
+        its next input token. The pages belong to the row from then on:
+        retire or a preemption releases them through this engine's
+        allocator, which must be where the caller allocated them."""
+        self._import_seeds[int(rid)] = {
+            "pages": [int(p) for p in pages],
+            "pos": int(pos),
+            "last": int(last),
+            "prompt": tuple(int(t) for t in prompt),
+        }
+
+    def seed_restore_tokens(self, seeds: dict) -> None:
+        """Seed tokens already generated for rids the next :meth:`run`
+        serves, into the restore path's own table: each request's result
+        starts with them and admission prefills ``prompt + tokens``, so the
+        retired token list is the combined stream. The handoff seeds every
+        handed-off request with its first token, which is also what makes
+        the re-prefill fallback lossless."""
+        for rid, toks in seeds.items():
+            self._restore_tokens[int(rid)] = tuple(int(t) for t in toks)
+
+    def clear_handoff_seeds(self) -> None:
+        """Drop the restore-token seeds and any unconsumed import seed,
+        releasing the latter's pages (a seeded rid that never arrived must
+        not leak its pages)."""
+        self._restore_tokens = {}
+        leftovers, self._import_seeds = self._import_seeds, {}
+        for seed in leftovers.values():
+            if seed["pages"]:
+                self.allocator.release(seed["pages"])
+
+    def _export_handoff(self, s: _PagedSlot, t: int) -> dict:
+        """The prefill tier's export of one just-completed prompt: the
+        JSON-safe request row (everything the decode tier needs to serve it
+        without the KV: the re-prefill guarantee), the engine's geometry,
+        and the row's pages fetched to the host (``fetch_s`` is that copy's
+        wall time). Called before retire frees the pages."""
+        row = self._drain_row(s.req, s.result, "handoff")
+        row["prompt"] = list(s.prompt)  # the effective prompt the pages hold
+        n = pages_for(s.pos, self.page_size)
+        t0 = time.perf_counter()
+        pages = self.fetch_kv_pages(s.pages[:n])
+        return {
+            "request": row,
+            "pos": int(s.pos),
+            "first_token": int(t),
+            "first_token_tick": int(self.ticks),
+            "meta": {
+                "page_size": self.page_size,
+                "kv_dtype": self.kv_dtype,
+                "eos_id": self.eos_id,
+                "pos": int(s.pos),
+                "n_pages": n,
+            },
+            "pages": pages,
+            "fetch_s": time.perf_counter() - t0,
+        }
 
     # --- page bookkeeping ---------------------------------------------------
 
@@ -1307,7 +1402,8 @@ class PagedSlotEngine(SlotEngine):
         rows that can take a round; returns those rows (none: no dispatch).
         A row takes part when at least two of its tokens are left (a round
         costs two dispatches), its block fits the row, and a plain
-        ``allocator.alloc`` covers its lookahead pages: a draft never
+        ``allocator.alloc`` covers its lookahead pages (a handoff import,
+        ``draft_stale``, never takes part): a draft never
         evicts or preempts. Each row emits its accepted proposals and the
         target's next token, retires on EOS or ``max_new``, and otherwise
         rolls back: its own tail pages past ``pages_for(pos)`` return to
@@ -1316,7 +1412,7 @@ class PagedSlotEngine(SlotEngine):
         row_cap = min(self.row_pages * ps, self.max_len)
         rows, lookahead = [], 0
         for idx, s in enumerate(slots):
-            if s.state != "decode" or s.req.max_new - len(s.result.tokens) < 2:
+            if s.state != "decode" or s.draft_stale or s.req.max_new - len(s.result.tokens) < 2:
                 continue
             if s.pos + k + 1 > row_cap:  # the verify writes pos..pos+k
                 continue
@@ -1398,10 +1494,13 @@ class PagedSlotEngine(SlotEngine):
     def run(self, requests: Sequence[Request], *, drain_at_tick: int | None = None) -> ServeStats:
         """Serve to completion with paged admission. Each loop turn:
         (1) enqueue arrivals; (2) admit pending requests in (tier, arrival)
-        order, radix-matching each prompt and granting its first chunk's
-        pages, evicting radix LRU pages and then preempting best-effort
-        rows when a critical request is short; (3) one prompt chunk for the
-        oldest mid-prefill row that can get its pages; (4) on a
+        order — a seeded handoff import straight into decode state on its
+        imported pages, any other request radix-matching its prompt and
+        granting its first chunk's pages, evicting radix LRU pages and then
+        preempting best-effort rows when a critical request is short; (3)
+        one prompt chunk for the oldest mid-prefill row that can get its
+        pages (on a prefill tier, a row done with its prompt is exported to
+        the handoff sink); (4) on a
         speculative engine, one draft/verify round over the decoding rows
         that can take it; (5) one pool-wide decode step over the other
         decoding rows whose next position has a page. A row that
@@ -1567,11 +1666,13 @@ class PagedSlotEngine(SlotEngine):
             results.append(res)
             self._record_request_trace(res, base_ns)
             self._note_slo(res)
-            # Adopt the original prompt's full pages into the radix tree
-            # (pages past the prompt hold generated tokens and are freed);
-            # the tree takes its own reference, so releasing the row's
-            # recycles only the unshared tail.
-            if self.radix is not None and s.req.rid >= 0:
+            # Adopt the original prompt's full pages into the radix tree of
+            # the request's adapter (pages past the prompt hold generated
+            # tokens and are freed); the tree takes its own reference, so
+            # releasing the row's recycles only the unshared tail. A
+            # draft_stale row's pages stay out: a later match would
+            # speculate over draft KV that was never written.
+            if self.radix is not None and s.req.rid >= 0 and not s.draft_stale:
                 full = len(s.req.prompt) // ps
                 if full:
                     self.radix.insert(tuple(s.req.prompt[: full * ps]), s.pages[:full],
@@ -1648,6 +1749,42 @@ class PagedSlotEngine(SlotEngine):
                     apages = self._admit_adapter(req)
                     if apages is None:
                         break
+                seed = self._import_seeds.pop(req.rid, None) if self._import_seeds else None
+                if seed is not None:
+                    # a handoff import (decode tier): the prompt's KV already
+                    # sits in this engine's pages, so the row goes straight
+                    # to decode state under its own adapter. The pages
+                    # belong to the row: retire or a preemption releases
+                    # them (a preempted import re-queues and prefills
+                    # prompt + tokens again).
+                    pending.pop(0)
+                    idx = free_rows.pop(0)
+                    s = slots[idx]
+                    s.state = "decode"
+                    s.req = req
+                    s.prompt = seed["prompt"]
+                    s.done = s.pos = seed["pos"]
+                    s.result = res
+                    if apages is not None:
+                        s.atable[:] = apages
+                    self._grow(s, list(seed["pages"]))
+                    s.last = seed["last"]
+                    if not res.tokens:
+                        res.tokens.append(s.last)
+                    res.admit_tick = self.ticks
+                    res.admit_s = now()
+                    if res.first_token_tick is None:  # it came with the handoff
+                        res.first_token_tick = self.ticks
+                        res.first_token_s = now()
+                    # the row's device length, where the decode step writes
+                    # and attends from
+                    self.cache["len"][idx] = seed["pos"]
+                    if self.draft_cache is not None:
+                        # imported pages hold the target's KV only: the row
+                        # plain-decodes for its lifetime
+                        s.draft_stale = True
+                        self.draft_cache["len"][idx] = seed["pos"]
+                    continue
                 eff = req.prompt + tuple(res.tokens)
                 matched, mpages = 0, []
                 if self.radix is not None:
@@ -1747,6 +1884,14 @@ class PagedSlotEngine(SlotEngine):
                         len(s.result.tokens) >= s.req.max_new
                     ):
                         retire(idx)
+                    elif self._handoff_sink is not None and s.req.rid >= 0:
+                        # prefill tier: the decode belongs to the peer. Fetch
+                        # the row's KV before retire frees the pages, retire
+                        # (the prompt's pages still go into the local radix
+                        # tree), then hand the export over.
+                        export = self._export_handoff(s, t)
+                        retire(idx)
+                        self._handoff_sink(export)
                     else:
                         s.state = "decode"
                         s.last = t
@@ -1853,6 +1998,20 @@ class PagedSlotEngine(SlotEngine):
             results=results, ticks=self.ticks, wall_s=time.perf_counter() - t0,
             trace_counts=self.trace_counts, engine_cache=self.cache_stats(),
         )
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """One page buffer as a host tensor: tensors as they are, numpy arrays
+    without a copy, and the reference's ``ml_dtypes`` bf16 arrays through
+    their 16-bit words (the port never imports ``ml_dtypes``)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.ascontiguousarray(x)
+    if not arr.flags.writeable:  # torch tensors over numpy memory are writable
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def poisson_trace(

@@ -17,16 +17,17 @@ On the device the cache is ``[L, pages, page_size, Hkv, Dh]``; page id
 never read (``workloads/generate.py``). The allocator hands out ids
 ``1..total_pages``.
 
-The counters sit behind a lock because a metrics scrape may read them
-from another thread; :meth:`PageAllocator.publish` exports occupancy to
-``/metrics``.
+The counters sit behind a lock (rank ``serving.pages``) because a metrics
+scrape may read them from another thread and the KV handoff's staging
+ledger allocates under its own lock; :meth:`PageAllocator.publish`
+exports occupancy to ``/metrics``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 
+from ..utils.lockrank import make_lock
 from ..utils.metric_catalog import (
     ENGINE_KV_PAGES_FREE,
     ENGINE_KV_PAGES_TOTAL,
@@ -48,7 +49,7 @@ class PageAllocator:
     def __init__(self, total_pages: int) -> None:
         if total_pages < 1:
             raise ValueError(f"total_pages must be >= 1, got {total_pages}")
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.pages")
         self.total = total_pages
         # Stack of free ids (1..total; SCRATCH is never handed out).
         self._free: list[int] = list(range(total_pages, 0, -1))

@@ -3,7 +3,9 @@
 Counterpart of ``gpushare_device_plugin_tpu/utils/metric_catalog.py``,
 cut to the families a serving pod exports: the engine's step profile,
 pages, prefix cache, preemptions, speculative decoding and adapters, the
-best-effort governor, SLO budgets and the build identity. Names, types
+best-effort governor, SLO budgets, the build identity, and the KV
+handoff's protocol layer (the handoff itself, the WAL, the circuit
+breaker and the assume cache's claim expiry). Names, types
 and label sets are the reference's letter for letter, so the reference
 control plane's scrapers (``cluster/interference.py``, the inspect CLI)
 read a port pod as they read a reference pod. A site may emit a subset
@@ -33,7 +35,17 @@ def _m(name: str, mtype: str, *labels: str) -> tuple[str, MetricSpec]:
     return name, MetricSpec(name, mtype, tuple(sorted(labels)))
 
 
+ASSUME_EXPIRED_TOTAL = "tpushare_assume_expired_total"
 BUILD_INFO = "tpushare_build_info"
+CHECKPOINT_APPENDS_TOTAL = "tpushare_checkpoint_appends_total"
+CHECKPOINT_ERRORS_TOTAL = "tpushare_checkpoint_errors_total"
+CHECKPOINT_FENCED = "tpushare_checkpoint_fenced"
+CHECKPOINT_FSYNC_SECONDS = "tpushare_checkpoint_fsync_seconds"
+CHECKPOINT_REPLAYED_TOTAL = "tpushare_checkpoint_replayed_total"
+CHECKPOINT_WAL_BATCH_RECORDS = "tpushare_checkpoint_wal_batch_records"
+CIRCUIT_FASTFAIL_TOTAL = "tpushare_circuit_fastfail_total"
+CIRCUIT_STATE = "tpushare_circuit_state"
+CIRCUIT_TRANSITIONS_TOTAL = "tpushare_circuit_transitions_total"
 ENGINE_ADAPTER_CACHE_PAGES = "tpushare_engine_adapter_cache_pages"
 ENGINE_ADAPTER_ENABLED = "tpushare_engine_adapter_enabled"
 ENGINE_ADAPTER_EVICTIONS_TOTAL = "tpushare_engine_adapter_evictions_total"
@@ -62,12 +74,27 @@ GOVERNOR_ENGAGED = "tpushare_governor_engaged"
 GOVERNOR_ENGAGEMENTS_TOTAL = "tpushare_governor_engagements_total"
 GOVERNOR_THROTTLE_SECONDS_TOTAL = "tpushare_governor_throttle_seconds_total"
 GOVERNOR_THROTTLED_STEPS_TOTAL = "tpushare_governor_throttled_steps_total"
+HANDOFF_BYTES = "tpushare_handoff_bytes"
+HANDOFF_FALLBACK_REPREFILL_TOTAL = "tpushare_handoff_fallback_reprefill_total"
+HANDOFF_PAGES_IN_FLIGHT = "tpushare_handoff_pages_in_flight"
+HANDOFF_TRANSFER_SECONDS = "tpushare_handoff_transfer_seconds"
+HANDOFF_TRANSFERS_TOTAL = "tpushare_handoff_transfers_total"
 SLO_BURN_RATE = "tpushare_slo_burn_rate"
 SLO_ERROR_BUDGET_REMAINING = "tpushare_slo_error_budget_remaining"
 SLO_SEVERITY = "tpushare_slo_severity"
 
 CATALOG: dict[str, MetricSpec] = dict((
+    _m(ASSUME_EXPIRED_TOTAL, COUNTER, "kind"),
     _m(BUILD_INFO, GAUGE, "component", "version", "git_rev", "python", "jax"),
+    _m(CHECKPOINT_APPENDS_TOTAL, COUNTER, "op"),
+    _m(CHECKPOINT_ERRORS_TOTAL, COUNTER, "op"),
+    _m(CHECKPOINT_FENCED, GAUGE),
+    _m(CHECKPOINT_FSYNC_SECONDS, HISTOGRAM, "mode"),
+    _m(CHECKPOINT_REPLAYED_TOTAL, COUNTER),
+    _m(CHECKPOINT_WAL_BATCH_RECORDS, HISTOGRAM, "mode"),
+    _m(CIRCUIT_FASTFAIL_TOTAL, COUNTER, "breaker"),
+    _m(CIRCUIT_STATE, GAUGE, "breaker"),
+    _m(CIRCUIT_TRANSITIONS_TOTAL, COUNTER, "breaker", "to"),
     _m(ENGINE_ADAPTER_CACHE_PAGES, GAUGE, "pod"),
     _m(ENGINE_ADAPTER_ENABLED, GAUGE, "pod"),
     _m(ENGINE_ADAPTER_EVICTIONS_TOTAL, COUNTER, "pod"),
@@ -96,6 +123,11 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(GOVERNOR_ENGAGEMENTS_TOTAL, COUNTER, "pod"),
     _m(GOVERNOR_THROTTLE_SECONDS_TOTAL, COUNTER, "pod"),
     _m(GOVERNOR_THROTTLED_STEPS_TOTAL, COUNTER, "pod"),
+    _m(HANDOFF_BYTES, HISTOGRAM, "pod"),
+    _m(HANDOFF_FALLBACK_REPREFILL_TOTAL, COUNTER, "reason", "pod"),
+    _m(HANDOFF_PAGES_IN_FLIGHT, GAUGE, "pod"),
+    _m(HANDOFF_TRANSFER_SECONDS, HISTOGRAM, "pod"),
+    _m(HANDOFF_TRANSFERS_TOTAL, COUNTER, "outcome", "pod"),
     _m(SLO_BURN_RATE, GAUGE, "tier", "window", "pod"),
     _m(SLO_ERROR_BUDGET_REMAINING, GAUGE, "tier", "pod"),
     _m(SLO_SEVERITY, GAUGE, "tier", "pod"),

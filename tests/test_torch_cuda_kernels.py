@@ -637,3 +637,81 @@ def test_tiny_spec_engine_on_card_matches_its_cpu_tokens():
         assert tokens["cuda"] == tokens["cpu"]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_bf16_page_wire_round_trip_on_card():
+    """A bf16 engine's pages, fetched to the host in bf16, cross the
+    handoff's wire at 2 bytes an element under the dtype name "bfloat16"
+    and write back into other pages of the card's pool bit for bit."""
+    _card()
+    import json
+
+    from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, shared_prefix_trace
+    from gpushare_device_plugin_tpu_torch.serving.handoff import decode_page, encode_page
+
+    cfg, _, params = _paged_model()
+    eng = PagedSlotEngine(params, cfg, slots=3, max_len=96, total_pages=40, page_size=8,
+                          prefill_chunk=16, eos_id=None)
+    eng.run(shared_prefix_trace(6, seed=2, rate=0.5, vocab=cfg.vocab, prefixes=(2, 32),
+                                tail_lens=(4, 30), max_new=(4, 8)))
+    pages = eng.radix.pages()
+    assert pages
+    host = eng.fetch_kv_pages(pages)
+    assert all(t.dtype == torch.bfloat16 and t.device.type == "cpu" for t in host[0].values())
+    wires = [encode_page(p) for p in host]
+    hlen = int.from_bytes(wires[0][:4], "little")
+    head = json.loads(wires[0][4:4 + hlen])
+    assert [e[1] for e in head] == ["bfloat16", "bfloat16"]
+    numel = sum(int(np.prod(e[2])) for e in head)
+    assert len(wires[0]) == 4 + hlen + 2 * numel
+    targets = eng.allocator.alloc(len(pages))
+    eng.import_kv_pages(targets, [decode_page(w) for w in wires])
+    torch.cuda.synchronize()
+    for key in ("k", "v"):
+        assert torch.equal(eng.cache[key][:, targets], eng.cache[key][:, pages])
+
+
+@pytest.mark.cuda
+def test_disagg_handoff_imports_into_a_card_engine():
+    """DisaggServer over two card engines, f32 (TF32 off): every request's
+    pages cross the wire into the decode tier's pool and decode there; the
+    tokens equal a unified card engine's with the decode tier's slots, the
+    prefill tier launches the forward kernel once per layer per prefill
+    dispatch, and every page comes back."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, poisson_trace
+    from gpushare_device_plugin_tpu_torch.serving.handoff import DisaggServer
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = T.TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                                  d_ff=512, max_seq=128, compute_dtype=torch.float32)
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+        geo = dict(max_len=96, page_size=8, prefill_chunk=16, eos_id=None)
+        reqs = poisson_trace(8, seed=4, rate=0.5, vocab=cfg.vocab, prompt_lens=(8, 60),
+                             max_new=(4, 12))
+        unified = PagedSlotEngine(params, cfg, slots=4, total_pages=48, **geo)
+        want = {r.rid: r.tokens for r in unified.run(reqs).results}
+        # the decode pool stages every handoff of the prefill run at once
+        ds = DisaggServer(PagedSlotEngine(params, cfg, slots=2, total_pages=24, **geo),
+                          PagedSlotEngine(params, cfg, slots=4, total_pages=64, **geo))
+        ds.warmup()
+        prefills = []
+        program = ds.prefill._prefill
+        ds.prefill._prefill = lambda *a: (prefills.append(1), program(*a))[1]
+        before = dict(fa.LAUNCHES)
+        out = ds.serve(reqs)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in fa.LAUNCHES.items()}
+        assert out["dropped"] == [] and ds.outcomes == {"delivered": len(reqs)}
+        assert {e["path"] for e in out["results"].values()} == {"handoff"}
+        assert {rid: e["tokens"] for rid, e in out["results"].items()} == want
+        entry = fa.fwd_entry(torch.float32, cfg.head_dim)
+        assert launched[entry] == cfg.n_layers * len(prefills) > 0
+        assert ds.wire["pages"] > 0 and ds.ledger.pages_in_flight == 0
+        for eng in (ds.prefill, ds.decode):
+            assert eng.allocator.used_pages == eng.radix.cached_pages
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

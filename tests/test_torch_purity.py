@@ -1,4 +1,4 @@
-"""The PyTorch port stands alone: no import of JAX, optax or the reference
+"""The PyTorch port stands alone: no import of JAX, optax, ml_dtypes or the reference
 package, entry points that do not drop to the CPU without being asked,
 and a kernel loader that raises instead of falling back."""
 
@@ -24,7 +24,7 @@ from gpushare_device_plugin_tpu_torch.workloads.trainer import (
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gpushare_device_plugin_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "gpushare_device_plugin_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes", "gpushare_device_plugin_tpu")
 
 
 def _port_files():
