@@ -174,8 +174,9 @@ Phases, each of which fails the run with a non-zero exit:
    entry never), ``/metrics`` (scraped and parsed here) carries the step
    p99 of both pods and the governor, SLO, page and preemption families,
    and ``/traces`` holds each critical request's ``serve.request`` tree.
-17. Disaggregated prefill/decode serving, on phase 2's weights (run
-   straight after phase 16): the reference's ``bench_serve_disagg`` trace
+17. Disaggregated prefill/decode serving, on phase 2's weights cut to
+   their first 16 layers (run straight after phase 16; see
+   DISAGG_LAYERS): the reference's ``bench_serve_disagg`` trace
    at its full settings (24 requests, every 4th prompt 512-768 tokens, the
    rest 16-64, max_new from (16, 32, 128); see the constants) through one
    unified ``PagedSlotEngine(slots=8, total_pages=192, max_len=1024,
@@ -196,11 +197,31 @@ Phases, each of which fails the run with a non-zero exit:
    engine's, handoffs by outcome, pages and bytes shipped, and a
    handoff's wall time split into the device-to-host fetch, the encode,
    the CRCs and protocol, the decode and the host-to-device write.
+18. The serving fleet, on phase 2's weights (run straight after phase
+   17): the reference's ``bench_serve_fleet`` trace at its full settings
+   (24 requests over three 384-token system prompts; see the constants)
+   through one unified ``PagedSlotEngine(slots=24, total_pages=384,
+   max_len=1024, page_size=64, prefill_chunk=256)``, then four times
+   through ``FleetServer`` over three engines of 8 slots and 128 pages
+   each, fresh engines every run: ``prefix-affinity``, ``spread``,
+   ``prefix-affinity`` with a journaled scale-down of e0 at tick 3 (a WAL
+   and an ``AssumeCache``), and e0 killed mid-decode on the trace's first
+   12 requests. Launch counts are zeroed just before each run and read
+   just after. Fails unless no request is dropped or served twice, every
+   engine keeps its shape guard and returns every page, ``flash_fwd``
+   runs once per layer per prefill dispatch (``flash_fwd_scalar`` never),
+   affinity's fleet prefix-hit ratio is above spread's, the scale-down
+   completes one op, migrates a request and leaves no pending journal
+   entry, the kill re-queues a request, and every request's tokens equal
+   the unified engine's or pass phase 3's near-tie rule (bit equality is
+   counted, not gated). Prints each run's wall and tokens/s, router
+   outcomes, hit ratios, TTFT and TPOT p50/p99 in ticks, the migrated and
+   re-queued requests and the scale-down protocol's host time.
 
-The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 17, 14, 4, 5, 6,
-9-12. ``python3 chip_smoke.py --phase 17`` builds the kernels and runs
-phase 17 alone on fresh weights (a quick check; it prints no contract
-lines).
+The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14, 4, 5,
+6, 9-12. ``python3 chip_smoke.py --phase 17`` (or ``--phase 18``) builds
+the kernels and runs that phase alone on fresh weights (a quick check; it
+prints no contract lines).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -217,8 +238,9 @@ is the card's name and power limit from ``nvidia-smi``; before that, one
 JSON line ``{"kernels": [...]}``, whose launches per path include
 ``lora_serve`` (phase 13, runs A and B), ``lora_train`` (phase 14's
 pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B),
-``interference`` (phase 16, both tenants) and ``disagg`` (phase 17's
-live handoff run, both tiers); the forward rows carry
+``interference`` (phase 16, both tenants), ``disagg`` (phase 17's
+live handoff run, both tiers) and ``fleet`` (phase 18's affinity run,
+all three engines); the forward rows carry
 ``at_draft_shape``. The line before the card's is the script's seconds.
 """
 
@@ -385,8 +407,9 @@ BUSY_MAX_NEW = 16
 # drawn from (16, 32, 128); max_len 1024, pages of 64 positions, prompt
 # chunks of 256. A prefill tier of 4 slots over 64 pages (4 max_len rows)
 # and a decode tier of 8 over 128, beside one unified engine of 8 slots over
-# the same 192 pages (a page of the 8B model's KV is 8 MiB, 32 layers x 64
-# positions x 8 kv heads x 128 x 2 bytes x K and V: 1.5 GiB in all). The
+# the same 192 pages (a page of the 8B model's KV is 8 MiB at 32 layers, 32
+# x 64 positions x 8 kv heads x 128 x 2 bytes x K and V; at the phase's 16
+# layers 4 MiB, 0.75 GiB in all). The
 # engines stop at Llama-3's EOS like every phase here (the bench's eos is 2).
 DISAGG_REQUESTS, DISAGG_RATE, DISAGG_SEED = 24, 0.1, 17
 DISAGG_SHORT, DISAGG_LONG, DISAGG_MIX = (16, 64), (512, 768), (16, 32, 128)
@@ -397,6 +420,27 @@ DISAGG_PREFILL_SLOTS, DISAGG_DECODE_SLOTS = 4, 8
 # tie and are held to solo decode one by one (22 of 24 on all 24, 166 s for
 # the phase on one H100), which the script's time limit cannot spare.
 DISAGG_FALLBACK_REQUESTS = 12
+# Phase 17 serves phase 2's model cut to its first DISAGG_LAYERS layers (full
+# width): at 32 layers it took 155-166 s on one H100, which the script's
+# time limit cannot spare beside phase 18.
+DISAGG_LAYERS = 16
+# Phase 18: the reference's bench_mfu.py::bench_serve_fleet at its full
+# settings: shared_prefix_trace(24, seed=23, rate=0.15, prefixes=(3, 384),
+# tail_lens=(16, 64), max_new drawn from [16, 32, 128]) over the 8B vocabulary:
+# three 384-token system prompts, six 64-token pages each. Three engines of 8
+# slots over 128 pages (8 max_len rows of 16 pages; 1 GiB each), max_len
+# 1024, prompt chunks of 256, beside one unified engine of 24 slots over 384
+# pages. The scale-down drains e0 at tick 3 (the bench's); the kill run
+# serves the trace's first FLEET_KILL_REQUESTS requests and kills e0
+# FLEET_KILL_AFTER ticks after its first request arrives, when that request
+# is decoding (2 prompt chunks, then at least 16 new tokens). The engines
+# stop at Llama-3's EOS (the bench's eos is 2).
+FLEET_REQUESTS, FLEET_RATE, FLEET_SEED = 24, 0.15, 23
+FLEET_PREFIXES, FLEET_TAILS, FLEET_MIX = (3, 384), (16, 64), [16, 32, 128]
+FLEET_ENGINES, FLEET_SLOTS = 3, 8
+FLEET_MAX_LEN, FLEET_PAGE, FLEET_CHUNK = 1024, 64, 256
+FLEET_SCALE_TICK = 3
+FLEET_KILL_REQUESTS, FLEET_KILL_AFTER = 12, 8
 # Phase 14: the LoRA pod's slice, batch and steps.
 LORA_TRAIN_UNITS, LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 32, 2, 2048, 8
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
@@ -663,29 +707,64 @@ def solo_with_gaps(params, cfg, prompt, max_new):
     return toks, gaps
 
 
+class SoloDecode:
+    """:func:`solo_with_gaps`, decoded only as far as a check reads it: the
+    near-tie rule compares nothing past the first step where the served
+    tokens leave the solo ones, so the decode stops there and resumes if a
+    later check reads further. It ends at ``max_new`` tokens or at Llama-3's
+    EOS (the engine retires a request there), and then frees its cache. It
+    holds no reference to the weights: each call is given them."""
+
+    def __init__(self, params, cfg, prompt, max_new):
+        self.max_new = max_new
+        self.toks: list[int] = []
+        self.gaps: list[tuple[float, float]] = []
+        p = torch.tensor([prompt], dtype=torch.long, device="cuda")
+        self._cache = G.init_cache(cfg, 1, len(prompt) + max_new)
+        self._logits, self._cache = G.prefill(params, p, self._cache, cfg)
+        self._tok = None
+
+    def done(self) -> bool:
+        return len(self.toks) == self.max_new or (bool(self.toks) and self.toks[-1] == EOS_ID)
+
+    def upto(self, params, cfg, n: int) -> list[int]:
+        """The solo tokens, decoded to at least ``n`` of them unless the
+        decode ends first."""
+        while len(self.toks) < n and not self.done():
+            if self._tok is not None:
+                self._logits, self._cache = G.decode_step(params, self._tok, self._cache, cfg)
+            top2 = torch.topk(self._logits[0], 2).values
+            self.gaps.append((float(top2[0] - top2[1]), float(top2[0].abs())))
+            self._tok = torch.argmax(self._logits, -1)
+            self.toks.append(int(self._tok))
+        if self.done():
+            self._cache = self._logits = self._tok = None
+        return self.toks
+
+
 def check_vs_solo(phase, params, cfg, req, got, want=None, solos=None,
                   gap_rel=TOP2_GAP_REL) -> list[dict]:
     """Hold one request's served tokens against the port's solo greedy
     decode by the near-tie rule: they may differ first only at a step where
     the solo top-two gap is at most ``gap_rel`` * |top|. Tokens that equal
     ``want`` (an earlier run's, already held) need no solo run; ``solos``
-    keeps each request's solo decode, so a request held twice decodes once.
-    Returns the divergence, if any, for the log."""
+    keeps each request's :class:`SoloDecode`, so a request held twice
+    decodes once. Returns the divergence, if any, for the log."""
     if want is not None and got == want:
         return []
     solos = {} if solos is None else solos
     key = (req.prompt, req.max_new)
     if key not in solos:
-        solos[key] = solo_with_gaps(params, cfg, list(req.prompt), req.max_new)
-    solo, gaps = solos[key]
-    if EOS_ID in solo:  # the engine retires a request at its EOS
-        solo = solo[: solo.index(EOS_ID) + 1]
-    j = next((i for i, (a, b) in enumerate(zip(got, solo)) if a != b), None)
-    if j is None:
-        if len(got) != len(solo):
-            raise SystemExit(f"{phase} failed: request {req.rid} length {len(got)} != {len(solo)}")
+        solos[key] = SoloDecode(params, cfg, list(req.prompt), req.max_new)
+    solo = solos[key]
+    j = next((i for i, tok in enumerate(got)
+              if len(solo.upto(params, cfg, i + 1)) <= i or solo.toks[i] != tok), None)
+    if j is None or j >= len(solo.toks):
+        n = len(solo.upto(params, cfg, len(got) + 1))
+        if n != len(got):
+            raise SystemExit(f"{phase} failed: request {req.rid} length {len(got)} != {n}")
         return []
-    gap, top = gaps[j]
+    gap, top = solo.gaps[j]
     if gap > gap_rel * top:
         raise SystemExit(
             f"{phase} failed: request {req.rid} diverges at step {j} "
@@ -2169,9 +2248,34 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def count_prefills(engine, box):
+    """Append to ``box`` on each of ``engine``'s prefill dispatches (``del
+    engine._prefill`` restores the method)."""
+    program = engine._prefill
+
+    def counted(*args):
+        box.append(1)
+        return program(*args)
+
+    engine._prefill = counted
+
+
+def measured(run):
+    """``run()`` with the launch counts zeroed just before and read just
+    after; (its result, wall seconds, launches)."""
+    torch.cuda.synchronize()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(fa.LAUNCHES)
+
+
 def phase_disagg(params, cfg) -> tuple[dict, dict]:
-    """Phase 17, on phase 2's weights: the reference's disaggregated-serving
-    bench at full width and depth. One unified engine (the control), then
+    """Phase 17, on phase 2's weights cut to their first DISAGG_LAYERS
+    layers: the reference's disaggregated-serving bench at full width. One
+    unified engine (the control), then
     a prefill and a decode tier behind ``DisaggServer`` twice: the live
     handoff, journaled (a WAL in a temporary directory and an
     ``AssumeCache``), and the forced fallback (``BrokenTransport``, two
@@ -2183,9 +2287,11 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
     from gpushare_device_plugin_tpu_torch.allocator.checkpoint import AllocationCheckpoint
     from gpushare_device_plugin_tpu_torch.serving import BrokenTransport, DisaggServer
 
-    print("phase 17: disaggregated prefill/decode serve, llama3_8b (32 layers, bf16), "
-          f"{DISAGG_REQUESTS} requests of bench_serve_disagg", flush=True)
+    print(f"phase 17: disaggregated prefill/decode serve, llama3_8b ({DISAGG_LAYERS} of 32 "
+          f"layers, bf16), {DISAGG_REQUESTS} requests of bench_serve_disagg", flush=True)
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=DISAGG_LAYERS)
+    params = {**params, "layers": {k: v[:DISAGG_LAYERS] for k, v in params["layers"].items()}}
     reqs = disagg_trace(cfg.vocab)
     rows = -(-DISAGG_MAX_LEN // DISAGG_PAGE)
     p_pages, d_pages = DISAGG_PREFILL_SLOTS * rows, DISAGG_DECODE_SLOTS * rows
@@ -2196,26 +2302,6 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
         return PagedSlotEngine(params, cfg, slots=slots, max_len=DISAGG_MAX_LEN,
                                total_pages=pages, page_size=DISAGG_PAGE,
                                prefill_chunk=DISAGG_CHUNK, eos_id=EOS_ID)
-
-    def count_prefills(engine, box):
-        program = engine._prefill
-
-        def counted(*args):
-            box.append(1)
-            return program(*args)
-
-        engine._prefill = counted
-
-    def measured(run):
-        """``run()`` with the launch counts zeroed just before and read just
-        after; (its result, wall seconds, launches)."""
-        torch.cuda.synchronize()
-        for name in fa.LAUNCHES:
-            fa.LAUNCHES[name] = 0
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, dict(fa.LAUNCHES)
 
     def check_engine(label, eng):
         if eng.trace_counts != guard:
@@ -2351,6 +2437,233 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
     if fail:
         raise SystemExit("phase 17 failed: " + "; ".join(fail))
     return launches_live, report
+
+
+def fleet_kill_tick(trace) -> int:
+    """The tick at which the kill run kills e0: FLEET_KILL_AFTER ticks after
+    the arrival of the first request the router sends there. Routing is
+    deterministic, so a router over fresh replicas (no fingerprints, every
+    slot free, as the fleet's first scrape finds them) places the trace as
+    the fleet's will."""
+    from gpushare_device_plugin_tpu_torch.serving.router import FleetMembership, FleetRouter
+    from gpushare_device_plugin_tpu_torch.utils.decisions import DecisionLog
+    from gpushare_device_plugin_tpu_torch.utils.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    members = FleetMembership(registry=reg)
+    for i in range(FLEET_ENGINES):
+        members.add(f"e{i}", None, capacity=FLEET_SLOTS)
+    router = FleetRouter(members, page_size=FLEET_PAGE, decisions=DecisionLog(), registry=reg)
+    for r in sorted(trace, key=lambda r: (r.arrival, r.rid)):
+        if router.route(str(r.rid), r.prompt, r.tier).engine == "e0":
+            return int(math.ceil(r.arrival)) + FLEET_KILL_AFTER
+    raise SystemExit("phase 18 failed: the router sends the kill run nothing on e0")
+
+
+def time_scale_hooks(executor) -> dict:
+    """Time a ``ScaleExecutor``'s ``execute`` and its drain and migrate
+    hooks (both run engines); the rest of ``execute`` is the protocol's
+    host time: journal records, claims, cordon, rows and release. Returns
+    the dict of seconds, which fills as the executor runs."""
+    timing = {"drain_s": 0.0, "migrate_s": 0.0, "execute_s": 0.0}
+
+    def timed(fn, key):
+        def call(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                timing[key] += time.perf_counter() - t0
+
+        return call
+
+    executor._drain = timed(executor._drain, "drain_s")
+    executor._migrate = timed(executor._migrate, "migrate_s")
+    executor.execute = timed(executor.execute, "execute_s")
+    return timing
+
+
+def phase_fleet(params, cfg) -> tuple[dict, dict]:
+    """Phase 18, on phase 2's weights: the reference's fleet bench at full
+    width and depth. One unified engine (the control), then three engines
+    behind ``FleetServer`` four times, each on fresh engines:
+    ``prefix-affinity``, ``spread`` (affinity-blind), ``prefix-affinity``
+    with a journaled scale-down of e0 (a WAL in a temporary directory and
+    an ``AssumeCache``), and e0 killed mid-decode on the trace's first
+    requests. Returns the affinity run's kernel launches and the phase's
+    report."""
+    import tempfile
+
+    from gpushare_device_plugin_tpu_torch.allocator.assume import AssumeCache
+    from gpushare_device_plugin_tpu_torch.allocator.checkpoint import AllocationCheckpoint
+    from gpushare_device_plugin_tpu_torch.serving import FleetServer
+
+    print(f"phase 18: the serving fleet, llama3_8b (32 layers, bf16), {FLEET_ENGINES} engines, "
+          f"{FLEET_REQUESTS} requests of bench_serve_fleet", flush=True)
+    t_phase = time.perf_counter()
+    reqs = shared_prefix_trace(FLEET_REQUESTS, seed=FLEET_SEED, rate=FLEET_RATE, vocab=cfg.vocab,
+                               prefixes=FLEET_PREFIXES, tail_lens=FLEET_TAILS, max_new=FLEET_MIX)
+    pages = FLEET_SLOTS * -(-FLEET_MAX_LEN // FLEET_PAGE)
+    guard = {"prefill": 1, "extend": 1, "decode": 1}
+    fail = []
+
+    spent = {"warmup_s": 0.0, "solo_check_s": 0.0}
+
+    def mk(slots, n_pages):
+        t0 = time.perf_counter()
+        eng = PagedSlotEngine(params, cfg, slots=slots, max_len=FLEET_MAX_LEN,
+                              total_pages=n_pages, page_size=FLEET_PAGE,
+                              prefill_chunk=FLEET_CHUNK, eos_id=EOS_ID)
+        eng.warmup()
+        torch.cuda.synchronize()
+        spent["warmup_s"] += time.perf_counter() - t0
+        return eng
+
+    def check_pool(label, eng):
+        if eng.trace_counts != guard:
+            fail.append(f"{label}: shape guard moved: {eng.trace_counts}")
+        if eng.allocator.used_pages != eng.radix.cached_pages:
+            fail.append(f"{label}: {eng.allocator.used_pages} pages used, "
+                        f"{eng.radix.cached_pages} held by the radix cache")
+
+    def check_launches(label, launches, prefills):
+        if not launches["flash_fwd"] == cfg.n_layers * prefills > 0:
+            fail.append(f"{label}: flash_fwd launches {launches['flash_fwd']} != "
+                        f"{cfg.n_layers} x {prefills} prefill dispatches")
+        if launches["flash_fwd_scalar"]:
+            fail.append(f"{label}: flash_fwd_scalar launched {launches['flash_fwd_scalar']} times")
+
+    def latencies(results):
+        return {q: quantiles([e[q] for e in results if e[q] is not None])
+                for q in ("ttft_ticks", "tpot_ticks")}
+
+    # --- the control: one engine of every slot, never fleeted
+    unified = mk(FLEET_SLOTS * FLEET_ENGINES, pages * FLEET_ENGINES)
+    u_prefills: list = []
+    count_prefills(unified, u_prefills)
+    u_stats, u_wall, u_launches = measured(lambda: unified.run(reqs))
+    del unified._prefill
+    check_pool("unified", unified)
+    check_launches("unified", u_launches, len(u_prefills))
+    if len(u_stats.results) != len(reqs):
+        fail.append("unified: not every request was served")
+    u_tokens = {r.rid: list(r.tokens) for r in u_stats.results}
+    generated = sum(len(t) for t in u_tokens.values())
+    report = {"card": smi_line(), "requests": len(reqs), "engines": FLEET_ENGINES,
+              "slots_per_engine": FLEET_SLOTS, "pages_per_engine": pages,
+              "prompt_tokens": sum(len(r.prompt) for r in reqs),
+              "unified": {
+                  "slots": FLEET_SLOTS * FLEET_ENGINES, "pages": pages * FLEET_ENGINES,
+                  "ticks": u_stats.ticks, "wall_s": u_wall, "generated_tokens": generated,
+                  "tokens_per_s": generated / u_wall,
+                  "prefix_hit_ratio": unified.radix.hit_ratio(),
+                  **latencies([{"ttft_ticks": r.ttft_ticks,
+                                "tpot_ticks": r.tpot_ticks if len(r.tokens) > 1 else None}
+                               for r in u_stats.results]),
+                  "flash_fwd": u_launches["flash_fwd"], "prefill_dispatches": len(u_prefills),
+              }}
+    del unified
+    torch.cuda.empty_cache()
+
+    solos: dict = {}
+
+    def one_run(tmp, label, policy, trace, serve_kw) -> tuple[dict, dict]:
+        """One fleet run on fresh engines: (its report row, its launches).
+        Everything it built dies with its frame, but for the cycle the
+        caller collects."""
+        engines = {f"e{i}": mk(FLEET_SLOTS, pages) for i in range(FLEET_ENGINES)}
+        kw = {}
+        if label == "scale_down":
+            ckpt = AllocationCheckpoint(os.path.join(tmp, "scale.wal"))
+            kw = dict(checkpoint=ckpt, assume=AssumeCache())
+        fleet = FleetServer(engines, policy=policy, node="smoke", **kw)
+        boxes = {name: [] for name in engines}
+        for name, eng in engines.items():
+            count_prefills(eng, boxes[name])
+        timing = time_scale_hooks(fleet.executor)
+        out, wall, launches = measured(lambda: fleet.serve(trace, **serve_kw))
+        for name, eng in engines.items():
+            del eng._prefill
+            check_pool(f"{label} {name}", eng)
+        prefills = sum(len(b) for b in boxes.values())
+        check_launches(label, launches, prefills)
+        results = out["results"]
+        if out["dropped"] or out["double_served"] or len(results) != len(trace):
+            fail.append(f"{label}: dropped {out['dropped']}, double-served "
+                        f"{out['double_served']}, {len(results)} of {len(trace)} served")
+        paths = [e["path"] for e in results.values()]
+        bit_equal, divergences = 0, []
+        t0 = time.perf_counter()
+        for r in trace:
+            if r.rid not in results:
+                continue
+            got = results[r.rid]["tokens"]
+            bit_equal += got == u_tokens[r.rid]
+            divergences += check_vs_solo(f"phase 18 ({label})", params, cfg, r, got,
+                                         want=u_tokens[r.rid], solos=solos)
+        spent["solo_check_s"] += time.perf_counter() - t0
+        generated = sum(len(e["tokens"]) for e in results.values())
+        row = {
+            "policy": policy, "requests": len(trace), "wall_s": wall,
+            "generated_tokens": generated, "tokens_per_s": generated / wall,
+            "router": out["router"], "prefix_hit_ratio": out["prefix_hit_ratio"],
+            "replicas": {n: r["state"] for n, r in out["replicas"].items()},
+            "requests_by_engine": {n: sum(e["engine"] == n for e in results.values())
+                                   for n in sorted(engines)},
+            "paths": {p: paths.count(p) for p in sorted(set(paths))},
+            "bit_equal_to_unified": bit_equal, "divergences": divergences,
+            "max_gap_over_top": max((d["gap_over_top"] for d in divergences), default=None),
+            **latencies(list(results.values())),
+            "flash_fwd": launches["flash_fwd"], "prefill_dispatches": prefills,
+        }
+        if label == "scale_down":
+            ex = fleet.executor
+            row["scale"] = {
+                "completed_ops": ex.completed_ops, "migrated_requests": ex.migrated_requests,
+                "pending": len(ckpt.pending()), **timing,
+                "protocol_host_s": timing["execute_s"] - timing["drain_s"] - timing["migrate_s"],
+            }
+            if ex.completed_ops != 1:
+                fail.append(f"scale_down: {ex.completed_ops} scale ops, expected 1")
+            if ex.migrated_requests < 1:
+                fail.append("scale_down: no request migrated")
+            if ckpt.pending():
+                fail.append(f"scale_down: the journal holds {len(ckpt.pending())} pending entries")
+            ckpt.close()
+        if label == "kill":
+            row["kill_tick"] = serve_kw["kill_engine"][1]
+            row["requeued"] = paths.count("requeued")
+            if not row["requeued"]:
+                fail.append(f"kill: nothing re-queued (e0 killed at tick {row['kill_tick']})")
+        return row, launches
+
+    runs = (("affinity", "prefix-affinity", reqs, {}),
+            ("spread", "spread", reqs, {}),
+            ("scale_down", "prefix-affinity", reqs, {"scale_down": ("e0", FLEET_SCALE_TICK)}),
+            ("kill", "prefix-affinity", reqs[:FLEET_KILL_REQUESTS],
+             {"kill_engine": ("e0", fleet_kill_tick(reqs[:FLEET_KILL_REQUESTS]))}))
+    launches_fleet: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, policy, trace, serve_kw in runs:
+            report[label], launches = one_run(tmp, label, policy, trace, serve_kw)
+            if label == "affinity":
+                launches_fleet = launches
+            # the executor and the scrape clients hold the server's bound
+            # methods, a cycle through the engines: collect it now, or the
+            # pools (and, after the last run, the weights) outlive the run
+            gc.collect()
+            torch.cuda.empty_cache()
+    if not report["affinity"]["prefix_hit_ratio"] > report["spread"]["prefix_hit_ratio"]:
+        fail.append(f"affinity's prefix-hit ratio {report['affinity']['prefix_hit_ratio']} is "
+                    f"not above spread's {report['spread']['prefix_hit_ratio']}")
+    report.update(spent, solo_decodes=len(solos))
+    report["fleet_goodput_tokens_per_s"] = report["affinity"]["tokens_per_s"]
+    report["fleet_prefix_hit_ratio"] = report["affinity"]["prefix_hit_ratio"]
+    report["seconds"] = time.perf_counter() - t_phase
+    print("  fleet", json.dumps(report), flush=True)
+    if fail:
+        raise SystemExit("phase 18 failed: " + "; ".join(fail))
+    return launches_fleet, report
 
 
 def pod_main(argv: list[str]) -> int:
@@ -2568,7 +2881,7 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17,),
+    ap.add_argument("--phase", type=int, choices=(17, 18),
                     help="build the kernels and run only this phase (a quick check; "
                          "the contract's lines are not printed)")
     args = ap.parse_args(argv)
@@ -2588,11 +2901,11 @@ def main(argv: list[str]) -> int:
         print(_build.build_log(name).strip(), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.phase == 17:
+    if args.phase is not None:
         cfg = llama3_8b()
         params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
-        launches, disagg = phase_disagg(params, cfg)
-        print(f"phase 17: {disagg['seconds']:.1f} s; launches {json.dumps(launches)}; "
+        launches, report = (phase_disagg if args.phase == 17 else phase_fleet)(params, cfg)
+        print(f"phase {args.phase}: {report['seconds']:.1f} s; launches {json.dumps(launches)}; "
               f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
         return 0
     forward = phase_kernels(gen)
@@ -2613,6 +2926,8 @@ def main(argv: list[str]) -> int:
     print(f"phase 16: {interference['seconds']:.1f} s", flush=True)
     disagg_launches, disagg = phase_disagg(params, cfg)
     print(f"phase 17: {disagg['seconds']:.1f} s", flush=True)
+    fleet_launches, fleet = phase_fleet(params, cfg)
+    print(f"phase 18: {fleet['seconds']:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2633,7 +2948,8 @@ def main(argv: list[str]) -> int:
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
              "lora_train": lora_train_launches, "spec_serve": spec_launches,
-             "interference": interference_launches, "disagg": disagg_launches}
+             "interference": interference_launches, "disagg": disagg_launches,
+             "fleet": fleet_launches}
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")

@@ -46,6 +46,22 @@ ENV_LORA_ADAPTER = "ALIYUN_COM_TPU_LORA_ADAPTER"
 SLO_TIER_CRITICAL = "critical"
 SLO_TIER_BEST_EFFORT = "best_effort"
 
+# --- Fleet replica lifecycle (reference const.py:176-185) -------------------
+# ready -> routable; cordoned -> serving its in-flight work but closed to
+# new routes (the scale-down protocol's first durable step); draining ->
+# snapshot capture in progress; dead -> the failure detector evicted it
+# (consecutive scrape misses) or scale-down released it.
+FLEET_REPLICA_READY = "ready"
+FLEET_REPLICA_CORDONED = "cordoned"
+FLEET_REPLICA_DRAINING = "draining"
+FLEET_REPLICA_DEAD = "dead"
+FLEET_REPLICA_STATES = (
+    FLEET_REPLICA_READY,
+    FLEET_REPLICA_CORDONED,
+    FLEET_REPLICA_DRAINING,
+    FLEET_REPLICA_DEAD,
+)
+
 
 class MemoryUnit(str, enum.Enum):
     """Granularity of one unit of ``aliyun.com/tpu-mem`` (reference

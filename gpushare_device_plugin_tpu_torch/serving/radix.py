@@ -28,15 +28,43 @@ at or before it, so two prompts of one adapter that agree on a page's
 tokens compute the same page. (The reference keys its tree by tokens
 alone, so one tenant reads pages another tenant's adapter, or the base
 model, computed: ``ROADMAP.md`` §3 fault 4.)
+
+The fleet router's affinity signal rides on the same pages:
+:func:`prefix_fingerprints` chains a CRC32 over a prompt's full pages,
+and :meth:`RadixCache.fingerprints` exports the same chained values for
+every cached path, in every adapter's tree.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 import threading
+import zlib
 from typing import Iterator
 
 from .pages import PageAllocator
+
+
+def prefix_fingerprints(tokens: tuple[int, ...], page_size: int) -> list[int]:
+    """Chained CRC32 fingerprint of each full-page prefix of ``tokens``.
+
+    ``fp[i]`` hashes pages ``0..i``: each page's CRC is seeded with its
+    parent's, so a fingerprint commits to the whole path from the root.
+    This is the request-side half of the fleet router's affinity signal;
+    an engine exports the same chained values for its cached paths
+    (:meth:`RadixCache.fingerprints`), and the overlap length is the
+    number of pages a candidate engine would serve from cache. Tokens
+    hash as 4-byte little-endian."""
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    out: list[int] = []
+    crc = 0
+    for i in range(0, len(tokens) - len(tokens) % page_size, page_size):
+        chunk = tokens[i : i + page_size]
+        crc = zlib.crc32(struct.pack(f"<{len(chunk)}i", *chunk), crc)
+        out.append(crc)
+    return out
 
 
 @dataclasses.dataclass
@@ -223,6 +251,25 @@ class RadixCache:
         if pages:
             self._alloc.release(pages)
         return len(pages)
+
+    def fingerprints(self) -> list[int]:
+        """Chained CRC32 fingerprints of every cached page path (the
+        engine-side half of :func:`prefix_fingerprints`), sorted: the union
+        over every adapter's tree, each path once. A path cached under two
+        adapters is one value, so the set is the one a single tree keyed by
+        tokens alone would export; a route to an engine whose pages another
+        adapter computed costs a cache miss there, never a wrong token."""
+        out: set[int] = set()
+        with self._lock:
+            stack: list[tuple[_Node, int]] = [
+                (n, 0) for root in self._roots.values() for n in root.values()
+            ]
+            while stack:
+                node, parent_crc = stack.pop()
+                crc = zlib.crc32(struct.pack(f"<{len(node.tokens)}i", *node.tokens), parent_crc)
+                out.add(crc)
+                stack.extend((c, crc) for c in node.children.values())
+        return sorted(out)
 
     def _walk_all(self) -> list[_Node]:
         out: list[_Node] = []

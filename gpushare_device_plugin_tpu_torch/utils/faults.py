@@ -22,6 +22,15 @@ stalls, flaps or "crashes" exactly there.
                         decode tier adopts (the roll-forward boundary)
 ``handoff.commit``      after the "commit" record is durable, before the
                         entry resolves
+``scale.cordon``        after the fleet scale-down's "cordon" record is
+                        durable, before the replica closes to routes
+``scale.drain``         after the "drain" record (the frozen rows) is
+                        durable, before the engine drains
+``scale.migrate``       after the "migrate" record (the snapshot) is
+                        durable, before a survivor adopts (the
+                        roll-forward boundary)
+``scale.release``       after the "release" record is durable, before the
+                        replica leaves the membership
 ==========================================================================
 
 Each point sits immediately *after* a journal step takes durable effect,
@@ -74,6 +83,10 @@ POINTS = (
     "handoff.transfer",
     "handoff.import",
     "handoff.commit",
+    "scale.cordon",
+    "scale.drain",
+    "scale.migrate",
+    "scale.release",
 )
 
 

@@ -3,8 +3,9 @@ lock-order witness.
 
 Counterpart of ``gpushare_device_plugin_tpu/utils/lockrank.py``, cut to
 the locks the port's protocol modules take (the WAL, its group-commit
-writer, the assume cache, the KV handoff's ledger and peer client, the
-circuit breaker, the fault table and the page allocator). Each entry is
+writer, the assume cache, the SLO budget, the decision log, the fleet's
+router, membership and scale executor, the KV handoff's ledger and peer
+client, the circuit breaker, the fault table and the page allocator). Each entry is
 the reference's: same name, rank, kind, I/O rule and reason.
 
 - :data:`RANKS`: a total order. A thread may only acquire a lock whose
@@ -62,6 +63,23 @@ RANKS: dict[str, LockRank] = dict((
        "AllocationCheckpoint's entry/sequence state. In `always` "
        "mode the record append+fsync runs under it by design "
        "(durability before the caller proceeds), so I/O is allowed."),
+    _r("slo.budget", 64, "lock", False,
+       "SloBudget's time-bucketed good/bad event counters and "
+       "burn-rate state. record() runs at engine retire (no other "
+       "lock held); evaluate() snapshots under it and fires the "
+       "page hook (flight-recorder dump) outside."),
+    _r("decisions.ring", 65, "lock", False,
+       "DecisionLog's bounded ring of admission decision records: "
+       "verbs append AFTER their locked decision sections (no other "
+       "lock held), the /decisions endpoint snapshots under it and "
+       "serializes outside. Pure memory — the segment write runs "
+       "under decisions.segment, never here."),
+    _r("decisions.segment", 66, "lock", True,
+       "DecisionLog's on-disk segment appender: one JSON line per "
+       "record, flushed to the OS buffer but never fsynced "
+       "(provenance is observability, not durability — the WAL owns "
+       "that). I/O by definition; taken only after decisions.ring "
+       "is released."),
     _r("wal.batcher", 70, "condition", False,
        "GroupBatcher's queue condition: submit() runs under "
        "checkpoint.journal; the flush itself happens with the "
@@ -70,6 +88,28 @@ RANKS: dict[str, LockRank] = dict((
        "The journal's file-handle discipline: open/write/fsync/"
        "rename. Never held while waiting for checkpoint.journal "
        "(that ordering is the point of the two-lock split)."),
+    _r("fleet.router", 76, "lock", False,
+       "FleetRouter's routing table (rid -> engine assignment, "
+       "round-robin cursor, per-path counters). Pure memory: SLO "
+       "severity reads (slo.budget, rank 64) and decision-record "
+       "emission (decisions.ring, rank 65) both run BEFORE the lock "
+       "is taken / after it is dropped — they sit down-rank by "
+       "design. Membership snapshots (fleet.membership, rank 77) "
+       "nest strictly up-rank."),
+    _r("fleet.membership", 77, "lock", False,
+       "FleetMembership's replica table (health, consecutive "
+       "scrape misses, cordon flags, prefix fingerprints, load "
+       "estimates). Held around table flips only — never across a "
+       "scrape transport call or its circuit breaker (rank 88); "
+       "replica-state gauges publish (metrics.registry, rank 95) "
+       "under it, strictly up-rank."),
+    _r("fleet.scale", 78, "lock", False,
+       "ScaleExecutor's in-flight scale-op state (scale_id -> "
+       "phase, migrated-request counters). Counter/state flips "
+       "only: the journal write (checkpoint.journal, rank 40) and "
+       "the engine drain handshake (serving.drain, rank 89) both "
+       "run with this lock released — the protocol's I/O and "
+       "engine calls are never under it, mirroring defrag.moves."),
     _r("handoff.peer", 81, "lock", False,
        "HandoffPeerClient's transfer counters (calls, retries, "
        "pages/bytes shipped). Never held across a transport call "

@@ -3,9 +3,10 @@
 Counterpart of ``gpushare_device_plugin_tpu/utils/metric_catalog.py``,
 cut to the families a serving pod exports: the engine's step profile,
 pages, prefix cache, preemptions, speculative decoding and adapters, the
-best-effort governor, SLO budgets, the build identity, and the KV
+best-effort governor, SLO budgets, the build identity, the KV
 handoff's protocol layer (the handoff itself, the WAL, the circuit
-breaker and the assume cache's claim expiry). Names, types
+breaker and the assume cache's claim expiry), and the serving fleet's
+router, replica table and scale-down. Names, types
 and label sets are the reference's letter for letter, so the reference
 control plane's scrapers (``cluster/interference.py``, the inspect CLI)
 read a port pod as they read a reference pod. A site may emit a subset
@@ -70,6 +71,9 @@ ENGINE_SPEC_ROLLBACK_PAGES_TOTAL = "tpushare_engine_spec_rollback_pages_total"
 ENGINE_STEP_P50_SECONDS = "tpushare_engine_step_p50_seconds"
 ENGINE_STEP_P99_SECONDS = "tpushare_engine_step_p99_seconds"
 ENGINE_STEP_SECONDS = "tpushare_engine_step_seconds"
+FLEET_DRAIN_MIGRATED_REQUESTS_TOTAL = "tpushare_fleet_drain_migrated_requests_total"
+FLEET_REPLICAS = "tpushare_fleet_replicas"
+FLEET_SCALE_OPS_TOTAL = "tpushare_fleet_scale_ops_total"
 GOVERNOR_ENGAGED = "tpushare_governor_engaged"
 GOVERNOR_ENGAGEMENTS_TOTAL = "tpushare_governor_engagements_total"
 GOVERNOR_THROTTLE_SECONDS_TOTAL = "tpushare_governor_throttle_seconds_total"
@@ -79,9 +83,17 @@ HANDOFF_FALLBACK_REPREFILL_TOTAL = "tpushare_handoff_fallback_reprefill_total"
 HANDOFF_PAGES_IN_FLIGHT = "tpushare_handoff_pages_in_flight"
 HANDOFF_TRANSFER_SECONDS = "tpushare_handoff_transfer_seconds"
 HANDOFF_TRANSFERS_TOTAL = "tpushare_handoff_transfers_total"
+ROUTER_PREFIX_AFFINITY_HITS_TOTAL = "tpushare_router_prefix_affinity_hits_total"
+ROUTER_ROUTED_TOTAL = "tpushare_router_routed_total"
+ROUTER_SHED_TOTAL = "tpushare_router_shed_total"
 SLO_BURN_RATE = "tpushare_slo_burn_rate"
 SLO_ERROR_BUDGET_REMAINING = "tpushare_slo_error_budget_remaining"
 SLO_SEVERITY = "tpushare_slo_severity"
+
+# Family prefixes the reference's CLI parsers slice on
+# (`parse_engine_metrics` folds these into `fleet_*` / `router_*` keys).
+PREFIX_FLEET = "tpushare_fleet_"
+PREFIX_ROUTER = "tpushare_router_"
 
 CATALOG: dict[str, MetricSpec] = dict((
     _m(ASSUME_EXPIRED_TOTAL, COUNTER, "kind"),
@@ -119,6 +131,9 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(ENGINE_STEP_P50_SECONDS, GAUGE, "pod"),
     _m(ENGINE_STEP_P99_SECONDS, GAUGE, "pod"),
     _m(ENGINE_STEP_SECONDS, HISTOGRAM, "pod"),
+    _m(FLEET_DRAIN_MIGRATED_REQUESTS_TOTAL, COUNTER, "pod"),
+    _m(FLEET_REPLICAS, GAUGE, "state", "pod"),
+    _m(FLEET_SCALE_OPS_TOTAL, COUNTER, "outcome", "pod"),
     _m(GOVERNOR_ENGAGED, GAUGE, "pod"),
     _m(GOVERNOR_ENGAGEMENTS_TOTAL, COUNTER, "pod"),
     _m(GOVERNOR_THROTTLE_SECONDS_TOTAL, COUNTER, "pod"),
@@ -128,6 +143,9 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(HANDOFF_PAGES_IN_FLIGHT, GAUGE, "pod"),
     _m(HANDOFF_TRANSFER_SECONDS, HISTOGRAM, "pod"),
     _m(HANDOFF_TRANSFERS_TOTAL, COUNTER, "outcome", "pod"),
+    _m(ROUTER_PREFIX_AFFINITY_HITS_TOTAL, COUNTER, "pod"),
+    _m(ROUTER_ROUTED_TOTAL, COUNTER, "engine", "outcome", "pod"),
+    _m(ROUTER_SHED_TOTAL, COUNTER, "tier", "pod"),
     _m(SLO_BURN_RATE, GAUGE, "tier", "window", "pod"),
     _m(SLO_ERROR_BUDGET_REMAINING, GAUGE, "tier", "pod"),
     _m(SLO_SEVERITY, GAUGE, "tier", "pod"),

@@ -26,10 +26,10 @@ the caller gives, so tests drive hours of history in microseconds.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import Any, Callable
 
+from .lockrank import make_lock
 from .metric_catalog import SLO_BURN_RATE, SLO_ERROR_BUDGET_REMAINING, SLO_SEVERITY
 from .metrics import REGISTRY, MetricsRegistry
 
@@ -124,7 +124,7 @@ class SloBudget:
         self._warn_burn = warn_burn
         self._clock = clock
         self._on_page = on_page
-        self._lock = threading.Lock()
+        self._lock = make_lock("slo.budget")
         self._tiers: dict[str, _TierState] = {}
         # A budget given objectives tracks only those tiers; one given none
         # tracks every tier it sees at the default goal.

@@ -715,3 +715,82 @@ def test_disagg_handoff_imports_into_a_card_engine():
             assert eng.allocator.used_pages == eng.radix.cached_pages
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _solo_with_gaps(params, cfg, prompt, max_new):
+    """Solo greedy decode on the card, with the top-two logit gap and the
+    top logit's magnitude at every step."""
+    from gpushare_device_plugin_tpu_torch.workloads import generate as G
+
+    p = torch.tensor([prompt], dtype=torch.long, device="cuda")
+    cache = G.init_cache(cfg, 1, len(prompt) + max_new)
+    logits, cache = G.prefill(params, p, cache, cfg)
+    toks, gaps = [], []
+    for step in range(max_new):
+        top2 = torch.topk(logits[0].float(), 2).values
+        gaps.append((float(top2[0] - top2[1]), float(top2[0].abs())))
+        tok = torch.argmax(logits, -1)
+        toks.append(int(tok))
+        if step + 1 < max_new:
+            logits, cache = G.decode_step(params, tok, cache, cfg)
+    return toks, gaps
+
+
+@pytest.mark.cuda
+def test_bf16_fleet_scale_down_on_card_keeps_the_unified_tokens():
+    """Two bf16 card engines behind ``FleetServer``, e0 scaled down mid-trace
+    through the journaled protocol: nothing dropped or served twice, a
+    request migrated, the journal resolved, every prefill dispatch on the
+    tensor-core forward, and each request's tokens a unified engine's or,
+    where they differ, a solo decode's up to a near tie (the first differing
+    step's solo top-two gap at most 2^-6 of the top logit: another batch
+    shape takes other GEMM algorithms in bf16)."""
+    _card()
+    import tempfile
+
+    from gpushare_device_plugin_tpu_torch.allocator.assume import AssumeCache
+    from gpushare_device_plugin_tpu_torch.allocator.checkpoint import AllocationCheckpoint
+    from gpushare_device_plugin_tpu_torch.serving import FleetServer
+    from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, shared_prefix_trace
+
+    cfg, _, params = _paged_model()
+    geo = dict(max_len=96, page_size=8, prefill_chunk=16, eos_id=None)
+    reqs = shared_prefix_trace(10, seed=2, rate=0.5, vocab=cfg.vocab, prefixes=(2, 32),
+                               tail_lens=(4, 30), max_new=[4, 8, 12])
+    unified = PagedSlotEngine(params, cfg, slots=6, total_pages=72, **geo)
+    want = {r.rid: r.tokens for r in unified.run(reqs).results}
+    engines = {f"e{i}": PagedSlotEngine(params, cfg, slots=3, total_pages=36, **geo)
+               for i in range(2)}
+    prefills = []
+    for eng in engines.values():
+        eng.warmup()
+        program = eng._prefill
+        eng._prefill = lambda *a, _p=program: (prefills.append(1), _p(*a))[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = AllocationCheckpoint(f"{tmp}/scale.wal")
+        fleet = FleetServer(engines, checkpoint=ckpt, assume=AssumeCache())
+        before = dict(fa.LAUNCHES)
+        out = fleet.serve(reqs, scale_down=("e0", 6))
+        torch.cuda.synchronize()
+        assert ckpt.pending() == {}
+        ckpt.close()
+    launched = {n: c - before[n] for n, c in fa.LAUNCHES.items()}
+    assert out["dropped"] == [] and out["double_served"] == []
+    assert fleet.executor.completed_ops == 1 and fleet.executor.migrated_requests >= 1
+    assert "migrated" in {e["path"] for e in out["results"].values()}
+    assert launched["flash_fwd"] == cfg.n_layers * len(prefills) > 0
+    assert launched["flash_fwd_scalar"] == 0
+    for eng in engines.values():
+        assert eng.trace_counts == {"prefill": 1, "extend": 1, "decode": 1}
+        assert eng.allocator.used_pages == eng.radix.cached_pages
+    for r in reqs:
+        got = out["results"][r.rid]["tokens"]
+        if got == want[r.rid]:
+            continue
+        solo, gaps = _solo_with_gaps(params, cfg, list(r.prompt), r.max_new)
+        j = next((i for i, (a, b) in enumerate(zip(got, solo)) if a != b), None)
+        if j is None:
+            assert len(got) == len(solo)
+        else:
+            gap, top = gaps[j]
+            assert gap <= 2.0 ** -6 * top, (r.rid, j, gap, top)

@@ -47,6 +47,8 @@ def test_no_reference_or_jax_import_in_the_port():
         if name.split(".")[0] in FORBIDDEN
     ]
     assert len(_port_files()) > 10 and not bad, bad
+    # every subpackage is walked, the fleet's policy registry included
+    assert PORT / "extender" / "policy.py" in _port_files()
 
 
 def test_importing_every_port_module_leaves_jax_out():
