@@ -217,11 +217,37 @@ Phases, each of which fails the run with a non-zero exit:
    counted, not gated). Prints each run's wall and tokens/s, router
    outcomes, hit ratios, TTFT and TPOT p50/p99 in ticks, the migrated and
    re-queued requests and the scale-down protocol's host time.
+19. Context parallelism on the one card. Every rank is a child process
+   given the plugin's env for its slice (``configure_torch_from_env()``
+   first) and the multi-host env of a world on localhost
+   (``initialize_multihost(backend="gloo")``), then ``make_mesh(MeshSpec(
+   sp=n), backend="gloo")``: NCCL refuses two ranks on one card, and gloo
+   moves CUDA tensors through host memory. First the three main-path
+   kernels at the phase's new shapes against their plain versions, timed
+   beside SDPA: the ring's non-causal hop (1 x 4,096, 32/8 heads) and
+   Ulysses's whole-sequence call at sp=2 (1 x 8,192, 16/4, causal). (a)
+   Attention at global B=1 x 16,384, 32/8 heads, D=128, bf16, with a
+   seeded dO, on four ranks: the ring with flash hops, causal and not,
+   and Ulysses with ``ulysses_inner_attn("flash")``, causal. Each rank's O
+   (phase 1's rule), dQ, dK and dV (phase 4's) against its shard of one
+   single-process ``flash_attention`` over the whole sequence, which this
+   process computes first; each rank's launches must be the hop rule's
+   (rank i of a causal ring of n: i+1 of each kernel; n when not causal;
+   one for Ulysses). (b) The decoder at ``llama3_8b()`` width cut to 2
+   layers, B=1 x 8,192, AdamW, remat "full": ``run_train_loop`` for 3
+   steps as a 1-rank control here, then on two ranks at ``MeshSpec(sp=2)``
+   with the ring, then with Ulysses. Each run's losses must be finite and
+   fall and its launches be the hop rule's times the forward and its
+   recompute; the first step's loss must match the control's by phase 6's
+   rule, and rank 0 holds the first step's gradients, summed over the
+   mesh, against the 1-rank control's, which it computes itself, leaf by
+   leaf by phase 6's rule. Prints each rank's exchanges (calls, bytes
+   staged through the host, seconds), each run's step p50 and peak memory.
 
 The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14, 4, 5,
-6, 9-12. ``python3 chip_smoke.py --phase 17`` (or ``--phase 18``) builds
-the kernels and runs that phase alone on fresh weights (a quick check; it
-prints no contract lines).
+6, 9-12, 19. ``python3 chip_smoke.py --phase 17`` (or ``--phase 18``, or
+``--phase 19``) builds the kernels and runs that phase alone on fresh
+weights (a quick check; it prints no contract lines).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -239,9 +265,11 @@ JSON line ``{"kernels": [...]}``, whose launches per path include
 ``lora_serve`` (phase 13, runs A and B), ``lora_train`` (phase 14's
 pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B),
 ``interference`` (phase 16, both tenants), ``disagg`` (phase 17's
-live handoff run, both tiers) and ``fleet`` (phase 18's affinity run,
-all three engines); the forward rows carry
-``at_draft_shape``. The line before the card's is the script's seconds.
+live handoff run, both tiers), ``fleet`` (phase 18's affinity run,
+all three engines), ``ring`` and ``ulysses`` (phase 19 (b)'s runs, both
+ranks); the forward rows carry ``at_draft_shape``, and the main-path
+rows ``at_ring_hop_shape`` and ``at_ulysses_shape`` (phase 19). The line
+before the card's is the script's seconds.
 """
 
 from __future__ import annotations
@@ -251,23 +279,31 @@ import gc
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from gpushare_device_plugin_tpu_torch import const
 from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
+from gpushare_device_plugin_tpu_torch.parallel.collectives import all_reduce_sum_
+from gpushare_device_plugin_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from gpushare_device_plugin_tpu_torch.parallel.podenv import (
     MEMORY_FRACTION,
     PodTpuEnv,
     configure_torch_from_env,
+    initialize_multihost,
 )
+from gpushare_device_plugin_tpu_torch.parallel.ring import ring_attention
+from gpushare_device_plugin_tpu_torch.parallel.ulysses import ulysses_attention
 from gpushare_device_plugin_tpu_torch.serving import StepGovernor
 from gpushare_device_plugin_tpu_torch.serving.engine import (
     TIER_CRITICAL,
@@ -289,12 +325,14 @@ from gpushare_device_plugin_tpu_torch.workloads import lora as L
 from gpushare_device_plugin_tpu_torch.workloads import mnist
 from gpushare_device_plugin_tpu_torch.workloads import resnet as R
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+from gpushare_device_plugin_tpu_torch.workloads.attention import ulysses_inner_attn
 from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
 from gpushare_device_plugin_tpu_torch.workloads.trainer import (
     BertTask,
     DecoderTask,
     ResNetTask,
     TrainLoopConfig,
+    fold_in,
     run_train_loop,
 )
 from gpushare_device_plugin_tpu_torch.workloads.transformer import init_params, llama3_8b
@@ -474,6 +512,25 @@ SLICE_FULL = 0.95  # a model alone past this share of its slice halves its batch
 OOM_MARK = "POD-OOM"
 READY = "POD-READY"
 POD_TIMEOUT_S = 600
+# Phase 19: context parallelism, every rank a process on the one card,
+# capped by the plugin's env and joined by the multi-host env over gloo
+# (NCCL refuses two ranks on one card, and gloo has no CUDA send, receive
+# or all-to-all, so each exchange goes through host memory). (a) attention
+# at Llama-3-8B's heads (32/8, D=128), global B=1 x CP_ATTN_S over
+# CP_ATTN_RANKS ranks: the ring's hops are 1 x 4,096. (b) the decoder at
+# llama3_8b() width cut to CP_TRAIN_LAYERS layers, B=1 x CP_TRAIN_S, on
+# CP_TRAIN_RANKS ranks at sp=2 beside a 1-rank control. A rank holds 1.49 B
+# f32 parameters with their gradients and AdamW moments (23.8 GB) and the
+# logits of 4,096 tokens (about 7 GB) inside its CP_TRAIN_UNITS-GiB slice.
+CP_SEED = 19
+CP_ATTN_S, CP_ATTN_RANKS, CP_ATTN_UNITS = 16384, 4, 8
+CP_TRAIN_S, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 8192, 2, 3
+CP_TRAIN_RANKS, CP_TRAIN_UNITS = 2, 36
+# The kernels at the phase's new shapes: (S, H, Hkv, causal).
+CP_KERNEL_SHAPES = {"ring_hop": (CP_ATTN_S // CP_ATTN_RANKS, 32, 8, False),
+                    "ulysses": (CP_TRAIN_S, 32 // CP_TRAIN_RANKS, 8 // CP_TRAIN_RANKS, True)}
+CP_COLLECTIVE_TIMEOUT_S = 300  # a rank's rendezvous and each collective
+CP_TIMEOUT_S = 600  # a run of ranks, start to exit
 # Phase 6, flash vs plain at full width in bf16: the kernels round P and dS
 # to bf16 where the plain path keeps f32 softmax (and its bf16 scores), so
 # the losses may differ by one bf16 step and each gradient leaf by 2^-5 in
@@ -2666,6 +2723,373 @@ def phase_fleet(params, cfg) -> tuple[dict, dict]:
     return launches_fleet, report
 
 
+def cp_attention_inputs():
+    """Phase 19 (a)'s global q [1, S, 32, 128], k, v [1, S, 8, 128] and dO,
+    bf16, seeded on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(CP_SEED)
+    shapes = ((1, CP_ATTN_S, 32, 128), (1, CP_ATTN_S, 8, 128), (1, CP_ATTN_S, 8, 128),
+              (1, CP_ATTN_S, 32, 128))
+    return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+
+
+def cp_train_cfg(scheme: str | None) -> T.TransformerConfig:
+    """Phase 19 (b)'s decoder: ``llama3_8b()`` width cut to CP_TRAIN_LAYERS
+    layers, remat "full"; sequence parallel by ``scheme`` (None: the
+    1-rank control)."""
+    seq = dict(seq_parallel=True, context_parallel=scheme) if scheme else {}
+    return dataclasses.replace(llama3_8b(), n_layers=CP_TRAIN_LAYERS, **seq)
+
+
+def cp_first_batch(cfg) -> torch.Tensor:
+    """The global batch ``run_train_loop`` makes for step 0 at CP_SEED."""
+    gen = torch.Generator().manual_seed(fold_in(fold_in(CP_SEED, 1), 0))
+    return DecoderTask(cfg, batch=1, seq=CP_TRAIN_S).make_batch(gen, 0)
+
+
+def cp_first_params(cfg, device) -> dict:
+    """The parameters ``run_train_loop`` starts from at CP_SEED."""
+    gen = torch.Generator(device=device).manual_seed(fold_in(CP_SEED, 0))
+    return init_params(cfg, gen, device=device)
+
+
+def cp_hops(rank: int, n: int, causal: bool) -> int:
+    """Flash calls a rank of a ring of n makes per forward: its diagonal
+    hop and the earlier blocks (all n when not causal)."""
+    return rank + 1 if causal else n
+
+
+def cp_rank_main(argv: list[str]) -> int:
+    """One rank of phase 19, in a child whose env is the plugin's for its
+    slice of the card plus the multi-host bootstrap (``TPUSHARE_*``): cap
+    the process, join the gloo world, build the sp mesh, run ``argv =
+    [job, workdir]`` ("attention", "ring" or "ulysses"). Prints one JSON
+    line."""
+    job, workdir = argv[0], argv[1]
+    configure_torch_from_env()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = initialize_multihost(backend="gloo", timeout_s=CP_COLLECTIVE_TIMEOUT_S)
+    mesh = make_mesh(MeshSpec(sp=spec.num_processes), backend="gloo")
+    doc = {"job": job, "rank": mesh.rank, "device": str(mesh.device)}
+    doc.update(cp_attention_rank(mesh, workdir) if job == "attention"
+               else cp_train_rank(mesh, job))
+    print(json.dumps(doc), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def cp_attention_rank(mesh, workdir: str) -> dict:
+    """Phase 19 (a) on one rank: its shard of the ring (flash hops, causal
+    and not) and of Ulysses (flash inner attention, causal), forward and
+    backward, against the parent's single-process flash_attention."""
+    data = torch.load(os.path.join(workdir, "attention.pt"), mmap=True, weights_only=True)
+    n, r = mesh.shape["sp"], mesh.axis_index("sp")
+    T_ = CP_ATTN_S // n
+
+    def mine(t):
+        return t[:, r * T_:(r + 1) * T_].to(mesh.device)
+
+    q, k, v, do = (mine(t) for t in data["inputs"])
+    out = {}
+    cases = (("warmup", "ring", True), ("ring_causal", "ring", True),
+             ("ring_noncausal", "ring", False), ("ulysses_causal", "ulysses", True))
+    for name, scheme, causal in cases:
+        x = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = dict(fa.LAUNCHES)
+        mesh.traffic.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if scheme == "ring":
+            o = ring_attention(*x, mesh, causal=causal, hop_attention="flash")
+        else:
+            o = ulysses_attention(*x, mesh, causal=causal, attn_fn=ulysses_inner_attn("flash"))
+        grads = torch.autograd.grad(o, x, do)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "warmup":
+            continue
+        launches = {e: fa.LAUNCHES[e] - before[e] for e in fa.LAUNCHES if fa.LAUNCHES[e] > before[e]}
+        want = [mine(t) for t in data["causal" if causal else "noncausal"]]
+        err = (o.float() - want[0].float()).abs()
+        o_ok = bool((err <= BF16_REL * want[0].float().abs().clamp(min=1.0)).all())
+        o_ok &= bool(torch.isfinite(o.float()).all())
+        g_ok = {nm: bwd_close(g, w, torch.bfloat16)
+                for nm, g, w in zip(("dq", "dk", "dv"), grads, want[1:])}
+        calls = cp_hops(r, n, causal) if scheme == "ring" else 1
+        expect = {"flash_fwd": calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+        out[name] = {
+            "ok": o_ok and all(g_ok.values()) and launches == expect,
+            "o_max_abs_err": float(err.max()), "o_ok": o_ok, "grads_ok": g_ok,
+            "grad_max_abs_err": {nm: float((g.float() - w.float()).abs().max())
+                                 for nm, g, w in zip(("dq", "dk", "dv"), grads, want[1:])},
+            "launches": launches, "expected_launches": expect,
+            "hops": ({"diagonal": 1, "earlier": calls - 1, "skipped": n - calls}
+                     if scheme == "ring" else None),
+            "wall_s": wall,
+            "exchanges": {kind: dataclasses.asdict(t) for kind, t in mesh.traffic.items()},
+        }
+    return out
+
+
+def cp_control_grads(device) -> list:
+    """The 1-rank control's gradients of the first step (no mesh, the whole
+    sequence), on ``device``."""
+    cfg = cp_train_cfg(None)
+    params = cp_first_params(cfg, device)
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    loss = T.loss_fn(params, cp_first_batch(cfg).to(device), cfg)
+    return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+
+
+def cp_train_rank(mesh, scheme: str) -> dict:
+    """Phase 19 (b) on one rank: the first step's loss and gradients
+    summed over the mesh (rank 0 holds them against the 1-rank control's,
+    which it computes itself), then ``run_train_loop`` for CP_TRAIN_STEPS
+    steps on the mesh."""
+    cfg = cp_train_cfg(scheme)
+    dev = mesh.device
+    doc: dict = {"scheme": scheme}
+    control = cp_control_grads(dev) if mesh.rank == 0 else None
+    params = cp_first_params(cfg, dev)
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    loss = T.loss_fn(params, cp_first_batch(cfg).to(dev), cfg, mesh)
+    grads = list(torch.autograd.grad(loss, leaves))
+    all_reduce_sum_(grads, mesh, T.REPLICA_AXES)
+    doc["first_loss"] = float(loss.detach())
+    if control is not None:
+        doc["grad_rel_by_leaf"] = {
+            name: float((g - c).float().norm() / c.float().norm())
+            for name, g, c in zip(T._flatten(params), grads, control)}
+        doc["zero_grads"] = [name for name, g in zip(T._flatten(params), grads)
+                             if not (torch.isfinite(g).all() and g.any())]
+    del params, leaves, grads, control, loss
+    gc.collect()
+    fresh_run()
+    mesh.traffic.clear()
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_metrics(step, value):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(value)
+
+    run_train_loop(DecoderTask(cfg, batch=1, seq=CP_TRAIN_S),
+                   TrainLoopConfig(total_steps=CP_TRAIN_STEPS, log_every=1), CP_SEED,
+                   mesh=mesh, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    n, r = mesh.shape["sp"], mesh.axis_index("sp")
+    per_run = CP_TRAIN_LAYERS * CP_TRAIN_STEPS
+    calls = cp_hops(r, n, True) if scheme == "ring" else 1
+    doc.update(
+        losses=losses, step_s=step_s, step_p50_s=sorted(step_s)[len(step_s) // 2],
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        launches=dict(fa.LAUNCHES),
+        # forward and the recompute of remat "full", then the backward
+        expected_launches={e: 0 for e in fa.LAUNCHES} | {
+            "flash_fwd": 2 * calls * per_run, "flash_bwd_dq": calls * per_run,
+            "flash_bwd_dkv": calls * per_run},
+        exchanges={kind: dataclasses.asdict(t) for kind, t in mesh.traffic.items()},
+    )
+    return doc
+
+
+def run_ranks(job: str, n: int, units: int, workdir: str) -> list[dict]:
+    """Start ``n`` phase-19 ranks of ``job`` at once, each with the plugin's
+    env for a ``units``-GiB slice and the multi-host env of an n-process
+    world on localhost; wait for all (a watchdog kills every one past
+    CP_TIMEOUT_S). Returns their JSON documents by rank; raises if any rank
+    fails."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(n):
+        env = {k: v for k, v in os.environ.items() if k != const.ENV_CUDA_VISIBLE_DEVICES}
+        env.update(plugin_env(units))
+        env.update({const.ENV_COORDINATOR_ADDRESS: f"127.0.0.1:{port}",
+                    const.ENV_NUM_PROCESSES: str(n), const.ENV_PROCESS_ID: str(rank)})
+        log = open(os.path.join(workdir, f"{job}-{rank}.log"), "w+")
+        code = "import sys, chip_smoke; sys.exit(chip_smoke.cp_rank_main(sys.argv[1:]))"
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code, job, workdir],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=log, stderr=subprocess.STDOUT, text=True), log))
+    watchdog = threading.Timer(CP_TIMEOUT_S, lambda: [p.kill() for p, _ in procs])
+    watchdog.start()
+    try:
+        codes = [p.wait() for p, _ in procs]
+    finally:
+        watchdog.cancel()
+    docs, fail = [], []
+    for rank, ((_, log), rc) in enumerate(zip(procs, codes)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = [line for line in text.splitlines() if line.startswith("{")]
+        if rc != 0 or not lines:
+            fail.append(f"rank {rank} exited {rc}: {text[-3000:]}")
+        else:
+            docs.append(json.loads(lines[-1]))
+    if fail:
+        raise SystemExit(f"phase 19 failed ({job}): " + "; ".join(fail))
+    return docs
+
+
+def cp_kernel_rows(gen) -> dict:
+    """The three main-path kernels at this phase's new shapes against their
+    plain versions, each with its time, bound and PyTorch's SDPA: the
+    ring's non-causal hop (1 x 4,096 of phase (a)'s ring, 32/8 heads) and
+    Ulysses's whole-sequence call at sp=2 (1 x 8,192, 16/4 heads, causal;
+    phase (b)). Returns rows by (entry, shape label)."""
+    rows, failures = {}, 0
+    for label, (S, H, Hkv, causal) in CP_KERNEL_SHAPES.items():
+        q, k, v = attention_inputs(gen, 1, S, H, Hkv, 128, torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        bounds = dict(causal=causal, start=None, kv_len=None)
+        sc = 128 ** -0.5
+        plain = lambda: fa.flash_fwd_plain(q, k, v, scale=sc, **bounds)  # noqa: E731
+        po, plse = plain()
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        run = lambda: fa._launch_fwd("flash_fwd", q, k, v, scale=sc, **bounds)  # noqa: E731
+        o, lse = run()
+        err, ok = compare(o, lse, po, plse, torch.bfloat16)
+        del po, plse
+        ms = cuda_ms(run, 20)
+        bound_ms, bound_by, flops = flash_bound(q, k, v, **bounds)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        rows[("flash_fwd", label)] = dict(
+            shape=f"bf16 B=1 S={S} H={H} Hkv={Hkv} D=128 " + ("causal" if causal else "non-causal"),
+            max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms, tflops=flops / ms / 1e9,
+            bound_fraction=bound_ms / ms)
+        failures += not ok
+        delta = (do.float() * o.float()).sum(-1)
+        bplain = lambda: fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=sc, **bounds)  # noqa: E731
+        want = dict(zip(("dq", "dk", "dv"), bplain()))
+        bplain_ms = cuda_ms(bplain, 1, warmup=0)
+        lib_bwd_ms = sdpa_backward_ms(q, k, v, do, None, causal)
+        for entry in fa.bwd_entries(torch.bfloat16, 128):
+            brun = lambda: fa._launch_bwd(entry, q, k, v, do, lse, delta, scale=sc, **bounds)  # noqa: E731
+            got = brun()
+            names = ("dq",) if entry in DQ_ENTRIES else ("dk", "dv")
+            got = dict(zip(names, got if isinstance(got, tuple) else (got,)))
+            bok = all(bwd_close(got[nm], want[nm], torch.bfloat16) for nm in names)
+            bms = cuda_ms(brun, 10)
+            b_bound, b_by, b_flops = bwd_bound(entry, q, k, v, **bounds)
+            rows[(entry, label)] = dict(
+                shape=rows[("flash_fwd", label)]["shape"], ok=bok,
+                max_abs_err=max(float((got[nm].float() - want[nm].float()).abs().max())
+                                for nm in names),
+                ms=bms, plain_ms=bplain_ms, bound_ms=b_bound, bound_by=b_by,
+                library_ms=lib_bwd_ms, tflops=b_flops / bms / 1e9, bound_fraction=b_bound / bms)
+            failures += not bok
+        del want
+        torch.cuda.empty_cache()
+    for key, row in rows.items():
+        print("  ", key[1], key[0], json.dumps(row), flush=True)
+    if failures:
+        raise SystemExit(f"phase 19 failed: {failures} kernel case(s) out of tolerance")
+    return rows
+
+
+def phase_context_parallel(gen) -> tuple[dict, dict, dict, dict]:
+    """Phase 19; returns the kernel launches of (b)'s ring and Ulysses runs
+    (summed over ranks), the kernel rows at the phase's shapes, and a
+    report."""
+    print(f"phase 19: context parallelism, {CP_ATTN_RANKS} and {CP_TRAIN_RANKS} gloo ranks "
+          "on one card", flush=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = cp_kernel_rows(gen)
+    report: dict = {}
+    fail = []
+    with tempfile.TemporaryDirectory() as workdir:
+        # (a) attention on four ranks, against one flash_attention here.
+        q, k, v, do = cp_attention_inputs()
+        saved = {"inputs": [t.cpu() for t in (q, k, v, do)]}
+        for label, causal in (("causal", True), ("noncausal", False)):
+            x = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o = fa.flash_attention(*x, causal=causal)
+            saved[label] = [o.detach().cpu(), *(g.cpu() for g in torch.autograd.grad(o, x, do))]
+        torch.save(saved, os.path.join(workdir, "attention.pt"))
+        del saved, q, k, v, do, x, o
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        docs = run_ranks("attention", CP_ATTN_RANKS, CP_ATTN_UNITS, workdir)
+        report["attention_s"] = time.perf_counter() - t0
+        for doc in docs:
+            doc.pop("job")
+            print("   attention", json.dumps(doc), flush=True)
+            fail += [f"(a) rank {doc['rank']} {case}" for case in
+                     ("ring_causal", "ring_noncausal", "ulysses_causal") if not doc[case]["ok"]]
+
+        # (b) decoder training: the 1-rank control here, then the ring and
+        # Ulysses at sp=2.
+        fresh_run()
+        cfg = cp_train_cfg(None)
+        losses, step_s = [], []
+        clock = [time.perf_counter()]
+
+        def on_metrics(step, value):
+            now = time.perf_counter()
+            step_s.append(now - clock[0])
+            clock[0] = now
+            losses.append(value)
+
+        state, _ = run_train_loop(DecoderTask(cfg, batch=1, seq=CP_TRAIN_S),
+                                  TrainLoopConfig(total_steps=CP_TRAIN_STEPS, log_every=1),
+                                  CP_SEED, on_metrics=on_metrics)
+        torch.cuda.synchronize()
+        per_run = CP_TRAIN_LAYERS * CP_TRAIN_STEPS
+        control = {"losses": losses, "step_s": step_s,
+                   "step_p50_s": sorted(step_s)[len(step_s) // 2],
+                   "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": dict(fa.LAUNCHES)}
+        print("   control", json.dumps(control), flush=True)
+        want = {e: 0 for e in fa.LAUNCHES} | {"flash_fwd": 2 * per_run,
+                                              "flash_bwd_dq": per_run, "flash_bwd_dkv": per_run}
+        if control["launches"] != want:
+            fail.append(f"(b) control launches {control['launches']} != {want}")
+        if not falling(losses):
+            fail.append(f"(b) control losses {losses}")
+        report["control"] = control
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = {}
+        for scheme in ("ring", "ulysses"):
+            t0 = time.perf_counter()
+            docs = run_ranks(scheme, CP_TRAIN_RANKS, CP_TRAIN_UNITS, workdir)
+            report[f"{scheme}_s"] = time.perf_counter() - t0
+            launches[scheme] = {e: sum(d["launches"][e] for d in docs) for e in fa.LAUNCHES}
+            report[scheme] = docs
+            for doc in docs:
+                print(f"   {scheme}", json.dumps(doc), flush=True)
+                tag = f"(b) {scheme} rank {doc['rank']}"
+                if abs(doc["first_loss"] - losses[0]) > GRAD_LOSS_REL * abs(losses[0]):
+                    fail.append(f"{tag}: first loss {doc['first_loss']} vs control {losses[0]}")
+                if not falling(doc["losses"]):
+                    fail.append(f"{tag}: losses {doc['losses']}")
+                if doc["launches"] != doc["expected_launches"]:
+                    fail.append(f"{tag}: launches {doc['launches']} != {doc['expected_launches']}")
+                if "grad_rel_by_leaf" in doc:
+                    bad = {nm: e for nm, e in doc["grad_rel_by_leaf"].items()
+                           if not e <= GRAD_LEAF_REL}
+                    if bad or doc["zero_grads"]:
+                        fail.append(f"{tag}: gradients {bad}, zero {doc['zero_grads']}")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 19: {report['seconds']:.1f} s (attention {report['attention_s']:.1f}, "
+          f"ring {report['ring_s']:.1f}, ulysses {report['ulysses_s']:.1f})", flush=True)
+    if fail:
+        raise SystemExit("phase 19 failed: " + "; ".join(fail))
+    return launches["ring"], launches["ulysses"], rows, report
+
+
 def pod_main(argv: list[str]) -> int:
     """One pod, in a child process whose env is the plugin's: cap the
     process from the env first, then train ``argv = [workload, batch,
@@ -2881,7 +3305,7 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19),
                     help="build the kernels and run only this phase (a quick check; "
                          "the contract's lines are not printed)")
     args = ap.parse_args(argv)
@@ -2901,6 +3325,12 @@ def main(argv: list[str]) -> int:
         print(_build.build_log(name).strip(), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.phase == 19:
+        ring, ulysses, _, report = phase_context_parallel(gen)
+        print(f"phase 19: {report['seconds']:.1f} s; launches ring {json.dumps(ring)}, ulysses "
+              f"{json.dumps(ulysses)}; chip_smoke: {time.perf_counter() - t_script:.1f} s",
+              flush=True)
+        return 0
     if args.phase is not None:
         cfg = llama3_8b()
         params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
@@ -2944,12 +3374,16 @@ def main(argv: list[str]) -> int:
     phase_binpack({"bert": bert, "resnet": resnet})
     phase_overrun(bert["peak_reserved_bytes"])
     print(f"phases 9-12: {time.perf_counter() - t0:.1f} s", flush=True)
+    ring_launches, ulysses_launches, cp_rows, cp_report = phase_context_parallel(gen)
+    print(f"phase 19: {cp_report['seconds']:.1f} s", flush=True)
 
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
              "lora_train": lora_train_launches, "spec_serve": spec_launches,
              "interference": interference_launches, "disagg": disagg_launches,
-             "fleet": fleet_launches}
+             "fleet": fleet_launches, "ring": ring_launches, "ulysses": ulysses_launches}
+    cp_numbers = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "tflops", "bound_fraction")
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
                "bound_fraction")
     fwd_numbers = (*numbers, "device_ms", "device_bound_fraction", "library_device_ms")
@@ -2978,6 +3412,8 @@ def main(argv: list[str]) -> int:
                 "shape": f"bf16 B=1 S={SERVED_S} H=32 Hkv=8 D={DRAFT_D} causal kv_len "
                          "(the Llama-3.2-1B-shaped draft's prefill, phase 15)",
                 **{k: forward[(entry, "draft")][k] for k in fwd_numbers}},
+            **({f"at_{label}_shape": {k: cp_rows[(entry, label)][k] for k in cp_numbers}
+                for label in CP_KERNEL_SHAPES} if entry == fwd_main else {}),
         })
     main_path = fa.bwd_entries(torch.bfloat16, 128)
     bwd_numbers = (*numbers, "device_ms", "device_bound_fraction")
@@ -2995,6 +3431,8 @@ def main(argv: list[str]) -> int:
             **{k: row[k] for k in bwd_numbers},
             "at_bert_shape": {"shape": bert_shape,
                               **{k: backward[(entry, "bert")][k] for k in bwd_numbers}},
+            **({f"at_{label}_shape": {k: cp_rows[(entry, label)][k] for k in cp_numbers}
+                for label in CP_KERNEL_SHAPES} if entry in main_path else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     card = smi_line()

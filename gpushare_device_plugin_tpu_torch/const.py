@@ -31,6 +31,12 @@ ENV_XLA_MEM_FRACTION = "TPU_HBM_LIMIT_FRACTION"
 # What the port sets from TPU_VISIBLE_CHIPS (configure_torch_from_env).
 ENV_CUDA_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
 
+# --- Multi-host bootstrap (reference const.py:115-117) ----------------------
+# parallel/podenv.py::initialize_multihost reads them.
+ENV_COORDINATOR_ADDRESS = "TPUSHARE_COORDINATOR_ADDRESS"
+ENV_NUM_PROCESSES = "TPUSHARE_NUM_PROCESSES"
+ENV_PROCESS_ID = "TPUSHARE_PROCESS_ID"
+
 # --- Workload classes (reference const.py:146-149) --------------------------
 # Unknown or absent values normalize to latency-critical: the safe default
 # is to protect, never to throttle.

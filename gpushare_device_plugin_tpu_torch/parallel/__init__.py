@@ -1,2 +1,4 @@
-"""The pod's injected env (``podenv``) and the attention math shared across
-the port: the single-device part of the reference's ``parallel``."""
+"""The pod's injected env (``podenv``), the mesh over a ``torch.distributed``
+world (``mesh``), its differentiable collectives (``collectives``), the
+context-parallel attention schemes (``ring``, ``ulysses``) and the
+attention math shared across the port: the reference's ``parallel``."""

@@ -1,0 +1,237 @@
+"""The device mesh over the ranks of a ``torch.distributed`` world.
+
+Counterpart of ``gpushare_device_plugin_tpu/parallel/mesh.py``. The
+reference lays its devices out as one ``jax.sharding.Mesh`` with the axes
+``("dp", "fsdp", "tp", "sp")`` and lets XLA insert the collectives from
+the arrays' shardings. PyTorch has no global array: here every rank holds
+its own tile, a :class:`Mesh` places the ranks on the same grid (rank ``r``
+sits where device ``r`` sits in the reference's ``reshape(dp, fsdp, tp,
+sp)``), and the collectives are explicit calls on one process group per
+axis slice (``parallel/collectives.py``).
+
+- ``dp``: data parallelism (parameters replicated);
+- ``fsdp``: fully sharded data parallelism (not trained here yet);
+- ``tp``: tensor parallelism (heads split; not trained here yet);
+- ``sp``: sequence parallelism (ring attention, Ulysses).
+
+:func:`batch_sharding` cuts a rank's ``[B/(dp·fsdp), S/sp]`` tile out of
+the global tokens; :func:`shard` cuts any tile by a spec written like a
+``PartitionSpec``. The reference's ``commit_to_mesh`` has no counterpart:
+an optimizer's state is made beside its parameter on the rank's device,
+so nothing is ever left on another device to commit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+AXES = ("dp", "fsdp", "tp", "sp")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Logical mesh shape. Any axis may be 1 (inactive)."""
+
+    dp: int = 1
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.fsdp * self.tp * self.sp
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return AXES
+
+    @classmethod
+    def auto(cls, n_devices: int, *, max_tp: int = 4, want_sp: bool = False) -> "MeshSpec":
+        """Factor ``n_devices`` as the reference does: tp takes the largest
+        power of two up to ``max_tp``; sp (when asked) a factor of 2; fsdp
+        the rest; dp appears only when fsdp would exceed 8."""
+        rem = n_devices
+        tp = 1
+        while tp * 2 <= max_tp and rem % 2 == 0:
+            tp *= 2
+            rem //= 2
+        sp = 1
+        if want_sp and rem % 2 == 0 and rem > 1:
+            sp = 2
+            rem //= 2
+        fsdp, dp = rem, 1
+        while fsdp > 8 and fsdp % 2 == 0:
+            fsdp //= 2
+            dp *= 2
+        return cls(dp=dp, fsdp=fsdp, tp=tp, sp=sp)
+
+
+@dataclasses.dataclass
+class Traffic:
+    """What one kind of exchange moved on this rank: calls, the bytes of
+    the buffers it handed the exchange, and host seconds from the call to
+    the exchange's end (host staging included)."""
+
+    calls: int = 0
+    bytes: int = 0
+    seconds: float = 0.0
+
+    def add(self, nbytes: int, seconds: float) -> None:
+        self.calls += 1
+        self.bytes += nbytes
+        self.seconds += seconds
+
+
+class Mesh:
+    """This rank's place on the ``(dp, fsdp, tp, sp)`` grid, with one
+    process group per axis slice it belongs to (None for an axis of size
+    1). ``shape`` maps each axis to its size, as the reference's
+    ``mesh.shape`` does. ``backend`` is the groups' backend: with
+    ``"gloo"`` a CUDA tensor is copied to the host, exchanged and copied
+    back (``collectives.py``). ``traffic`` counts each kind of exchange."""
+
+    def __init__(self, spec: MeshSpec, rank: int, device: torch.device, backend: str,
+                 groups: dict[str, object], ranks: dict[str, list[int]]):
+        self.spec, self.rank, self.device, self.backend = spec, rank, device, backend
+        self.shape = {a: getattr(spec, a) for a in AXES}
+        self._groups, self._ranks = groups, ranks
+        coords = np.unravel_index(rank, tuple(self.shape.values()))
+        self.coords = {a: int(c) for a, c in zip(AXES, coords)}
+        self.traffic: dict[str, Traffic] = {}
+
+    @property
+    def size(self) -> int:
+        return self.spec.size
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (the reference's ``axis_index``)."""
+        return self.coords[axis]
+
+    def axis_ranks(self, axis: str) -> list[int]:
+        """The global ranks of this rank's slice along ``axis``, by index."""
+        return self._ranks[axis]
+
+    def group(self, axis: str):
+        """The process group of this rank's slice along ``axis``."""
+        return self._groups[axis]
+
+    def staged(self, t: torch.Tensor) -> bool:
+        """True when an exchange of ``t`` goes through host memory: a CUDA
+        tensor on a gloo mesh (gloo has no CUDA send, receive or
+        all-to-all)."""
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def record(self, kind: str, nbytes: int, seconds: float) -> None:
+        self.traffic.setdefault(kind, Traffic()).add(nbytes, seconds)
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier()
+
+
+def make_mesh(
+    spec: MeshSpec | None = None,
+    *,
+    device: str | torch.device | None = None,
+    backend: str | None = None,
+) -> Mesh:
+    """The mesh over the ranks of the initialized ``torch.distributed``
+    world (a world of one when none is initialized), on ``device``
+    (``cuda`` unless the caller passes ``"cpu"``; a CUDA rank takes card
+    ``rank % device_count``). ``backend`` is the axis groups' backend,
+    ``"nccl"`` for CUDA and ``"gloo"`` for the CPU unless given. Every rank
+    must call this with the same arguments: each creates every axis
+    group, in one order. Raises when ``spec.size`` is not the world
+    size."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if spec is None:
+        spec = MeshSpec.auto(world)
+    if spec.size != world:
+        raise ValueError(f"mesh spec {spec} needs {spec.size} ranks, have {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    grid = np.arange(spec.size).reshape(spec.dp, spec.fsdp, spec.tp, spec.sp)
+    groups: dict[str, object] = {}
+    ranks: dict[str, list[int]] = {}
+    for i, axis in enumerate(AXES):
+        # Each slice along ``axis``: the ranks that share every other
+        # coordinate, in axis order (so group rank == axis index).
+        slices = np.moveaxis(grid, i, -1).reshape(-1, grid.shape[i])
+        for members in slices.tolist():
+            group = dist.new_group(members, backend=backend) if len(members) > 1 else None
+            if rank in members:
+                groups[axis], ranks[axis] = group, members
+    return Mesh(spec, rank, dev, backend, groups, ranks)
+
+
+def _block(mesh: Mesh, axes) -> tuple[int, int]:
+    """(index, count) of this rank's block along a dim tiled over
+    ``axes`` (one name, a tuple of names taken major to minor, or None)."""
+    if axes is None:
+        return 0, 1
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    index, count = 0, 1
+    for a in names:
+        index = index * mesh.shape[a] + mesh.coords[a]
+        count *= mesh.shape[a]
+    return index, count
+
+
+def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """This rank's tile of the global ``x`` under ``spec`` (one entry per
+    leading dim, as in a ``PartitionSpec``: an axis name, a tuple of names,
+    or None). Raises when a dim does not divide."""
+    out = x
+    for dim, axes in enumerate(spec):
+        index, count = _block(mesh, axes)
+        if x.shape[dim] % count:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not divide over {axes}={count}")
+        step = x.shape[dim] // count
+        out = out.narrow(dim, index * step, step)
+    return out
+
+
+def batch_sharding(tokens: torch.Tensor, mesh: Mesh, *, seq_parallel: bool = False) -> torch.Tensor:
+    """This rank's ``[B/(dp·fsdp), S/sp]`` tile of the global ``[B, S]``
+    tokens: the batch over ``(dp, fsdp)``, the sequence over ``sp`` when
+    ``seq_parallel`` (else whole)."""
+    return shard(tokens, mesh, (("dp", "fsdp"), "sp" if seq_parallel else None))
+
+
+def prune_unshardable(specs, shapes, mesh: Mesh):
+    """Drop sharding axes that do not divide the dim they shard: a pure
+    function on shapes. ``specs`` is a tree (dicts) of tuples, one entry
+    per dim (an axis name, a tuple of names, or None); ``shapes`` the
+    matching tree of shapes. A non-dividing axis falls back to
+    replication for that dim only."""
+    if isinstance(specs, dict):
+        return {k: prune_unshardable(v, shapes[k], mesh) for k, v in specs.items()}
+    out = []
+    for i, axis in enumerate(specs):
+        if axis is None:
+            out.append(None)
+            continue
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        total = math.prod(mesh.shape[a] for a in axes)
+        ok = i < len(shapes) and shapes[i] % total == 0
+        out.append(axis if ok else None)
+    return tuple(out)
+
+
+def local_batch_size(global_batch: int, mesh: Mesh) -> int:
+    dp_total = mesh.shape["dp"] * mesh.shape["fsdp"]
+    if global_batch % dp_total:
+        raise ValueError(f"global batch {global_batch} not divisible by dp*fsdp={dp_total}")
+    return global_batch // dp_total

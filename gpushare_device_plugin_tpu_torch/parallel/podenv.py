@@ -17,20 +17,27 @@ for field. :func:`configure_torch_from_env` is the twin of the reference's
 ``configure_jax_from_env``: it maps the granted chips to
 ``CUDA_VISIBLE_DEVICES`` and caps the process's device memory at its
 fraction. The process and chip bounds are parsed but have no CUDA
-counterpart, so nothing reads them here. The mesh helpers (``gang_mesh``,
-``gang_mesh_spec``, ``multihost_spec``, ``initialize_multihost``) are not
-ported yet.
+counterpart, so nothing reads them here.
+
+The mesh half: :func:`gang_mesh_spec` / :func:`gang_mesh` give a gang
+grant's mesh, and :func:`initialize_multihost` joins this process to its
+pod group's ``torch.distributed`` world from the ``TPUSHARE_*`` env
+(:func:`multihost_spec`), where the reference calls
+``jax.distributed.initialize``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Mapping
 
 import torch
+import torch.distributed as dist
 
 from .. import const
+from .mesh import Mesh, MeshSpec, make_mesh
 from .topology import parse_shape
 
 # The key of the memory cap in configure_torch_from_env's settings: the
@@ -231,3 +238,109 @@ def configure_torch_from_env(
         for device in range(torch.cuda.device_count()):
             torch.cuda.set_per_process_memory_fraction(float(settings[MEMORY_FRACTION]), device)
     return settings
+
+
+def gang_mesh_spec(pod: PodTpuEnv | None = None,
+                   env: Mapping[str, str] | None = None) -> MeshSpec | None:
+    """The mesh a granted gang forms: tensor parallelism over its member
+    chips (``MeshSpec(tp=n)``), the serving default. Training that wants
+    dp or fsdp factors the same count through ``MeshSpec.auto``. None for a
+    pod that is not a gang."""
+    p = pod if pod is not None else PodTpuEnv.from_env(env)
+    if not p.is_gang:
+        return None
+    return MeshSpec(tp=len(p.gang_chips))
+
+
+def gang_mesh(pod: PodTpuEnv | None = None, env: Mapping[str, str] | None = None, *,
+              device: str | torch.device | None = None,
+              backend: str | None = None) -> Mesh | None:
+    """The gang's mesh over the ranks of the ``torch.distributed`` world
+    (one rank per granted chip; :func:`.mesh.make_mesh`'s ``device`` and
+    ``backend``). None for a pod that is not a gang. Raises when the world
+    size is not the gang size: either way the env was mis-injected, and
+    meshing over the ranks there are would shard onto chips this pod was
+    never granted, or leave granted chips idle."""
+    p = pod if pod is not None else PodTpuEnv.from_env(env)
+    spec = gang_mesh_spec(p)
+    if spec is None:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != spec.size:
+        raise ValueError(
+            f"gang grant spans {spec.size} chips but the process group has {world} "
+            "ranks: TPU_VISIBLE_CHIPS, the gang annotations and the multi-host env disagree"
+        )
+    return make_mesh(spec, device=device, backend=backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultihostSpec:
+    """Parsed multi-host bootstrap env (one pod per host)."""
+
+    coordinator_address: str
+    num_processes: int
+    process_id: int
+
+    @property
+    def is_multihost(self) -> bool:
+        return self.num_processes > 1 and bool(self.coordinator_address)
+
+
+def _ordinal_from_hostname(hostname: str) -> int | None:
+    """StatefulSet pods are named ``<name>-<ordinal>``: a stable process id."""
+    _, _, tail = hostname.rpartition("-")
+    return int(tail) if tail.isdigit() else None
+
+
+def multihost_spec(env: Mapping[str, str] | None = None) -> MultihostSpec:
+    """The multi-host bootstrap contract from the container env.
+
+    ``TPUSHARE_PROCESS_ID`` defaults to the StatefulSet ordinal in the
+    hostname. A multi-host spec with no process id to be found, or one out
+    of range, raises rather than let every pod claim process 0 (which
+    would hang the rendezvous).
+    """
+    e = os.environ if env is None else env
+    coordinator = e.get(const.ENV_COORDINATOR_ADDRESS, "")
+    num = _env_int(e, const.ENV_NUM_PROCESSES, 1)
+    pid = _env_int(e, const.ENV_PROCESS_ID, -1)
+    if pid < 0:
+        ordinal = _ordinal_from_hostname(e.get("HOSTNAME", ""))
+        if ordinal is None:
+            if num > 1 and coordinator:
+                raise ValueError(
+                    f"multi-host spec ({const.ENV_NUM_PROCESSES}={num}) but "
+                    f"no {const.ENV_PROCESS_ID} and hostname "
+                    f"{e.get('HOSTNAME', '')!r} has no StatefulSet ordinal "
+                    "suffix — cannot determine this pod's process id"
+                )
+            ordinal = 0
+        pid = ordinal
+    if num > 1 and coordinator and pid >= num:
+        raise ValueError(
+            f"process id {pid} out of range for {const.ENV_NUM_PROCESSES}={num} "
+            "(pod name ordinal and the StatefulSet replica count disagree?)"
+        )
+    return MultihostSpec(coordinator_address=coordinator, num_processes=num, process_id=pid)
+
+
+def initialize_multihost(env: Mapping[str, str] | None = None, *, backend: str,
+                         timeout_s: float = 60.0) -> MultihostSpec:
+    """Join this process to its pod group's ``torch.distributed`` world
+    from the injected env: ``init_process_group(backend,
+    init_method="tcp://<coordinator>", world_size=num_processes,
+    rank=process_id)``, waiting at most ``timeout_s`` for the rendezvous
+    and for any collective after it. A no-op on a single host. Call once,
+    after :func:`configure_torch_from_env`; then :func:`.mesh.make_mesh`
+    builds the mesh over the world. ``backend`` is the caller's choice
+    (``"nccl"`` across cards, ``"gloo"`` for CPU ranks or ranks that share
+    a card)."""
+    spec = multihost_spec(env)
+    if spec.is_multihost:
+        dist.init_process_group(
+            backend=backend, init_method=f"tcp://{spec.coordinator_address}",
+            world_size=spec.num_processes, rank=spec.process_id,
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+    return spec

@@ -1,10 +1,13 @@
 """Choice between the flash kernel and plain grouped attention.
 
-Counterpart of ``gpushare_device_plugin_tpu/workloads/attention.py``
-without the mesh: ``"auto"`` takes the CUDA kernel when the tensors are on
-a card and the kernel's ``fits_kernel`` holds, ``"flash"`` forces the
-kernel (a misfit then fails loudly in its wrapper), ``"plain"`` forces the
-plain path. On CPU tensors the kernel's wrapper runs its plain version.
+Counterpart of ``gpushare_device_plugin_tpu/workloads/attention.py``:
+``"auto"`` takes the CUDA kernel when the tensors are on a card and the
+kernel's ``fits_kernel`` holds, ``"flash"`` forces the kernel (a misfit
+then fails loudly in its wrapper), ``"plain"`` forces the plain path. On
+CPU tensors the kernel's wrapper runs its plain version. Where the
+reference runs the kernel per shard under ``shard_map``, a rank here
+already holds only its own batch rows and heads, so the kernel simply
+runs on them.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.flash_attention import fits_kernel, flash_attention
+from ..parallel.mesh import Mesh
 from ..parallel.ring import grouped_attention
 
 
@@ -50,11 +54,30 @@ def use_flash(attention: str, q: torch.Tensor) -> bool:
     return q.device.type == "cuda" and fits_kernel(q.shape[1], q.shape[-1])
 
 
+def ulysses_inner_attn(attention: str):
+    """The per-rank attention of the Ulysses layout (the whole sequence,
+    1/n of the heads, grouped K/V allowed): the flash kernel or the plain
+    path by :func:`use_flash`. Matches ``parallel.ulysses``'s ``attn_fn``
+    contract; the scale is the default 1/sqrt(Dh)."""
+
+    def fn(q, k, v, *, causal, scale):
+        if scale is not None:
+            raise ValueError("ulysses_inner_attn uses the 1/sqrt(Dh) default scale")
+        if use_flash(attention, q):
+            return flash_attention(q, k, v, causal=causal)
+        return grouped_full_attention(q, k, v, causal=causal)
+
+    return fn
+
+
 def flash_or_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, attention: str,
-    causal: bool,
+    causal: bool, mesh: Mesh | None = None,
 ) -> torch.Tensor:
-    """[B, S, H, Dh] attention through the flash kernel or the plain path."""
+    """[B, S, H, Dh] attention through the flash kernel or the plain path.
+    With a ``mesh`` the tensors are the rank's own batch rows and heads,
+    and the kernel runs on them as on any other tensors."""
+    del mesh
     if use_flash(attention, q):
         return flash_attention(q, k, v, causal=causal)
     return grouped_full_attention(q, k, v, causal=causal)

@@ -1,10 +1,12 @@
 """Training-loop runner: steps, logging, checkpoint and resume.
 
-Counterpart of ``gpushare_device_plugin_tpu/workloads/trainer.py``
-without the mesh: a uniform :class:`Task` protocol (opaque state in,
-(state, loss) out), batches deterministic in (seed, step) so an
-interrupted and resumed run reproduces the uninterrupted one, and opt-in
-checkpoints. Where the reference saves asynchronously with orbax, this
+Counterpart of ``gpushare_device_plugin_tpu/workloads/trainer.py``: a
+uniform :class:`Task` protocol (opaque state in, (state, loss) out),
+batches deterministic in (seed, step) so an interrupted and resumed run
+reproduces the uninterrupted one, and opt-in checkpoints. With a mesh
+(``parallel/mesh.py``) every rank makes the same global batch and its
+step runs the rank's tile of it; only rank 0 writes a checkpoint, and
+every rank restores the same one. Where the reference saves asynchronously with orbax, this
 writes one ``torch.save`` file of the state's tensors and the step per
 checkpoint, through a temporary file and an atomic rename, keeps the
 newest ``ckpt_keep`` and resumes from the latest. The tasks are the
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import Mesh
 from . import bert as B
 from . import resnet as R
 from . import transformer as T
@@ -45,13 +48,14 @@ class TrainLoopConfig:
 class Task(Protocol):
     """Adapter between a workload module and the generic loop."""
 
-    def init_state(self, generator: torch.Generator) -> Any:
+    def init_state(self, generator: torch.Generator, mesh: Mesh | None) -> Any:
         """Training state (params, optimizer state, ...) on the generator's
-        device, made from it."""
+        device, made from it; a whole replica on each rank of ``mesh``."""
         ...
 
-    def make_step(self) -> Callable[[Any, Any], tuple[Any, torch.Tensor]]:
-        """(state, batch) -> (state, loss)."""
+    def make_step(self, mesh: Mesh | None) -> Callable[[Any, Any], tuple[Any, torch.Tensor]]:
+        """(state, batch) -> (state, loss); with ``mesh``, the batch is the
+        global one and the step runs this rank's tile."""
         ...
 
     def make_batch(self, generator: torch.Generator, step: int) -> Any:
@@ -109,13 +113,17 @@ def run_train_loop(
     *,
     device: str | torch.device | None = None,
     on_metrics: Callable[[int, float], None] | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[Any, float]:
     """Run (or resume) training on ``device`` (``cuda`` unless ``"cpu"`` is
-    passed); returns (final_state, last_loss)."""
-    dev = resolve_device(device)
-    state = task.init_state(torch.Generator(device=dev).manual_seed(fold_in(seed, 0)))
+    passed; the mesh's device with a ``mesh``); returns (final_state,
+    last_loss). With a mesh every rank runs this with the same arguments:
+    the same seed makes the same replica and the same global batches."""
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
+    state = task.init_state(torch.Generator(device=dev).manual_seed(fold_in(seed, 0)), mesh)
     data_seed = fold_in(seed, 1)
-    step_fn = task.make_step()
+    step_fn = task.make_step(mesh)
+    writes = mesh is None or mesh.rank == 0
     start = 0
     if cfg.ckpt_dir:
         steps = _ckpt_steps(cfg.ckpt_dir)
@@ -132,12 +140,14 @@ def run_train_loop(
             log.info("step %d loss %.4f", step, loss)
             if on_metrics is not None:
                 on_metrics(step, loss)
-        if cfg.ckpt_dir and cfg.ckpt_every and (step + 1) % cfg.ckpt_every == 0:
+        if writes and cfg.ckpt_dir and cfg.ckpt_every and (step + 1) % cfg.ckpt_every == 0:
             _save(cfg, step, state)
-    if cfg.ckpt_dir and cfg.total_steps > start:
+    if writes and cfg.ckpt_dir and cfg.total_steps > start:
         # Persist the final step too (already saved if it matched ckpt_every).
         if _ckpt_steps(cfg.ckpt_dir)[-1:] != [cfg.total_steps - 1]:
             _save(cfg, cfg.total_steps - 1, state)
+    if mesh is not None and cfg.ckpt_dir:
+        mesh.barrier()  # rank 0's files are whole before any rank goes on
     return state, float("nan") if loss_t is None else float(loss_t)
 
 
@@ -151,11 +161,11 @@ class DecoderTask:
     def __init__(self, cfg: T.TransformerConfig, batch: int, seq: int):
         self.cfg, self.batch, self.seq = cfg, batch, seq
 
-    def init_state(self, generator: torch.Generator):
-        return T.init_train_state(self.cfg, generator, device=generator.device)
+    def init_state(self, generator: torch.Generator, mesh: Mesh | None = None):
+        return T.init_train_state(self.cfg, generator, device=generator.device, mesh=mesh)
 
-    def make_step(self):
-        step = T.make_train_step(self.cfg)
+    def make_step(self, mesh: Mesh | None = None):
+        step = T.make_train_step(self.cfg, mesh=mesh)
 
         def fn(state, batch):
             params, opt_state, loss = step(*state, batch.to(state[0]["embed"].device))
@@ -165,6 +175,11 @@ class DecoderTask:
 
     def make_batch(self, generator: torch.Generator, step: int) -> torch.Tensor:
         return T.demo_batch(generator, self.batch, self.seq, self.cfg.vocab)
+
+
+def _no_mesh(mesh: Mesh | None, model: str) -> None:
+    if mesh is not None:
+        raise ValueError(f"{model} trains on one rank: its mesh sharding is not ported yet")
 
 
 def _on(device: torch.device, batch: tuple) -> tuple:
@@ -178,10 +193,12 @@ class BertTask:
     def __init__(self, cfg: B.BertConfig, batch: int, seq: int):
         self.cfg, self.batch, self.seq = cfg, batch, seq
 
-    def init_state(self, generator: torch.Generator):
+    def init_state(self, generator: torch.Generator, mesh: Mesh | None = None):
+        _no_mesh(mesh, "BERT")
         return B.init_train_state(self.cfg, generator, device=generator.device)
 
-    def make_step(self):
+    def make_step(self, mesh: Mesh | None = None):
+        _no_mesh(mesh, "BERT")
         step = B.make_train_step(self.cfg)
 
         def fn(state, batch):
@@ -201,10 +218,12 @@ class ResNetTask:
     def __init__(self, cfg: R.ResNetConfig, batch: int, image_size: int = 32):
         self.cfg, self.batch, self.image_size = cfg, batch, image_size
 
-    def init_state(self, generator: torch.Generator):
+    def init_state(self, generator: torch.Generator, mesh: Mesh | None = None):
+        _no_mesh(mesh, "ResNet")
         return R.init_train_state(self.cfg, generator, device=generator.device)
 
-    def make_step(self):
+    def make_step(self, mesh: Mesh | None = None):
+        _no_mesh(mesh, "ResNet")
         step = R.make_train_step(self.cfg)
 
         def fn(state, batch):

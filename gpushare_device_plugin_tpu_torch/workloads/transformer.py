@@ -13,8 +13,17 @@ one (as buffers to serve, as ``nn.Parameter``s to train). The layer loop
 is a Python loop over the stacked weights (the reference's ``lax.scan``);
 ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``): "full" saves only the layer inputs, "dots"
-saves the projections' outputs and recomputes only elementwise work. No
-sharding here. LoRA's serving hooks (per-row adapter deltas,
+saves the projections' outputs and recomputes only elementwise work.
+
+Context parallelism: with ``seq_parallel`` and a mesh
+(``parallel/mesh.py``), each rank of a ``dp x sp`` mesh runs its
+``[B/dp, S/sp]`` tile of the global batch at its global positions, and
+attention goes round the ``sp`` ring (``parallel/ring.py``) or through
+Ulysses's all-to-alls (``parallel/ulysses.py``). Parameters are
+replicated: each rank's loss is its share of the global mean, and the
+gradients are summed over the mesh after the backward. Tensor
+parallelism and FSDP (``tp``, ``fsdp`` > 1) are not ported yet.
+LoRA's serving hooks (per-row adapter deltas,
 :func:`_bgmv_delta`) sit in :func:`_project_qkv` and :func:`_mlp_block`;
 its training merges the adapter into the weights (``lora.py``).
 """
@@ -35,7 +44,11 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
-from .attention import flash_or_plain, grouped_full_attention, use_flash
+from ..parallel.collectives import all_reduce_sum_, sum_shares
+from ..parallel.mesh import Mesh, batch_sharding
+from ..parallel.ring import ring_attention
+from ..parallel.ulysses import ulysses_attention
+from .attention import flash_or_plain, grouped_full_attention, ulysses_inner_attn, use_flash
 from .optim import AdamW, make_optimizer, tree_leaves
 from .quant import embed_lookup, is_qtensor, matmul_weight
 
@@ -65,6 +78,12 @@ class TransformerConfig:
     # work: norms, RoPE, SiLU, residual adds.
     remat: bool = True
     remat_policy: str = "full"
+    # Sequence parallelism over a mesh's sp axis; context_parallel picks
+    # the scheme: "ring" (K/V round the ring, a flash kernel per hop on
+    # the card) or "ulysses" (two all-to-alls to a whole-sequence layout,
+    # one kernel per rank). Both exact.
+    seq_parallel: bool = False
+    context_parallel: str = "ring"
 
     @property
     def head_dim(self) -> int:
@@ -202,10 +221,37 @@ def _logits(params: Params, x, cfg: TransformerConfig):
     return torch.einsum("btd,dv->btv", x, out).float()
 
 
-def _layer(x, lp, cfg: TransformerConfig, positions):
+def _attention(q, k, v, cfg: TransformerConfig, mesh: Mesh | None):
+    """Causal self-attention of one layer: over the sp axis when
+    ``cfg.seq_parallel``, else on the rank's tensors as they are."""
+    if not cfg.seq_parallel:
+        return flash_or_plain(q, k, v, attention=cfg.attention, causal=True, mesh=mesh)
+    if mesh is None:
+        raise ValueError("seq_parallel=True requires a mesh")
+    tp = mesh.shape["tp"]
+    if cfg.kv_heads % tp:
+        # Both schemes take KV heads split over tp; when tp does not
+        # divide them, full heads (correct, g times the bytes).
+        groups = cfg.n_heads // cfg.kv_heads
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+    if cfg.context_parallel not in ("ring", "ulysses"):
+        raise ValueError(
+            f"unknown context_parallel={cfg.context_parallel!r}: expected ring|ulysses"
+        )
+    if cfg.context_parallel == "ulysses":
+        return ulysses_attention(q, k, v, mesh, axis_name="sp", causal=True,
+                                 batch_axes=("dp", "fsdp"), head_axes="tp",
+                                 attn_fn=ulysses_inner_attn(cfg.attention))
+    return ring_attention(q, k, v, mesh, axis_name="sp", causal=True,
+                          batch_axes=("dp", "fsdp"), head_axes="tp",
+                          hop_attention=cfg.attention)
+
+
+def _layer(x, lp, cfg: TransformerConfig, positions, mesh: Mesh | None = None):
     """One decoder block."""
     q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
-    attn = flash_or_plain(q, k, v, attention=cfg.attention, causal=True)
+    attn = _attention(q, k, v, cfg, mesh)
     return _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
 
 
@@ -236,20 +282,22 @@ def _qkv_part(x, lp, cfg: TransformerConfig, positions):
     return _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
 
 
-def _dots_layer(x, lp, cfg: TransformerConfig, positions):
+def _dots_layer(x, lp, cfg: TransformerConfig, positions, mesh: Mesh | None = None):
     """The decoder block under the reference's "dots" policy, as three
     pieces: ln1 and the q/kv products (their outputs saved, the norm and
     RoPE recomputed); attention, outside any recompute on the flash path
-    (the kernel saves q, k, v, O and lse itself, so it runs once) and
-    recomputed whole on the plain path (no [S, S] matrix is kept); then
-    the wo product and residual (which save only the attention output)
-    and the MLP (its gate/up output saved, ln2 and SiLU recomputed)."""
+    (the kernel saves q, k, v, O and lse itself, so it runs once, and so
+    do the ring's or Ulysses's exchanges around it) and recomputed whole
+    on the plain path (no [S, S] matrix is kept; a sequence-parallel
+    recompute makes its exchanges again, on every rank alike); then the
+    wo product and residual (which save only the attention output) and
+    the MLP (its gate/up output saved, ln2 and SiLU recomputed)."""
     q, k, v = checkpoint(_qkv_part, x, lp, cfg, positions, use_reentrant=False,
                          context_fn=_save_matmuls(2))
     if use_flash(cfg.attention, q):
-        attn = flash_attention(q, k, v, causal=True)
+        attn = _attention(q, k, v, cfg, mesh)
     else:
-        attn = checkpoint(grouped_full_attention, q, k, v, causal=True, use_reentrant=False)
+        attn = checkpoint(_attention, q, k, v, cfg, mesh, use_reentrant=False)
     x = x + _attn_out(attn, lp, cfg)
     return checkpoint(_mlp_block, x, lp, cfg, use_reentrant=False, context_fn=_save_matmuls(1))
 
@@ -267,28 +315,75 @@ def _layer_fn(cfg: TransformerConfig) -> Callable:
     return lambda *args: checkpoint(_layer, *args, use_reentrant=False)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, vocab] f32."""
-    S = tokens.shape[1]
-    positions = torch.arange(S, device=tokens.device)
+# Axes over which parameters are replicated, so gradients are summed.
+REPLICA_AXES = ("dp", "fsdp", "sp")
+
+
+def check_mesh(mesh: Mesh) -> None:
+    """Raise unless ``mesh`` is one this slice of the port trains on:
+    ``dp x sp``, parameters replicated."""
+    if mesh.shape["tp"] > 1 or mesh.shape["fsdp"] > 1:
+        raise ValueError(
+            f"mesh {mesh.shape}: tensor parallelism and FSDP (tp, fsdp > 1) come with "
+            "the port's tensor-parallel / FSDP slice; this one trains dp x sp with "
+            "replicated parameters"
+        )
+
+
+def _tile(tokens: torch.Tensor, cfg: TransformerConfig, mesh: Mesh):
+    """This rank's tile of the global tokens and the global position of
+    its first column."""
+    check_mesh(mesh)
+    if mesh.shape["sp"] > 1 and not cfg.seq_parallel:
+        raise ValueError(f"a mesh with sp={mesh.shape['sp']} needs seq_parallel=True")
+    tile = batch_sharding(tokens, mesh, seq_parallel=cfg.seq_parallel)
+    return tile, mesh.axis_index("sp") * tile.shape[1]
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh: Mesh | None = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] f32. With a ``mesh``, the
+    global tokens in (the same on every rank), the logits of this rank's
+    ``[B/dp, S/sp]`` tile out, computed at its global positions."""
+    start = 0
+    if mesh is not None:
+        tokens, start = _tile(tokens, cfg, mesh)
+    positions = start + torch.arange(tokens.shape[1], device=tokens.device)
     layer = _layer_fn(cfg)
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     for i in range(cfg.n_layers):
-        x = layer(x, layer_params(params["layers"], i), cfg, positions)
+        x = layer(x, layer_params(params["layers"], i), cfg, positions, mesh)
     return _logits(params, x, cfg)
 
 
-def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """Next-token cross-entropy on the f32 logits, mean over [B, S-1]."""
-    logits = forward(params, tokens, cfg)
-    return F.cross_entropy(logits[:, :-1].flatten(0, 1), tokens[:, 1:].flatten().long())
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh: Mesh | None = None) -> torch.Tensor:
+    """Next-token cross-entropy on the f32 logits, mean over [B, S-1].
+
+    With a ``mesh``: ``tokens`` is the global batch, the same on every
+    rank. A rank's targets are the T tokens after its T inputs, the first
+    of them the next rank's first input; the last rank of the sp ring has
+    one target fewer. Each rank divides its nll sum by the global count
+    B*(S-1), so the ranks' shares sum to the mean, which every rank
+    returns; its backward is the rank's own share (the gradients are
+    summed over the mesh afterwards, :func:`make_train_step`)."""
+    logits = forward(params, tokens, cfg, mesh)
+    if mesh is None:
+        return F.cross_entropy(logits[:, :-1].flatten(0, 1), tokens[:, 1:].flatten().long())
+    T = logits.shape[1]
+    start = mesh.axis_index("sp") * T
+    targets = batch_sharding(tokens, mesh)[:, start + 1:start + T + 1]
+    n = targets.shape[1]
+    nll = F.cross_entropy(logits[:, :n].flatten(0, 1), targets.flatten().long(), reduction="sum")
+    B, S = tokens.shape
+    return sum_shares(nll / (B * (S - 1)), mesh, REPLICA_AXES)
 
 
 # --- training (make_optimizer comes from optim.py) ---------------------------
 
 
 def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1, mesh: Mesh | None = None) -> Callable:
     """Train step ``(params, opt_state, tokens) -> (params, opt_state,
     loss)``; params and optimizer state are updated in place.
 
@@ -296,13 +391,20 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
     reference's strided split: microbatch i takes every accum_steps-th
     row) and sums their gradients before the one optimizer update: the
     full-batch step up to f32 summation order, at one microbatch's
-    activation memory."""
+    activation memory.
+
+    With a ``mesh`` (``dp x sp``), ``tokens`` is the global batch, the same
+    on every rank; each rank runs its tile, and the gradients are summed
+    over the mesh (one all-reduce per leaf, in leaf order) before every
+    rank applies the same update to its replica."""
     opt = optimizer or make_optimizer()
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if mesh is not None:
+        check_mesh(mesh)
 
     def grads_of(params, tokens):
-        loss = loss_fn(params, tokens, cfg)
+        loss = loss_fn(params, tokens, cfg, mesh)
         return loss.detach(), list(torch.autograd.grad(loss, tree_leaves(params)))
 
     def step(params, opt_state, tokens):
@@ -323,6 +425,8 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
             loss = loss / accum_steps
             for g in grads:
                 g.div_(accum_steps)
+        if mesh is not None:
+            all_reduce_sum_(grads, mesh, REPLICA_AXES)
         opt.update(grads, opt_state, params)
         return params, opt_state, loss
 
@@ -332,11 +436,17 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
 def init_train_state(
     cfg: TransformerConfig, generator: torch.Generator,
     optimizer: AdamW | None = None, device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[Params, dict[str, Any]]:
     """(params, opt_state) for :func:`make_train_step`: f32 params made on
-    ``device`` from ``generator`` (which must live there), held as the
-    ``nn.Parameter``s of a trainable :class:`Decoder`."""
+    ``device`` (the mesh's device, with a ``mesh``) from ``generator``
+    (which must live there), held as the ``nn.Parameter``s of a trainable
+    :class:`Decoder`. With a mesh every rank holds a whole replica, so
+    every rank must pass a generator seeded alike."""
     opt = optimizer or make_optimizer()
+    if mesh is not None:
+        check_mesh(mesh)
+        device = mesh.device if device is None else device
     params = Decoder(init_params(cfg, generator, device=device), cfg, trainable=True).params
     return params, opt.init(params)
 

@@ -794,3 +794,65 @@ def test_bf16_fleet_scale_down_on_card_keeps_the_unified_tokens():
         else:
             gap, top = gaps[j]
             assert gap <= 2.0 ** -6 * top, (r.rid, j, gap, top)
+
+
+RING_RANK = """
+import datetime, sys, torch, torch.distributed as dist
+from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
+from gpushare_device_plugin_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from gpushare_device_plugin_tpu_torch.parallel.ring import ring_attention
+
+rank = int(sys.argv[2])
+dist.init_process_group("gloo", init_method=f"file://{sys.argv[1]}", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_mesh(MeshSpec(sp=2), backend="gloo")
+gen = torch.Generator(device="cuda").manual_seed(12)
+S, T = 2048, 1024
+q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+               for s in ((1, S, 32, 128), (1, S, 8, 128), (1, S, 8, 128), (1, S, 32, 128)))
+full = [t.clone().requires_grad_() for t in (q, k, v)]
+want_o = fa.flash_attention(*full, causal=True)
+want = [want_o, *torch.autograd.grad(want_o, full, do)]
+mine = [t[:, rank * T:(rank + 1) * T].clone().requires_grad_() for t in (q, k, v)]
+before = dict(fa.LAUNCHES)
+o = ring_attention(*mine, mesh, causal=True, hop_attention="auto")
+got = [o, *torch.autograd.grad(o, mine, do[:, rank * T:(rank + 1) * T])]
+torch.cuda.synchronize()
+assert fa.LAUNCHES["flash_fwd"] - before["flash_fwd"] == rank + 1, fa.LAUNCHES
+assert fa.LAUNCHES["flash_bwd_dq"] - before["flash_bwd_dq"] == rank + 1, fa.LAUNCHES
+assert mesh.traffic["shift"].calls == 2
+w = [t[:, rank * T:(rank + 1) * T].float() for t in want]
+assert ((got[0].float() - w[0]).abs() <= 2.0 ** -7 * w[0].abs().clamp(min=1)).all()
+for g, x in zip(got[1:], w[1:]):
+    tol = 2.0 ** -7 * x.abs() + 2.0 ** -8 * x.abs().max()
+    assert ((g.float() - x).abs() <= tol).all(), float((g.float() - x).abs().max())
+print("RING-OK", rank, flush=True)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_ring_on_card_matches_one_flash_attention(tmp_path):
+    """Two gloo ranks share the card (each exchange staged through host
+    memory): the causal ring with "auto" hops launches the flash kernels
+    (rank i: i+1 forward and i+1 of each backward kernel) and its O, dQ,
+    dK and dV shards match one flash_attention over the whole sequence
+    by the kernel tolerances above."""
+    _card()
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", RING_RANK, str(tmp_path / "rdv"), str(r)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RING-OK {r}" in out, out[-3000:]

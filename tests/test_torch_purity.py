@@ -13,6 +13,7 @@ import torch
 
 from gpushare_device_plugin_tpu_torch.device import resolve_device
 from gpushare_device_plugin_tpu_torch.ops import _build
+from gpushare_device_plugin_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from gpushare_device_plugin_tpu_torch.serving.engine import PagedSlotEngine, SlotEngine
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
@@ -92,6 +93,8 @@ def test_entry_points_refuse_to_drop_to_cpu(monkeypatch):
         T.init_train_state(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_train_loop(DecoderTask(cfg, batch=1, seq=4), TrainLoopConfig(total_steps=1), 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(MeshSpec())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
