@@ -243,11 +243,33 @@ Phases, each of which fails the run with a non-zero exit:
    mesh, against the 1-rank control's, which it computes itself, leaf by
    leaf by phase 6's rule. Prints each rank's exchanges (calls, bytes
    staged through the host, seconds), each run's step p50 and peak memory.
+20. Tensor parallelism and FSDP on the one card, two gloo ranks as in
+   phase 19. First the three main-path kernels at a tp=2 training rank's
+   shape (2 x 2,048, 16/4 heads, causal) against their plain versions,
+   timed beside SDPA. (a1) ``llama3_8b()`` at 32 layers in bf16 on the
+   reference's ``bench_serve_tp`` trace at its full settings: a solo
+   ``SlotEngine`` here, then ``SlotEngine(mesh=gang_mesh(...))`` on two
+   ranks given a 2-chip gang's env, each drawing its shards of the same
+   seeded weights. (a2) the model cut to 4 layers, eight of phase 13's
+   requests and its four tenants: a solo and a tp ``PagedSlotEngine`` over
+   ``paged_plan_for_slice(n_chips=2)``'s pool. Every rank's tokens must be
+   the solo engine's or pass phase 3's near-tie rule (phase 13's for
+   tenants), its shape guard stay ``{1, 1, 1}``, its ``flash_fwd``
+   launches equal the solo run's, its weights, KV and slab be its shards'
+   bytes (half the solo's; the slab the plan's per-chip charge). (b)
+   ``llama3_8b()`` width at 2 layers, B=2 x 2,048, AdamW with clip_norm
+   1.0, remat "full", 2 steps: a 1-rank control here, then fsdp=2 and tp=2
+   on two ranks. Each rank's first loss by phase 6's rule against the
+   control's, its first-step gradients (its blocks against the control's,
+   summed over the axes a leaf is cut on) leaf by leaf by phase 6's rule,
+   losses falling, launches 4 / 2 / 2, and its parameter and AdamW bytes
+   the sum of its shards'. Prints walls, decode p50, goodput, step p50,
+   peaks and every exchange's calls, bytes and seconds per rank.
 
 The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14, 4, 5,
-6, 9-12, 19. ``python3 chip_smoke.py --phase 17`` (or ``--phase 18``, or
-``--phase 19``) builds the kernels and runs that phase alone on fresh
-weights (a quick check; it prints no contract lines).
+6, 9-12, 19, 20. ``python3 chip_smoke.py --phase 17`` (or ``--phase 18``,
+``--phase 19`` or ``--phase 20``) builds the kernels and runs that phase
+alone on fresh weights (a quick check; it prints no contract lines).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -267,9 +289,11 @@ pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B),
 ``interference`` (phase 16, both tenants), ``disagg`` (phase 17's
 live handoff run, both tiers), ``fleet`` (phase 18's affinity run,
 all three engines), ``ring`` and ``ulysses`` (phase 19 (b)'s runs, both
-ranks); the forward rows carry ``at_draft_shape``, and the main-path
-rows ``at_ring_hop_shape`` and ``at_ulysses_shape`` (phase 19). The line
-before the card's is the script's seconds.
+ranks), ``tp_serve``, ``tp_paged`` and ``tp_train`` (phase 20's (a1),
+(a2) and (b), both ranks, (b) both meshes); the forward rows carry
+``at_draft_shape``, and the main-path rows ``at_ring_hop_shape``,
+``at_ulysses_shape`` (phase 19) and ``at_tp_train_shape`` (phase 20). The
+line before the card's is the script's seconds.
 """
 
 from __future__ import annotations
@@ -294,12 +318,19 @@ import torch.nn.functional as F
 from gpushare_device_plugin_tpu_torch import const
 from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
-from gpushare_device_plugin_tpu_torch.parallel.collectives import all_reduce_sum_
-from gpushare_device_plugin_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from gpushare_device_plugin_tpu_torch.parallel.collectives import all_reduce, all_reduce_sum_
+from gpushare_device_plugin_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshSpec,
+    make_mesh,
+    shard,
+    shard_axes,
+)
 from gpushare_device_plugin_tpu_torch.parallel.podenv import (
     MEMORY_FRACTION,
     PodTpuEnv,
     configure_torch_from_env,
+    gang_mesh,
     initialize_multihost,
 )
 from gpushare_device_plugin_tpu_torch.parallel.ring import ring_attention
@@ -314,6 +345,7 @@ from gpushare_device_plugin_tpu_torch.serving.engine import (
     poisson_trace,
     shared_prefix_trace,
 )
+from gpushare_device_plugin_tpu_torch.serving.pages import paged_plan_for_slice
 from gpushare_device_plugin_tpu_torch.serving.profiler import ceil_rank_quantile
 from gpushare_device_plugin_tpu_torch.utils import metric_catalog as MC
 from gpushare_device_plugin_tpu_torch.utils import tracing
@@ -326,7 +358,7 @@ from gpushare_device_plugin_tpu_torch.workloads import mnist
 from gpushare_device_plugin_tpu_torch.workloads import resnet as R
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
 from gpushare_device_plugin_tpu_torch.workloads.attention import ulysses_inner_attn
-from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+from gpushare_device_plugin_tpu_torch.workloads.optim import make_optimizer, tree_leaves
 from gpushare_device_plugin_tpu_torch.workloads.trainer import (
     BertTask,
     DecoderTask,
@@ -526,11 +558,38 @@ CP_SEED = 19
 CP_ATTN_S, CP_ATTN_RANKS, CP_ATTN_UNITS = 16384, 4, 8
 CP_TRAIN_S, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 8192, 2, 3
 CP_TRAIN_RANKS, CP_TRAIN_UNITS = 2, 36
-# The kernels at the phase's new shapes: (S, H, Hkv, causal).
-CP_KERNEL_SHAPES = {"ring_hop": (CP_ATTN_S // CP_ATTN_RANKS, 32, 8, False),
-                    "ulysses": (CP_TRAIN_S, 32 // CP_TRAIN_RANKS, 8 // CP_TRAIN_RANKS, True)}
+# The kernels at the phase's new shapes: (B, S, H, Hkv, causal).
+CP_KERNEL_SHAPES = {"ring_hop": (1, CP_ATTN_S // CP_ATTN_RANKS, 32, 8, False),
+                    "ulysses": (1, CP_TRAIN_S, 32 // CP_TRAIN_RANKS, 8 // CP_TRAIN_RANKS, True)}
 CP_COLLECTIVE_TIMEOUT_S = 300  # a rank's rendezvous and each collective
 CP_TIMEOUT_S = 600  # a run of ranks, start to exit
+# Phase 20: tensor parallelism and FSDP on the one card, TP_RANKS gloo
+# ranks. (a1) the reference's bench_serve_tp trace at its full settings
+# (bench_mfu.py): slots 8, max_len 1,024, chunk 256, 24 requests, prompts
+# 64-512, max_new drawn from (16, 24, 32, 192), seed 13, on llama3_8b() at
+# 32 layers; each rank holds half the weights (8.0 GB) and half the KV,
+# inside a TP_SERVE_UNITS-GiB share of the card (its init draws the
+# largest leaf, wi at 7.5 GB in bf16, whole). (a2) the first
+# TP_PAGED_REQUESTS requests of phase 13's trace and its four tenants on
+# the model cut to TP_PAGED_LAYERS layers (at 16, the ranks' part took
+# 20-25 s on one H100, at 8 13-17 s, which the script's time limit cannot
+# spare), the
+# pool sized by paged_plan_for_slice for a TP_PAGED_UNITS-GiB share of each
+# of the two chips. (b) llama3_8b() width at TP_TRAIN_LAYERS layers, B=2 x 2,048,
+# AdamW with clip_norm 1.0, remat "full", 2 steps (3 took 10-12 s more on
+# one H100, which the script's time limit cannot spare): a 1-rank control,
+# then fsdp=2, then tp=2 in the same two ranks (each rank also computes the
+# control's first-step gradients and holds its own blocks against them).
+TP_SEED, TP_RANKS = 20, 2
+TP_SERVE_KW = dict(slots=8, max_len=1024, prefill_chunk=256, eos_id=EOS_ID)
+TP_TRACE = dict(n=24, seed=13, rate=0.2, prompt_lens=(64, 512), max_new=[16, 24, 32, 192])
+TP_SERVE_UNITS = 24
+TP_PAGED_LAYERS, TP_PAGED_REQUESTS, TP_PAGED_UNITS = 4, 8, 12
+TP_PAGED_GEO = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
+TP_TRAIN_LAYERS, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 2, 2, 2048, 2
+TP_TRAIN_UNITS, TP_CLIP_NORM = 36, 1.0
+# The kernels at a tp=2 training rank's shape: (B, S, H, Hkv, causal).
+TP_KERNEL_SHAPES = {"tp_train": (TP_TRAIN_B, TP_TRAIN_S, 32 // TP_RANKS, 8 // TP_RANKS, True)}
 # Phase 6, flash vs plain at full width in bf16: the kernels round P and dS
 # to bf16 where the plain path keeps f32 softmax (and its bf16 scores), so
 # the losses may differ by one bf16 step and each gradient leaf by 2^-5 in
@@ -1782,6 +1841,20 @@ def plugin_env(units: int) -> dict[str, str]:
     }
 
 
+def gang_env(units: int, n: int) -> dict[str, str]:
+    """What the plugin's Allocate() injects for an ``n``-chip gang of
+    ``units`` GiB a chip. Here every member is card 0 (one card), so each
+    rank sees that card and is capped at its per-chip share of it."""
+    return {
+        const.ENV_TPU_VISIBLE_CHIPS: "0",
+        const.ENV_GANG_CHIPS: ",".join(str(i) for i in range(n)),
+        const.ENV_GANG_SHAPE: f"{n}x1x1",
+        const.ENV_GANG_PER_CHIP: str(units),
+        const.ENV_MEM_CONTAINER: str(units * n),
+        const.ENV_MEM_DEV: str(card_gib()),
+    }
+
+
 def train_pod(workload: str, batch: int, steps: int) -> tuple[dict, object, object]:
     """Train one pod's workload on the card: MNIST through ``mnist.train``,
     BERT-base and ResNet-50 through ``run_train_loop``. Returns (report,
@@ -1822,6 +1895,13 @@ def train_pod(workload: str, batch: int, steps: int) -> tuple[dict, object, obje
     if workload == "resnet":
         report["images_per_s"] = batch / p50
     return report, task, state
+
+
+def after_first_p50(step_s) -> float:
+    """The p50 of the step times after the first (which carries the
+    warmup), or the first when it is the only one."""
+    rest = sorted(step_s[1:] or step_s)
+    return rest[len(rest) // 2]
 
 
 def falling(losses) -> bool:
@@ -2895,30 +2975,61 @@ def cp_train_rank(mesh, scheme: str) -> dict:
     return doc
 
 
-def run_ranks(job: str, n: int, units: int, workdir: str) -> list[dict]:
-    """Start ``n`` phase-19 ranks of ``job`` at once, each with the plugin's
-    env for a ``units``-GiB slice and the multi-host env of an n-process
-    world on localhost; wait for all (a watchdog kills every one past
-    CP_TIMEOUT_S). Returns their JSON documents by rank; raises if any rank
-    fails."""
+def run_ranks(job: str, n: int, units: int, workdir: str, *, entry: str = "cp_rank_main",
+              phase: str = "phase 19", gang: bool = False) -> list[dict]:
+    """Start ``n`` ranks of ``job`` at once (``chip_smoke.<entry>`` in
+    children), each with the plugin's env for a ``units``-GiB slice (with
+    ``gang``, the env of an n-chip gang grant of ``units`` GiB a chip) and
+    the multi-host env of an n-process world on localhost; wait for all (a
+    watchdog kills every one past CP_TIMEOUT_S). Returns their JSON
+    documents by rank; raises if any rank fails."""
+    return collect_ranks(start_ranks(job, n, units, workdir, entry=entry, gang=gang), phase)
+
+
+def start_ranks(job: str, n: int, units: int, workdir: str, *, entry: str,
+                gang: bool = False):
+    """:func:`run_ranks`' start: the ranks run on while the caller works;
+    hand the result to :func:`collect_ranks`."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     procs = []
     for rank in range(n):
         env = {k: v for k, v in os.environ.items() if k != const.ENV_CUDA_VISIBLE_DEVICES}
-        env.update(plugin_env(units))
+        env.update(gang_env(units, n) if gang else plugin_env(units))
         env.update({const.ENV_COORDINATOR_ADDRESS: f"127.0.0.1:{port}",
                     const.ENV_NUM_PROCESSES: str(n), const.ENV_PROCESS_ID: str(rank)})
         log = open(os.path.join(workdir, f"{job}-{rank}.log"), "w+")
-        code = "import sys, chip_smoke; sys.exit(chip_smoke.cp_rank_main(sys.argv[1:]))"
+        code = f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}(sys.argv[1:]))"
         procs.append((subprocess.Popen(
             [sys.executable, "-c", code, job, workdir],
             cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
             stdout=log, stderr=subprocess.STDOUT, text=True), log))
     watchdog = threading.Timer(CP_TIMEOUT_S, lambda: [p.kill() for p, _ in procs])
     watchdog.start()
+    return job, procs, watchdog
+
+
+def wait_ready(handle, workdir: str, phase: str) -> None:
+    """Wait until every rank of :func:`start_ranks` wrote its
+    ``ready-<rank>`` file; a rank that ends first fails the phase (the
+    caller then stops the others with :func:`collect_ranks`)."""
+    _, procs, _ = handle
+    while not all(os.path.exists(os.path.join(workdir, f"ready-{r}")) for r in range(len(procs))):
+        if any(p.poll() is not None for p, _ in procs):
+            raise SystemExit(f"{phase} failed: a rank ended before it was ready")
+        time.sleep(0.05)
+
+
+def collect_ranks(handle, phase: str, kill: bool = False) -> list[dict]:
+    """Wait for the ranks of :func:`start_ranks` (``kill``: stop them first,
+    when the caller failed meanwhile); their JSON documents by rank, or
+    raise if any rank failed."""
+    job, procs, watchdog = handle
     try:
+        if kill:
+            for p, _ in procs:
+                p.kill()
         codes = [p.wait() for p, _ in procs]
     finally:
         watchdog.cancel()
@@ -2933,19 +3044,19 @@ def run_ranks(job: str, n: int, units: int, workdir: str) -> list[dict]:
         else:
             docs.append(json.loads(lines[-1]))
     if fail:
-        raise SystemExit(f"phase 19 failed ({job}): " + "; ".join(fail))
+        raise SystemExit(f"{phase} failed ({job}): " + "; ".join(fail))
     return docs
 
 
-def cp_kernel_rows(gen) -> dict:
-    """The three main-path kernels at this phase's new shapes against their
-    plain versions, each with its time, bound and PyTorch's SDPA: the
-    ring's non-causal hop (1 x 4,096 of phase (a)'s ring, 32/8 heads) and
-    Ulysses's whole-sequence call at sp=2 (1 x 8,192, 16/4 heads, causal;
-    phase (b)). Returns rows by (entry, shape label)."""
+def cp_kernel_rows(gen, shapes=CP_KERNEL_SHAPES, phase: str = "phase 19") -> dict:
+    """The three main-path kernels at a phase's new ``shapes`` against their
+    plain versions, each with its time, bound and PyTorch's SDPA. Phase
+    19's: the ring's non-causal hop (1 x 4,096 of phase (a)'s ring, 32/8
+    heads) and Ulysses's whole-sequence call at sp=2 (1 x 8,192, 16/4
+    heads, causal; phase (b)). Returns rows by (entry, shape label)."""
     rows, failures = {}, 0
-    for label, (S, H, Hkv, causal) in CP_KERNEL_SHAPES.items():
-        q, k, v = attention_inputs(gen, 1, S, H, Hkv, 128, torch.bfloat16)
+    for label, (Bk, S, H, Hkv, causal) in shapes.items():
+        q, k, v = attention_inputs(gen, Bk, S, H, Hkv, 128, torch.bfloat16)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
         bounds = dict(causal=causal, start=None, kv_len=None)
         sc = 128 ** -0.5
@@ -2962,7 +3073,7 @@ def cp_kernel_rows(gen) -> dict:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
         rows[("flash_fwd", label)] = dict(
-            shape=f"bf16 B=1 S={S} H={H} Hkv={Hkv} D=128 " + ("causal" if causal else "non-causal"),
+            shape=f"bf16 B={Bk} S={S} H={H} Hkv={Hkv} D=128 " + ("causal" if causal else "non-causal"),
             max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib_ms, tflops=flops / ms / 1e9,
             bound_fraction=bound_ms / ms)
@@ -2992,7 +3103,7 @@ def cp_kernel_rows(gen) -> dict:
     for key, row in rows.items():
         print("  ", key[1], key[0], json.dumps(row), flush=True)
     if failures:
-        raise SystemExit(f"phase 19 failed: {failures} kernel case(s) out of tolerance")
+        raise SystemExit(f"{phase} failed: {failures} kernel case(s) out of tolerance")
     return rows
 
 
@@ -3088,6 +3199,441 @@ def phase_context_parallel(gen) -> tuple[dict, dict, dict, dict]:
     if fail:
         raise SystemExit("phase 19 failed: " + "; ".join(fail))
     return launches["ring"], launches["ulysses"], rows, report
+
+
+def nbytes(tree) -> int:
+    """Bytes of a tree's tensors (lists and dicts; a cache's ``len`` too)."""
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def shard_bytes(cfg, mesh_shape: dict, itemsize: int, norms_itemsize: int = 4) -> int:
+    """Bytes of one rank's shards of ``cfg``'s params (matmul weights and
+    the embedding at ``itemsize``, the norms' gains at ``norms_itemsize``),
+    from the shapes and the pruned specs alone."""
+
+    # rank 0 of the mesh, with no groups: the spec arithmetic needs only its shape
+    mesh = Mesh(MeshSpec(**mesh_shape), rank=0, device=torch.device("cpu"), backend="gloo",
+                groups={}, ranks={})
+    specs = T._flatten(T.param_shardings(mesh, cfg))
+    total = 0
+    for name, shape in T._flatten(T.param_shapes(cfg)).items():
+        size = itemsize if name not in ("layers__ln1", "layers__ln2", "final_norm") \
+            else norms_itemsize
+        total += int(np.prod(T.local_shape(shape, specs[name], mesh))) * size
+    return total
+
+
+def tp_paged_plan(cfg):
+    """Phase 20 (a2)'s pool: paged_plan_for_slice over a TP_PAGED_UNITS-GiB
+    share of each of TP_RANKS chips, for the adapters' slab too."""
+    return paged_plan_for_slice(
+        TP_PAGED_UNITS * 2**30, cfg, TP_PAGED_GEO["max_len"], page_size=TP_PAGED_GEO["page_size"],
+        prefill_chunk=TP_PAGED_GEO["prefill_chunk"], weight_bytes=shard_bytes(cfg, {}, 2),
+        slots=8, lora=True, n_chips=TP_RANKS)
+
+
+def tp_serve_run(engine, trace, mesh=None) -> dict:
+    """Warm ``engine`` up, then serve ``trace`` with the launch counts set to
+    0 just before; returns the tokens by rid and the run's numbers."""
+    engine.warmup()
+    fresh_run()
+    if mesh is not None:
+        mesh.traffic.clear()
+    stats = engine.run(trace)
+    torch.cuda.synchronize()
+    summary = stats.summary()
+    doc = {
+        "tokens": {r.rid: r.tokens for r in stats.results},
+        "wall_s": summary["wall_s"], "ticks": summary["ticks"],
+        "goodput_tokens_per_s": summary["goodput_tokens_per_s"],
+        "decode_step_p50_ms": engine.profiler.p50() * 1e3,
+        "shape_guard": stats.trace_counts, "launches": dict(fa.LAUNCHES),
+        "weight_bytes": nbytes(engine.params),
+        "kv_bytes": nbytes({k: v for k, v in engine.cache.items() if k != "len"}),
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if getattr(engine, "adapters", None) is not None:
+        doc["slab_bytes"] = nbytes(engine._lora_slab)
+        doc["pages_per_adapter"] = engine.pages_per_adapter
+    if mesh is not None:
+        doc["exchanges"] = {kind: dataclasses.asdict(t) for kind, t in mesh.traffic.items()}
+    return doc
+
+
+def tp_paged_setup(cfg, params):
+    """(a2)'s config, layers, trace, plan and engine geometry from the 32-layer
+    ``cfg`` and ``params`` (whole or a rank's shards): the first
+    TP_PAGED_LAYERS layers, copied out so the rest can be freed."""
+    cfg16 = dataclasses.replace(cfg, n_layers=TP_PAGED_LAYERS)
+    params16 = {**params, "layers": {k: v[:TP_PAGED_LAYERS].clone()
+                                     for k, v in params["layers"].items()}}
+    trace = paged_trace(cfg16, seed=LORA_TRACE_SEED,
+                        adapters=[*LORA_TENANTS, ""])[:TP_PAGED_REQUESTS]
+    plan = tp_paged_plan(cfg16)
+    return cfg16, params16, trace, plan
+
+
+def tp_lora_cfg():
+    return L.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=LORA_TARGETS)
+
+
+def tp_rank_main(argv: list[str]) -> int:
+    """One rank of phase 20, in a child whose env is the plugin's (a gang's
+    for "serve") plus the multi-host bootstrap: cap the process, join the
+    gloo world, run ``argv = [job, workdir]``: "serve" on the gang's tp
+    mesh from the env, or "train" at ``MeshSpec(fsdp=n)`` and then at
+    ``MeshSpec(tp=n)``. Prints one JSON line."""
+    job, workdir = argv[0], argv[1]
+    configure_torch_from_env()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = initialize_multihost(backend="gloo", timeout_s=CP_COLLECTIVE_TIMEOUT_S)
+    if job == "serve":
+        mesh = gang_mesh(backend="gloo")
+        doc = tp_serve_rank(mesh, workdir)
+    else:
+        control = tp_control_grads()
+        doc = {}
+        for kind in ("fsdp", "tp"):
+            mesh = make_mesh(MeshSpec(**{kind: spec.num_processes}), backend="gloo")
+            doc[kind] = tp_train_rank(mesh, control)
+        del control
+    print(json.dumps({"job": job, "rank": mesh.rank, "device": str(mesh.device), **doc}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_serve_rank(mesh, workdir: str) -> dict:
+    """Phase 20 (a1) and (a2) on one rank of the gang: the rank's shards of
+    phase 20's seeded 8B weights (each leaf drawn whole, then cut), served
+    by the tp SlotEngine, then by the tp PagedSlotEngine with the parent's
+    adapters. The ranks start while the parent prepares its solo engines:
+    each says when it holds its shards (a "ready-<rank>" file), and the
+    parent runs its timed solo engines only then and writes its "go" file
+    (the adapters written by then) after them, so no rank works beside a
+    timed solo run."""
+    cfg = llama3_8b()
+    gen = torch.Generator(device=mesh.device).manual_seed(TP_SEED)
+    params = init_params(cfg, gen, device=mesh.device, dtype=torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    open(os.path.join(workdir, f"ready-{mesh.rank}"), "w").close()
+    deadline = time.perf_counter() + CP_TIMEOUT_S
+    while not os.path.exists(os.path.join(workdir, "go")):
+        if time.perf_counter() > deadline:
+            raise SystemExit("phase 20: the parent never wrote its go file")
+        time.sleep(0.05)
+    trace = poisson_trace(vocab=cfg.vocab, **TP_TRACE)
+    out = {"serve": tp_serve_run(SlotEngine(params, cfg, mesh=mesh, **TP_SERVE_KW), trace, mesh)}
+    gc.collect()
+    cfg16, params16, ptrace, plan = tp_paged_setup(cfg, params)
+    del params
+    gc.collect()
+    store = torch.load(os.path.join(workdir, "adapters.pt"), weights_only=True)
+    engine = PagedSlotEngine(params16, cfg16, mesh=mesh, slots=plan.slots,
+                             total_pages=plan.total_pages, lora_store=store,
+                             lora_cfg=tp_lora_cfg(), **TP_PAGED_GEO)
+    out["paged"] = tp_serve_run(engine, ptrace, mesh)
+    return out
+
+
+def tp_first_batch(cfg) -> torch.Tensor:
+    """The global batch ``run_train_loop`` makes for step 0 at TP_SEED."""
+    gen = torch.Generator().manual_seed(fold_in(fold_in(TP_SEED, 1), 0))
+    return DecoderTask(cfg, batch=TP_TRAIN_B, seq=TP_TRAIN_S).make_batch(gen, 0)
+
+
+def tp_train_cfg():
+    return dataclasses.replace(llama3_8b(), n_layers=TP_TRAIN_LAYERS)
+
+
+def tp_control_grads() -> list:
+    """The 1-rank control's first-step gradients (no mesh), on the card."""
+    cfg = tp_train_cfg()
+    whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(fold_in(TP_SEED, 0)),
+                        device="cuda")
+    leaves = [t.requires_grad_() for t in tree_leaves(whole)]
+    loss = T.loss_fn(whole, tp_first_batch(cfg).cuda(), cfg)
+    control = [g.detach() for g in torch.autograd.grad(loss, leaves)]
+    del whole, leaves, loss
+    gc.collect()
+    return control
+
+
+def tp_train_rank(mesh, control) -> dict:
+    """Phase 20 (b) on one rank of ``mesh``: ``run_train_loop`` for
+    TP_TRAIN_STEPS steps on the rank's shards. The first step's gradients,
+    each leaf summed over its axes, are held against the 1-rank
+    ``control``'s as the optimizer receives them: each rank compares its
+    block, and the squared sums are added over the axes a leaf is cut on
+    (its first loss is the loop's first)."""
+    cfg = tp_train_cfg()
+    doc: dict = {"mesh": mesh.shape}
+    opt = make_optimizer(clip_norm=TP_CLIP_NORM)
+    update = opt.update
+
+    def checked_update(grads, state, params, **kw):
+        if "grad_rel_by_leaf" not in doc:
+            # per leaf: |g - control|^2, |control|^2 and |g|^2 over this
+            # rank's block, summed over the axes the leaf is cut on
+            specs = T.leaf_specs(params, mesh, cfg)
+            sq = torch.stack([torch.stack([(g.float() - c.float()).square().sum(),
+                                           c.float().square().sum(), g.float().square().sum()])
+                              for g, c in zip(grads, (shard(c, mesh, sp) for c, sp in
+                                                      zip(control, specs)))], 1)
+            for axis in mesh.shape:
+                on = torch.tensor([axis in shard_axes(sp) for sp in specs], device=sq.device)
+                if bool(on.any()):
+                    sq = torch.where(on, all_reduce(sq, mesh, axis), sq)
+            sq = sq.tolist()
+            doc["grad_rel_by_leaf"] = {name: math.sqrt(d / c) for name, d, c in
+                                       zip(T._flatten(params), sq[0], sq[1])}
+            doc["zero_grads"] = [name for name, n in zip(T._flatten(params), sq[2])
+                                 if not (math.isfinite(n) and n > 0)]
+        return update(grads, state, params, **kw)
+
+    opt.update = checked_update
+    fresh_run()
+    mesh.traffic.clear()
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_metrics(step, value):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(value)
+
+    task = DecoderTask(cfg, batch=TP_TRAIN_B, seq=TP_TRAIN_S, optimizer=opt)
+    state, _ = run_train_loop(task, TrainLoopConfig(total_steps=TP_TRAIN_STEPS, log_every=1),
+                              TP_SEED, mesh=mesh, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    per_run = TP_TRAIN_LAYERS * TP_TRAIN_STEPS
+    doc.update(
+        first_loss=losses[0], losses=losses, step_s=step_s, step_p50_s=after_first_p50(step_s),
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        launches=dict(fa.LAUNCHES),
+        # forward and the recompute of remat "full", then the backward, each
+        # on the rank's heads (tp) or its batch row (fsdp): one call a layer
+        expected_launches={e: 0 for e in fa.LAUNCHES} | {
+            "flash_fwd": 2 * per_run, "flash_bwd_dq": per_run, "flash_bwd_dkv": per_run},
+        param_bytes=nbytes(state[0]), adam_bytes=nbytes(state[1]),
+        expected_param_bytes=shard_bytes(cfg, mesh.shape, 4),
+        exchanges={kind: dataclasses.asdict(t) for kind, t in mesh.traffic.items()},
+    )
+    return doc
+
+
+def tp_check_serve(label, cfg, trace, solo, docs, fail, *, solos_for, expect_kv,
+                   expect_slab=None) -> dict:
+    """Hold every rank of (a1) or (a2) against the solo run: tokens (equal,
+    or the near-tie rule against solo decode of ``solos_for(req)``'s
+    weights, one tenant's at a time), shape guard, flash launches, and the
+    bytes a rank holds. Returns the report's row."""
+    by_rid = {r.rid: r for r in trace}
+    row = {"solo": {k: v for k, v in solo.items() if k != "tokens"}, "ranks": []}
+    held = []  # (adapter, rid, rank, tokens) to hold against solo decode
+    want_w = shard_bytes(cfg, {"tp": TP_RANKS}, 2)
+    for doc in docs:
+        run = doc[label]
+        tag = f"({label}) rank {doc['rank']}"
+        tokens = {int(k): v for k, v in run.pop("tokens").items()}
+        if set(tokens) != set(solo["tokens"]):
+            fail.append(f"{tag}: served {sorted(tokens)}")
+            continue
+        run["equal_to_solo"] = sum(got == solo["tokens"][rid] for rid, got in tokens.items())
+        held += [(by_rid[rid].adapter_id, rid, doc["rank"], got)
+                 for rid, got in tokens.items() if got != solo["tokens"][rid]]
+        if run["shape_guard"] != {"prefill": 1, "extend": 1, "decode": 1}:
+            fail.append(f"{tag}: shape guard {run['shape_guard']}")
+        if run["launches"]["flash_fwd"] != solo["launches"]["flash_fwd"] or \
+                run["launches"]["flash_fwd_scalar"]:
+            fail.append(f"{tag}: launches {run['launches']} vs solo {solo['launches']}")
+        if run["weight_bytes"] != want_w or 2 * run["kv_bytes"] != solo["kv_bytes"] or \
+                run["kv_bytes"] != expect_kv:
+            fail.append(f"{tag}: weights {run['weight_bytes']} (want {want_w}), kv "
+                        f"{run['kv_bytes']} (solo {solo['kv_bytes']}, want {expect_kv})")
+        if expect_slab is not None and run["slab_bytes"] != expect_slab:
+            fail.append(f"{tag}: slab {run['slab_bytes']} != the plan's {expect_slab}")
+        run["weight_share_of_solo"] = run["weight_bytes"] / solo["weight_bytes"]
+        row["ranks"].append(run)
+    diverged, solos = [], {}
+    for aid, rid, rank, got in sorted(held, key=lambda h: (h[0], h[1], h[2])):
+        weights, gap_rel = solos_for(by_rid[rid])
+        diverged += [dict(d, rank=rank) for d in check_vs_solo(
+            f"phase 20 ({label})", weights, cfg, by_rid[rid], got,
+            solos=solos.setdefault(aid, {}), gap_rel=gap_rel)]
+    row["diverged_at_near_ties"] = diverged
+    print(f"   {label}", json.dumps(row), flush=True)
+    return row
+
+
+def tp_control_run() -> dict:
+    """Phase 20 (b)'s 1-rank control: ``run_train_loop`` here, no mesh."""
+    fresh_run()
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_metrics(step, value):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(value)
+
+    task = DecoderTask(tp_train_cfg(), batch=TP_TRAIN_B, seq=TP_TRAIN_S,
+                       optimizer=make_optimizer(clip_norm=TP_CLIP_NORM))
+    state, _ = run_train_loop(task, TrainLoopConfig(total_steps=TP_TRAIN_STEPS, log_every=1),
+                              TP_SEED, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    control = {"losses": losses, "step_s": step_s, "step_p50_s": after_first_p50(step_s),
+               "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "param_bytes": nbytes(state[0]), "adam_bytes": nbytes(state[1]),
+               "launches": dict(fa.LAUNCHES)}
+    print("   control", json.dumps(control), flush=True)
+    return control
+
+
+def tp_check_train(docs, control, fail) -> tuple[dict, dict]:
+    """Hold (b)'s ranks against the control; returns their launches (both
+    meshes, both ranks) and the report's rows."""
+    losses = control["losses"]
+    launches, rows = {e: 0 for e in fa.LAUNCHES}, {}
+    for kind in ("fsdp", "tp"):
+        rows[kind] = [dict(d[kind], rank=d["rank"]) for d in docs]
+        for doc in rows[kind]:
+            for e in fa.LAUNCHES:
+                launches[e] += doc["launches"][e]
+            doc["state_share_of_control"] = ((doc["param_bytes"] + doc["adam_bytes"])
+                                             / (control["param_bytes"] + control["adam_bytes"]))
+            print(f"   {kind}", json.dumps(doc), flush=True)
+            tag = f"(b) {kind}=2 rank {doc['rank']}"
+            if abs(doc["first_loss"] - losses[0]) > GRAD_LOSS_REL * abs(losses[0]):
+                fail.append(f"{tag}: first loss {doc['first_loss']} vs control {losses[0]}")
+            if not falling(doc["losses"]):
+                fail.append(f"{tag}: losses {doc['losses']}")
+            if doc["launches"] != doc["expected_launches"]:
+                fail.append(f"{tag}: launches {doc['launches']} != {doc['expected_launches']}")
+            if doc["param_bytes"] != doc["expected_param_bytes"] or \
+                    doc["adam_bytes"] != 2 * doc["param_bytes"] + 8:
+                fail.append(f"{tag}: params {doc['param_bytes']} (want "
+                            f"{doc['expected_param_bytes']}), AdamW {doc['adam_bytes']}")
+            bad = {nm: e for nm, e in doc.get("grad_rel_by_leaf", {}).items()
+                   if not e <= GRAD_LEAF_REL}
+            if bad or doc["zero_grads"]:
+                fail.append(f"{tag}: gradients {bad}, zero {doc['zero_grads']}")
+    return launches, rows
+
+
+def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
+    """Phase 20; returns the kernel launches of (a1), (a2) and (b) (each
+    summed over its ranks, (b) over both meshes), the kernel rows at a tp=2
+    training rank's shape, and a report. Order: the kernels; (b)'s control
+    (its 34 GB peak alone on the card); the solo engines; the serving
+    ranks; then (b)'s ranks, which run while this process holds the
+    serving ranks' tokens to solo decode."""
+    print(f"phase 20: tensor parallelism and FSDP, {TP_RANKS} gloo ranks on one card",
+          flush=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = cp_kernel_rows(gen, TP_KERNEL_SHAPES, "phase 20")
+    report: dict = {}
+    fail: list[str] = []
+    t0 = time.perf_counter()
+    control = tp_control_run()
+    per_run = TP_TRAIN_LAYERS * TP_TRAIN_STEPS
+    want = {e: 0 for e in fa.LAUNCHES} | {"flash_fwd": 2 * per_run,
+                                          "flash_bwd_dq": per_run, "flash_bwd_dkv": per_run}
+    if control["launches"] != want:
+        fail.append(f"(b) control launches {control['launches']} != {want}")
+    if not falling(control["losses"]):
+        fail.append(f"(b) control losses {control['losses']}")
+    report["control"] = control
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["control_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as workdir:
+        # (a1) and (a2): the gang's two ranks start and draw their shards
+        # while this process prepares the solo engines, which run once the
+        # ranks are ready; the ranks serve on the "go" file after them.
+        t0 = time.perf_counter()
+        serving = start_ranks("serve", TP_RANKS, TP_SERVE_UNITS, workdir, entry="tp_rank_main",
+                              gang=True)
+        try:
+            cfg = llama3_8b()
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(TP_SEED),
+                                 device="cuda", dtype=torch.bfloat16)
+            trace = poisson_trace(vocab=cfg.vocab, **TP_TRACE)
+            cfg16, params16, ptrace, plan = tp_paged_setup(cfg, params)
+            lcfg = tp_lora_cfg()
+            store, _ = lora_store_for(params16, cfg16, lcfg)
+            torch.save(store, os.path.join(workdir, "adapters.pt"))
+            wait_ready(serving, workdir, "phase 20")
+            solo_a1 = tp_serve_run(SlotEngine(params, cfg, **TP_SERVE_KW), trace)
+            gc.collect()
+            solo_a2 = tp_serve_run(
+                PagedSlotEngine(params16, cfg16, slots=plan.slots, total_pages=plan.total_pages,
+                                lora_store=store, lora_cfg=lcfg, **TP_PAGED_GEO), ptrace)
+            gc.collect()
+            torch.cuda.empty_cache()
+        except BaseException:
+            collect_ranks(serving, "phase 20", kill=True)
+            raise
+        report["solo_s"] = time.perf_counter() - t0
+        open(os.path.join(workdir, "go"), "w").close()
+        docs = collect_ranks(serving, "phase 20")
+        report["ranks_serve_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        training = start_ranks("train", TP_RANKS, TP_TRAIN_UNITS, workdir, entry="tp_rank_main")
+        try:
+            launches_serve = {e: sum(d["serve"]["launches"][e] for d in docs)
+                              for e in fa.LAUNCHES}
+            launches_paged = {e: sum(d["paged"]["launches"][e] for d in docs)
+                              for e in fa.LAUNCHES}
+            report["serve"] = tp_check_serve(
+                "serve", cfg, trace, solo_a1, docs, fail,
+                solos_for=lambda req: (params, TOP2_GAP_REL),
+                expect_kv=solo_a1["kv_bytes"] // TP_RANKS)
+            merged = {}
+
+            def merged_for(req):
+                aid = req.adapter_id
+                if aid not in merged:
+                    merged.clear()
+                    gc.collect()
+                    adapter = {n: {k: v.cuda() for k, v in ab.items()} for n, ab in
+                               store[aid].items()} if aid else None
+                    merged[aid] = L.merge_lora(params16, adapter, lcfg) if aid else params16
+                return merged[aid], LORA_TOP2_GAP_REL
+
+            report["paged"] = tp_check_serve(
+                "paged", cfg16, ptrace, solo_a2, sorted(docs, key=lambda d: d["rank"]), fail,
+                solos_for=merged_for, expect_kv=plan.kv_bytes, expect_slab=plan.adapter_bytes)
+            report["paged"]["plan"] = dataclasses.asdict(plan)
+            report["serve_checks_s"] = time.perf_counter() - t0
+            del params, params16, store, merged
+            gc.collect()
+            torch.cuda.empty_cache()
+        except BaseException:
+            collect_ranks(training, "phase 20", kill=True)
+            raise
+        docs = collect_ranks(training, "phase 20")
+        report["ranks_train_s"] = time.perf_counter() - t0
+        launches_train, train_rows = tp_check_train(docs, control, fail)
+        report.update(train_rows)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 20: {report['seconds']:.1f} s (control {report['control_s']:.1f}, solo "
+          f"{report['solo_s']:.1f}, serving ranks from their start {report['ranks_serve_s']:.1f}, "
+          "training "
+          f"ranks {report['ranks_train_s']:.1f}, of which the serving checks "
+          f"{report['serve_checks_s']:.1f})", flush=True)
+    if fail:
+        raise SystemExit("phase 20 failed: " + "; ".join(fail))
+    return launches_serve, launches_paged, launches_train, rows, report
 
 
 def pod_main(argv: list[str]) -> int:
@@ -3305,7 +3851,7 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20),
                     help="build the kernels and run only this phase (a quick check; "
                          "the contract's lines are not printed)")
     args = ap.parse_args(argv)
@@ -3325,6 +3871,12 @@ def main(argv: list[str]) -> int:
         print(_build.build_log(name).strip(), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.phase == 20:
+        tp_serve, tp_paged, tp_train, _, report = phase_tensor_parallel(gen)
+        print(f"phase 20: {report['seconds']:.1f} s; launches tp_serve {json.dumps(tp_serve)}, "
+              f"tp_paged {json.dumps(tp_paged)}, tp_train {json.dumps(tp_train)}; chip_smoke: "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+        return 0
     if args.phase == 19:
         ring, ulysses, _, report = phase_context_parallel(gen)
         print(f"phase 19: {report['seconds']:.1f} s; launches ring {json.dumps(ring)}, ulysses "
@@ -3376,12 +3928,18 @@ def main(argv: list[str]) -> int:
     print(f"phases 9-12: {time.perf_counter() - t0:.1f} s", flush=True)
     ring_launches, ulysses_launches, cp_rows, cp_report = phase_context_parallel(gen)
     print(f"phase 19: {cp_report['seconds']:.1f} s", flush=True)
+    tp_serve_launches, tp_paged_launches, tp_train_launches, tp_rows, tp_report = \
+        phase_tensor_parallel(gen)
+    print(f"phase 20: {tp_report['seconds']:.1f} s", flush=True)
+    cp_rows = {**cp_rows, **tp_rows}
 
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
              "lora_train": lora_train_launches, "spec_serve": spec_launches,
              "interference": interference_launches, "disagg": disagg_launches,
-             "fleet": fleet_launches, "ring": ring_launches, "ulysses": ulysses_launches}
+             "fleet": fleet_launches, "ring": ring_launches, "ulysses": ulysses_launches,
+             "tp_serve": tp_serve_launches, "tp_paged": tp_paged_launches,
+             "tp_train": tp_train_launches}
     cp_numbers = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                   "tflops", "bound_fraction")
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
@@ -3413,7 +3971,8 @@ def main(argv: list[str]) -> int:
                          "(the Llama-3.2-1B-shaped draft's prefill, phase 15)",
                 **{k: forward[(entry, "draft")][k] for k in fwd_numbers}},
             **({f"at_{label}_shape": {k: cp_rows[(entry, label)][k] for k in cp_numbers}
-                for label in CP_KERNEL_SHAPES} if entry == fwd_main else {}),
+                for label in {**CP_KERNEL_SHAPES, **TP_KERNEL_SHAPES}}
+               if entry == fwd_main else {}),
         })
     main_path = fa.bwd_entries(torch.bfloat16, 128)
     bwd_numbers = (*numbers, "device_ms", "device_bound_fraction")
@@ -3432,7 +3991,8 @@ def main(argv: list[str]) -> int:
             "at_bert_shape": {"shape": bert_shape,
                               **{k: backward[(entry, "bert")][k] for k in bwd_numbers}},
             **({f"at_{label}_shape": {k: cp_rows[(entry, label)][k] for k in cp_numbers}
-                for label in CP_KERNEL_SHAPES} if entry in main_path else {}),
+                for label in {**CP_KERNEL_SHAPES, **TP_KERNEL_SHAPES}}
+               if entry in main_path else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     card = smi_line()

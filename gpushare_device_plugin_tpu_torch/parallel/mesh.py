@@ -10,13 +10,16 @@ sp)``), and the collectives are explicit calls on one process group per
 axis slice (``parallel/collectives.py``).
 
 - ``dp``: data parallelism (parameters replicated);
-- ``fsdp``: fully sharded data parallelism (not trained here yet);
-- ``tp``: tensor parallelism (heads split; not trained here yet);
+- ``fsdp``: fully sharded data parallelism (weights cut on the model
+  dim, gathered a layer at a time);
+- ``tp``: tensor parallelism (heads, MLP hidden width and vocabulary);
 - ``sp``: sequence parallelism (ring attention, Ulysses).
 
 :func:`batch_sharding` cuts a rank's ``[B/(dp·fsdp), S/sp]`` tile out of
-the global tokens; :func:`shard` cuts any tile by a spec written like a
-``PartitionSpec``. The reference's ``commit_to_mesh`` has no counterpart:
+the global tokens; :func:`shard` cuts any tile (or a tree of them) by a
+spec written like a ``PartitionSpec``, as a tuple of axis names, and
+:func:`unshard` gathers it whole again on every rank (:func:`unshard_to`
+on one rank alone). The reference's ``commit_to_mesh`` has no counterpart:
 an optimizer's state is made beside its parameter on the rank's device,
 so nothing is ever left on another device to commit.
 """
@@ -25,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
 
 import numpy as np
 import torch
@@ -99,10 +101,11 @@ class Mesh:
     back (``collectives.py``). ``traffic`` counts each kind of exchange."""
 
     def __init__(self, spec: MeshSpec, rank: int, device: torch.device, backend: str,
-                 groups: dict[str, object], ranks: dict[str, list[int]]):
+                 groups: dict[str, object], ranks: dict[str, list[int]], world_group=None):
         self.spec, self.rank, self.device, self.backend = spec, rank, device, backend
         self.shape = {a: getattr(spec, a) for a in AXES}
         self._groups, self._ranks = groups, ranks
+        self.world_group = world_group
         coords = np.unravel_index(rank, tuple(self.shape.values()))
         self.coords = {a: int(c) for a, c in zip(AXES, coords)}
         self.traffic: dict[str, Traffic] = {}
@@ -173,34 +176,99 @@ def make_mesh(
             group = dist.new_group(members, backend=backend) if len(members) > 1 else None
             if rank in members:
                 groups[axis], ranks[axis] = group, members
-    return Mesh(spec, rank, dev, backend, groups, ranks)
+    world_group = dist.new_group(list(range(spec.size)), backend=backend) if spec.size > 1 else None
+    return Mesh(spec, rank, dev, backend, groups, ranks, world_group)
 
 
-def _block(mesh: Mesh, axes) -> tuple[int, int]:
-    """(index, count) of this rank's block along a dim tiled over
-    ``axes`` (one name, a tuple of names taken major to minor, or None)."""
+def _block(mesh: Mesh, axes, coords: dict[str, int] | None = None) -> tuple[int, int]:
+    """(index, count) of this rank's block (or, with ``coords``, the block
+    of the rank at those coordinates) along a dim tiled over ``axes`` (one
+    name, a tuple of names taken major to minor, or None)."""
     if axes is None:
         return 0, 1
+    coords = mesh.coords if coords is None else coords
     names = (axes,) if isinstance(axes, str) else tuple(axes)
     index, count = 0, 1
     for a in names:
-        index = index * mesh.shape[a] + mesh.coords[a]
+        index = index * mesh.shape[a] + coords[a]
         count *= mesh.shape[a]
     return index, count
 
 
-def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+def shard(x, mesh: Mesh, spec):
     """This rank's tile of the global ``x`` under ``spec`` (one entry per
     leading dim, as in a ``PartitionSpec``: an axis name, a tuple of names,
-    or None). Raises when a dim does not divide."""
+    or None). ``x`` may be a tree (dicts) of tensors with a matching tree
+    of specs. A tile is a view of ``x``. Raises when a dim does not
+    divide."""
+    if isinstance(x, dict):
+        return {k: shard(v, mesh, spec[k]) for k, v in x.items()}
     out = x
     for dim, axes in enumerate(spec):
         index, count = _block(mesh, axes)
+        if count == 1:
+            continue
         if x.shape[dim] % count:
             raise ValueError(f"dim {dim} of size {x.shape[dim]} does not divide over {axes}={count}")
         step = x.shape[dim] // count
         out = out.narrow(dim, index * step, step)
     return out
+
+
+def unshard(x, mesh: Mesh, spec):
+    """The inverse of :func:`shard`: the global tensor (or tree) from every
+    rank's tile, the same on every rank. Every rank of the mesh must call
+    it, with the same specs: each sharded dim is gathered over its axes,
+    minor axis first. Not differentiable (checkpoints, tests)."""
+    from .collectives import gather_whole
+
+    if isinstance(x, dict):
+        return {k: unshard(v, mesh, spec[k]) for k, v in x.items()}
+    out = x
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in reversed(names):
+            out = gather_whole(out, mesh, a, dim)
+    return out
+
+
+def unshard_to(x: torch.Tensor, mesh: Mesh, spec, root: int = 0) -> torch.Tensor | None:
+    """:func:`unshard` of one tensor, assembled in host memory on rank
+    ``root`` alone (None on every other rank): each rank sends its tile to
+    ``root`` in one ``dist.gather`` over the mesh, so no other rank ever
+    holds the whole. Every rank must call it, with the same spec
+    (checkpoints)."""
+    tile = x.detach()
+    if mesh.size == 1 or not shard_axes(spec):
+        return tile.cpu() if mesh.rank == root else None
+    send = (tile.cpu() if mesh.backend == "gloo" else tile).contiguous()
+    parts = [torch.empty_like(send) for _ in range(mesh.size)] if mesh.rank == root else None
+    dist.gather(send, parts, dst=root, group=mesh.world_group)
+    if mesh.rank != root:
+        return None
+    counts = [_block(mesh, axes)[1] for axes in spec] + [1] * (send.dim() - len(spec))
+    whole = torch.empty([n * c for n, c in zip(send.shape, counts)], dtype=send.dtype)
+    grid = tuple(mesh.shape.values())
+    for r, part in enumerate(parts):
+        coords = {a: int(c) for a, c in zip(AXES, np.unravel_index(r, grid))}
+        view = whole
+        for dim, axes in enumerate(spec):
+            index, count = _block(mesh, axes, coords)
+            if count > 1:
+                view = view.narrow(dim, index * send.shape[dim], send.shape[dim])
+        view.copy_(part)
+    return whole
+
+
+def shard_axes(spec) -> frozenset[str]:
+    """The mesh axes a (pruned) spec shards its leaf over."""
+    out: set[str] = set()
+    for axes in spec:
+        if axes is not None:
+            out.update((axes,) if isinstance(axes, str) else axes)
+    return frozenset(out)
 
 
 def batch_sharding(tokens: torch.Tensor, mesh: Mesh, *, seq_parallel: bool = False) -> torch.Tensor:

@@ -30,6 +30,17 @@ shape guard: each program (prefill, extend, decode; draft and verify on a
 speculative engine) records the distinct input shapes it has run on, and
 slot churn must leave every count at 1.
 
+**Tensor parallelism.** Both engines take a ``mesh`` (a granted gang's,
+``parallel/podenv.py::gang_mesh``), kept only when its tp is above 1: the
+engine then holds its rank's shard of the weights
+(``transformer.shard_params``) and of every cache, adapter slab and
+draft pool (the rank's kv heads, its adapter view), and every program
+runs the tp collectives. Each rank runs its own copy of this host loop,
+so every rank must dispatch the same program at the same turn: the
+schedule is deterministic, and the two decisions that read a clock or
+another thread (an engaged governor's draft shedding, a concurrent
+:meth:`PagedSlotEngine.request_drain`) are rank 0's, broadcast.
+
 **Clocks.** Ticks (one per model dispatch: a prompt chunk or a decode
 step) and wall seconds, as in the reference.
 
@@ -65,7 +76,10 @@ from ..const import (
     WORKLOAD_LATENCY_CRITICAL,
     MemoryUnit,
 )
+import torch.distributed as dist
+
 from ..device import resolve_device
+from ..parallel.mesh import Mesh
 from ..parallel.podenv import PodTpuEnv
 from ..utils.metric_catalog import (
     ENGINE_ADAPTER_ENABLED,
@@ -89,7 +103,7 @@ from ..utils.metrics import REGISTRY, publish_build_info
 from ..utils.tracing import TRACER
 from ..workloads import generate as G
 from ..workloads.lora import LoraConfig, flatten_lora, lora_flat_len
-from ..workloads.transformer import TransformerConfig
+from ..workloads.transformer import TransformerConfig, shard_params
 from .adapters import AdapterCache
 from .drainproto import DrainHandshake
 from .pages import SCRATCH, PagedPlan, PageAllocator, paged_plan_for_slice, pages_for, row_span_for
@@ -267,7 +281,10 @@ class SlotEngine:
     ``metrics_pod`` labels what the engine publishes (nothing is
     exported without it), ``slo_budget`` (``utils/slo.py``) takes each
     retired request's SLO verdict, and ``governor``
-    (:class:`~.governor.StepGovernor`) paces every model dispatch."""
+    (:class:`~.governor.StepGovernor`) paces every model dispatch. With a
+    tp ``mesh`` (every rank calls this alike, with the whole ``params``
+    or its shard of them), the engine serves on the rank's shards
+    (module docstring), on the mesh's device."""
 
     def __init__(
         self,
@@ -284,6 +301,7 @@ class SlotEngine:
         metrics_pod: str = "",
         slo_budget=None,
         governor=None,
+        mesh: Mesh | None = None,
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -299,8 +317,10 @@ class SlotEngine:
                 f"prefill_chunk {prefill_chunk} exceeds the slot row "
                 f"({max_len} positions) — even one chunk cannot be packed"
             )
-        self.device = resolve_device(device)
-        self.params = params
+        self.mesh = _tp_mesh(mesh)
+        self.device = resolve_device(self.mesh.device if self.mesh is not None and device is None
+                                     else device)
+        self.params = params if self.mesh is None else shard_params(params, self.mesh, cfg)
         self.cfg = cfg
         self.n_slots = slots
         self.max_len = max_len
@@ -320,7 +340,17 @@ class SlotEngine:
     def _make_cache(self, kv_dtype: str | None) -> G.KVCache:
         """The KV layout the engine runs on (the paged engine overrides it)."""
         return G.init_slot_cache(self.cfg, self.n_slots, self.max_len, kv_dtype=kv_dtype,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
+
+    def _agreed(self, flag: bool) -> bool:
+        """A host decision every tp rank takes alike: rank 0's ``flag``,
+        broadcast over the gang (``flag`` itself without a mesh)."""
+        if self.mesh is None:
+            return flag
+        dev = "cpu" if self.mesh.backend == "gloo" else self.device
+        t = torch.tensor([int(flag)], device=dev)
+        dist.broadcast(t, src=self.mesh.axis_ranks("tp")[0], group=self.mesh.group("tp"))
+        return bool(t.item())
 
     @property
     def trace_counts(self) -> dict[str, int]:
@@ -333,20 +363,20 @@ class SlotEngine:
     def _prefill(self, tokens: torch.Tensor, slot: int, n_real: int) -> torch.Tensor:
         self._guard("prefill", tokens, self.cache["k"], self.cache["len"])
         logits, self.cache = G.prefill_slot(
-            self.params, tokens, self.cache, self.cfg, slot=slot, n_real=n_real
+            self.params, tokens, self.cache, self.cfg, slot=slot, n_real=n_real, mesh=self.mesh
         )
         return torch.argmax(logits[0], -1)
 
     def _extend(self, tokens: torch.Tensor, slot: int, n_real: int) -> torch.Tensor:
         self._guard("extend", tokens, self.cache["k"], self.cache["len"])
         logits, self.cache = G.extend_slot(
-            self.params, tokens, self.cache, self.cfg, slot=slot, n_real=n_real
+            self.params, tokens, self.cache, self.cfg, slot=slot, n_real=n_real, mesh=self.mesh
         )
         return torch.argmax(logits[0], -1)
 
     def _decode(self, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         self._guard("decode", tokens, active, self.cache["k"], self.cache["len"])
-        logits, new = G.decode_step(self.params, tokens, self.cache, self.cfg)
+        logits, new = G.decode_step(self.params, tokens, self.cache, self.cfg, mesh=self.mesh)
         # Idle rows (free, mid-prefill) must not advance: their next
         # chunk or decode write lands where their real content ends.
         new["len"] = torch.where(active, new["len"], self.cache["len"])
@@ -675,6 +705,7 @@ class PagedSlotEngine(SlotEngine):
         metrics_pod: str = "",
         slo_budget=None,
         governor=None,
+        mesh: Mesh | None = None,
     ):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -727,15 +758,23 @@ class PagedSlotEngine(SlotEngine):
         self.lora_cfg = lora_cfg
         if lora_cfg is not None:
             # one slab row per pool page; an adapter's flat vector stripes
-            # over ceil(len / row) pages of the KV pool's id space
-            self._adapter_page_floats = page_size * cfg.d_model
+            # over ceil(len / row) pages of the KV pool's id space. On a tp
+            # gang whose tp divides d_model a row is 1/tp as wide (the
+            # per-chip charge of paged_plan_for_slice), and the vector is
+            # the rank's view (its B slices of column-parallel targets, A
+            # slices of row-parallel ones, the rest whole), so an adapter
+            # may take more pages than on one chip.
+            tp_mesh = _tp_mesh(mesh)
+            tp = 1 if tp_mesh is None else tp_mesh.shape["tp"]
+            row = page_size * cfg.d_model
+            self._adapter_page_floats = row // tp if cfg.d_model % tp == 0 else row
             self.pages_per_adapter = max(
-                1, -(-lora_flat_len(cfg, lora_cfg) // self._adapter_page_floats))
+                1, -(-lora_flat_len(cfg, lora_cfg, tp_mesh) // self._adapter_page_floats))
         super().__init__(
             params, cfg, slots=slots, max_len=max_len, prefill_chunk=prefill_chunk,
             eos_id=eos_id, kv_dtype=kv_dtype, device=device,
             profiler_capacity=profiler_capacity, metrics_pod=metrics_pod,
-            slo_budget=slo_budget, governor=governor,
+            slo_budget=slo_budget, governor=governor, mesh=mesh,
         )
         self.allocator = PageAllocator(total_pages)
         self.radix = RadixCache(page_size, self.allocator) if radix else None
@@ -753,10 +792,13 @@ class PagedSlotEngine(SlotEngine):
         if draft_cfg is not None:
             self._shapes.update(draft=set(), verify=set())
             # the draft's KV: a second pool under the same page ids, so a
-            # page exists in both pools or in neither
+            # page exists in both pools or in neither; on a gang both the
+            # draft's weights and its pool are cut by the draft's config
+            if self.mesh is not None:
+                self.draft_params = shard_params(draft_params, self.mesh, draft_cfg)
             self.draft_cache = G.init_paged_cache(
                 draft_cfg, slots, total_pages + 1, page_size, kv_dtype=kv_dtype,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
             self._reset_spec_stats()
         self._drain = DrainHandshake()
@@ -776,7 +818,7 @@ class PagedSlotEngine(SlotEngine):
         # +1: physical page 0 is the scratch write sink (pages.SCRATCH)
         return G.init_paged_cache(
             self.cfg, self.n_slots, self.total_pages + 1, self.page_size,
-            kv_dtype=kv_dtype, device=self.device,
+            kv_dtype=kv_dtype, device=self.device, mesh=self.mesh,
         )
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -797,7 +839,8 @@ class PagedSlotEngine(SlotEngine):
         if atab is None:
             return {}
         return {
-            "lora": G.lora_bgmv_views(self._lora_slab, atab, self.cfg, self.lora_cfg),
+            "lora": G.lora_bgmv_views(self._lora_slab, atab, self.cfg, self.lora_cfg,
+                                      self.mesh),
             "lora_scale": self.lora_cfg.scale,
         }
 
@@ -817,12 +860,12 @@ class PagedSlotEngine(SlotEngine):
                     *self._spec_guard(), *self._lora_guard(atab))
         logits, self.cache = G.paged_prefill_slot(
             self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
-            n_real=n_real, **self._lora_kw(atab),
+            n_real=n_real, mesh=self.mesh, **self._lora_kw(atab),
         )
         if self.draft_cache is not None:
             _, self.draft_cache = G.paged_prefill_slot(
                 self.draft_params, tokens, self.draft_cache, self.draft_cfg, slot=slot,
-                page_table=table, n_real=n_real,
+                page_table=table, n_real=n_real, mesh=self.mesh,
             )
         return torch.argmax(logits[0], -1)
 
@@ -832,12 +875,12 @@ class PagedSlotEngine(SlotEngine):
                     *self._spec_guard(), *self._lora_guard(atab))
         logits, self.cache = G.paged_extend_slot(
             self.params, tokens, self.cache, self.cfg, slot=slot, page_table=table,
-            pos=pos, n_real=n_real, **self._lora_kw(atab),
+            pos=pos, n_real=n_real, mesh=self.mesh, **self._lora_kw(atab),
         )
         if self.draft_cache is not None:
             _, self.draft_cache = G.paged_extend_slot(
                 self.draft_params, tokens, self.draft_cache, self.draft_cfg, slot=slot,
-                page_table=table, pos=pos, n_real=n_real,
+                page_table=table, pos=pos, n_real=n_real, mesh=self.mesh,
             )
         return torch.argmax(logits[0], -1)
 
@@ -846,14 +889,14 @@ class PagedSlotEngine(SlotEngine):
         self._guard("decode", tokens, tables, active, self.cache["k"], self.cache["len"],
                     *self._spec_guard(), *self._lora_guard(atab))
         logits, new = G.paged_decode_step(
-            self.params, tokens, self.cache, self.cfg, page_tables=tables,
+            self.params, tokens, self.cache, self.cfg, page_tables=tables, mesh=self.mesh,
             **self._lora_kw(atab),
         )
         new["len"] = torch.where(active, new["len"], self.cache["len"])
         self.cache = new
         if self.draft_cache is not None:
             _, dnew = G.paged_decode_step(self.draft_params, tokens, self.draft_cache,
-                                          self.draft_cfg, page_tables=tables)
+                                          self.draft_cfg, page_tables=tables, mesh=self.mesh)
             dnew["len"] = torch.where(active, dnew["len"], self.draft_cache["len"])
             self.draft_cache = dnew
         return torch.argmax(logits, -1)
@@ -871,7 +914,8 @@ class PagedSlotEngine(SlotEngine):
         tok, props = tokens, []
         for _ in range(self.spec_k + 1):
             logits, self.draft_cache = G.paged_decode_step(
-                self.draft_params, tok, self.draft_cache, self.draft_cfg, page_tables=tables)
+                self.draft_params, tok, self.draft_cache, self.draft_cfg, page_tables=tables,
+                mesh=self.mesh)
             tok = torch.argmax(logits, -1)
             props.append(tok)
         self.draft_cache["len"] = torch.where(active, lens0 + self.spec_k + 1, lens0)
@@ -889,7 +933,8 @@ class PagedSlotEngine(SlotEngine):
                     *self._spec_guard(), *self._lora_guard(atab))
         pos0, dlen0 = self.cache["len"], self.draft_cache["len"]
         logits, new = G.paged_verify_block(self.params, block, self.cache, self.cfg,
-                                           page_tables=tables, **self._lora_kw(atab))
+                                           page_tables=tables, mesh=self.mesh,
+                                           **self._lora_kw(atab))
         greedy = torch.argmax(logits, -1)
         match = (block[:, 1:] == greedy[:, : self.spec_k]).int()
         accepted = torch.cumprod(match, dim=1).sum(dim=1)
@@ -940,7 +985,7 @@ class PagedSlotEngine(SlotEngine):
         """Stripe the adapter's flat vector (``workloads/lora.py``'s layout,
         zero-padded to whole slab rows) into its fresh slab pages: the
         device half of an :class:`~.adapters.AdapterCache` miss."""
-        flat = flatten_lora(self.lora_store[adapter_id], self.cfg, self.lora_cfg)
+        flat = flatten_lora(self.lora_store[adapter_id], self.cfg, self.lora_cfg, self.mesh)
         buf = torch.zeros((len(pages), self._adapter_page_floats), dtype=torch.float32,
                           device=self.device)
         buf.view(-1)[: flat.numel()] = flat.to(self.device)
@@ -1298,6 +1343,7 @@ class PagedSlotEngine(SlotEngine):
                 stacked = torch.stack([_host_tensor(b[key]) for b in blobs], dim=1)
             except KeyError as e:
                 raise ValueError(f"import_kv_pages: payload missing cache buffer {e}") from None
+            stacked = self._rank_heads(stacked, val)
             expected = (val.shape[0], len(blobs)) + tuple(val.shape[2:])
             if tuple(stacked.shape) != expected:
                 raise ValueError(
@@ -1309,6 +1355,15 @@ class PagedSlotEngine(SlotEngine):
         for key, stacked in staged.items():
             buf = self.cache[key]
             buf.index_copy_(1, ids, stacked.to(buf.device, buf.dtype))
+
+    def _rank_heads(self, pages: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+        """Whole-head pages (a single-chip engine's) cut to this tp rank's
+        kv heads when its pool holds a share of them (dim 3 of both)."""
+        if (self.mesh is None or pages.dim() < 4 or pages.shape[3] != self.cfg.kv_heads
+                or buf.shape[3] == pages.shape[3]):
+            return pages
+        n = buf.shape[3]
+        return pages.narrow(3, self.mesh.axis_index("tp") * n, n)
 
     # --- disaggregated prefill/decode handoff (handoff.py) ------------------
 
@@ -1681,7 +1736,9 @@ class PagedSlotEngine(SlotEngine):
             slots[idx] = self._fresh_slot()
 
         while i < len(incoming) or pending or any(s.state != "free" for s in slots):
-            if self._drain.armed() or (drain_at_tick is not None and self.ticks >= drain_at_tick):
+            if self._agreed(self._drain.armed()) or (
+                drain_at_tick is not None and self.ticks >= drain_at_tick
+            ):
                 # Quiesce: capture in-flight rows, the pending queue (a
                 # preempted request waits there with its tokens) and arrivals
                 # not yet reached; free the pool and stop.
@@ -1906,7 +1963,8 @@ class PagedSlotEngine(SlotEngine):
                 # an engaged governor sheds draft dispatches first; warmup
                 # runs them anyway, or their first shape would land mid-run
                 # once the governor releases
-                self._warming or self.governor is None or not self.governor.engaged
+                self._warming or self.governor is None
+                or not self._agreed(self.governor.engaged)
             ):
                 spec_rows = self._spec_round(slots, retire)
                 if spec_rows:
@@ -1998,6 +2056,16 @@ class PagedSlotEngine(SlotEngine):
             results=results, ticks=self.ticks, wall_s=time.perf_counter() - t0,
             trace_counts=self.trace_counts, engine_cache=self.cache_stats(),
         )
+
+
+def _tp_mesh(mesh: Mesh | None) -> Mesh | None:
+    """The engines' mesh: a gang's tp mesh, kept only when tp is above 1
+    (as the reference keeps it); any other axis above 1 raises."""
+    if mesh is None or mesh.shape["tp"] == 1:
+        return None
+    if mesh.size != mesh.shape["tp"]:
+        raise ValueError(f"serving shards over tp only, got mesh {mesh.shape}")
+    return mesh
 
 
 def _host_tensor(x) -> torch.Tensor:

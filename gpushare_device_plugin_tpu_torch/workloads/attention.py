@@ -6,8 +6,8 @@ kernel's ``fits_kernel`` holds, ``"flash"`` forces the kernel (a misfit
 then fails loudly in its wrapper), ``"plain"`` forces the plain path. On
 CPU tensors the kernel's wrapper runs its plain version. Where the
 reference runs the kernel per shard under ``shard_map``, a rank here
-already holds only its own batch rows and heads, so the kernel simply
-runs on them.
+already holds only its own batch rows and heads (its tile and its tp
+shard), so the kernel simply runs on them, with no collective.
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ def chunk_prefill_attention(
 
 
 def use_flash(attention: str, q: torch.Tensor) -> bool:
-    """Pick the attention implementation for ``q`` ([B, S, H, Dh])."""
+    """Pick the attention implementation for ``q`` ([B, S, H, Dh]; on a
+    mesh, the rank's own rows and heads)."""
     if attention == "flash":
         return True
     if attention == "plain":
@@ -75,8 +76,9 @@ def flash_or_plain(
     causal: bool, mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """[B, S, H, Dh] attention through the flash kernel or the plain path.
-    With a ``mesh`` the tensors are the rank's own batch rows and heads,
-    and the kernel runs on them as on any other tensors."""
+    With a ``mesh`` the tensors are the rank's own batch rows and heads
+    (with a replicated ``wkv``, the K/V heads its q heads use), and the
+    kernel runs on them as on any other tensors."""
     del mesh
     if use_flash(attention, q):
         return flash_attention(q, k, v, causal=causal)

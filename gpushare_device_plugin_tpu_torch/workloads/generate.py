@@ -20,6 +20,14 @@ returned one.
 
 Token tensors are int64 (PyTorch's index type); values match the
 reference's int32 tokens.
+
+Tensor parallelism: the slot and paged functions take a ``mesh`` (a tp
+gang's, ``parallel/podenv.py::gang_mesh``) with params cut by
+``transformer.shard_params``. A rank's caches hold its ``Hkv/tp`` kv
+heads (all of them when tp does not divide them,
+:func:`kv_heads_local`), its layers run on its shards with the tp
+all-reduces of ``transformer``, and the logits a function returns are
+gathered whole over tp, so every rank samples the same token.
 """
 
 from __future__ import annotations
@@ -32,16 +40,20 @@ from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring import grouped_attention
 from .attention import chunk_prefill_attention, flash_or_plain, use_flash
+from ..parallel.mesh import Mesh
 from .lora import LoraConfig, lora_flat_len, unflatten_lora
 from .quant import dequantize_kv, embed_lookup, quantize_kv
 from .transformer import (
     TransformerConfig,
     _attn_out,
     _bgmv_delta,
+    _embed,
     _logits,
     _mlp_block,
     _project_qkv,
+    _rank_kv,
     _rms_norm,
+    gather_logits,
     layer_params,
 )
 
@@ -56,14 +68,28 @@ KVCache = dict[str, torch.Tensor]
 SCRATCH = 0
 
 
+def kv_heads_local(cfg: TransformerConfig, mesh: Mesh | None = None) -> int:
+    """The kv heads a rank's cache holds: ``Hkv/tp`` on a tp mesh whose tp
+    divides them, else all ``Hkv`` (replicated, the reference's prune rule)."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    return cfg.kv_heads // tp if cfg.kv_heads % tp == 0 else cfg.kv_heads
+
+
+def _out_logits(params, x, cfg: TransformerConfig, mesh: Mesh | None):
+    """Whole-vocabulary f32 logits of ``x`` (gathered over tp on a mesh)."""
+    return gather_logits(_logits(params, x, cfg, mesh), cfg, mesh)
+
+
 def init_cache(
     cfg: TransformerConfig, batch: int, max_len: int,
     kv_dtype: str | None = None, *, device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> KVCache:
     """Fresh cache; ``kv_dtype="int8"`` stores K/V as symmetric int8 with
-    per-(token, head) scales."""
+    per-(token, head) scales. On a tp ``mesh``, the rank's kv heads
+    (:func:`kv_heads_local`)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_len, kv_heads_local(cfg, mesh), cfg.head_dim)
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"unknown kv_dtype={kv_dtype!r}: expected None|'int8'")
     length = torch.zeros((), dtype=torch.int32, device=dev)
@@ -85,11 +111,12 @@ def init_cache(
 def init_slot_cache(
     cfg: TransformerConfig, slots: int, max_len: int,
     kv_dtype: str | None = None, *, device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> KVCache:
     """Slot-pool cache for the continuous-batching engine: the buffers of
     :func:`init_cache` with ``len`` a ``[slots]`` vector, every row an
     independent sequence."""
-    cache = init_cache(cfg, slots, max_len, kv_dtype=kv_dtype, device=device)
+    cache = init_cache(cfg, slots, max_len, kv_dtype=kv_dtype, device=device, mesh=mesh)
     cache["len"] = torch.zeros((slots,), dtype=torch.int32, device=cache["k"].device)
     return cache
 
@@ -97,6 +124,7 @@ def init_slot_cache(
 def init_paged_cache(
     cfg: TransformerConfig, slots: int, pages: int, page_size: int,
     kv_dtype: str | None = None, *, device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> KVCache:
     """Paged slot-pool cache for the paged serving engine: K/V live in
     ``pages`` fixed-size pages, physical ``[L, pages, page_size, Hkv, Dh]``
@@ -104,7 +132,7 @@ def init_paged_cache(
     writes through a page table. ``pages`` counts physical pages including
     the scratch page (:data:`SCRATCH`, id 0). ``len`` is the
     per-row ``[slots]`` vector of the slot pool."""
-    cache = init_cache(cfg, pages, page_size, kv_dtype=kv_dtype, device=device)
+    cache = init_cache(cfg, pages, page_size, kv_dtype=kv_dtype, device=device, mesh=mesh)
     cache["len"] = torch.zeros((slots,), dtype=torch.int32, device=cache["k"].device)
     return cache
 
@@ -194,26 +222,29 @@ def prefill_slot(
     *,
     slot: int,
     n_real: int,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Pack one request's opening prompt chunk (``tokens`` [C], right-
     padded, ``n_real`` real) into row ``slot``, restarting the row at
     position 0: ``len[slot] = n_real``. Returns the last REAL position's
-    logits [1, vocab] f32 and the cache."""
+    logits [1, vocab] f32 and the cache. ``mesh``: a tp rank's shards
+    (module docstring)."""
     slot, n_real = int(slot), int(n_real)
     dt = cfg.compute_dtype
     C = tokens.shape[0]
     positions = torch.arange(C, device=tokens.device)[None, :]
     kv_len = torch.tensor([n_real], dtype=torch.int32, device=tokens.device)
-    x = embed_lookup(params["embed"], tokens[None, :], dt)  # [1, C, d]
+    x = _embed(params["embed"], tokens[None, :], cfg, mesh)  # [1, C, d]
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
-        q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
-        attn = chunk_prefill_attention(q, k, v, n_real=kv_len, attention=cfg.attention)
-        x = _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+        q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions, mesh=mesh)
+        attn = chunk_prefill_attention(q, *_rank_kv(k, v, cfg, mesh), n_real=kv_len,
+                                       attention=cfg.attention)
+        x = _mlp_block(x + _attn_out(attn, lp, cfg, mesh), lp, cfg, mesh=mesh)
         _write_prefix(cache, i, slice(slot, slot + 1), k, v)
     lens = cache["len"].clone()
     lens[slot] = n_real
-    logits = _logits(params, x[:, n_real - 1 : n_real], cfg)
+    logits = _out_logits(params, x[:, n_real - 1 : n_real], cfg, mesh)
     return logits[:, 0], {**cache, "len": lens}
 
 
@@ -225,6 +256,7 @@ def extend_slot(
     *,
     slot: int,
     n_real: int,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Continue row ``slot`` with its next prompt chunk (``tokens`` [C],
     ``n_real`` real): the row runs through :func:`decode_block` as a
@@ -235,7 +267,7 @@ def extend_slot(
     row = {key: val[:, slot : slot + 1] for key, val in cache.items() if key != "len"}
     pos = cache["len"][slot : slot + 1]
     row["len"] = pos
-    logits, _ = decode_block(params, tokens[None, :], row, cfg)
+    logits, _ = decode_block(params, tokens[None, :], row, cfg, mesh=mesh)
     lens = cache["len"].clone()
     lens[slot : slot + 1] = pos + n_real
     return logits[:, n_real - 1], {**cache, "len": lens}
@@ -247,9 +279,10 @@ def decode_block(
     cache: KVCache,
     cfg: TransformerConfig,
     start: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Cached decode of a T-token block: tokens [B, T] -> (logits
-    [B, T, vocab] f32, cache advanced by T). Block position t attends to
+    [B, T, vocab] f32, cache advanced by T; ``mesh``: a tp rank's). Block position t attends to
     the cache prefix plus block positions <= t. With a slot-pool cache
     (vector ``len``) every row writes, positions and masks from its own
     length. ``start`` ([B] leading pad counts) offsets RoPE positions and
@@ -271,7 +304,7 @@ def decode_block(
         if start is not None:
             positions = positions - start[:, None]
     positions = positions.expand(B, T)
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)  # [B, T, d]
+    x = _embed(params["embed"], tokens, cfg, mesh)  # [B, T, d]
     Smax = cache["k"].shape[2]
     idx = torch.arange(Smax, device=dev)
     # [B|1, T, Smax] visibility: cache prefix + block-causal, minus pads.
@@ -285,19 +318,20 @@ def decode_block(
     wpos = pos0 if per_slot else pos0.expand(B)
     for i in range(cfg.n_layers):
         rows = {key: val[i] for key, val in cache.items() if key != "len"}
-        x = _cached_layer(x, layer_params(params["layers"], i), cfg, positions, rows, wpos, vis)
-    return _logits(params, x, cfg), {**cache, "len": pos0 + T}
+        x = _cached_layer(x, layer_params(params["layers"], i), cfg, positions, rows, wpos, vis,
+                          mesh=mesh)
+    return _out_logits(params, x, cfg, mesh), {**cache, "len": pos0 + T}
 
 
 def _cached_layer(x, lp, cfg: TransformerConfig, positions, rows: KVCache, wpos, vis,
-                  lora_l=None, lora_scale: float = 1.0):
+                  lora_l=None, lora_scale: float = 1.0, mesh: Mesh | None = None):
     """One layer of a cached block: the block's K/V go into the layer's
     cache rows ``rows`` ({"k", "v"} [B, Smax, Hkv, Dh], int8 scales
     [B, Smax, Hkv]) at ``wpos`` in place, and its queries attend over the
     rows under the visibility mask ``vis`` [B, T, Smax]. ``lora_l``: this
     layer's per-row adapter views, applied at every projection."""
     q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions,
-                           lora=lora_l, lora_scale=lora_scale)
+                           lora=lora_l, lora_scale=lora_scale, mesh=mesh)
     if "k_scale" in rows:
         kq8, ks_new = quantize_kv(k)
         vq8, vs_new = quantize_kv(v)
@@ -310,9 +344,9 @@ def _cached_layer(x, lp, cfg: TransformerConfig, positions, rows: KVCache, wpos,
     else:
         k_mat = _row_update(rows["k"], k, wpos)
         v_mat = _row_update(rows["v"], v, wpos)
-    attn = grouped_attention(q, k_mat, v_mat, causal=False, mask=vis)
-    x = x + _wo(attn, lp, cfg, lora_l, lora_scale)
-    return _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale)
+    attn = grouped_attention(q, *_rank_kv(k_mat, v_mat, cfg, mesh), causal=False, mask=vis)
+    x = x + _wo(attn, lp, cfg, lora_l, lora_scale, mesh)
+    return _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale, mesh=mesh)
 
 
 def decode_step(
@@ -321,9 +355,10 @@ def decode_step(
     cache: KVCache,
     cfg: TransformerConfig,
     start: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One cached decode step: token [B] -> (logits [B, vocab], cache+1)."""
-    logits, cache = decode_block(params, token[:, None], cache, cfg, start=start)
+    logits, cache = decode_block(params, token[:, None], cache, cfg, start=start, mesh=mesh)
     return logits[:, 0], cache
 
 
@@ -332,6 +367,7 @@ def decode_step(
 
 def lora_bgmv_views(
     slab: torch.Tensor, tables: torch.Tensor, cfg: TransformerConfig, lcfg: LoraConfig,
+    mesh: Mesh | None = None,
 ) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
     """Per-row adapters from the paged slab, as layer-major views.
 
@@ -342,13 +378,16 @@ def lora_bgmv_views(
     zeros, the null adapter, whose delta is exactly zero. One
     ``index_select`` per dispatch, cut to ``lora_flat_len``. Returns
     ``{target: (a [L, B, fi, r], b [L, B, r, fo])}``. Which adapter a row
-    runs is table data, never a shape."""
+    runs is table data, never a shape. On a tp ``mesh`` the slab holds the
+    rank's views (``lora.lora_tp_shard``), and so do the views returned:
+    its B slices of column-parallel targets and A slices of row-parallel
+    ones."""
     B = tables.shape[0]
     flat = slab.index_select(0, tables.reshape(-1).long()).reshape(B, -1)
-    flat = flat[:, : lora_flat_len(cfg, lcfg)]
+    flat = flat[:, : lora_flat_len(cfg, lcfg, mesh)]
     return {
         name: (a.movedim(1, 0), b.movedim(1, 0))
-        for name, (a, b) in unflatten_lora(flat, cfg, lcfg).items()
+        for name, (a, b) in unflatten_lora(flat, cfg, lcfg, mesh).items()
     }
 
 
@@ -368,11 +407,12 @@ def _lora_wo_delta(attn, lora_l, lora_scale: float, dt):
     return _bgmv_delta(flat, *lora_l["wo"], lora_scale, dt)
 
 
-def _wo(attn, lp, cfg: TransformerConfig, lora_l, lora_scale: float):
-    """The wo projection plus its adapter delta, before the residual."""
-    wo = _attn_out(attn, lp, cfg)
+def _wo(attn, lp, cfg: TransformerConfig, lora_l, lora_scale: float,
+        mesh: Mesh | None = None):
+    """The wo projection plus its adapter delta, before the residual (on
+    a tp mesh both are the rank's partial sums, added before the sum)."""
     delta = _lora_wo_delta(attn, lora_l, lora_scale, cfg.compute_dtype)
-    return wo if delta is None else wo + delta
+    return _attn_out(attn, lp, cfg, mesh, delta)
 
 
 # --- paged caches -----------------------------------------------------------
@@ -448,6 +488,7 @@ def _paged_block(
     pos0: torch.Tensor,
     lora=None,
     lora_scale: float = 1.0,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """:func:`decode_block` of a T-token block (``tokens`` [B, T]) for rows
     at logical lengths ``pos0`` [B], each read and written through its page
@@ -470,14 +511,14 @@ def _paged_block(
     # them (a position past the view reads the last one, bound for SCRATCH).
     rows = torch.arange(B, device=dev)[:, None]
     read = logical.clamp(max=Smax - 1)
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = _embed(params["embed"], tokens, cfg, mesh)
     for i in range(cfg.n_layers):
         view = _gather_paged(cache, i, tables)
         x = _cached_layer(x, layer_params(params["layers"], i), cfg, logical, view, pos0, vis,
-                          _layer_lora(lora, i), lora_scale)
+                          _layer_lora(lora, i), lora_scale, mesh)
         new = {key: val[rows, read].reshape((B * T,) + val.shape[2:]) for key, val in view.items()}
         _paged_write(cache, i, new, pids, offs)
-    return _logits(params, x, cfg)
+    return _out_logits(params, x, cfg, mesh)
 
 
 def paged_prefill_slot(
@@ -491,6 +532,7 @@ def paged_prefill_slot(
     n_real: int,
     lora=None,
     lora_scale: float = 1.0,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """:func:`prefill_slot` through a page table: one request's opening
     prompt chunk (``tokens`` [C] right-padded, ``n_real`` real) goes into
@@ -510,19 +552,20 @@ def paged_prefill_slot(
     pids, offs = _page_slots(page_table[None, :], logical[None, :], ps)
     pids, offs = pids[0], offs[0]
     kv_len = torch.tensor([n_real], dtype=torch.int32, device=tokens.device)
-    x = embed_lookup(params["embed"], tokens[None, :], dt)  # [1, C, d]
+    x = _embed(params["embed"], tokens[None, :], cfg, mesh)  # [1, C, d]
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         lora_l = _layer_lora(lora, i)
         q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, logical[None, :],
-                               lora=lora_l, lora_scale=lora_scale)
-        attn = chunk_prefill_attention(q, k, v, n_real=kv_len, attention=cfg.attention)
-        x = x + _wo(attn, lp, cfg, lora_l, lora_scale)
-        x = _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale)
+                               lora=lora_l, lora_scale=lora_scale, mesh=mesh)
+        attn = chunk_prefill_attention(q, *_rank_kv(k, v, cfg, mesh), n_real=kv_len,
+                                       attention=cfg.attention)
+        x = x + _wo(attn, lp, cfg, lora_l, lora_scale, mesh)
+        x = _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale, mesh=mesh)
         _paged_write(cache, i, _kv_entries(cache, k[0], v[0]), pids, offs)
     lens = cache["len"].clone()
     lens[slot] = n_real
-    logits = _logits(params, x[:, n_real - 1 : n_real], cfg)
+    logits = _out_logits(params, x[:, n_real - 1 : n_real], cfg, mesh)
     return logits[:, 0], {**cache, "len": lens}
 
 
@@ -538,6 +581,7 @@ def paged_extend_slot(
     n_real: int,
     lora=None,
     lora_scale: float = 1.0,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """:func:`extend_slot` through a page table: row ``slot`` continues
     with its next prompt chunk (``tokens`` [C], ``n_real`` real) against
@@ -552,7 +596,7 @@ def paged_extend_slot(
     slot, pos, n_real = int(slot), int(pos), int(n_real)
     pos0 = torch.tensor([pos], dtype=torch.int32, device=tokens.device)
     logits = _paged_block(params, tokens[None, :], cache, cfg, page_table[None, :], pos0,
-                          lora, lora_scale)
+                          lora, lora_scale, mesh)
     lens = cache["len"].clone()
     lens[slot] = pos + n_real
     return logits[:, n_real - 1], {**cache, "len": lens}
@@ -567,6 +611,7 @@ def paged_decode_step(
     page_tables: torch.Tensor,
     lora=None,
     lora_scale: float = 1.0,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Pool-wide decode step through per-row page tables (``page_tables``
     [B, MP]): each row's one new entry lands at ``(page_tables[b,
@@ -577,7 +622,7 @@ def paged_decode_step(
     [B, vocab] and the cache."""
     pos0 = cache["len"]
     logits = _paged_block(params, token[:, None], cache, cfg, page_tables, pos0,
-                          lora, lora_scale)
+                          lora, lora_scale, mesh)
     return logits[:, 0], {**cache, "len": pos0 + 1}
 
 
@@ -590,6 +635,7 @@ def paged_verify_block(
     page_tables: torch.Tensor,
     lora=None,
     lora_scale: float = 1.0,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Pool-wide T-token verify step through per-row page tables, the
     target's half of the paged engine's speculative decode. ``block``
@@ -602,7 +648,7 @@ def paged_verify_block(
     the row overwrites them. ``lora`` as in :func:`paged_decode_step`.
     Returns logits [B, T, vocab] f32 and the cache."""
     pos0 = cache["len"]
-    logits = _paged_block(params, block, cache, cfg, page_tables, pos0, lora, lora_scale)
+    logits = _paged_block(params, block, cache, cfg, page_tables, pos0, lora, lora_scale, mesh)
     return logits, {**cache, "len": pos0 + block.shape[1]}
 
 

@@ -14,7 +14,10 @@ the adapted weight is ``W + (alpha / r) * A @ B``:
   (:func:`merge_lora`), or keeps many adapters as flat f32 vectors
   (:func:`flatten_lora`) striped across the pages of the paged engine's
   slab, which every dispatch gathers per row
-  (``generate.lora_bgmv_views``).
+  (``generate.lora_bgmv_views``). On a tp mesh the flat vector is the
+  rank's view (:func:`lora_tp_shard`): the ``B`` slices of its
+  column-parallel targets, the ``A`` slices of its row-parallel ones,
+  and the rest whole.
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ _TARGET_SHAPES = {
     "wi": (("d",), ("two", "F")),
     "wdown": (("F",), ("d",)),
 }
+
+# target -> (the factor cut over tp, its dim in the [L, ...] tree): B's
+# output heads or width for the column-parallel projections, A's input
+# for the row-parallel ones (transformer.param_specs).
+_TP_CUT = {"wq": ("b", 2), "wkv": ("b", 3), "wi": ("b", 3), "wo": ("a", 1), "wdown": ("a", 1)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,8 +194,19 @@ def lora_param_count(lora: Params) -> int:
 # the ones merge_lora bakes into the weights.
 
 
-def _target_flat_dims(cfg: TransformerConfig, name: str) -> tuple[int, int]:
-    """(fan-in, fan-out) of one target's projection, flattened."""
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.shape["tp"]
+
+
+def _cut_over_tp(cfg: TransformerConfig, name: str, tp: int) -> bool:
+    """Whether target ``name``'s tp factor is cut (``wkv`` only when tp
+    divides the kv heads, as the weight itself)."""
+    return tp > 1 and not (name == "wkv" and cfg.kv_heads % tp)
+
+
+def _target_flat_dims(cfg: TransformerConfig, name: str, tp: int = 1) -> tuple[int, int]:
+    """(fan-in, fan-out) of one target's projection, flattened, as a tp
+    rank holds it."""
     dims = _dims(cfg)
     in_names, out_names = _TARGET_SHAPES[name]
     fi = fo = 1
@@ -195,49 +214,76 @@ def _target_flat_dims(cfg: TransformerConfig, name: str) -> tuple[int, int]:
         fi *= dims[n]
     for n in out_names:
         fo *= dims[n]
+    if _cut_over_tp(cfg, name, tp):
+        if _TP_CUT[name][0] == "b":
+            fo //= tp
+        else:
+            fi //= tp
     return fi, fo
 
 
-def lora_flat_len(cfg: TransformerConfig, lcfg: LoraConfig) -> int:
-    """Float count of one adapter in the flat layout."""
+def lora_flat_len(cfg: TransformerConfig, lcfg: LoraConfig, mesh=None) -> int:
+    """Float count of one adapter in the flat layout (a tp rank's view on
+    a ``mesh``)."""
     L, r = cfg.n_layers, lcfg.rank
     total = 0
     for name in lcfg.targets:
-        fi, fo = _target_flat_dims(cfg, name)
+        fi, fo = _target_flat_dims(cfg, name, _tp(mesh))
         total += L * fi * r + L * r * fo
     return total
 
 
-def flatten_lora(lora: Params, cfg: TransformerConfig, lcfg: LoraConfig) -> torch.Tensor:
-    """One adapter tree -> its flat f32 vector ``[lora_flat_len]``; raises
-    on a tree missing a configured target (a half-loaded adapter fails at
-    load, not at decode)."""
+def lora_tp_shard(lora: Params, cfg: TransformerConfig, mesh) -> Params:
+    """This tp rank's view of an adapter tree: each target's tp factor
+    (:data:`_TP_CUT`) narrowed to the rank's block, the other whole."""
+    tp = _tp(mesh)
+    if tp == 1:
+        return lora
+    out = {}
+    for name, ab in lora.items():
+        ab = dict(ab)
+        if _cut_over_tp(cfg, name, tp):
+            which, dim = _TP_CUT[name]
+            n = ab[which].shape[dim] // tp
+            ab[which] = ab[which].narrow(dim, mesh.axis_index("tp") * n, n)
+        out[name] = ab
+    return out
+
+
+def flatten_lora(lora: Params, cfg: TransformerConfig, lcfg: LoraConfig,
+                 mesh=None) -> torch.Tensor:
+    """One adapter tree -> its flat f32 vector ``[lora_flat_len]`` (on a
+    tp ``mesh``, of the rank's view); raises on a tree missing a
+    configured target (a half-loaded adapter fails at load, not at
+    decode)."""
     parts = []
     for name in lcfg.targets:
-        try:
-            ab = lora[name]
-        except KeyError:
+        if name not in lora:
             raise ValueError(
                 f"adapter tree has no {name!r} entry but lcfg.targets="
                 f"{lcfg.targets}"
-            ) from None
+            )
+    lora = lora_tp_shard({name: lora[name] for name in lcfg.targets}, cfg, mesh)
+    for name in lcfg.targets:
+        ab = lora[name]
         parts.append(ab["a"].detach().float().reshape(-1))
         parts.append(ab["b"].detach().float().reshape(-1))
     return torch.cat(parts)
 
 
 def unflatten_lora(
-    flat: torch.Tensor, cfg: TransformerConfig, lcfg: LoraConfig
+    flat: torch.Tensor, cfg: TransformerConfig, lcfg: LoraConfig, mesh=None,
 ) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
     """Flat vector(s) -> ``{target: (a [..., L, fi, r], b [..., L, r,
-    fo])}`` views, the in/out dims flattened. Leading dims ride through,
-    so a gathered ``[B, F]`` slab read gives per-row views."""
+    fo])}`` views, the in/out dims flattened (a tp rank's view's dims on a
+    ``mesh``). Leading dims ride through, so a gathered ``[B, F]`` slab
+    read gives per-row views."""
     L, r = cfg.n_layers, lcfg.rank
     lead = flat.shape[:-1]
     out = {}
     off = 0
     for name in lcfg.targets:
-        fi, fo = _target_flat_dims(cfg, name)
+        fi, fo = _target_flat_dims(cfg, name, _tp(mesh))
         na, nb = L * fi * r, L * r * fo
         a = flat[..., off : off + na].reshape(*lead, L, fi, r)
         off += na

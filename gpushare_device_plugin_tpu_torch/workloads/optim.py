@@ -15,7 +15,10 @@ written out with optax's arithmetic, in optax's order:
   first update has LR 0).
 
 It updates params and moments in place (the reference donates them), so a
-step holds no second copy of the optimizer state.
+step holds no second copy of the optimizer state. On a mesh each rank
+updates its own shards; the clip's norm is the global one over every
+shard (each leaf's squared norm summed over the axes it is cut on, a
+replicated leaf counted once), as optax computes it on the whole tree.
 
 :class:`SGD` is ``optax.sgd(lr, momentum, nesterov)``, which the ResNet
 and MNIST workloads use: the trace ``t = g + m·t``, the update ``g + m·t``
@@ -29,6 +32,9 @@ import math
 from typing import Any, Callable
 
 import torch
+
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import AXES
 
 EPS = 1e-8
 
@@ -96,12 +102,16 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: Any, state: dict[str, Any], params: Any):
+    def update(self, grads: Any, state: dict[str, Any], params: Any, *, mesh=None,
+               shard_axes=None):
+        """One step in place. On a ``mesh``, ``shard_axes`` names, per leaf
+        in order, the axes that leaf is sharded over (for the clip's global
+        norm)."""
         leaves, gs = tree_leaves(params), tree_leaves(grads)
         if len(gs) != len(leaves):
             raise ValueError(f"{len(gs)} gradients for {len(leaves)} parameters")
         if self.clip_norm is not None:
-            norm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+            norm = global_norm(gs, mesh, shard_axes)
             if not bool(norm < self.clip_norm):
                 gs = [(g / norm.to(g.dtype)) * self.clip_norm for g in gs]
         count = int(state["count"])
@@ -116,6 +126,21 @@ class AdamW:
             p.add_(u.mul_(step).to(p.dtype))
         state["count"] += 1
         return params, state
+
+
+def global_norm(gs: list[torch.Tensor], mesh=None, shard_axes=None) -> torch.Tensor:
+    """The L2 norm of a gradient tree. On a ``mesh`` each leaf is this
+    rank's shard: its squared norm is summed over the axes in its entry of
+    ``shard_axes`` (all-reduces of one small vector, one per axis, on every
+    rank alike), so every rank gets the norm of the whole tree."""
+    if mesh is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in gs))
+    sq = torch.stack([g.float().square().sum() for g in gs])
+    for axis in AXES:
+        on = torch.tensor([axis in axes for axes in shard_axes], device=sq.device)
+        if mesh.shape[axis] > 1 and bool(on.any()):
+            sq = torch.where(on, all_reduce(sq, mesh, axis), sq)
+    return torch.sqrt(sq.sum())
 
 
 class SGD:

@@ -5,8 +5,11 @@ uniform :class:`Task` protocol (opaque state in, (state, loss) out),
 batches deterministic in (seed, step) so an interrupted and resumed run
 reproduces the uninterrupted one, and opt-in checkpoints. With a mesh
 (``parallel/mesh.py``) every rank makes the same global batch and its
-step runs the rank's tile of it; only rank 0 writes a checkpoint, and
-every rank restores the same one. Where the reference saves asynchronously with orbax, this
+step runs the rank's tile of it, on its shards of the state. A
+checkpoint is always whole: every rank sends its shard of each leaf to
+rank 0 (``mesh.unshard_to``), which writes the whole, and every rank
+restores its own shard of it, so a checkpoint taken on one mesh restores on another
+(fsdp=2 and fsdp=1, say). Where the reference saves asynchronously with orbax, this
 writes one ``torch.save`` file of the state's tensors and the step per
 checkpoint, through a temporary file and an atomic rename, keeps the
 newest ``ckpt_keep`` and resumes from the latest. The tasks are the
@@ -27,11 +30,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, shard, unshard_to
 from . import bert as B
 from . import resnet as R
 from . import transformer as T
-from .optim import tree_leaves
+from .optim import AdamW, tree_leaves
 
 log = logging.getLogger(__name__)
 
@@ -63,6 +66,10 @@ class Task(Protocol):
         seeded from (seed, step))."""
         ...
 
+    # Optional: ``state_specs(state, mesh) -> list`` gives the spec of
+    # every leaf of the state (``tree_leaves`` order) on a mesh that shards
+    # it; a task without it holds whole replicas.
+
 
 def fold_in(seed: int, n: int) -> int:
     """A seed derived from (seed, n): the counterpart of ``jax.random.fold_in``."""
@@ -80,26 +87,48 @@ def _ckpt_steps(ckpt_dir: str) -> list[int]:
     return sorted(int(p.stem[5:]) for p in d.glob("step_*.pt") if p.stem[5:].isdigit())
 
 
-def _save(cfg: TrainLoopConfig, step: int, state: Any) -> None:
-    """Write the state's tensors and ``step`` atomically, then drop all but
-    the newest ``ckpt_keep`` checkpoints."""
+def _state_specs(task: Task, state: Any, mesh: Mesh | None) -> list | None:
+    """Each state leaf's spec on ``mesh`` (None without a mesh)."""
+    if mesh is None:
+        return None
+    fn = getattr(task, "state_specs", None)
+    return fn(state, mesh) if fn is not None else [()] * len(tree_leaves(state))
+
+
+def _save(cfg: TrainLoopConfig, step: int, state: Any, mesh: Mesh | None = None,
+          specs: list | None = None) -> None:
+    """Write the state's tensors (whole: on a mesh every rank sends its
+    shard of each leaf to rank 0, which assembles and writes it) and
+    ``step`` atomically, then drop all but the newest ``ckpt_keep``
+    checkpoints."""
+    if mesh is not None:
+        tensors = [unshard_to(t, mesh, spec) for t, spec in zip(tree_leaves(state), specs)]
+        if mesh.rank != 0:
+            return
+    else:
+        tensors = [t.detach() for t in tree_leaves(state)]
     path = _ckpt_path(cfg.ckpt_dir, step)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    torch.save({"step": step, "tensors": [t.detach() for t in tree_leaves(state)]}, tmp)
+    torch.save({"step": step, "tensors": tensors}, tmp)
     os.replace(tmp, path)
     for old in _ckpt_steps(cfg.ckpt_dir)[:-max(1, cfg.ckpt_keep)]:
         _ckpt_path(cfg.ckpt_dir, old).unlink(missing_ok=True)
 
 
 @torch.no_grad()
-def _restore(state: Any, path: Path, device: torch.device) -> int:
-    """Copy a checkpoint's tensors into ``state`` in place; returns its step."""
-    saved = torch.load(path, map_location=device, weights_only=True)
+def _restore(state: Any, path: Path, device: torch.device, mesh: Mesh | None = None,
+             specs: list | None = None) -> int:
+    """Copy a checkpoint's tensors (on a mesh, this rank's shard of each)
+    into ``state`` in place; returns its step."""
+    saved = torch.load(path, map_location="cpu" if mesh is not None else device,
+                       weights_only=True)
     dst = tree_leaves(state)
     if len(saved["tensors"]) != len(dst):
         raise ValueError(f"{path}: {len(saved['tensors'])} tensors, state has {len(dst)}")
-    for d, s in zip(dst, saved["tensors"]):
+    for i, (d, s) in enumerate(zip(dst, saved["tensors"])):
+        if mesh is not None:
+            s = shard(s, mesh, specs[i])
         if d.shape != s.shape or d.dtype != s.dtype:
             raise ValueError(f"{path}: {s.dtype}{list(s.shape)} != {d.dtype}{list(d.shape)}")
         d.copy_(s)
@@ -123,12 +152,12 @@ def run_train_loop(
     state = task.init_state(torch.Generator(device=dev).manual_seed(fold_in(seed, 0)), mesh)
     data_seed = fold_in(seed, 1)
     step_fn = task.make_step(mesh)
-    writes = mesh is None or mesh.rank == 0
+    specs = _state_specs(task, state, mesh)
     start = 0
     if cfg.ckpt_dir:
         steps = _ckpt_steps(cfg.ckpt_dir)
         if steps:
-            start = _restore(state, _ckpt_path(cfg.ckpt_dir, steps[-1]), dev) + 1
+            start = _restore(state, _ckpt_path(cfg.ckpt_dir, steps[-1]), dev, mesh, specs) + 1
             log.info("resumed from checkpoint step %d", start - 1)
 
     loss_t = None
@@ -140,12 +169,13 @@ def run_train_loop(
             log.info("step %d loss %.4f", step, loss)
             if on_metrics is not None:
                 on_metrics(step, loss)
-        if writes and cfg.ckpt_dir and cfg.ckpt_every and (step + 1) % cfg.ckpt_every == 0:
-            _save(cfg, step, state)
-    if writes and cfg.ckpt_dir and cfg.total_steps > start:
-        # Persist the final step too (already saved if it matched ckpt_every).
-        if _ckpt_steps(cfg.ckpt_dir)[-1:] != [cfg.total_steps - 1]:
-            _save(cfg, cfg.total_steps - 1, state)
+        if cfg.ckpt_dir and cfg.ckpt_every and (step + 1) % cfg.ckpt_every == 0:
+            _save(cfg, step, state, mesh, specs)
+    if cfg.ckpt_dir and cfg.total_steps > start:
+        # Persist the final step too, unless ckpt_every just saved it (a
+        # rule of the step count, so every rank of a mesh agrees).
+        if not (cfg.ckpt_every and cfg.total_steps % cfg.ckpt_every == 0):
+            _save(cfg, cfg.total_steps - 1, state, mesh, specs)
     if mesh is not None and cfg.ckpt_dir:
         mesh.barrier()  # rank 0's files are whole before any rank goes on
     return state, float("nan") if loss_t is None else float(loss_t)
@@ -156,16 +186,20 @@ def run_train_loop(
 
 class DecoderTask:
     """Llama-style decoder LM (``workloads/transformer.py``) on
-    ``demo_batch`` tokens."""
+    ``demo_batch`` tokens, trained by ``optimizer`` (AdamW at its defaults
+    unless given)."""
 
-    def __init__(self, cfg: T.TransformerConfig, batch: int, seq: int):
+    def __init__(self, cfg: T.TransformerConfig, batch: int, seq: int,
+                 optimizer: AdamW | None = None):
         self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.optimizer = optimizer
 
     def init_state(self, generator: torch.Generator, mesh: Mesh | None = None):
-        return T.init_train_state(self.cfg, generator, device=generator.device, mesh=mesh)
+        return T.init_train_state(self.cfg, generator, self.optimizer, device=generator.device,
+                                  mesh=mesh)
 
     def make_step(self, mesh: Mesh | None = None):
-        step = T.make_train_step(self.cfg, mesh=mesh)
+        step = T.make_train_step(self.cfg, self.optimizer, mesh=mesh)
 
         def fn(state, batch):
             params, opt_state, loss = step(*state, batch.to(state[0]["embed"].device))
@@ -175,6 +209,12 @@ class DecoderTask:
 
     def make_batch(self, generator: torch.Generator, step: int) -> torch.Tensor:
         return T.demo_batch(generator, self.batch, self.seq, self.cfg.vocab)
+
+    def state_specs(self, state, mesh: Mesh) -> list:
+        """Specs of ``(params, opt_state)``'s leaves: the params', AdamW's
+        replicated count, then the moments, cut as their params."""
+        params = T.leaf_specs(state[0], mesh, self.cfg)
+        return params + [()] + params + params
 
 
 def _no_mesh(mesh: Mesh | None, model: str) -> None:

@@ -15,15 +15,28 @@ is a Python loop over the stacked weights (the reference's ``lax.scan``);
 (``torch.utils.checkpoint``): "full" saves only the layer inputs, "dots"
 saves the projections' outputs and recomputes only elementwise work.
 
-Context parallelism: with ``seq_parallel`` and a mesh
-(``parallel/mesh.py``), each rank of a ``dp x sp`` mesh runs its
-``[B/dp, S/sp]`` tile of the global batch at its global positions, and
-attention goes round the ``sp`` ring (``parallel/ring.py``) or through
-Ulysses's all-to-alls (``parallel/ulysses.py``). Parameters are
-replicated: each rank's loss is its share of the global mean, and the
-gradients are summed over the mesh after the backward. Tensor
-parallelism and FSDP (``tp``, ``fsdp`` > 1) are not ported yet.
-LoRA's serving hooks (per-row adapter deltas,
+With a mesh (``parallel/mesh.py``) each rank runs its ``[B/(dp·fsdp),
+S/sp]`` tile of the global batch at its global positions and holds only
+its shard of every weight, cut by :func:`param_shardings` (the
+reference's ``param_specs``, pruned where an axis does not divide):
+
+- tp shards heads, the MLP hidden width and the vocabulary. ``wq``,
+  ``wkv``, ``wi`` and ``out`` are column-parallel behind
+  ``collectives.copy_to_tp``; ``wo``, ``wdown`` and the embedding are
+  row-parallel, followed by ``reduce_from_tp``. Attention runs on the
+  rank's own q heads and the K/V heads they use. The logits stay cut on
+  the vocabulary: the loss is a vocab-parallel cross-entropy, and
+  serving gathers only the positions it samples.
+- fsdp shards the model dim; a layer all-gathers each weight it uses,
+  in the compute dtype, inside the remat'd layer, so the recompute
+  gathers again and no whole weight outlives its layer.
+- sp: attention goes round the ``sp`` ring (``parallel/ring.py``) or
+  through Ulysses's all-to-alls (``parallel/ulysses.py``).
+
+Each rank's loss is its share of the global mean; after the backward,
+each leaf's gradient is summed over the replica axes its spec does not
+shard (fsdp's share already came back through the gathers' backward; tp
+is never summed). LoRA's serving hooks (per-row adapter deltas,
 :func:`_bgmv_delta`) sit in :func:`_project_qkv` and :func:`_mlp_block`;
 its training merges the adapter into the weights (``lora.py``).
 """
@@ -44,8 +57,16 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
-from ..parallel.collectives import all_reduce_sum_, sum_shares
-from ..parallel.mesh import Mesh, batch_sharding
+from ..parallel.collectives import (
+    all_gather,
+    all_reduce,
+    all_reduce_sum_,
+    copy_to_tp,
+    gather_whole,
+    reduce_from_tp,
+    sum_shares,
+)
+from ..parallel.mesh import Mesh, batch_sharding, prune_unshardable, shard, shard_axes
 from ..parallel.ring import ring_attention
 from ..parallel.ulysses import ulysses_attention
 from .attention import flash_or_plain, grouped_full_attention, ulysses_inner_attn, use_flash
@@ -110,35 +131,145 @@ def init_params(
     generator: torch.Generator,
     device: str | torch.device | None = None,
     dtype: torch.dtype = torch.float32,
+    mesh: Mesh | None = None,
 ) -> Params:
     """Random weights scaled like the reference's ``init_params``
     (normal / sqrt(fan_in)), made on ``device`` from ``generator`` (which
     must live on that device). Matmul weights and the embedding are
     ``dtype``; norm gains are f32 ones. The numbers differ from JAX's
     for the same seed: tests move JAX weights across with
-    ``convert.from_jax_numpy``."""
+    ``convert.from_jax_numpy``. With a ``mesh``, each leaf is drawn whole,
+    in the same order and so with the same values, and only this rank's
+    shard (:func:`param_shardings`) is kept: the rank never holds more
+    than one whole leaf at a time."""
     dev = resolve_device(device)
     d, H, Dh, Fd, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers
     Hkv = cfg.kv_heads
+    specs = param_shardings(mesh, cfg) if mesh is not None else None
 
-    def norm(shape, fan_in):
+    def keep(w, *path):
+        if specs is None:
+            return w
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        return _own(shard(w, mesh, spec), w)
+
+    def norm(shape, fan_in, *path):
         w = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
-        return w.mul_(1.0 / math.sqrt(fan_in))
+        return keep(w.mul_(1.0 / math.sqrt(fan_in)), *path)
+
+    def ones(shape, *path):
+        return keep(torch.ones(shape, dtype=torch.float32, device=dev), *path)
 
     return {
-        "embed": norm((cfg.vocab, d), d),
+        "embed": norm((cfg.vocab, d), d, "embed"),
         "layers": {
-            "wq": norm((L, d, H, Dh), d),
-            "wkv": norm((L, d, 2, Hkv, Dh), d),
-            "wo": norm((L, H, Dh, d), d),
-            "wi": norm((L, d, 2, Fd), d),
-            "wdown": norm((L, Fd, d), Fd),
-            "ln1": torch.ones((L, d), dtype=torch.float32, device=dev),
-            "ln2": torch.ones((L, d), dtype=torch.float32, device=dev),
+            "wq": norm((L, d, H, Dh), d, "layers", "wq"),
+            "wkv": norm((L, d, 2, Hkv, Dh), d, "layers", "wkv"),
+            "wo": norm((L, H, Dh, d), d, "layers", "wo"),
+            "wi": norm((L, d, 2, Fd), d, "layers", "wi"),
+            "wdown": norm((L, Fd, d), Fd, "layers", "wdown"),
+            "ln1": ones((L, d), "layers", "ln1"),
+            "ln2": ones((L, d), "layers", "ln2"),
         },
-        "final_norm": torch.ones((d,), dtype=torch.float32, device=dev),
-        "out": norm((d, cfg.vocab), d),
+        "final_norm": ones((d,), "final_norm"),
+        "out": norm((d, cfg.vocab), d, "out"),
     }
+
+
+def param_specs(cfg: TransformerConfig) -> Params:
+    """The reference's ``param_specs``, each spec a tuple with one entry
+    per dim: tp shards heads, the MLP hidden width and the vocabulary;
+    fsdp shards the model dim (ZeRO-style)."""
+    del cfg
+    return {
+        "embed": ("tp", "fsdp"),
+        "layers": {
+            "wq": (None, "fsdp", "tp", None),
+            "wkv": (None, "fsdp", None, "tp", None),
+            "wo": (None, "tp", None, "fsdp"),
+            "wi": (None, "fsdp", None, "tp"),
+            "wdown": (None, "tp", "fsdp"),
+            "ln1": (None, None),
+            "ln2": (None, None),
+        },
+        "final_norm": (None,),
+        "out": ("fsdp", "tp"),
+    }
+
+
+def param_shapes(cfg: TransformerConfig) -> Params:
+    """The whole shape of every leaf of :func:`init_params`."""
+    d, H, Dh, Fd, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers
+    return {
+        "embed": (cfg.vocab, d),
+        "layers": {
+            "wq": (L, d, H, Dh), "wkv": (L, d, 2, cfg.kv_heads, Dh), "wo": (L, H, Dh, d),
+            "wi": (L, d, 2, Fd), "wdown": (L, Fd, d), "ln1": (L, d), "ln2": (L, d),
+        },
+        "final_norm": (d,),
+        "out": (d, cfg.vocab),
+    }
+
+
+def param_shardings(mesh: Mesh, cfg: TransformerConfig) -> Params:
+    """Each leaf's spec on ``mesh``: :func:`param_specs` pruned by
+    ``prune_unshardable`` (an axis that does not divide its dim is
+    dropped, the dim replicated)."""
+    return prune_unshardable(param_specs(cfg), param_shapes(cfg), mesh)
+
+
+def _own(tile: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """A tile that owns its memory (a view would keep the whole leaf)."""
+    return tile if tile.shape == whole.shape else tile.clone()
+
+
+def local_shape(shape, spec, mesh: Mesh) -> tuple[int, ...]:
+    """The shape of a rank's tile of a ``shape`` leaf under ``spec``."""
+    out = []
+    for n, axes in zip(shape, spec):
+        names = () if axes is None else (axes,) if isinstance(axes, str) else axes
+        out.append(n // math.prod(mesh.shape[a] for a in names))
+    return tuple(out) + tuple(shape[len(spec):])
+
+
+def shard_params(params: Params, mesh: Mesh, cfg: TransformerConfig) -> Params:
+    """This rank's shard of every leaf of a whole params tree (as
+    ``convert.from_jax_numpy`` or :func:`init_params` without a mesh give
+    it). A leaf that already has its shard's shape is kept as it is, so
+    sharded params pass through unchanged."""
+    check_mesh(mesh, cfg)
+
+    def cut(w, spec, shape):
+        if is_qtensor(w):
+            raise ValueError("int8 weights are not sharded: serve tp with float weights")
+        if isinstance(w, dict):
+            return {k: cut(w[k], spec[k], shape[k]) for k in w}
+        if tuple(w.shape) == tuple(shape):
+            return _own(shard(w, mesh, spec), w)
+        if tuple(w.shape) != local_shape(shape, spec, mesh):
+            raise ValueError(f"leaf of shape {tuple(w.shape)} is neither whole {tuple(shape)} "
+                             f"nor this rank's shard {local_shape(shape, spec, mesh)}")
+        return w
+
+    return cut(params, param_shardings(mesh, cfg), param_shapes(cfg))
+
+
+def leaf_specs(params: Params, mesh: Mesh, cfg: TransformerConfig) -> list[tuple]:
+    """The pruned spec (:func:`param_shardings`) of every leaf of
+    ``params``, in ``tree_leaves`` order (a tree's key order is its own)."""
+    out: list[tuple] = []
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            for key, val in node.items():
+                walk(val, spec[key])
+        else:
+            out.append(spec)
+
+    walk(params, param_shardings(mesh, cfg))
+    return out
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -179,15 +310,55 @@ def _bgmv_delta(x, a, b, scale: float, dt) -> torch.Tensor:
     return torch.einsum("btr,bro->bto", xa, b.to(dt)) * scale
 
 
+def _full(w, cfg: TransformerConfig, mesh: Mesh | None, dim: int) -> torch.Tensor:
+    """A weight in the compute dtype, whole along its model dim ``dim``:
+    an fsdp shard is cast first, then all-gathered over fsdp (the cast
+    commutes with the gather, at half the bytes in bf16)."""
+    w = matmul_weight(w, cfg.compute_dtype)
+    if mesh is not None and w.shape[dim] != cfg.d_model:
+        w = all_gather(w, mesh, "fsdp", dim)
+    return w
+
+
+def _kv_replicated(wkv: torch.Tensor, cfg: TransformerConfig, mesh: Mesh | None) -> bool:
+    """True on a tp mesh whose tp does not divide the kv heads: every rank
+    holds all of them (``prune_unshardable``)."""
+    return mesh is not None and mesh.shape["tp"] > 1 and wkv.shape[-2] == cfg.kv_heads
+
+
+def _rank_kv(k, v, cfg: TransformerConfig, mesh: Mesh | None):
+    """The K/V heads this rank's q heads use. With kv heads split over tp
+    a rank already holds exactly those; when tp does not divide them it
+    holds all of them, and selects: one head when its q heads share one,
+    else one per q head (the reference's repeat, cut to the rank)."""
+    if mesh is None or mesh.shape["tp"] == 1 or k.shape[2] != cfg.kv_heads:
+        return k, v
+    local = cfg.n_heads // mesh.shape["tp"]
+    groups = cfg.n_heads // cfg.kv_heads
+    first = mesh.axis_index("tp") * local
+    heads = [(first + j) // groups for j in range(local)]
+    if len(set(heads)) == 1:
+        heads = heads[:1]
+    idx = torch.tensor(heads, dtype=torch.long, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _project_qkv(h, lp, cfg: TransformerConfig, positions, lora=None,
-                 lora_scale: float = 1.0):
+                 lora_scale: float = 1.0, mesh: Mesh | None = None):
     """ln1-normalized hidden -> RoPE'd (q [B,T,H,Dh], k, v [B,T,Hkv,Dh]).
     ``lora`` (serving): this layer's per-row adapter views ``{target: (a
     [B, fi, r], b [B, r, fo])}``; their deltas go on the raw projections
-    before RoPE, the order ``merge_lora`` bakes into the weights."""
+    before RoPE, the order ``merge_lora`` bakes into the weights. With a
+    tp ``mesh`` both products are column-parallel: q has the rank's H/tp
+    heads, k and v its Hkv/tp (or, when tp does not divide them, all Hkv,
+    with ``wkv``'s gradient summed over tp as it leaves)."""
     dt = cfg.compute_dtype
-    q = torch.einsum("btd,dhn->bthn", h, matmul_weight(lp["wq"], dt))
-    kv = torch.einsum("btd,dchn->btchn", h, matmul_weight(lp["wkv"], dt))
+    h = copy_to_tp(h, mesh)
+    wkv = _full(lp["wkv"], cfg, mesh, 0)
+    if _kv_replicated(wkv, cfg, mesh):
+        wkv = copy_to_tp(wkv, mesh)
+    q = torch.einsum("btd,dhn->bthn", h, _full(lp["wq"], cfg, mesh, 0))
+    kv = torch.einsum("btd,dchn->btchn", h, wkv)
     if lora is not None and "wq" in lora:
         q = q + _bgmv_delta(h, *lora["wq"], lora_scale, dt).reshape(q.shape)
     if lora is not None and "wkv" in lora:
@@ -196,45 +367,72 @@ def _project_qkv(h, lp, cfg: TransformerConfig, positions, lora=None,
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
-def _mlp_block(x, lp, cfg: TransformerConfig, lora=None, lora_scale: float = 1.0):
+def _mlp_block(x, lp, cfg: TransformerConfig, lora=None, lora_scale: float = 1.0,
+               mesh: Mesh | None = None):
     """Residual SwiGLU MLP (ln2 -> gate/up -> silu -> down); ``lora`` as
-    in :func:`_project_qkv`."""
+    in :func:`_project_qkv`. With a tp ``mesh``: gate/up column-parallel
+    over the rank's F/tp, down row-parallel, summed over tp."""
     dt = cfg.compute_dtype
-    h = _rms_norm(x, lp["ln2"])
-    gate_up = torch.einsum("btd,dcf->btcf", h, matmul_weight(lp["wi"], dt))
+    h = copy_to_tp(_rms_norm(x, lp["ln2"]), mesh)
+    gate_up = torch.einsum("btd,dcf->btcf", h, _full(lp["wi"], cfg, mesh, 0))
     if lora is not None and "wi" in lora:
         gate_up = gate_up + _bgmv_delta(h, *lora["wi"], lora_scale, dt).reshape(gate_up.shape)
     ff = F.silu(gate_up[:, :, 0]) * gate_up[:, :, 1]
-    down = torch.einsum("btf,fd->btd", ff, matmul_weight(lp["wdown"], dt))
+    down = torch.einsum("btf,fd->btd", ff, _full(lp["wdown"], cfg, mesh, 1))
     if lora is not None and "wdown" in lora:
         down = down + _bgmv_delta(ff, *lora["wdown"], lora_scale, dt)
-    return x + down
+    return x + reduce_from_tp(down, mesh)
 
 
-def _attn_out(attn, lp, cfg: TransformerConfig):
-    return torch.einsum("bthn,hnd->btd", attn, matmul_weight(lp["wo"], cfg.compute_dtype))
+def _attn_out(attn, lp, cfg: TransformerConfig, mesh: Mesh | None = None, delta=None):
+    """The wo projection (plus an adapter's ``delta``), row-parallel over
+    tp: each rank's heads contribute a partial sum."""
+    out = torch.einsum("bthn,hnd->btd", attn, _full(lp["wo"], cfg, mesh, 2))
+    if delta is not None:
+        out = out + delta
+    return reduce_from_tp(out, mesh)
 
 
-def _logits(params: Params, x, cfg: TransformerConfig):
-    x = _rms_norm(x, params["final_norm"])
-    out = matmul_weight(params["out"], cfg.compute_dtype)
-    return torch.einsum("btd,dv->btv", x, out).float()
+def _embed(embed, tokens: torch.Tensor, cfg: TransformerConfig, mesh: Mesh | None = None):
+    """Embedding rows in the compute dtype. A vocab-parallel table (its
+    rows cut over tp) looks up the ids in this rank's range, zeroes the
+    rest and sums over tp."""
+    if mesh is None:
+        return embed_lookup(embed, tokens, cfg.compute_dtype)
+    table = _full(embed, cfg, mesh, 1)
+    rows = table.shape[0]
+    if rows == cfg.vocab:
+        return table[tokens]
+    local = tokens - mesh.axis_index("tp") * rows
+    hit = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)]
+    return reduce_from_tp(torch.where(hit[..., None], x, torch.zeros_like(x)), mesh)
+
+
+def _logits(params: Params, x, cfg: TransformerConfig, mesh: Mesh | None = None):
+    """f32 logits; with a tp ``mesh``, this rank's vocab/tp of them."""
+    x = copy_to_tp(_rms_norm(x, params["final_norm"]), mesh)
+    return torch.einsum("btd,dv->btv", x, _full(params["out"], cfg, mesh, 0)).float()
+
+
+def gather_logits(logits: torch.Tensor, cfg: TransformerConfig,
+                  mesh: Mesh | None) -> torch.Tensor:
+    """Whole-vocabulary logits from this rank's tp shard of them, the same
+    on every rank (serving samples from these)."""
+    if mesh is None or logits.shape[-1] == cfg.vocab:
+        return logits
+    return gather_whole(logits, mesh, "tp", logits.dim() - 1)
 
 
 def _attention(q, k, v, cfg: TransformerConfig, mesh: Mesh | None):
-    """Causal self-attention of one layer: over the sp axis when
-    ``cfg.seq_parallel``, else on the rank's tensors as they are."""
+    """Causal self-attention of one layer on the rank's q heads and the
+    K/V heads they use: over the sp axis when ``cfg.seq_parallel``, else
+    on the rank's tensors as they are."""
+    k, v = _rank_kv(k, v, cfg, mesh)
     if not cfg.seq_parallel:
         return flash_or_plain(q, k, v, attention=cfg.attention, causal=True, mesh=mesh)
     if mesh is None:
         raise ValueError("seq_parallel=True requires a mesh")
-    tp = mesh.shape["tp"]
-    if cfg.kv_heads % tp:
-        # Both schemes take KV heads split over tp; when tp does not
-        # divide them, full heads (correct, g times the bytes).
-        groups = cfg.n_heads // cfg.kv_heads
-        k = k.repeat_interleave(groups, dim=2)
-        v = v.repeat_interleave(groups, dim=2)
     if cfg.context_parallel not in ("ring", "ulysses"):
         raise ValueError(
             f"unknown context_parallel={cfg.context_parallel!r}: expected ring|ulysses"
@@ -250,9 +448,9 @@ def _attention(q, k, v, cfg: TransformerConfig, mesh: Mesh | None):
 
 def _layer(x, lp, cfg: TransformerConfig, positions, mesh: Mesh | None = None):
     """One decoder block."""
-    q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
+    q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions, mesh=mesh)
     attn = _attention(q, k, v, cfg, mesh)
-    return _mlp_block(x + _attn_out(attn, lp, cfg), lp, cfg)
+    return _mlp_block(x + _attn_out(attn, lp, cfg, mesh), lp, cfg, mesh=mesh)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
@@ -278,8 +476,16 @@ def _save_matmuls(n: int) -> Callable:
     return context_fn
 
 
-def _qkv_part(x, lp, cfg: TransformerConfig, positions):
-    return _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions)
+def _qkv_part(x, lp, cfg: TransformerConfig, positions, mesh: Mesh | None = None):
+    return _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions, mesh=mesh)
+
+
+def _wo_part(x, attn, lp, cfg: TransformerConfig, mesh: Mesh | None = None):
+    return x + _attn_out(attn, lp, cfg, mesh)
+
+
+def _mlp_part(x, lp, cfg: TransformerConfig, mesh: Mesh | None = None):
+    return _mlp_block(x, lp, cfg, mesh=mesh)
 
 
 def _dots_layer(x, lp, cfg: TransformerConfig, positions, mesh: Mesh | None = None):
@@ -290,16 +496,21 @@ def _dots_layer(x, lp, cfg: TransformerConfig, positions, mesh: Mesh | None = No
     do the ring's or Ulysses's exchanges around it) and recomputed whole
     on the plain path (no [S, S] matrix is kept; a sequence-parallel
     recompute makes its exchanges again, on every rank alike); then the
-    wo product and residual (which save only the attention output) and
-    the MLP (its gate/up output saved, ln2 and SiLU recomputed)."""
-    q, k, v = checkpoint(_qkv_part, x, lp, cfg, positions, use_reentrant=False,
+    wo product and residual (its output saved) and the MLP (its gate/up
+    output saved, ln2 and SiLU recomputed). Each piece gathers its fsdp
+    weights inside its checkpoint, so what it saves are products of the
+    rank's own shards, and the backward gathers each weight again rather
+    than keep it."""
+    q, k, v = checkpoint(_qkv_part, x, lp, cfg, positions, mesh, use_reentrant=False,
                          context_fn=_save_matmuls(2))
     if use_flash(cfg.attention, q):
         attn = _attention(q, k, v, cfg, mesh)
     else:
         attn = checkpoint(_attention, q, k, v, cfg, mesh, use_reentrant=False)
-    x = x + _attn_out(attn, lp, cfg)
-    return checkpoint(_mlp_block, x, lp, cfg, use_reentrant=False, context_fn=_save_matmuls(1))
+    x = checkpoint(_wo_part, x, attn, lp, cfg, mesh, use_reentrant=False,
+                   context_fn=_save_matmuls(1))
+    return checkpoint(_mlp_part, x, lp, cfg, mesh, use_reentrant=False,
+                      context_fn=_save_matmuls(1))
 
 
 def _layer_fn(cfg: TransformerConfig) -> Callable:
@@ -315,25 +526,44 @@ def _layer_fn(cfg: TransformerConfig) -> Callable:
     return lambda *args: checkpoint(_layer, *args, use_reentrant=False)
 
 
-# Axes over which parameters are replicated, so gradients are summed.
+# The batch axes: the loss's shares are summed over these, never over tp.
 REPLICA_AXES = ("dp", "fsdp", "sp")
 
 
-def check_mesh(mesh: Mesh) -> None:
-    """Raise unless ``mesh`` is one this slice of the port trains on:
-    ``dp x sp``, parameters replicated."""
-    if mesh.shape["tp"] > 1 or mesh.shape["fsdp"] > 1:
-        raise ValueError(
-            f"mesh {mesh.shape}: tensor parallelism and FSDP (tp, fsdp > 1) come with "
-            "the port's tensor-parallel / FSDP slice; this one trains dp x sp with "
-            "replicated parameters"
-        )
+def check_mesh(mesh: Mesh, cfg: TransformerConfig) -> None:
+    """Raise unless ``cfg``'s decoder runs on ``mesh``: tp must divide the
+    heads, the MLP hidden width and the vocabulary (the kv heads may stay
+    whole: each rank then selects the ones its q heads use)."""
+    tp = mesh.shape["tp"]
+    for name, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide {name}={n}: the decoder shards "
+                             "heads, MLP width and vocabulary over tp")
+
+
+def grad_sum_axes(params: Params, mesh: Mesh, cfg: TransformerConfig) -> list[tuple[str, ...]]:
+    """For each leaf of ``params``, in ``tree_leaves`` order, the axes its gradient is
+    summed over after the backward: the batch axes its pruned spec does
+    not shard. An fsdp-sharded leaf's fsdp sum came back through its
+    gather's backward; tp is never summed (``copy_to_tp`` already made
+    every tp rank's gradient of a replicated leaf whole)."""
+    return [tuple(a for a in REPLICA_AXES if a not in shard_axes(spec))
+            for spec in leaf_specs(params, mesh, cfg)]
+
+
+def sum_grads_(grads: list[torch.Tensor], params: Params, mesh: Mesh,
+               cfg: TransformerConfig) -> None:
+    """Sum the gradient of each leaf of ``params`` in place over
+    :func:`grad_sum_axes`, one all-reduce per leaf and axis, in leaf order
+    on every rank."""
+    for g, axes in zip(grads, grad_sum_axes(params, mesh, cfg)):
+        all_reduce_sum_([g], mesh, axes)
 
 
 def _tile(tokens: torch.Tensor, cfg: TransformerConfig, mesh: Mesh):
     """This rank's tile of the global tokens and the global position of
     its first column."""
-    check_mesh(mesh)
+    check_mesh(mesh, cfg)
     if mesh.shape["sp"] > 1 and not cfg.seq_parallel:
         raise ValueError(f"a mesh with sp={mesh.shape['sp']} needs seq_parallel=True")
     tile = batch_sharding(tokens, mesh, seq_parallel=cfg.seq_parallel)
@@ -344,16 +574,38 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh: Mesh | None = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] f32. With a ``mesh``, the
     global tokens in (the same on every rank), the logits of this rank's
-    ``[B/dp, S/sp]`` tile out, computed at its global positions."""
+    ``[B/(dp·fsdp), S/sp]`` tile out, computed at its global positions,
+    on this rank's vocab/tp (:func:`gather_logits` makes them whole)."""
     start = 0
     if mesh is not None:
         tokens, start = _tile(tokens, cfg, mesh)
     positions = start + torch.arange(tokens.shape[1], device=tokens.device)
     layer = _layer_fn(cfg)
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = _embed(params["embed"], tokens, cfg, mesh)
     for i in range(cfg.n_layers):
         x = layer(x, layer_params(params["layers"], i), cfg, positions, mesh)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, mesh)
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor, cfg: TransformerConfig,
+             mesh: Mesh | None) -> torch.Tensor:
+    """The summed next-token nll of ``logits`` [B, T, V] at ``targets``
+    [B, T]. Logits cut on the vocabulary over tp give a vocab-parallel
+    cross-entropy: the max, the sum of exponentials and the target's
+    logit are each combined over tp, and ``[B, T, vocab]`` is never
+    gathered. Every tp rank returns the same sum and differentiates its
+    own logits."""
+    if mesh is None or logits.shape[-1] == cfg.vocab:
+        return F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(), reduction="sum")
+    width = logits.shape[-1]
+    top = all_reduce(logits.detach().amax(-1), mesh, "tp", op="max", kind="tp_all_reduce")
+    z = logits - top[..., None]
+    sumexp = reduce_from_tp(z.exp().sum(-1), mesh)
+    local = targets.long() - mesh.axis_index("tp") * width
+    hit = (local >= 0) & (local < width)
+    picked = torch.gather(z, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+    target = reduce_from_tp(torch.where(hit, picked, torch.zeros_like(picked)), mesh)
+    return (sumexp.log() - target).sum()
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -366,7 +618,9 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     one target fewer. Each rank divides its nll sum by the global count
     B*(S-1), so the ranks' shares sum to the mean, which every rank
     returns; its backward is the rank's own share (the gradients are
-    summed over the mesh afterwards, :func:`make_train_step`)."""
+    summed over the mesh afterwards, :func:`make_train_step`). The shares
+    are summed over the batch axes, never over tp: the tp ranks of one
+    tile hold the same share (:func:`_nll_sum`)."""
     logits = forward(params, tokens, cfg, mesh)
     if mesh is None:
         return F.cross_entropy(logits[:, :-1].flatten(0, 1), tokens[:, 1:].flatten().long())
@@ -374,7 +628,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     start = mesh.axis_index("sp") * T
     targets = batch_sharding(tokens, mesh)[:, start + 1:start + T + 1]
     n = targets.shape[1]
-    nll = F.cross_entropy(logits[:, :n].flatten(0, 1), targets.flatten().long(), reduction="sum")
+    nll = _nll_sum(logits[:, :n], targets, cfg, mesh)
     B, S = tokens.shape
     return sum_shares(nll / (B * (S - 1)), mesh, REPLICA_AXES)
 
@@ -393,15 +647,17 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
     full-batch step up to f32 summation order, at one microbatch's
     activation memory.
 
-    With a ``mesh`` (``dp x sp``), ``tokens`` is the global batch, the same
-    on every rank; each rank runs its tile, and the gradients are summed
-    over the mesh (one all-reduce per leaf, in leaf order) before every
-    rank applies the same update to its replica."""
+    With a ``mesh``, ``tokens`` is the global batch, the same on every
+    rank, and params and optimizer state are the rank's shards
+    (:func:`init_train_state`, :func:`shard_params`); each rank runs its
+    tile, each leaf's gradient is summed over the axes of
+    :func:`grad_sum_axes` (in leaf order), and every rank applies AdamW to
+    its shards, clipping by the global norm over all of them."""
     opt = optimizer or make_optimizer()
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if mesh is not None:
-        check_mesh(mesh)
+        check_mesh(mesh, cfg)
 
     def grads_of(params, tokens):
         loss = loss_fn(params, tokens, cfg, mesh)
@@ -425,9 +681,11 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,
             loss = loss / accum_steps
             for g in grads:
                 g.div_(accum_steps)
+        owned = None
         if mesh is not None:
-            all_reduce_sum_(grads, mesh, REPLICA_AXES)
-        opt.update(grads, opt_state, params)
+            sum_grads_(grads, params, mesh, cfg)
+            owned = [shard_axes(spec) for spec in leaf_specs(params, mesh, cfg)]
+        opt.update(grads, opt_state, params, mesh=mesh, shard_axes=owned)
         return params, opt_state, loss
 
     return step
@@ -441,13 +699,16 @@ def init_train_state(
     """(params, opt_state) for :func:`make_train_step`: f32 params made on
     ``device`` (the mesh's device, with a ``mesh``) from ``generator``
     (which must live there), held as the ``nn.Parameter``s of a trainable
-    :class:`Decoder`. With a mesh every rank holds a whole replica, so
-    every rank must pass a generator seeded alike."""
+    :class:`Decoder`. With a mesh every rank draws every leaf whole and
+    keeps its shard (:func:`init_params`), so every rank must pass a
+    generator seeded alike, and the shards hold exactly the values of
+    the unsharded state."""
     opt = optimizer or make_optimizer()
     if mesh is not None:
-        check_mesh(mesh)
+        check_mesh(mesh, cfg)
         device = mesh.device if device is None else device
-    params = Decoder(init_params(cfg, generator, device=device), cfg, trainable=True).params
+    params = Decoder(init_params(cfg, generator, device=device, mesh=mesh), cfg,
+                     trainable=True).params
     return params, opt.init(params)
 
 

@@ -856,3 +856,84 @@ def test_two_rank_gloo_ring_on_card_matches_one_flash_attention(tmp_path):
             p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RING-OK {r}" in out, out[-3000:]
+
+
+TP_RANK = """
+import datetime, sys, torch, torch.distributed as dist
+from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
+from gpushare_device_plugin_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+
+rank, tp = int(sys.argv[2]), int(sys.argv[3])
+dist.init_process_group("gloo", init_method=f"file://{sys.argv[1]}", world_size=tp, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_mesh(MeshSpec(tp=tp), backend="gloo")
+cfg = T.TransformerConfig(vocab=512, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                          d_ff=1024, max_seq=512)
+whole = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(5), dtype=torch.bfloat16)
+tokens = torch.randint(0, cfg.vocab, (2, 256), generator=torch.Generator().manual_seed(6))
+tokens = tokens.cuda()
+with torch.no_grad():
+    want = T.forward(whole, tokens, cfg)
+    shards = T.shard_params(whole, mesh, cfg)
+    before = fa.LAUNCHES["flash_fwd"]
+    got = T.gather_logits(T.forward(shards, tokens, cfg, mesh), cfg, mesh)
+torch.cuda.synchronize()
+assert fa.LAUNCHES["flash_fwd"] - before == cfg.n_layers, fa.LAUNCHES
+kv_local = cfg.kv_heads // tp if cfg.kv_heads % tp == 0 else cfg.kv_heads
+assert shards["layers"]["wq"].shape[2] == cfg.n_heads // tp
+assert shards["layers"]["wkv"].shape[3] == kv_local
+assert shards["out"].shape[1] == cfg.vocab // tp
+assert mesh.traffic["tp_all_reduce"].calls == 2 * cfg.n_layers + 1
+err = float((got - want).abs().max())
+assert err <= 2.0 ** -5 * float(want.abs().max()), err
+print("TP-OK", rank, err, flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _tp_ranks_on_card(tmp_path, tp: int) -> None:
+    """Run TP_RANK as ``tp`` gloo ranks sharing the card; each must pass."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", TP_RANK, str(tmp_path / "rdv"), str(r),
+                               str(tp)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(tp)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"TP-OK {r}" in out, out[-3000:]
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_tp_decoder_forward_on_card_matches_one_rank(tmp_path):
+    """Two gloo ranks share the card as a tp=2 mesh: the decoder's forward
+    on each rank's shards (two of four q heads and one of two kv heads,
+    half the MLP and vocabulary) launches the bf16 flash kernel once a
+    layer on its local heads, makes one tp all-reduce after each
+    row-parallel projection and the embedding, and its gathered logits
+    match one rank's forward on the whole weights within 2^-5 of their
+    largest magnitude (the partial sums of two ranks rounded to bf16
+    before their sum, through two layers)."""
+    _card()
+    _tp_ranks_on_card(tmp_path, 2)
+
+
+@pytest.mark.cuda
+def test_four_rank_gloo_tp_decoder_with_replicated_wkv_launches_flash_on_card(tmp_path):
+    """tp=4 over two kv heads: tp does not divide them, so every rank holds
+    the whole ``wkv`` and selects the one kv head its q head uses. "auto"
+    attention still launches the flash kernel once a layer on each rank
+    (one q head over one kv head), and the gathered logits match one
+    rank's forward within the same 2^-5 of their largest magnitude."""
+    _card()
+    _tp_ranks_on_card(tmp_path, 4)

@@ -143,3 +143,34 @@ def test_pod_workload_entry_points_refuse_to_drop_to_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert mnist.train(steps=1, batch=2, device="cpu") > 0
+
+
+def test_tensor_parallel_entry_points_refuse_to_drop_to_cpu(monkeypatch):
+    """The sharded paths resolve their device like the rest: a mesh made
+    for the card keeps every engine, init and cache on it, and raises
+    without one; a mesh made for the CPU keeps them there."""
+    from gpushare_device_plugin_tpu_torch.parallel.mesh import Mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = T.TransformerConfig(vocab=8, d_model=16, n_layers=1, n_heads=2, d_ff=8,
+                              compute_dtype=torch.float32)
+    card = Mesh(MeshSpec(tp=2), rank=0, device=torch.device("cuda", 0), backend="gloo",
+                groups={}, ranks={})
+    host = Mesh(MeshSpec(tp=2), rank=1, device=torch.device("cpu"), backend="gloo",
+                groups={}, ranks={})
+    params = T.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_params(cfg, torch.Generator(), mesh=host)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_train_state(cfg, torch.Generator(), mesh=card)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        G.init_slot_cache(cfg, 1, 8, mesh=host)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SlotEngine(params, cfg, slots=1, max_len=8, prefill_chunk=4, mesh=card)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedSlotEngine(params, cfg, slots=1, max_len=8, total_pages=2, page_size=4,
+                        prefill_chunk=4, mesh=card)
+    eng = SlotEngine(params, cfg, slots=1, max_len=8, prefill_chunk=4, mesh=host)
+    assert eng.device == torch.device("cpu") and eng.mesh is host
+    assert eng.cache["k"].shape[3] == 1  # the rank's half of the two kv heads
+    assert T.init_train_state(cfg, torch.Generator(), mesh=host)[0]["out"].shape == (16, 4)

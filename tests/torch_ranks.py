@@ -225,4 +225,196 @@ def train_steps(meshes, *, spec, params, tokens, cfg, steps, accum_steps=1, lr=3
             "params": {n: t.detach().numpy() for n, t in T._flatten(tp).items()}}
 
 
-JOBS = {"attention": attention, "decoder_grads": decoder_grads, "train_steps": train_steps}
+def _sharded(meshes, spec, params, cfg):
+    """The mesh, the port's decoder module and config, and this rank's
+    trainable shards of the reference-made ``params``."""
+    from gpushare_device_plugin_tpu_torch.workloads import convert
+    from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+
+    mesh = _mesh(meshes, spec)
+    tcfg = T.TransformerConfig(**cfg, compute_dtype=torch.float32)
+    whole = convert.from_jax_numpy(params, tcfg, device="cpu")
+    return mesh, T, tcfg, T.Decoder(T.shard_params(whole, mesh, tcfg), tcfg, trainable=True).params
+
+
+def _whole(T, tcfg, mesh, params, leaves):
+    """Each of ``leaves`` (this rank's shards of the leaves of ``params``,
+    in leaf order) gathered whole."""
+    from gpushare_device_plugin_tpu_torch.parallel.mesh import unshard
+
+    return [unshard(t.detach(), mesh, spec).numpy()
+            for t, spec in zip(leaves, T.leaf_specs(params, mesh, tcfg))]
+
+
+def shard_blocks(meshes, *, spec, params, cfg):
+    """This rank's ``shard_params`` blocks; whether ``unshard`` gives the
+    whole leaves back bit for bit; and, by leaf, what ``unshard_to``
+    hands this rank (the whole leaf's bits on rank 0, None elsewhere)."""
+    from gpushare_device_plugin_tpu_torch.parallel.mesh import unshard_to
+
+    mesh, T, tcfg, tp = _sharded(meshes, spec, params, cfg)
+    blocks = T._flatten(tp)
+    whole = _whole(T, tcfg, mesh, tp, list(blocks.values()))
+    ref = T._flatten(params)
+    to_root = {}
+    for (n, t), s in zip(blocks.items(), T.leaf_specs(tp, mesh, tcfg)):
+        got = unshard_to(t, mesh, s)
+        to_root[n] = None if got is None else bool(np.array_equal(got.numpy(), np.asarray(ref[n])))
+    return {"blocks": {n: t.detach().numpy() for n, t in blocks.items()},
+            "roundtrip": all(np.array_equal(w, np.asarray(ref[n])) for n, w in zip(blocks, whole)),
+            "to_root": to_root}
+
+
+def collectives(meshes, *, spec, seed):
+    """``all_reduce`` (sum of bf16 partials, max) over tp, and
+    ``all_reduce_sum_`` of a strided view over dp, on rank-seeded inputs;
+    the results as f32 numpy, for the test to hold against its own sums."""
+    from gpushare_device_plugin_tpu_torch.parallel.collectives import all_reduce, all_reduce_sum_
+
+    mesh = _mesh(meshes, spec)
+    x = torch.from_numpy(np.random.default_rng(seed + mesh.rank).normal(size=(3, 5))
+                         .astype(np.float32))
+    part = x.to(torch.bfloat16)
+    total = all_reduce(part, mesh, "tp")
+    top = all_reduce(x, mesh, "tp", op="max")
+    base = x.clone()
+    view = base[:, 1:4]  # strided: the sum must land in these elements only
+    all_reduce_sum_([view], mesh, ("dp",))
+    return {"x": x.numpy(), "sum_dtype": str(total.dtype), "sum": total.float().numpy(),
+            "max": top.numpy(), "strided": base.numpy(),
+            "traffic": {k: (v.calls, v.bytes) for k, v in mesh.traffic.items()}}
+
+
+def tp_grads(meshes, *, spec, params, tokens, cfg):
+    """The sharded decoder's loss and every leaf's gradient after
+    ``sum_grads_``, gathered whole, with the traffic of the exchanges."""
+    from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+
+    mesh, T, tcfg, tp = _sharded(meshes, spec, params, cfg)
+    mesh.traffic.clear()
+    leaves = tree_leaves(tp)
+    loss = T.loss_fn(tp, torch.from_numpy(tokens), tcfg, mesh)
+    grads = list(torch.autograd.grad(loss, leaves))
+    T.sum_grads_(grads, tp, mesh, tcfg)
+    return {"loss": float(loss.detach()),
+            "grads": dict(zip(T._flatten(tp), _whole(T, tcfg, mesh, tp, grads))),
+            "traffic": {kind: (t.calls, t.bytes) for kind, t in mesh.traffic.items()}}
+
+
+def tp_train_steps(meshes, *, spec, params, tokens, cfg, steps, accum_steps=1, lr=3e-4,
+                   clip_norm=None):
+    """``steps`` sharded steps of ``make_train_step`` (AdamW at ``lr``,
+    optionally clipped) on the same global batch; the losses, and the
+    parameters after, gathered whole."""
+    from gpushare_device_plugin_tpu_torch.workloads.optim import make_optimizer, tree_leaves
+
+    mesh, T, tcfg, tp = _sharded(meshes, spec, params, cfg)
+    opt = make_optimizer(lr, clip_norm=clip_norm)
+    step = T.make_train_step(tcfg, opt, accum_steps=accum_steps, mesh=mesh)
+    state = opt.init(tp)
+    losses = []
+    for _ in range(steps):
+        tp, state, loss = step(tp, state, torch.from_numpy(tokens))
+        losses.append(float(loss))
+    return {"losses": losses,
+            "params": dict(zip(T._flatten(tp), _whole(T, tcfg, mesh, tp, tree_leaves(tp)))),
+            "state_bytes": nbytes(tp) + sum(nbytes(t) for t in tree_leaves(state))}
+
+
+def tp_checkpoint(meshes, *, spec, cfg, batch, seq, steps, ckpt_dir):
+    """``run_train_loop`` of a ``DecoderTask`` on the mesh for ``steps``
+    steps, checkpointing into ``ckpt_dir``; the last loss, and the state
+    after, gathered whole."""
+    from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+    from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+    from gpushare_device_plugin_tpu_torch.workloads.trainer import (
+        DecoderTask, TrainLoopConfig, run_train_loop)
+
+    mesh = _mesh(meshes, spec)
+    tcfg = T.TransformerConfig(**cfg, compute_dtype=torch.float32)
+    task = DecoderTask(tcfg, batch, seq)
+    state, loss = run_train_loop(task, TrainLoopConfig(total_steps=steps, log_every=1,
+                                                       ckpt_dir=ckpt_dir, ckpt_every=2),
+                                 seed=0, mesh=mesh)
+    from gpushare_device_plugin_tpu_torch.parallel.mesh import unshard
+
+    whole = [unshard(t.detach(), mesh, s).numpy()
+             for t, s in zip(tree_leaves(state), task.state_specs(state, mesh))]
+    return {"loss": loss, "state": whole}
+
+
+def gang_env(tp: int) -> dict:
+    """The plugin's env of a ``tp``-chip gang grant (one unit a chip)."""
+    chips = ",".join(str(i) for i in range(tp))
+    return {"TPU_VISIBLE_CHIPS": chips, "ALIYUN_COM_TPU_GANG_CHIPS": chips,
+            "ALIYUN_COM_TPU_GANG_SHAPE": f"{tp}x1x1", "ALIYUN_COM_TPU_GANG_PER_CHIP": "1",
+            "ALIYUN_COM_TPU_MEM_CONTAINER": str(tp), "ALIYUN_COM_TPU_MEM_DEV": "16"}
+
+
+def nbytes(tree) -> int:
+    """Bytes of a tree's tensors (a cache's ``len`` vector excluded)."""
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for k, v in tree.items() if k != "len")
+    return tree.numel() * tree.element_size()
+
+
+def tp_serve(meshes, *, tp, kind, cfg, params, engine, trace, lora=None, draft=None,
+             snapshot=None, pages=None):
+    """Serve the port's ``trace`` (a trace function's name and keyword
+    arguments) on a ``kind`` ("slot" or "paged") engine over the gang
+    mesh of a ``tp``-chip grant, from the reference-made ``params``
+    (``lora``: (LoraConfig fields, {id: tree}); ``draft``: (config fields,
+    tree)). With ``snapshot``, restore it instead (no warmup). Returns
+    the tokens by rid, the shape guard after warmup and after the run, and
+    the bytes this rank holds of each buffer. ``pages``: (page ids, a
+    single-chip engine's exported pages) to import after the run; the
+    rank's export of them comes back as ``imported``."""
+    from gpushare_device_plugin_tpu_torch.parallel.podenv import gang_mesh
+    from gpushare_device_plugin_tpu_torch.serving import engine as E
+    from gpushare_device_plugin_tpu_torch.workloads import convert
+    from gpushare_device_plugin_tpu_torch.workloads import lora as L
+    from gpushare_device_plugin_tpu_torch.workloads import transformer as T
+
+    mesh = gang_mesh(env=gang_env(tp), device="cpu", backend="gloo")
+    tcfg = T.TransformerConfig(**cfg, compute_dtype=torch.float32)
+    kw = dict(engine, mesh=mesh, device="cpu")
+    if lora is not None:
+        lcfg = L.LoraConfig(**lora[0])
+        kw.update(lora_cfg=lcfg, lora_store={
+            aid: convert.lora_from_jax_numpy(tree, tcfg, lcfg, device="cpu")
+            for aid, tree in lora[1].items()})
+    if draft is not None:
+        dcfg = T.TransformerConfig(**draft[0], compute_dtype=torch.float32)
+        kw.update(draft_cfg=dcfg, draft_params=convert.from_jax_numpy(draft[1], dcfg, device="cpu"))
+    whole = convert.from_jax_numpy(params, tcfg, device="cpu")
+    eng = (E.SlotEngine if kind == "slot" else E.PagedSlotEngine)(whole, tcfg, **kw)
+    if snapshot is None:
+        eng.warmup()
+        warm = dict(eng.trace_counts)
+        stats = eng.run(getattr(E, trace[0])(**trace[1]))
+    else:
+        warm = None
+        stats = eng.restore_snapshot(snapshot)
+    out = {"tokens": {r.rid: list(r.tokens) for r in stats.results}, "warm": warm,
+           "after": dict(eng.trace_counts), "weights": nbytes(eng.params),
+           "cache": nbytes(eng.cache)}
+    if pages is not None:
+        eng.import_kv_pages(*pages)
+        out["imported"] = eng.export_kv_pages(pages[0])
+    if kind == "paged":
+        out["pages_per_adapter"] = getattr(eng, "pages_per_adapter", 0)
+        out["slab"] = nbytes(eng._lora_slab) if eng.adapters is not None else 0
+        out["draft"] = nbytes(eng.draft_cache) if eng.draft_cache is not None else 0
+        out["draft_weights"] = nbytes(eng.draft_params) if eng.draft_cache is not None else 0
+        if eng.adapters is not None:
+            out["leak_free"] = (eng.allocator.used_pages
+                                == eng.radix.cached_pages + eng.adapters.cached_pages)
+        else:
+            out["leak_free"] = eng.allocator.used_pages == eng.radix.cached_pages
+    return out
+
+
+JOBS = {"attention": attention, "decoder_grads": decoder_grads, "train_steps": train_steps,
+        "shard_blocks": shard_blocks, "tp_grads": tp_grads, "tp_train_steps": tp_train_steps,
+        "tp_checkpoint": tp_checkpoint, "tp_serve": tp_serve,
+        "collectives": collectives}
