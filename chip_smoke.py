@@ -93,9 +93,10 @@ Phases, each of which fails the run with a non-zero exit:
    falling, the BN running statistics changed and finite. One step is
    profiled.
 11. Binpack on one card through the pod env: six child processes start
-   at once, each given only the plugin's env for its slice
-   (``TPU_VISIBLE_CHIPS=0``, ``ALIYUN_COM_TPU_MEM_{CONTAINER,DEV,IDX}``)
-   and each calling ``configure_torch_from_env()`` first, as the
+   at once, each given only the env phase 21's allocator granted it
+   (``TPU_VISIBLE_CHIPS=0``, ``ALIYUN_COM_TPU_MEM_{IDX,POD,CONTAINER,DEV}``,
+   ``TPU_HBM_LIMIT_FRACTION``, ...) and each calling
+   ``configure_torch_from_env()`` first, as the
    ``demo/binpack-1`` pods do: four MNIST pods at 2 GiB (three
    ``mnist.train(steps=200)``, one ``steps=100``), BERT-base as phase 9 at
    16 GiB and ResNet-50 as phase 10 at 32 GiB (a model whose phase 9 or 10
@@ -197,8 +198,8 @@ Phases, each of which fails the run with a non-zero exit:
    engine's, handoffs by outcome, pages and bytes shipped, and a
    handoff's wall time split into the device-to-host fetch, the encode,
    the CRCs and protocol, the decode and the host-to-device write.
-18. The serving fleet, on phase 2's weights (run straight after phase
-   17): the reference's ``bench_serve_fleet`` trace at its full settings
+18. The serving fleet, on phase 2's weights cut to their first 16 layers
+   (run straight after phase 17): the reference's ``bench_serve_fleet`` trace at its full settings
    (24 requests over three 384-token system prompts; see the constants)
    through one unified ``PagedSlotEngine(slots=24, total_pages=384,
    max_len=1024, page_size=64, prefill_chunk=256)``, then four times
@@ -246,7 +247,8 @@ Phases, each of which fails the run with a non-zero exit:
 20. Tensor parallelism and FSDP on the one card, two gloo ranks as in
    phase 19. First the three main-path kernels at a tp=2 training rank's
    shape (2 x 2,048, 16/4 heads, causal) against their plain versions,
-   timed beside SDPA. (a1) ``llama3_8b()`` at 32 layers in bf16 on the
+   timed beside SDPA. (a1) ``llama3_8b()``'s weights drawn at 32 layers and
+   served cut to their first 16, in bf16, on the
    reference's ``bench_serve_tp`` trace at its full settings: a solo
    ``SlotEngine`` here, then ``SlotEngine(mesh=gang_mesh(...))`` on two
    ranks given a 2-chip gang's env, each drawing its shards of the same
@@ -266,10 +268,34 @@ Phases, each of which fails the run with a non-zero exit:
    the sum of its shards'. Prints walls, decode p50, goodput, step p50,
    peaks and every exchange's calls, bytes and seconds per rank.
 
-The phases run in the order 1, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14, 4, 5,
-6, 9-12, 19, 20. ``python3 chip_smoke.py --phase 17`` (or ``--phase 18``,
-``--phase 19`` or ``--phase 20``) builds the kernels and runs that phase
-alone on fresh weights (a quick check; it prints no contract lines).
+21. The device plugin's own path, from discovering the card to the env a
+   pod is granted (run straight after phase 1: every later pod env comes
+   from it). (a) Discovery: in a child process that must never import
+   torch, ``from_name("nvml")`` probes, lists one chip per ``nvidia-smi
+   --query-gpu=uuid`` line with the same UUIDs, and runs three
+   ``watch_health`` polls 0.05 s apart that must raise no Unhealthy event
+   (it prints the volatile ECC counts it read); here ``from_name("cuda")``
+   must give the same ids and whole GiB (both byte counts print) and
+   ``from_name("auto")`` must pick NVML. (b) ``DeviceInventory`` of NVML's
+   chips: one fake device a GiB (``<uuid>-_-0 .. -_-N-1``) and one core
+   device. (c) One first-fit ``LocalAllocator`` grants phase 11's six pods
+   in order (56 GiB, each grant's host time printed in us), refuses a
+   seventh larger than what is left (``AssignmentError``), and frees a
+   released pod's units. Phase 11 starts each pod with the env (c)
+   granted it, and every other slice env of the script (phases 7, 12-15,
+   the non-gang ranks of 19 and 20) is ``plugin_env``: a fresh
+   ``LocalAllocator`` over (b)'s inventory granting that one slice. Phase
+   20's gang env stays hand-written (gangs are the cluster allocator's).
+   The phase imports no gRPC: the plugin's server is held to the
+   reference on the CPU (``tests/test_torch_plugin.py``).
+
+The phases run in the order 1, 21, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14, 4,
+5, 6, 9-12, 19, 20; each phase's seconds print on one JSON line
+(``phase seconds``) before the script's. ``python3 chip_smoke.py --phase
+17`` (or ``--phase 18``, ``--phase 19`` or ``--phase 20``) builds the
+kernels and runs that phase alone on fresh weights (a quick check; it
+prints no contract lines); ``--phase 21`` runs phase 21 alone and builds
+nothing (it launches no kernel).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -282,7 +308,8 @@ parent built in phase 1.
 
 Float32 matrix products run in full f32 (TF32 off, set below). The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it
-is the card's name and power limit from ``nvidia-smi``; before that, one
+is the card's name and power limit from ``nvidia-smi``; before that, the
+script's seconds and each phase's; before those, one
 JSON line ``{"kernels": [...]}``, whose launches per path include
 ``lora_serve`` (phase 13, runs A and B), ``lora_train`` (phase 14's
 pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B),
@@ -292,13 +319,13 @@ all three engines), ``ring`` and ``ulysses`` (phase 19 (b)'s runs, both
 ranks), ``tp_serve``, ``tp_paged`` and ``tp_train`` (phase 20's (a1),
 (a2) and (b), both ranks, (b) both meshes); the forward rows carry
 ``at_draft_shape``, and the main-path rows ``at_ring_hop_shape``,
-``at_ulysses_shape`` (phase 19) and ``at_tp_train_shape`` (phase 20). The
-line before the card's is the script's seconds.
+``at_ulysses_shape`` (phase 19) and ``at_tp_train_shape`` (phase 20).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -316,6 +343,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from gpushare_device_plugin_tpu_torch import const
+from gpushare_device_plugin_tpu_torch.allocator.binpack import AssignmentError
+from gpushare_device_plugin_tpu_torch.allocator.local import LocalAllocator
+from gpushare_device_plugin_tpu_torch.device import DeviceInventory
+from gpushare_device_plugin_tpu_torch.discovery import from_name
+from gpushare_device_plugin_tpu_torch.discovery.nvmldev import NvmlBackend, pair_with_cuda
 from gpushare_device_plugin_tpu_torch.ops import _build
 from gpushare_device_plugin_tpu_torch.ops import flash_attention as fa
 from gpushare_device_plugin_tpu_torch.parallel.collectives import all_reduce, all_reduce_sum_
@@ -498,9 +530,11 @@ DISAGG_LAYERS = 16
 # settings: shared_prefix_trace(24, seed=23, rate=0.15, prefixes=(3, 384),
 # tail_lens=(16, 64), max_new drawn from [16, 32, 128]) over the 8B vocabulary:
 # three 384-token system prompts, six 64-token pages each. Three engines of 8
-# slots over 128 pages (8 max_len rows of 16 pages; 1 GiB each), max_len
-# 1024, prompt chunks of 256, beside one unified engine of 24 slots over 384
-# pages. The scale-down drains e0 at tick 3 (the bench's); the kill run
+# slots over 128 pages (8 max_len rows of 16 pages; 0.5 GiB each at 16
+# layers), max_len 1024, prompt chunks of 256, beside one unified engine of
+# 24 slots over 384 pages, on phase 2's model cut to its first FLEET_LAYERS
+# layers (full width): at 32 layers the phase took 200.7-357.8 s on one
+# H100, which the script's time limit cannot spare. The scale-down drains e0 at tick 3 (the bench's); the kill run
 # serves the trace's first FLEET_KILL_REQUESTS requests and kills e0
 # FLEET_KILL_AFTER ticks after its first request arrives, when that request
 # is decoding (2 prompt chunks, then at least 16 new tokens). The engines
@@ -511,6 +545,7 @@ FLEET_ENGINES, FLEET_SLOTS = 3, 8
 FLEET_MAX_LEN, FLEET_PAGE, FLEET_CHUNK = 1024, 64, 256
 FLEET_SCALE_TICK = 3
 FLEET_KILL_REQUESTS, FLEET_KILL_AFTER = 12, 8
+FLEET_LAYERS = 16
 # Phase 14: the LoRA pod's slice, batch and steps.
 LORA_TRAIN_UNITS, LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 32, 2, 2048, 8
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
@@ -541,6 +576,37 @@ PODS = [("mnist-0", "mnist", 2, 200), ("mnist-1", "mnist", 2, 200),
         ("mnist-2", "mnist", 2, 200), ("mnist-job", "mnist", 2, 100),
         ("bert", "bert", 16, BERT_STEPS), ("resnet", "resnet", 32, RESNET_STEPS)]
 SLICE_FULL = 0.95  # a model alone past this share of its slice halves its batch
+# Phase 21: the device plugin's own path. NVML discovery and PLUGIN_POLLS
+# health polls PLUGIN_POLL_INTERVAL_S apart run in NVML_CHILD, a child that
+# must never import torch: the daemon's backend opens no CUDA context.
+PLUGIN_POLLS, PLUGIN_POLL_INTERVAL_S = 3, 0.05
+NVML_CHILD = r'''
+import json, sys, time
+from gpushare_device_plugin_tpu_torch.discovery import from_name
+polls, interval = int(sys.argv[1]), float(sys.argv[2])
+t0 = time.perf_counter()
+backend = from_name("nvml", poll_s=0.0)
+probe = backend.probe()
+chips = backend.chips()
+discovery_s = time.perf_counter() - t0
+done = [0]
+
+
+def stop():  # asked once at the top of every poll (poll_s=0)
+    done[0] += 1
+    if done[0] > 1:
+        time.sleep(interval)
+    return done[0] > polls
+
+
+events = [[e.chip_id, e.health.value, e.reason, e.severity] for e in backend.watch_health(stop)]
+print(json.dumps({
+    "probe": probe, "discovery_s": discovery_s,
+    "chips": [[c.id, c.index, c.device_path, c.hbm_bytes] for c in chips],
+    "name": backend.topology().generation, "polls": done[0] - 1, "events": events,
+    "ecc": backend.error_counters(), "torch_loaded": "torch" in sys.modules,
+}))
+'''
 OOM_MARK = "POD-OOM"
 READY = "POD-READY"
 POD_TIMEOUT_S = 600
@@ -566,10 +632,12 @@ CP_TIMEOUT_S = 600  # a run of ranks, start to exit
 # Phase 20: tensor parallelism and FSDP on the one card, TP_RANKS gloo
 # ranks. (a1) the reference's bench_serve_tp trace at its full settings
 # (bench_mfu.py): slots 8, max_len 1,024, chunk 256, 24 requests, prompts
-# 64-512, max_new drawn from (16, 24, 32, 192), seed 13, on llama3_8b() at
-# 32 layers; each rank holds half the weights (8.0 GB) and half the KV,
-# inside a TP_SERVE_UNITS-GiB share of the card (its init draws the
-# largest leaf, wi at 7.5 GB in bf16, whole). (a2) the first
+# 64-512, max_new drawn from (16, 24, 32, 192), seed 13, on llama3_8b()'s
+# weights drawn at 32 layers and served cut to their first TP_SERVE_LAYERS
+# (at 32 the phase took 131.4-243.9 s on one H100, which the script's time
+# limit cannot spare); each rank holds half the weights (8.0 GB drawn) and
+# half the KV, inside a TP_SERVE_UNITS-GiB share of the card (its init
+# draws the largest leaf, wi at 7.5 GB in bf16, whole). (a2) the first
 # TP_PAGED_REQUESTS requests of phase 13's trace and its four tenants on
 # the model cut to TP_PAGED_LAYERS layers (at 16, the ranks' part took
 # 20-25 s on one H100, at 8 13-17 s, which the script's time limit cannot
@@ -584,6 +652,7 @@ TP_SEED, TP_RANKS = 20, 2
 TP_SERVE_KW = dict(slots=8, max_len=1024, prefill_chunk=256, eos_id=EOS_ID)
 TP_TRACE = dict(n=24, seed=13, rate=0.2, prompt_lens=(64, 512), max_new=[16, 24, 32, 192])
 TP_SERVE_UNITS = 24
+TP_SERVE_LAYERS = 16
 TP_PAGED_LAYERS, TP_PAGED_REQUESTS, TP_PAGED_UNITS = 4, 8, 12
 TP_PAGED_GEO = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
 TP_TRAIN_LAYERS, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 2, 2, 2048, 2
@@ -1830,15 +1899,19 @@ def card_gib() -> int:
     return torch.cuda.get_device_properties(0).total_memory >> 30
 
 
+@functools.cache
+def node_inventory() -> DeviceInventory:
+    """The card as the port's plugin advertises it: NVML discovery's chips
+    fanned out into GiB devices (phase 21 builds it first)."""
+    return DeviceInventory(from_name("nvml").chips())
+
+
 def plugin_env(units: int) -> dict[str, str]:
-    """What the plugin's Allocate() injects for a ``units``-GiB slice of
-    card 0 (``ALIYUN_COM_TPU_MEM_DEV`` is the card's whole GiB)."""
-    return {
-        const.ENV_TPU_VISIBLE_CHIPS: "0",
-        const.ENV_MEM_IDX: "0",
-        const.ENV_MEM_CONTAINER: str(units),
-        const.ENV_MEM_DEV: str(card_gib()),
-    }
+    """The env the port's plugin grants a pod of one ``units``-GiB
+    container: a fresh ``LocalAllocator`` over phase 21's inventory places
+    the single slice and writes its env, as Allocate() would."""
+    (grant,) = LocalAllocator(node_inventory()).allocate([units])
+    return grant.envs
 
 
 def gang_env(units: int, n: int) -> dict[str, str]:
@@ -2621,8 +2694,8 @@ def time_scale_hooks(executor) -> dict:
 
 
 def phase_fleet(params, cfg) -> tuple[dict, dict]:
-    """Phase 18, on phase 2's weights: the reference's fleet bench at full
-    width and depth. One unified engine (the control), then three engines
+    """Phase 18, on phase 2's weights cut to their first FLEET_LAYERS
+    layers: the reference's fleet bench at full width. One unified engine (the control), then three engines
     behind ``FleetServer`` four times, each on fresh engines:
     ``prefix-affinity``, ``spread`` (affinity-blind), ``prefix-affinity``
     with a journaled scale-down of e0 (a WAL in a temporary directory and
@@ -2635,9 +2708,11 @@ def phase_fleet(params, cfg) -> tuple[dict, dict]:
     from gpushare_device_plugin_tpu_torch.allocator.checkpoint import AllocationCheckpoint
     from gpushare_device_plugin_tpu_torch.serving import FleetServer
 
-    print(f"phase 18: the serving fleet, llama3_8b (32 layers, bf16), {FLEET_ENGINES} engines, "
-          f"{FLEET_REQUESTS} requests of bench_serve_fleet", flush=True)
+    print(f"phase 18: the serving fleet, llama3_8b ({FLEET_LAYERS} of 32 layers, bf16), "
+          f"{FLEET_ENGINES} engines, {FLEET_REQUESTS} requests of bench_serve_fleet", flush=True)
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=FLEET_LAYERS)
+    params = {**params, "layers": {k: v[:FLEET_LAYERS] for k, v in params["layers"].items()}}
     reqs = shared_prefix_trace(FLEET_REQUESTS, seed=FLEET_SEED, rate=FLEET_RATE, vocab=cfg.vocab,
                                prefixes=FLEET_PREFIXES, tail_lens=FLEET_TAILS, max_new=FLEET_MIX)
     pages = FLEET_SLOTS * -(-FLEET_MAX_LEN // FLEET_PAGE)
@@ -3264,6 +3339,13 @@ def tp_serve_run(engine, trace, mesh=None) -> dict:
     return doc
 
 
+def tp_serve_view(cfg, params):
+    """(a1)'s config and weights: the first TP_SERVE_LAYERS layers of the
+    32-layer ``cfg`` and ``params`` (whole or a rank's shards), as views."""
+    return (dataclasses.replace(cfg, n_layers=TP_SERVE_LAYERS),
+            {**params, "layers": {k: v[:TP_SERVE_LAYERS] for k, v in params["layers"].items()}})
+
+
 def tp_paged_setup(cfg, params):
     """(a2)'s config, layers, trace, plan and engine geometry from the 32-layer
     ``cfg`` and ``params`` (whole or a rank's shards): the first
@@ -3327,7 +3409,10 @@ def tp_serve_rank(mesh, workdir: str) -> dict:
             raise SystemExit("phase 20: the parent never wrote its go file")
         time.sleep(0.05)
     trace = poisson_trace(vocab=cfg.vocab, **TP_TRACE)
-    out = {"serve": tp_serve_run(SlotEngine(params, cfg, mesh=mesh, **TP_SERVE_KW), trace, mesh)}
+    cfg_a1, params_a1 = tp_serve_view(cfg, params)
+    out = {"serve": tp_serve_run(SlotEngine(params_a1, cfg_a1, mesh=mesh, **TP_SERVE_KW), trace,
+                                 mesh)}
+    del params_a1
     gc.collect()
     cfg16, params16, ptrace, plan = tp_paged_setup(cfg, params)
     del params
@@ -3573,7 +3658,8 @@ def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
             store, _ = lora_store_for(params16, cfg16, lcfg)
             torch.save(store, os.path.join(workdir, "adapters.pt"))
             wait_ready(serving, workdir, "phase 20")
-            solo_a1 = tp_serve_run(SlotEngine(params, cfg, **TP_SERVE_KW), trace)
+            cfg_a1, params_a1 = tp_serve_view(cfg, params)
+            solo_a1 = tp_serve_run(SlotEngine(params_a1, cfg_a1, **TP_SERVE_KW), trace)
             gc.collect()
             solo_a2 = tp_serve_run(
                 PagedSlotEngine(params16, cfg16, slots=plan.slots, total_pages=plan.total_pages,
@@ -3595,8 +3681,8 @@ def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
             launches_paged = {e: sum(d["paged"]["launches"][e] for d in docs)
                               for e in fa.LAUNCHES}
             report["serve"] = tp_check_serve(
-                "serve", cfg, trace, solo_a1, docs, fail,
-                solos_for=lambda req: (params, TOP2_GAP_REL),
+                "serve", cfg_a1, trace, solo_a1, docs, fail,
+                solos_for=lambda req: (params_a1, TOP2_GAP_REL),
                 expect_kv=solo_a1["kv_bytes"] // TP_RANKS)
             merged = {}
 
@@ -3615,7 +3701,7 @@ def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
                 solos_for=merged_for, expect_kv=plan.kv_bytes, expect_slab=plan.adapter_bytes)
             report["paged"]["plan"] = dataclasses.asdict(plan)
             report["serve_checks_s"] = time.perf_counter() - t0
-            del params, params16, store, merged
+            del params, params_a1, params16, store, merged
             gc.collect()
             torch.cuda.empty_cache()
         except BaseException:
@@ -3671,11 +3757,12 @@ def pod_main(argv: list[str]) -> int:
     return 0
 
 
-def start_pod(name, workload, units, batch, steps):
+def start_pod(name, workload, units, batch, steps, grant=None):
     """Start one pod child with only the plugin's env for its slice on top
-    of the parent's (no CUDA_VISIBLE_DEVICES)."""
+    of the parent's (no CUDA_VISIBLE_DEVICES): ``grant``, the env the
+    port's allocator granted it, or :func:`plugin_env`'s."""
     env = {k: v for k, v in os.environ.items() if k != const.ENV_CUDA_VISIBLE_DEVICES}
-    env.update(plugin_env(units))
+    env.update(plugin_env(units) if grant is None else grant)
     code = "import sys, chip_smoke; sys.exit(chip_smoke.pod_main(sys.argv[1:]))"
     proc = subprocess.Popen(
         [sys.executable, "-c", code, workload, str(batch), str(steps)],
@@ -3715,8 +3802,9 @@ def finish_pods(started) -> dict:
         watchdog.cancel()
 
 
-def phase_binpack(alone: dict) -> None:
-    """Phase 11; ``alone`` holds phases 9 and 10's reports by workload."""
+def phase_binpack(alone: dict, grants: dict) -> None:
+    """Phase 11; ``alone`` holds phases 9 and 10's reports by workload,
+    ``grants`` the env phase 21's allocator granted each pod."""
     print("phase 11: six pods binpacked on one card through the pod env", flush=True)
     fresh_run()
     batches = {"mnist": 256, "bert": BERT_B, "resnet": RESNET_B}
@@ -3727,7 +3815,7 @@ def phase_binpack(alone: dict) -> None:
                   f"above {SLICE_FULL} of its {units} GiB slice: its pod trains at batch "
                   f"{batches[workload]}", flush=True)
     t0 = time.perf_counter()
-    started = [start_pod(name, workload, units, batches[workload], steps)
+    started = [start_pod(name, workload, units, batches[workload], steps, grants[name])
                for name, workload, units, steps in PODS]
     results = finish_pods(started)
     wall = time.perf_counter() - t0
@@ -3847,13 +3935,136 @@ def phase_overrun(bert_peak_bytes: int) -> None:
         raise SystemExit(f"phase 12 failed: the control pod failed (exit {rc}): {err}")
 
 
+def nvidia_smi_uuids() -> list[str]:
+    """The cards' UUIDs, as ``nvidia-smi`` lists them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def phase_plugin() -> tuple[dict, dict]:
+    """Phase 21: the device plugin's path on the card, from discovery to the
+    env a pod is granted. Returns phase 11's grants (each pod's env, by
+    name) and the report."""
+    print("phase 21: the device plugin's path (NVML and CUDA discovery, fan-out, allocate)",
+          flush=True)
+    t_phase = time.perf_counter()
+    fail = []
+    report = {}
+
+    # (a) discovery: NVML in a child that never imports torch, then NVML,
+    # CUDA and auto here
+    smi = nvidia_smi_uuids()
+    child = subprocess.run(
+        [sys.executable, "-c", NVML_CHILD, str(PLUGIN_POLLS), str(PLUGIN_POLL_INTERVAL_S)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=120,
+    )
+    if child.returncode != 0:
+        raise SystemExit(f"phase 21 failed: the NVML child exited {child.returncode}: "
+                         f"{child.stderr[-2000:]}")
+    doc = json.loads(child.stdout.strip().splitlines()[-1])
+    print("  nvml child", json.dumps(doc), flush=True)
+    child_ids = [c[0] for c in doc["chips"]]
+    if not doc["probe"]:
+        fail.append("the NVML backend did not probe")
+    if sorted(child_ids) != sorted(smi):
+        fail.append(f"NVML's chips {child_ids} are not nvidia-smi's {smi}")
+    if doc["torch_loaded"]:
+        fail.append("the NVML child imported torch")
+    if doc["polls"] != PLUGIN_POLLS:
+        fail.append(f"the NVML child polled {doc['polls']} times, not {PLUGIN_POLLS}")
+    sick = [e for e in doc["events"] if e[1] == "Unhealthy"]
+    if sick:
+        fail.append(f"a sound card went Unhealthy: {sick}")
+
+    nvml = from_name("nvml")
+    t0 = time.perf_counter()
+    inventory = node_inventory()
+    report["inventory_s"] = time.perf_counter() - t0
+    cuda = from_name("cuda")
+    if not cuda.probe():
+        fail.append("the CUDA backend did not probe")
+    nv_chips, cu_chips = nvml.chips(), cuda.chips()
+    cu_inventory = DeviceInventory(cu_chips)
+    memory_bytes = {"nvml": {c.id: c.hbm_bytes for c in nv_chips},
+                    "cuda": {c.id: c.hbm_bytes for c in cu_chips}}
+    print("  memory bytes (NVML's total and total_memory differ by the driver's reservation)",
+          json.dumps(memory_bytes), flush=True)
+    names = {"nvml": nvml.topology().generation, "cuda": cuda.topology().generation}
+    if names["nvml"] != names["cuda"]:
+        fail.append(f"the backends name the card differently: {names}")
+    # the backends' cards paired by UUID: same whole GiB, and the same
+    # device file wherever CUDA can read the driver's minor
+    pairs, problems = pair_with_cuda(nv_chips, cu_chips)
+    fail.extend(problems)
+    if len(pairs) != len(nv_chips):
+        fail.append(f"CUDA sees {len(cu_chips)} cards, NVML {len(nv_chips)}")
+    units = {"nvml": {cu.id: inventory.units_of(nv.id) for nv, cu in pairs},
+             "cuda": {cu.id: cu_inventory.units_of(cu.id) for _, cu in pairs}}
+    paths = {"nvml": {cu.id: nv.device_path for nv, cu in pairs},
+             "cuda": {cu.id: cu.device_path for _, cu in pairs}}
+    print("  whole GiB", json.dumps(units), "names", json.dumps(names), flush=True)
+    print("  device files (CUDA's empty where the driver's /proc entry for the card is "
+          "not readable: then no mount, never another card's)", json.dumps(paths), flush=True)
+    auto = from_name("auto")
+    if not isinstance(auto, NvmlBackend):
+        fail.append(f"auto picked {type(auto).__name__}, not the NVML backend")
+
+    # (b) the fan-out: one fake device a GiB, one core device a card
+    fakes = inventory.mem_fake_devices()
+    want = [f"{c.id}-_-{j}" for c in inventory.chips() for j in range(c.hbm_bytes // 2**30)]
+    cores = inventory.core_devices()
+    print(f"  fan-out: {len(fakes)} fake devices ({fakes[0].id} .. {fakes[-1].id}), "
+          f"{len(cores)} core device(s)", flush=True)
+    if [d.id for d in fakes] != want or not all(d.healthy for d in fakes):
+        fail.append(f"the fan-out is not one healthy device a GiB: {len(fakes)} against "
+                    f"{len(want)}")
+    if len(cores) != 1:
+        fail.append(f"{len(cores)} core devices, not one")
+
+    # (c) allocate: phase 11's pods, first-fit, then one too many
+    alloc = LocalAllocator(inventory, policy="first-fit")
+    grants, grant_us = {}, {}
+    for name, _, slice_units, _ in PODS:
+        t0 = time.perf_counter()
+        (grant,) = alloc.allocate([slice_units], pod_key=name)
+        grant_us[name] = (time.perf_counter() - t0) * 1e6
+        grants[name] = grant.envs
+        if grant.envs[const.ENV_TPU_VISIBLE_CHIPS] != "0":
+            fail.append(f"{name} was granted chip {grant.envs[const.ENV_TPU_VISIBLE_CHIPS]}")
+    granted = sum(u for _, _, u, _ in PODS)
+    left = inventory.total_units() - granted
+    print(f"  grants ({granted} of {inventory.total_units()} units), host us",
+          json.dumps(grant_us), "env of", PODS[-1][0], json.dumps(grants[PODS[-1][0]]),
+          flush=True)
+    if alloc.used_by_chip() != {0: granted}:
+        fail.append(f"used {alloc.used_by_chip()} after the grants, not {{0: {granted}}}")
+    try:
+        alloc.allocate([left + 1], pod_key="seventh")
+        fail.append(f"a seventh pod of {left + 1} units was granted")
+    except AssignmentError as e:
+        print(f"  a seventh pod of {left + 1} units is refused: {e}", flush=True)
+    alloc.release(PODS[0][0])
+    if alloc.used_by_chip() != {0: granted - PODS[0][2]}:
+        fail.append(f"releasing {PODS[0][0]} left {alloc.used_by_chip()}")
+    report.update(nvml_child=doc, smi_uuids=smi, units=units, memory_bytes=memory_bytes,
+                  fake_devices=len(fakes), grant_us=grant_us,
+                  seconds=time.perf_counter() - t_phase)
+    print("  phase 21", json.dumps({k: report[k] for k in ("inventory_s", "fake_devices",
+                                                           "seconds")}), flush=True)
+    if fail:
+        raise SystemExit("phase 21 failed: " + "; ".join(fail))
+    return grants, report
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21),
                     help="build the kernels and run only this phase (a quick check; "
-                         "the contract's lines are not printed)")
+                         "the contract's lines are not printed); phase 21 builds nothing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3864,9 +4075,24 @@ def main(argv: list[str]) -> int:
           "device", torch.cuda.get_device_name(0), flush=True)
 
     t_script = time.perf_counter()
+    if args.phase == 21:
+        _, report = phase_plugin()
+        print(f"phase 21: {report['seconds']:.1f} s; chip_smoke: "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+        return 0
+    seconds = {}  # each phase's, printed on one line before the script's
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        print(f"phase {label}: {seconds[label]:.1f} s", flush=True)
+        return out
+
     t0 = time.perf_counter()
     _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    seconds["build"] = round(time.perf_counter() - t0, 1)
+    print(f"build: {seconds['build']:.1f} s", flush=True)
     for name in _build.sources():
         print(_build.build_log(name).strip(), flush=True)
 
@@ -3890,47 +4116,32 @@ def main(argv: list[str]) -> int:
         print(f"phase {args.phase}: {report['seconds']:.1f} s; launches {json.dumps(launches)}; "
               f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
         return 0
-    forward = phase_kernels(gen)
+    forward = timed("1", phase_kernels, gen)
+    grants, _ = timed("21", phase_plugin)
 
-    serve_launches, serve_decode_p50_ms, params, cfg = phase_serve(gen)
-    t0 = time.perf_counter()
-    paged_launches, paged_stats, paged_report = phase_paged(params, cfg, serve_decode_p50_ms)
-    print(f"phases 7-8: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    lora_serve_launches = phase_lora_serve(params, cfg)
-    t13 = time.perf_counter() - t0
-    print(f"phase 13: {t13:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    spec_launches = phase_spec_serve(params, cfg, paged_stats, paged_report)
-    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    serve_launches, serve_decode_p50_ms, params, cfg = timed("2-3", phase_serve, gen)
+    paged_launches, paged_stats, paged_report = timed(
+        "7-8", phase_paged, params, cfg, serve_decode_p50_ms)
+    lora_serve_launches = timed("13", phase_lora_serve, params, cfg)
+    spec_launches = timed("15", phase_spec_serve, params, cfg, paged_stats, paged_report)
     del paged_stats, paged_report
-    interference_launches, interference = phase_interference(params, cfg)
-    print(f"phase 16: {interference['seconds']:.1f} s", flush=True)
-    disagg_launches, disagg = phase_disagg(params, cfg)
-    print(f"phase 17: {disagg['seconds']:.1f} s", flush=True)
-    fleet_launches, fleet = phase_fleet(params, cfg)
-    print(f"phase 18: {fleet['seconds']:.1f} s", flush=True)
+    interference_launches, _ = timed("16", phase_interference, params, cfg)
+    disagg_launches, _ = timed("17", phase_disagg, params, cfg)
+    fleet_launches, _ = timed("18", phase_fleet, params, cfg)
     del params
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    lora_train_launches = phase_lora_train()
-    t14 = time.perf_counter() - t0
-    print(f"phase 14: {t14:.1f} s; phases 13-14: {t13 + t14:.1f} s", flush=True)
-    backward = phase_backward()
-    train_launches = phase_train()
-    phase_grad_parity()
+    lora_train_launches = timed("14", phase_lora_train)
+    backward = timed("4", phase_backward)
+    train_launches = timed("5", phase_train)
+    timed("6", phase_grad_parity)
 
-    t0 = time.perf_counter()
-    bert, bert_launches = phase_bert()
-    resnet = phase_resnet()
-    phase_binpack({"bert": bert, "resnet": resnet})
-    phase_overrun(bert["peak_reserved_bytes"])
-    print(f"phases 9-12: {time.perf_counter() - t0:.1f} s", flush=True)
-    ring_launches, ulysses_launches, cp_rows, cp_report = phase_context_parallel(gen)
-    print(f"phase 19: {cp_report['seconds']:.1f} s", flush=True)
-    tp_serve_launches, tp_paged_launches, tp_train_launches, tp_rows, tp_report = \
-        phase_tensor_parallel(gen)
-    print(f"phase 20: {tp_report['seconds']:.1f} s", flush=True)
+    bert, bert_launches = timed("9", phase_bert)
+    resnet = timed("10", phase_resnet)
+    timed("11", phase_binpack, {"bert": bert, "resnet": resnet}, grants)
+    timed("12", phase_overrun, bert["peak_reserved_bytes"])
+    ring_launches, ulysses_launches, cp_rows, _ = timed("19", phase_context_parallel, gen)
+    tp_serve_launches, tp_paged_launches, tp_train_launches, tp_rows, _ = timed(
+        "20", phase_tensor_parallel, gen)
     cp_rows = {**cp_rows, **tp_rows}
 
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
@@ -3996,6 +4207,7 @@ def main(argv: list[str]) -> int:
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     card = smi_line()
+    print("phase seconds", json.dumps(seconds), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

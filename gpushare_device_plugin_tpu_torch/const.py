@@ -11,6 +11,19 @@ from __future__ import annotations
 
 import enum
 
+# --- Extended resource names (reference const.py:13-17) --------------------
+# Fractional device memory, counted in memory units (one fake device a unit).
+RESOURCE_MEM = "aliyun.com/tpu-mem"
+# Whole-chip resource for pods that want exclusive chips.
+RESOURCE_CORE = "aliyun.com/tpu-core"
+
+# --- Device-plugin sockets (reference const.py:34-39) -----------------------
+DEVICE_PLUGIN_PATH = "/var/lib/kubelet/device-plugins/"
+KUBELET_SOCKET = DEVICE_PLUGIN_PATH + "kubelet.sock"
+MEM_SOCKET_NAME = "aliyuntpushare.sock"
+CORE_SOCKET_NAME = "aliyuntpucore.sock"
+API_VERSION = "v1beta1"
+
 # --- The memory-slice env the plugin injects (reference const.py:49-60) ----
 ENV_MEM_IDX = "ALIYUN_COM_TPU_MEM_IDX"  # assigned physical chip index
 ENV_MEM_POD = "ALIYUN_COM_TPU_MEM_POD"  # this pod's tpu-mem request
@@ -26,10 +39,16 @@ ENV_GANG_PER_CHIP = "ALIYUN_COM_TPU_GANG_PER_CHIP"
 ENV_TPU_VISIBLE_CHIPS = "TPU_VISIBLE_CHIPS"
 ENV_TPU_PROCESS_BOUNDS = "TPU_PROCESS_BOUNDS"
 ENV_TPU_CHIPS_PER_PROCESS_BOUNDS = "TPU_CHIPS_PER_PROCESS_BOUNDS"
-# The plugin's cooperative memory cap, a fraction of the chip.
+# The plugin's cooperative memory cap, a fraction of the chip, and the
+# same value under the JAX client's name (reference const.py:121-122).
 ENV_XLA_MEM_FRACTION = "TPU_HBM_LIMIT_FRACTION"
+ENV_XLA_PYTHON_MEM_FRACTION = "XLA_PYTHON_CLIENT_MEM_FRACTION"
 # What the port sets from TPU_VISIBLE_CHIPS (configure_torch_from_env).
 ENV_CUDA_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
+# CUDA numbers cards fastest first unless this is PCI_BUS_ID; NVML, and so
+# the plugin's chip index, numbers them by PCI bus id.
+ENV_CUDA_DEVICE_ORDER = "CUDA_DEVICE_ORDER"
+CUDA_DEVICE_ORDER_PCI = "PCI_BUS_ID"
 
 # --- Multi-host bootstrap (reference const.py:115-117) ----------------------
 # parallel/podenv.py::initialize_multihost reads them.

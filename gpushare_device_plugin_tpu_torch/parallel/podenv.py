@@ -190,16 +190,20 @@ def configure_torch_from_env(
 ) -> dict[str, str]:
     """The PyTorch settings for this pod, from the injected env.
 
-    Returns ``CUDA_VISIBLE_DEVICES`` (the granted chips) and, unless the
-    pod holds whole chips, :data:`MEMORY_FRACTION`: ``hbm_fraction ·
-    headroom`` as ``"%.3f"``, the value the reference gives
+    Returns ``CUDA_VISIBLE_DEVICES`` (the granted chips) with
+    ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` beside it (CUDA numbers cards fastest
+    first otherwise, while the plugin's index is NVML's, by PCI bus id, so
+    only that order makes the granted index name the same card in the
+    pod) and, unless the pod holds whole chips, :data:`MEMORY_FRACTION`:
+    ``hbm_fraction · headroom`` as ``"%.3f"``, the value the reference gives
     ``XLA_PYTHON_CLIENT_MEM_FRACTION``. ``headroom`` shaves the cap so
     two co-scheduled pods whose fractions sum to 1 do not collide on
     allocator slack.
 
     With a mapping the call is pure. With ``env=None`` (in the pod) it
     also applies them, and must run before anything initializes CUDA: it
-    sets ``CUDA_VISIBLE_DEVICES``, then caps each visible device with
+    sets ``CUDA_DEVICE_ORDER`` and ``CUDA_VISIBLE_DEVICES``, then caps each
+    visible device with
     ``torch.cuda.set_per_process_memory_fraction``. The cap covers what
     PyTorch's caching allocator reserves, cuBLAS and cuDNN workspaces
     included, but not the CUDA context itself. A pod that goes past it
@@ -213,6 +217,7 @@ def configure_torch_from_env(
     pod = PodTpuEnv.from_env(env)
     settings: dict[str, str] = {}
     if pod.visible_chips:
+        settings[const.ENV_CUDA_DEVICE_ORDER] = const.CUDA_DEVICE_ORDER_PCI
         settings[const.ENV_CUDA_VISIBLE_DEVICES] = ",".join(str(i) for i in pod.visible_chips)
     if not pod.exclusive:
         settings[MEMORY_FRACTION] = f"{pod.hbm_fraction * headroom:.3f}"
@@ -228,6 +233,7 @@ def configure_torch_from_env(
                 f"before the pod's grant {visible!r} could apply: call "
                 "configure_torch_from_env() before any CUDA use"
             )
+        os.environ[const.ENV_CUDA_DEVICE_ORDER] = settings[const.ENV_CUDA_DEVICE_ORDER]
         os.environ[const.ENV_CUDA_VISIBLE_DEVICES] = visible
     if MEMORY_FRACTION in settings:
         if not torch.cuda.is_available():

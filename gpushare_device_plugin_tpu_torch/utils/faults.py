@@ -7,6 +7,11 @@ with nothing armed is one dict read and a return; a test (or
 stalls, flaps or "crashes" exactly there.
 
 ======================  =====================================================
+``discovery.probe``     inventory (re)build at plugin (re)start (the
+                        daemon's; no site fires it yet)
+``discovery.watch_health``  health-event stream (supervised loop entry +
+                        every mock-backend poll)
+``plugin.allocate``     Allocate RPC entry (kubelet-facing)
 ``checkpoint.begin``    after the WAL begin record is durably on disk
 ``checkpoint.commit``   after the WAL commit record is durably on disk
 ``checkpoint.abort``    after the WAL abort record is durably on disk
@@ -74,6 +79,9 @@ log = get_logger("utils.faults")
 ENV_FAULTS = "TPUSHARE_FAULTS"
 
 POINTS = (
+    "discovery.probe",
+    "discovery.watch_health",
+    "plugin.allocate",
     "checkpoint.begin",
     "checkpoint.commit",
     "checkpoint.abort",

@@ -5,8 +5,9 @@ Counterpart of ``gpushare_device_plugin_tpu/utils/lockrank.py``, cut to
 the locks the port's protocol modules take (the WAL, its group-commit
 writer, the assume cache, the SLO budget, the decision log, the fleet's
 router, membership and scale executor, the KV handoff's ledger and peer
-client, the circuit breaker, the fault table and the page allocator). Each entry is
-the reference's: same name, rank, kind, I/O rule and reason.
+client, the circuit breaker, the fault table, the page allocator, and the
+device plugin's stream condition, health watcher and standalone allocator).
+Each entry is the reference's: same name, rank, kind, I/O rule and reason.
 
 - :data:`RANKS`: a total order. A thread may only acquire a lock whose
   rank is strictly greater than every lock it already holds (re-entering
@@ -114,12 +115,21 @@ RANKS: dict[str, LockRank] = dict((
        "HandoffPeerClient's transfer counters (calls, retries, "
        "pages/bytes shipped). Never held across a transport call "
        "or the circuit breaker (rank 88) — counter flips only."),
+    _r("plugin.stream", 82, "condition", False,
+       "TpuSharePlugin's ListAndWatch/drain condition: health map, "
+       "version counter, in-flight Allocate count. Allocate "
+       "releases it before delegating to the allocator."),
     _r("serving.handoff", 83, "lock", False,
        "HandoffImportLedger's staging table (destination pages "
        "reserved per in-flight KV handoff, received page bytes, "
        "delivered-id dedup window). Staging allocates through the "
        "page allocator (serving.pages, rank 87) while held — "
        "strictly up-rank."),
+    _r("manager.health", 84, "lock", False,
+       "HealthWatcher's unhealthy-chip set."),
+    _r("allocator.local", 86, "lock", False,
+       "LocalAllocator's standalone usage table (never nests over "
+       "cluster locks; ranked near the leaves)."),
     _r("serving.pages", 87, "lock", False,
        "PageAllocator's free list + refcounts: the serving "
        "engine's host loop and the /metrics scrape thread both "

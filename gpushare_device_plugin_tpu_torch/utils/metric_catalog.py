@@ -6,7 +6,9 @@ pages, prefix cache, preemptions, speculative decoding and adapters, the
 best-effort governor, SLO budgets, the build identity, the KV
 handoff's protocol layer (the handoff itself, the WAL, the circuit
 breaker and the assume cache's claim expiry), and the serving fleet's
-router, replica table and scale-down. Names, types
+router, replica table and scale-down; and the device plugin's node
+agent: Allocate's latency and outcomes, and the health watcher's events,
+restarts and unhealthy chips. Names, types
 and label sets are the reference's letter for letter, so the reference
 control plane's scrapers (``cluster/interference.py``, the inspect CLI)
 read a port pod as they read a reference pod. A site may emit a subset
@@ -36,6 +38,8 @@ def _m(name: str, mtype: str, *labels: str) -> tuple[str, MetricSpec]:
     return name, MetricSpec(name, mtype, tuple(sorted(labels)))
 
 
+ALLOCATE_SECONDS = "tpushare_allocate_seconds"
+ALLOCATE_TOTAL = "tpushare_allocate_total"
 ASSUME_EXPIRED_TOTAL = "tpushare_assume_expired_total"
 BUILD_INFO = "tpushare_build_info"
 CHECKPOINT_APPENDS_TOTAL = "tpushare_checkpoint_appends_total"
@@ -83,12 +87,15 @@ HANDOFF_FALLBACK_REPREFILL_TOTAL = "tpushare_handoff_fallback_reprefill_total"
 HANDOFF_PAGES_IN_FLIGHT = "tpushare_handoff_pages_in_flight"
 HANDOFF_TRANSFER_SECONDS = "tpushare_handoff_transfer_seconds"
 HANDOFF_TRANSFERS_TOTAL = "tpushare_handoff_transfers_total"
+HEALTH_EVENTS_TOTAL = "tpushare_health_events_total"
+HEALTH_WATCHER_RESTARTS_TOTAL = "tpushare_health_watcher_restarts_total"
 ROUTER_PREFIX_AFFINITY_HITS_TOTAL = "tpushare_router_prefix_affinity_hits_total"
 ROUTER_ROUTED_TOTAL = "tpushare_router_routed_total"
 ROUTER_SHED_TOTAL = "tpushare_router_shed_total"
 SLO_BURN_RATE = "tpushare_slo_burn_rate"
 SLO_ERROR_BUDGET_REMAINING = "tpushare_slo_error_budget_remaining"
 SLO_SEVERITY = "tpushare_slo_severity"
+UNHEALTHY_CHIPS = "tpushare_unhealthy_chips"
 
 # Family prefixes the reference's CLI parsers slice on
 # (`parse_engine_metrics` folds these into `fleet_*` / `router_*` keys).
@@ -96,6 +103,8 @@ PREFIX_FLEET = "tpushare_fleet_"
 PREFIX_ROUTER = "tpushare_router_"
 
 CATALOG: dict[str, MetricSpec] = dict((
+    _m(ALLOCATE_SECONDS, HISTOGRAM, "resource"),
+    _m(ALLOCATE_TOTAL, COUNTER, "resource", "outcome"),
     _m(ASSUME_EXPIRED_TOTAL, COUNTER, "kind"),
     _m(BUILD_INFO, GAUGE, "component", "version", "git_rev", "python", "jax"),
     _m(CHECKPOINT_APPENDS_TOTAL, COUNTER, "op"),
@@ -143,11 +152,14 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(HANDOFF_PAGES_IN_FLIGHT, GAUGE, "pod"),
     _m(HANDOFF_TRANSFER_SECONDS, HISTOGRAM, "pod"),
     _m(HANDOFF_TRANSFERS_TOTAL, COUNTER, "outcome", "pod"),
+    _m(HEALTH_EVENTS_TOTAL, COUNTER, "health", "severity"),
+    _m(HEALTH_WATCHER_RESTARTS_TOTAL, COUNTER),
     _m(ROUTER_PREFIX_AFFINITY_HITS_TOTAL, COUNTER, "pod"),
     _m(ROUTER_ROUTED_TOTAL, COUNTER, "engine", "outcome", "pod"),
     _m(ROUTER_SHED_TOTAL, COUNTER, "tier", "pod"),
     _m(SLO_BURN_RATE, GAUGE, "tier", "window", "pod"),
     _m(SLO_ERROR_BUDGET_REMAINING, GAUGE, "tier", "pod"),
     _m(SLO_SEVERITY, GAUGE, "tier", "pod"),
+    _m(UNHEALTHY_CHIPS, GAUGE),
 ))
 

@@ -1,8 +1,8 @@
 """Bounded-retry helper with exponential backoff, full jitter, deadlines.
 
-Counterpart of ``gpushare_device_plugin_tpu/utils/retry.py`` (its
-:func:`retry`; the loop-shaped ``Backoff`` has no caller in the port).
-Each call site states its budget declaratively:
+Counterpart of ``gpushare_device_plugin_tpu/utils/retry.py``: :func:`retry`,
+and :class:`Backoff` for supervised loops (the health watcher's).
+Each call site of :func:`retry` states its budget declaratively:
 
 - exponential backoff (``backoff`` multiplier per attempt, capped at
   ``max_delay_s``),
@@ -28,6 +28,38 @@ class RetryError(RuntimeError):
         self.attempts = attempts
         self.last = last
         self.deadline_exceeded = deadline
+
+
+class Backoff:
+    """Full-jitter exponential delays for supervised loops.
+
+    ``next()`` returns ``uniform(0, min(max_s, base_s * factor**n))`` and
+    advances; ``reset()`` on success snaps back to the base so a recovered
+    dependency is re-engaged promptly.
+    """
+
+    def __init__(
+        self,
+        base_s: float = 0.1,
+        max_s: float = 5.0,
+        factor: float = 2.0,
+        rng: random.Random | None = None,
+    ) -> None:
+        self._base = base_s
+        self._max = max_s
+        self._factor = factor
+        self._rng = rng or random.Random()
+        self._n = 0
+
+    def next(self) -> float:
+        # exponent clamped: an hours-long outage must not walk the power
+        # into float overflow and kill the supervised loop it paces
+        cap = min(self._max, self._base * (self._factor ** min(self._n, 63)))
+        self._n += 1
+        return self._rng.uniform(0, cap)
+
+    def reset(self) -> None:
+        self._n = 0
 
 
 def retry(

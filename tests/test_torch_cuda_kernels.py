@@ -937,3 +937,25 @@ def test_four_rank_gloo_tp_decoder_with_replicated_wkv_launches_flash_on_card(tm
     rank's forward within the same 2^-5 of their largest magnitude."""
     _card()
     _tp_ranks_on_card(tmp_path, 4)
+
+
+@pytest.mark.cuda
+def test_nvml_and_cuda_discovery_agree_on_card():
+    """The device plugin's two backends see the same cards: NVML's UUIDs are
+    torch.cuda's, formatted as NVML formats them, with the same whole GiB (their byte counts differ by the driver's share) and the same
+    device file wherever the CUDA backend can read the driver's minor."""
+    _card()
+    from gpushare_device_plugin_tpu_torch.discovery import from_name
+    from gpushare_device_plugin_tpu_torch.discovery.nvmldev import NvmlBackend, pair_with_cuda
+
+    nvml, cuda = from_name("nvml"), from_name("cuda")
+    assert nvml.probe() and cuda.probe()
+    assert isinstance(from_name("auto"), NvmlBackend)
+    assert nvml.topology().generation == cuda.topology().generation
+    nv, cu = nvml.chips(), cuda.chips()
+    assert all(c.id.startswith("GPU-") and c.hbm_bytes > 0 for c in nv)
+    assert all(c.id.startswith("GPU-") for c in cu)
+    assert all(c.device_path.startswith("/dev/nvidia") for c in nv)
+    pairs, problems = pair_with_cuda(nv, cu)
+    assert problems == []
+    assert len(pairs) == len(cu)  # CUDA_VISIBLE_DEVICES may hide cards from CUDA

@@ -61,14 +61,15 @@ def both(scenario):
 
 
 def test_catalog_families_are_the_references_letter_for_letter():
-    assert len(Cat.CATALOG) == 53
+    assert len(Cat.CATALOG) == 58
     for name, spec in Cat.CATALOG.items():
         ref = JCat.CATALOG[name]
         assert (spec.name, spec.type, spec.labels) == (ref.name, ref.type, ref.labels)
     consts = {k: v for k, v in vars(Cat).items() if k.isupper() and isinstance(v, str)
               and v.startswith("tpushare_")}
     assert consts and all(getattr(JCat, k) == v for k, v in consts.items())
-    assert "tpushare_allocate_total" not in Cat.CATALOG  # the control plane's
+    assert "tpushare_allocate_total" in Cat.CATALOG  # the device plugin's own family
+    assert "tpushare_extender_verb_total" not in Cat.CATALOG  # the cluster control plane's
 
 
 def test_build_info_carries_a_subset_of_the_family_labels():

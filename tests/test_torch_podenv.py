@@ -131,7 +131,9 @@ def test_configure_pure_mode_matches_configure_jax(name, monkeypatch):
     want = configure_jax_from_env(env)
     assert got.get(podenv.MEMORY_FRACTION) == want.get(JC.ENV_XLA_PYTHON_MEM_FRACTION)
     assert got.get(const.ENV_CUDA_VISIBLE_DEVICES) == want.get(JC.ENV_TPU_VISIBLE_CHIPS)
-    assert set(got) <= {podenv.MEMORY_FRACTION, const.ENV_CUDA_VISIBLE_DEVICES}
+    assert set(got) <= {podenv.MEMORY_FRACTION, const.ENV_CUDA_VISIBLE_DEVICES,
+                        const.ENV_CUDA_DEVICE_ORDER}
+    assert (const.ENV_CUDA_DEVICE_ORDER in got) == (const.ENV_CUDA_VISIBLE_DEVICES in got)
     assert const.ENV_CUDA_VISIBLE_DEVICES not in os.environ  # pure
 
 
@@ -162,7 +164,7 @@ def _inject(monkeypatch, env):
                 const.ENV_GANG_SHAPE, const.ENV_GANG_PER_CHIP, const.ENV_XLA_MEM_FRACTION,
                 const.ENV_TPU_PROCESS_BOUNDS, const.ENV_TPU_CHIPS_PER_PROCESS_BOUNDS,
                 const.ENV_WORKLOAD_CLASS, const.ENV_LORA_ADAPTER,
-                const.ENV_CUDA_VISIBLE_DEVICES):
+                const.ENV_CUDA_VISIBLE_DEVICES, const.ENV_CUDA_DEVICE_ORDER):
         monkeypatch.delenv(key, raising=False)
     for key, val in env.items():
         monkeypatch.setenv(key, val)
@@ -175,6 +177,24 @@ def test_apply_mode_sets_visible_devices_and_caps_once(monkeypatch):
     assert os.environ[const.ENV_CUDA_VISIBLE_DEVICES] == "2"
     assert cuda.calls == [(float(settings[podenv.MEMORY_FRACTION]), 0)]
     assert cuda.calls[0][0] == pytest.approx(0.25 * 0.95, abs=1e-3)
+
+
+def test_granted_index_is_read_in_pci_bus_order(monkeypatch):
+    """The plugin numbers cards as NVML does, by PCI bus id; CUDA numbers
+    them fastest first unless told otherwise. So wherever the env names
+    the visible cards it also fixes the order, in both modes, and a pod
+    with no grant is left to CUDA's default."""
+    env = injected_env(chips="1,3", container=8, dev=32)
+    pure = configure_torch_from_env(env)
+    assert pure[const.ENV_CUDA_DEVICE_ORDER] == "PCI_BUS_ID"
+    assert pure[const.ENV_CUDA_VISIBLE_DEVICES] == "1,3"
+    assert const.ENV_CUDA_DEVICE_ORDER not in configure_torch_from_env(
+        {const.ENV_MEM_CONTAINER: "8", const.ENV_MEM_DEV: "32"})
+    _inject(monkeypatch, env)
+    _FakeCuda(monkeypatch, count=2)
+    configure_torch_from_env()
+    assert os.environ[const.ENV_CUDA_DEVICE_ORDER] == "PCI_BUS_ID"
+    assert os.environ[const.ENV_CUDA_VISIBLE_DEVICES] == "1,3"
 
 
 def test_apply_mode_exclusive_pod_sets_no_cap(monkeypatch):

@@ -48,8 +48,38 @@ def test_no_reference_or_jax_import_in_the_port():
         if name.split(".")[0] in FORBIDDEN
     ]
     assert len(_port_files()) > 10 and not bad, bad
-    # every subpackage is walked, the fleet's policy registry included
-    assert PORT / "extender" / "policy.py" in _port_files()
+    # every subpackage is walked, the fleet's policy registry and the
+    # device plugin's node agent included
+    walked = set(_port_files())
+    assert PORT / "extender" / "policy.py" in walked
+    for sub in ("discovery", "device", "allocator", "manager", "plugin", "native"):
+        assert any(p.parent == PORT / sub for p in walked), sub
+    assert PORT / "plugin" / "api" / "deviceplugin_pb2.py" in walked
+
+
+def test_nvml_discovery_imports_no_torch():
+    """The daemon's default backend reads the cards through NVML and opens
+    no CUDA context: NVML and its backend, and the plugin's grpc-free
+    layers (fan-out, allocator, health watcher), never import torch."""
+    mods = ["gpushare_device_plugin_tpu_torch.native.nvml",
+            "gpushare_device_plugin_tpu_torch.discovery.nvmldev",
+            "gpushare_device_plugin_tpu_torch.device",
+            "gpushare_device_plugin_tpu_torch.allocator.local",
+            "gpushare_device_plugin_tpu_torch.manager.health"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from gpushare_device_plugin_tpu_torch.discovery import from_name\n"
+        "from_name('nvml', library='/nonexistent/libnvidia-ml.so.1').probe()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'torch']\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
 
 
 def test_importing_every_port_module_leaves_jax_out():
