@@ -237,7 +237,8 @@ Phases, each of which fails the run with a non-zero exit:
    one for Ulysses). (b) The decoder at ``llama3_8b()`` width cut to 2
    layers, B=1 x 8,192, AdamW, remat "full": ``run_train_loop`` for 3
    steps as a 1-rank control here, then on two ranks at ``MeshSpec(sp=2)``
-   with the ring, then with Ulysses. Each run's losses must be finite and
+   with the ring, then with Ulysses (at 2 steps the second step's loss, on
+   a new batch, sits above the first). Each run's losses must be finite and
    fall and its launches be the hop rule's times the forward and its
    recompute; the first step's loss must match the control's by phase 6's
    rule, and rank 0 holds the first step's gradients, summed over the
@@ -289,13 +290,43 @@ Phases, each of which fails the run with a non-zero exit:
    The phase imports no gRPC: the plugin's server is held to the
    reference on the CPU (``tests/test_torch_plugin.py``).
 
-The phases run in the order 1, 21, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14, 4,
-5, 6, 9-12, 19, 20; each phase's seconds print on one JSON line
+22. The node agent in standalone mode (run straight after phase 21). (a)
+   Its node half in a child that must load neither torch nor grpc, and
+   must take none of the card's memory, as the DaemonSet's process must
+   not: ``TpuShareManager(from_name("auto"), ManagerConfig(standalone=True,
+   health_check=True, ...))`` must pick NVML; ``_build_inventory`` gives
+   phase 21's one card; the manager's mem allocate function grants phase
+   11's six pods and refuses a seventh; its core allocate function refuses
+   a hold of card 0 while mem units are held, and after a rebuild (what
+   SIGHUP does: a fresh allocator, every mem unit released) the hold goes
+   through and a mem grant is refused; three NVML polls through a
+   ``HealthWatcher`` whose sink is the manager's ``_local_sink`` raise no
+   Unhealthy event; with the signal handlers installed, SIGQUIT must leave
+   a stack dump and SIGUSR1 a flight record with ``traces``, ``logs`` and
+   ``timeline``. The card's free memory while the child lives against
+   after it exits must differ by less than ``CONTEXT_BYTES``, which a
+   control child retaining one CUDA context through ``libcuda`` must
+   exceed (NVIDIA's ``nvmlInit_v2`` maps ``libcuda`` and opens
+   ``/dev/nvidia-uvm`` itself, so those are printed, not gated; the
+   port's own imports must map no ``libcuda``). (b) Where the machine has
+   grpc, the daemon itself, ``python -m
+   gpushare_device_plugin_tpu_torch.cli.daemon --standalone --health-check
+   --metrics-port N``, against a kubelet made of the port's v1beta1
+   bindings: both resources register, ``/readyz`` turns 200, ListAndWatch
+   streams 79 healthy devices and one core device, an Allocate of two
+   units is card 0's, the daemon takes none of the card's memory and maps
+   no ``libtorch``, and SIGTERM exits 0. The phase launches no kernel and
+   must take under 5 s. The daemon's gRPC half is held to the reference
+   on the CPU too (``tests/test_torch_manager.py``,
+   ``tests/test_torch_daemon.py``).
+
+The phases run in the order 1, 21, 22, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14,
+4, 5, 6, 9-12, 19, 20; each phase's seconds print on one JSON line
 (``phase seconds``) before the script's. ``python3 chip_smoke.py --phase
 17`` (or ``--phase 18``, ``--phase 19`` or ``--phase 20``) builds the
 kernels and runs that phase alone on fresh weights (a quick check; it
-prints no contract lines); ``--phase 21`` runs phase 21 alone and builds
-nothing (it launches no kernel).
+prints no contract lines); ``--phase 21`` and ``--phase 22`` run that
+phase alone and build nothing (they launch no kernel).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -327,15 +358,19 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import importlib.util
 import json
 import math
 import os
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -606,6 +641,153 @@ print(json.dumps({
     "name": backend.topology().generation, "polls": done[0] - 1, "events": events,
     "ecc": backend.error_counters(), "torch_loaded": "torch" in sys.modules,
 }))
+'''
+# Phase 22: the node agent. NODE_AGENT_CHILD drives the standalone manager's
+# node half in a child that must load neither torch nor grpc, and must hold
+# no CUDA context, as the DaemonSet's process on a GPU node must not; the
+# phase must take under NODE_AGENT_BUDGET_S. NVIDIA's nvmlInit_v2 maps
+# libcuda.so and opens /dev/nvidia-uvm itself (NVML 580.159.03 on an H100
+# host), so what is held to account is the card's memory: the free
+# memory while a child lives against after it exits. CUDA_CONTEXT_CHILD, a
+# control that only retains the card's primary context through libcuda,
+# shows what one context costs, and must cost at least CONTEXT_BYTES.
+NODE_AGENT_BUDGET_S = 5.0
+CONTEXT_BYTES = 64 << 20
+CUDA_CONTEXT_CHILD = r'''
+import ctypes, sys
+cu = ctypes.CDLL("libcuda.so.1")
+dev, ctx = ctypes.c_int(), ctypes.c_void_p()
+print([cu.cuInit(0), cu.cuDeviceGet(ctypes.byref(dev), 0),
+       cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev)], flush=True)
+sys.stdin.readline()
+'''
+NODE_AGENT_CHILD = r'''
+import glob, json, os, signal, sys, time
+t0 = time.perf_counter()
+from gpushare_device_plugin_tpu_torch.discovery import from_name
+from gpushare_device_plugin_tpu_torch.discovery.nvmldev import NvmlBackend
+from gpushare_device_plugin_tpu_torch.manager import HealthWatcher, ManagerConfig, TpuShareManager
+
+pods, polls, interval, tmp = json.loads(sys.argv[1]), int(sys.argv[2]), float(sys.argv[3]), sys.argv[4]
+
+
+def libcuda():
+    return "libcuda" in open("/proc/self/maps").read()
+
+
+def device_files():
+    """The /dev/nvidia* files this process holds open."""
+    out = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            path = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue
+        if path.startswith("/dev/nvidia"):
+            out.add(path)
+    return sorted(out)
+
+
+libcuda_before_nvml = libcuda()  # the port's own imports
+cfg = ManagerConfig(standalone=True, health_check=True, plugin_dir=os.path.join(tmp, "plugins"),
+                    coredump_dir=os.path.join(tmp, "core"), flightrecord_dir=os.path.join(tmp, "fr"))
+os.makedirs(cfg.coredump_dir)
+manager = TpuShareManager(from_name("auto"), cfg)
+backend = manager._backend
+out = {"auto": type(backend).__name__}
+t = time.perf_counter()
+inv = manager._build_inventory()
+out["inventory_s"] = time.perf_counter() - t
+out["chips"] = [[c.id, inv.units_of(c.id)] for c in inv.chips()]
+ids = [d.id for d in inv.mem_fake_devices()]
+
+
+def refused(fn, granted):
+    try:
+        fn(granted)
+        return None
+    except RuntimeError as e:  # AssignmentError, or a refused hold
+        return str(e)
+
+
+# the mem plugin's allocate function: phase 11's pods, then one too many
+mem = manager._build_allocator(inv, unhealthy_fn=lambda: [])
+core = manager._build_core_allocate_fn(inv, unhealthy_fn=lambda: [])
+grants, grant_us, used = {}, {}, 0
+for name, units in pods:
+    t = time.perf_counter()
+    (grant,) = mem([ids[used:used + units]])
+    grant_us[name] = (time.perf_counter() - t) * 1e6
+    grants[name] = grant.envs
+    used += units
+out.update(grants=grants, grant_us=grant_us, used=manager._local.used_by_chip())
+left = inv.total_units() - used
+out["seventh"] = [left + 1, refused(mem, [ids[:left + 1]])]
+# a core hold of a card with mem units in use is refused
+chip0 = inv.chips()[0].id
+out["core_while_mem"] = refused(core, [[chip0]])
+# a rebuild (what SIGHUP or a kubelet restart does) starts a fresh
+# allocator: every mem unit released; the hold goes through, then a mem
+# grant has no card left
+mem = manager._build_allocator(inv, unhealthy_fn=lambda: [])
+core = manager._build_core_allocate_fn(inv, unhealthy_fn=lambda: [])
+(hold,) = core([[chip0]])
+out["core_hold"] = hold.envs
+out["mem_while_held"] = refused(mem, [ids[:1]])
+out["core_held"] = sorted(manager._local.core_held())
+
+# health: NVML polls through a HealthWatcher into the manager's allocator sink
+backend._poll_s = interval  # the daemon's default is 5 s a poll
+seen, events = [], []
+read = backend.error_counters
+
+
+def counted(devices=None):  # NVML's counters are read once a poll
+    seen.append(time.perf_counter())
+    return read(devices)
+
+
+backend.error_counters = counted
+watcher = HealthWatcher(backend, sinks=[manager._local_sink(inv)], on_event=events.append)
+t = time.perf_counter()
+watcher.start()
+while len(seen) < polls and time.perf_counter() - t < 3.0:
+    time.sleep(0.005)
+watcher.stop()
+out.update(polls=len(seen), poll_s=time.perf_counter() - t, restarts=watcher.restarts,
+           events=[[e.chip_id, e.health.value, e.reason, e.severity] for e in events],
+           unhealthy=sorted(manager._local._unhealthy))
+
+# signals: SIGQUIT's stack dump, SIGUSR1's flight record
+manager._install_flight_recorder()
+manager.install_signal_handlers()
+
+
+def wait_for(pattern, timeout=2.0):
+    t = time.perf_counter()
+    while time.perf_counter() - t < timeout:
+        found = glob.glob(pattern)
+        if found:
+            return found[0]
+        time.sleep(0.005)
+    return None
+
+
+t = time.perf_counter()
+os.kill(os.getpid(), signal.SIGQUIT)
+stack = wait_for(os.path.join(cfg.coredump_dir, "tpushare_*.txt"))
+out["stack_dump"] = stack and os.path.basename(stack)
+out["stack_threads"] = stack and open(stack).read().count("--- thread ")
+os.kill(os.getpid(), signal.SIGUSR1)
+record = wait_for(os.path.join(cfg.flightrecord_dir, "tpushare-flightrec-*-SIGUSR1.json"))
+out["flight_record"] = record and os.path.basename(record)
+out["flight_record_keys"] = record and sorted(json.load(open(record)))
+out["signals_s"] = time.perf_counter() - t
+out.update(torch_loaded="torch" in sys.modules, grpc_loaded="grpc" in sys.modules,
+           libcuda_before_nvml=libcuda_before_nvml, libcuda_mapped=libcuda(),
+           device_files=device_files(), seconds=time.perf_counter() - t0)
+print(json.dumps(out), flush=True)
+sys.stdin.readline()  # the parent reads the card's free memory while this process lives
 '''
 OOM_MARK = "POD-OOM"
 READY = "POD-READY"
@@ -4058,13 +4240,287 @@ def phase_plugin() -> tuple[dict, dict]:
     return grants, report
 
 
+def free_device_bytes() -> int:
+    """The card's free memory, every process's use counted, once it has
+    settled (a process's context is freed as it exits)."""
+    free = 0
+    for _ in range(10):
+        free = max(free, torch.cuda.mem_get_info()[0])
+        time.sleep(0.01)
+    return free
+
+
+def held_device_bytes(proc: subprocess.Popen) -> tuple[str, int]:
+    """``proc`` prints one line when it is ready and then waits for a line
+    on its stdin. Returns that line and the card memory ``proc`` held: the
+    free memory after it exits less the free memory while it lived."""
+    timer = threading.Timer(60, proc.kill)
+    timer.start()
+    try:
+        line = proc.stdout.readline()
+        during = torch.cuda.mem_get_info()[0]
+        try:
+            proc.stdin.write("\n")
+            proc.stdin.flush()
+        except BrokenPipeError:
+            pass
+        proc.wait(timeout=60)
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return line, free_device_bytes() - during
+
+
+def open_device_files(pid: int) -> list[str]:
+    """The /dev/nvidia* files process ``pid`` holds open."""
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            path = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if path.startswith("/dev/nvidia"):
+            out.add(path)
+    return sorted(out)
+
+
+def node_agent_daemon(tmp: str, meanwhile):
+    """Phase 22 (b): the daemon as a DaemonSet starts it, ``python -m
+    gpushare_device_plugin_tpu_torch.cli.daemon --standalone --health-check
+    --metrics-port N`` (``auto`` discovery, so NVML), against a kubelet
+    made of the port's own v1beta1 bindings on a tmp plugin dir: both
+    resources register, ``/readyz`` turns 200, ListAndWatch streams the
+    card's whole GiB healthy and one core device, an Allocate of two
+    units is granted card 0, and SIGTERM exits 0. ``meanwhile()`` runs
+    while the daemon starts. Returns the report, the failures and what
+    ``meanwhile`` returned."""
+    import queue
+    from concurrent import futures
+
+    import grpc
+
+    from gpushare_device_plugin_tpu_torch.plugin.api import (
+        DevicePluginStub,
+        RegistrationServicer,
+        add_registration_servicer,
+        pb,
+    )
+
+    plugin_dir = os.path.join(tmp, "plugins")
+    os.makedirs(plugin_dir)
+    registrations = queue.Queue()
+
+    class Kubelet(RegistrationServicer):
+        def Register(self, request, context):
+            registrations.put((request, time.perf_counter()))
+            return pb.Empty()
+
+    kubelet = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+    add_registration_servicer(Kubelet(), kubelet)
+    kubelet.add_insecure_port(f"unix:{os.path.join(plugin_dir, 'kubelet.sock')}")
+    kubelet.start()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        metrics_port = sock.getsockname()[1]
+    log_path = os.path.join(tmp, "daemon.log")
+    report, fail = {}, []
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "gpushare_device_plugin_tpu_torch.cli.daemon", "--standalone",
+             "--health-check", "--plugin-dir", plugin_dir, "--coredump-dir", tmp,
+             "--metrics-port", str(metrics_port)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+
+    def readyz():
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/readyz",
+                                        timeout=2) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+        except OSError:
+            return None
+
+    def first_list(endpoint):
+        with grpc.insecure_channel(f"unix:{os.path.join(plugin_dir, endpoint)}") as ch:
+            call = DevicePluginStub(ch).ListAndWatch(pb.Empty(), timeout=10)
+            devices = [(d.ID, d.health) for d in next(call).devices]
+            call.cancel()
+            return devices
+
+    try:
+        side = meanwhile()
+        got = [registrations.get(timeout=30) for _ in range(2)]
+        regs = {r.resource_name: r for r, _ in got}
+        report["registered_s"] = max(t for _, t in got) - t0
+        deadline = time.perf_counter() + 10
+        while readyz() != 200 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        report["readyz"] = readyz()
+        mem = first_list(regs[const.RESOURCE_MEM].endpoint)
+        core = first_list(regs[const.RESOURCE_CORE].endpoint)
+        with grpc.insecure_channel(
+                f"unix:{os.path.join(plugin_dir, regs[const.RESOURCE_MEM].endpoint)}") as ch:
+            t = time.perf_counter()
+            resp = DevicePluginStub(ch).Allocate(pb.AllocateRequest(container_requests=[
+                pb.ContainerAllocateRequest(devicesIDs=[d for d, _ in mem[:2]])]), timeout=10)
+            report["allocate_ms"] = (time.perf_counter() - t) * 1e3
+        envs = dict(resp.container_responses[0].envs)
+        maps = open(f"/proc/{proc.pid}/maps").read()
+        report.update(
+            resources=sorted(regs), mem_devices=len(mem), core_devices=len(core),
+            unhealthy=[d for d, h in mem + core if h != "Healthy"], envs=envs,
+            torch_mapped="libtorch" in maps, libcuda_mapped="libcuda" in maps,
+            device_files=open_device_files(proc.pid))
+        during = torch.cuda.mem_get_info()[0]
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        report["exit"] = proc.wait(timeout=15)
+        report["stop_s"] = time.perf_counter() - t
+        report["held_bytes"] = free_device_bytes() - during
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        kubelet.stop(0)
+    report["seconds"] = time.perf_counter() - t0
+    if sorted(report.get("resources", [])) != sorted([const.RESOURCE_MEM, const.RESOURCE_CORE]):
+        fail.append(f"registered {report.get('resources')}")
+    if report.get("readyz") != 200:
+        fail.append(f"/readyz answered {report.get('readyz')} after registration")
+    if report.get("core_devices") != 1 or report.get("unhealthy"):
+        fail.append(f"{report.get('core_devices')} core devices, unhealthy "
+                    f"{report.get('unhealthy')}")
+    if report.get("envs", {}).get(const.ENV_TPU_VISIBLE_CHIPS) != "0" or report.get(
+            "envs", {}).get(const.ENV_MEM_POD) != "2":
+        fail.append(f"the Allocate's env is not card 0's 2 units: {report.get('envs')}")
+    if report.get("torch_mapped"):
+        fail.append("the daemon mapped libtorch")
+    if report.get("held_bytes", CONTEXT_BYTES) >= CONTEXT_BYTES:
+        fail.append(f"the daemon held {report.get('held_bytes')} bytes of the card")
+    if report.get("exit") != 0:
+        fail.append(f"SIGTERM exited {report.get('exit')}: {open(log_path).read()[-2000:]}")
+    return report, fail, side
+
+
+def phase_node_agent() -> dict:
+    """Phase 22: the node agent on the card. (a) Its node half in a child
+    that loads neither torch nor grpc and holds no CUDA context
+    (:data:`NODE_AGENT_CHILD`); (b) the daemon itself
+    (:func:`node_agent_daemon`). Returns the report."""
+    print("phase 22: the node agent (standalone manager: NVML inventory, allocate, core "
+          "holds, health, stack dump and flight record)", flush=True)
+    torch.zeros(1, device="cuda")  # this process's context (phase 1 made it in a whole run)
+    t_phase = time.perf_counter()
+    pods = [[name, units] for name, _, units, _ in PODS]
+
+    def node_half_and_control():
+        """(a) and the control, one after the other, while (b)'s daemon
+        starts. Sound with the overlap: another process taking memory
+        inside a child's window only lowers that child's reading, and any
+        such process is itself held to account; the daemon's own window
+        opens after both children have exited."""
+        with tempfile.TemporaryDirectory() as tmp:
+            err_path = os.path.join(tmp, "child.err")
+            with open(err_path, "w") as err:
+                line, child_bytes = held_device_bytes(subprocess.Popen(
+                    [sys.executable, "-c", NODE_AGENT_CHILD, json.dumps(pods),
+                     str(PLUGIN_POLLS), str(PLUGIN_POLL_INTERVAL_S), tmp],
+                    cwd=os.path.dirname(os.path.abspath(__file__)), stdin=subprocess.PIPE,
+                    stdout=subprocess.PIPE, stderr=err, text=True))
+            if not line.strip():
+                raise SystemExit(f"phase 22 failed: the node agent's child printed nothing: "
+                                 f"{open(err_path).read()[-2000:]}")
+        control = held_device_bytes(subprocess.Popen(
+            [sys.executable, "-c", CUDA_CONTEXT_CHILD], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True))
+        return json.loads(line), child_bytes, control
+
+    # (b) the daemon itself, as a DaemonSet runs it, where this machine has grpc
+    daemon, problems = None, []
+    if importlib.util.find_spec("grpc") is None:
+        print("  (b) not run: this machine has no grpc", flush=True)
+        doc, child_bytes, (control_rc, control_bytes) = node_half_and_control()
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            daemon, problems, (doc, child_bytes, (control_rc, control_bytes)) = (
+                node_agent_daemon(tmp, node_half_and_control))
+    print("  node agent child", json.dumps(doc), flush=True)
+    fail = []
+    if doc["auto"] != NvmlBackend.__name__:
+        fail.append(f"auto picked {doc['auto']}, not NVML")
+    if len(doc["chips"]) != 1:
+        fail.append(f"{len(doc['chips'])} cards in the inventory, not one")
+    units = doc["chips"][0][1] if doc["chips"] else 0
+    granted = sum(u for _, u in pods)
+    if doc["used"] != {"0": granted}:
+        fail.append(f"used {doc['used']} after the grants, not {{0: {granted}}}")
+    wrong = {n: e[const.ENV_TPU_VISIBLE_CHIPS] for n, e in doc["grants"].items()
+             if e[const.ENV_TPU_VISIBLE_CHIPS] != "0" or e[const.ENV_MEM_DEV] != str(units)}
+    if wrong or sorted(doc["grants"]) != sorted(n for n, _ in pods):
+        fail.append(f"the grants are not every pod on card 0 of {units} units: {wrong}")
+    if doc["seventh"][1] is None:
+        fail.append(f"a seventh pod of {doc['seventh'][0]} units was granted")
+    if not doc["core_while_mem"] or "fractional units in use" not in doc["core_while_mem"]:
+        fail.append(f"a core hold beside mem units was not refused: {doc['core_while_mem']}")
+    if doc["core_hold"].get(const.ENV_TPU_VISIBLE_CHIPS) != "0" or doc["core_held"] != [0]:
+        fail.append(f"the core hold after the release did not go through: {doc['core_hold']}")
+    if doc["mem_while_held"] is None:
+        fail.append("a mem grant went through beside the core hold")
+    if doc["polls"] < PLUGIN_POLLS or doc["restarts"]:
+        fail.append(f"{doc['polls']} health polls and {doc['restarts']} restarts, not "
+                    f"{PLUGIN_POLLS} and 0")
+    sick = [e for e in doc["events"] if e[1] == "Unhealthy"]
+    if sick or doc["unhealthy"]:
+        fail.append(f"a sound card went Unhealthy: {sick}, allocator {doc['unhealthy']}")
+    if not doc["stack_dump"] or not doc["stack_threads"]:
+        fail.append("SIGQUIT left no stack dump")
+    if not doc["flight_record"] or not {"traces", "logs", "timeline"} <= set(
+            doc["flight_record_keys"] or ()):
+        fail.append(f"SIGUSR1 left no flight record with traces, logs and timeline: "
+                    f"{doc['flight_record_keys']}")
+    for key in ("torch_loaded", "grpc_loaded", "libcuda_before_nvml"):
+        if doc[key]:
+            fail.append(f"the node agent's child has {key}")
+    # NVIDIA's nvmlInit_v2 maps libcuda.so and opens /dev/nvidia-uvm
+    # itself, so both are printed, not gated. What a DaemonSet must not do
+    # is take the card's memory with a CUDA context: the control shows what
+    # one costs.
+    held = {"control": control_bytes, "child": child_bytes}
+    print("  card memory held (bytes): a control holding one CUDA context", control_bytes,
+          "(return codes", control_rc.strip(), "), the node agent's child", child_bytes,
+          "; the child's /dev/nvidia* files", doc["device_files"], flush=True)
+    if control_bytes < CONTEXT_BYTES:
+        fail.append(f"a CUDA context cost {control_bytes} bytes, under {CONTEXT_BYTES}: "
+                    "the memory check cannot see one")
+    if child_bytes >= CONTEXT_BYTES:
+        fail.append(f"the node agent's child held {child_bytes} bytes of the card")
+    if daemon is not None:
+        print("  (b) the daemon", json.dumps(daemon), flush=True)
+        fail.extend(f"(b) {p}" for p in problems)
+    seconds = time.perf_counter() - t_phase
+    if seconds >= NODE_AGENT_BUDGET_S:
+        fail.append(f"the phase took {seconds:.2f} s, not under {NODE_AGENT_BUDGET_S}")
+    report = {"child": doc, "daemon": daemon, "held_bytes": held, "seconds": seconds}
+    print("  phase 22", json.dumps({"child_s": doc["seconds"], "daemon_s": daemon and
+                                    daemon["seconds"], "seconds": seconds}), flush=True)
+    if fail:
+        raise SystemExit("phase 22 failed: " + "; ".join(fail))
+    return report
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22),
                     help="build the kernels and run only this phase (a quick check; "
-                         "the contract's lines are not printed); phase 21 builds nothing")
+                         "the contract's lines are not printed); phases 21 and 22 build "
+                         "nothing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4078,6 +4534,11 @@ def main(argv: list[str]) -> int:
     if args.phase == 21:
         _, report = phase_plugin()
         print(f"phase 21: {report['seconds']:.1f} s; chip_smoke: "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+        return 0
+    if args.phase == 22:
+        report = phase_node_agent()
+        print(f"phase 22: {report['seconds']:.2f} s; chip_smoke: "
               f"{time.perf_counter() - t_script:.1f} s", flush=True)
         return 0
     seconds = {}  # each phase's, printed on one line before the script's
@@ -4118,6 +4579,7 @@ def main(argv: list[str]) -> int:
         return 0
     forward = timed("1", phase_kernels, gen)
     grants, _ = timed("21", phase_plugin)
+    timed("22", phase_node_agent)
 
     serve_launches, serve_decode_p50_ms, params, cfg = timed("2-3", phase_serve, gen)
     paged_launches, paged_stats, paged_report = timed(

@@ -99,6 +99,20 @@ class MemoryUnit(str, enum.Enum):
     def num_bytes(self) -> int:
         return 1 << 30 if self is MemoryUnit.GiB else 1 << 20
 
+
+def translate_memory_units(value: str | None) -> MemoryUnit:
+    """Validate a ``--memory-unit`` flag value, defaulting to GiB
+    (reference ``const.py:233``; upstream ``cmd/nvidia/main.go:67-78``)."""
+    if value is None or value == "":
+        return MemoryUnit.GiB
+    try:
+        return MemoryUnit(value)
+    except ValueError:
+        raise ValueError(
+            f"invalid memory unit {value!r}: expected one of "
+            f"{[u.value for u in MemoryUnit]}"
+        ) from None
+
 # "<generation>:<incarnation token>": the newest instance stamps its
 # journal's generation and a random per-open token on the node here; an
 # instance observing a higher generation, or its own under a foreign

@@ -13,7 +13,9 @@ Beyond upstream:
   fake device of a failed card, ``server.go:183-186``).
 - Multiple concurrent ListAndWatch streams are supported (kubelet restarts
   mid-stream leave stale streams behind until their sends fail).
-- Allocate counts its in-flight calls, so ``drain`` can wait for them.
+- Allocate counts its in-flight calls, so ``drain`` can wait for them,
+  and ``quiesce`` refuses new ones at once (the daemon quiesces every
+  plugin before it drains any).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Callable, Sequence
 import grpc
 
 from .. import const
-from ..device.fanout import DeviceInventory
+from ..device.fanout import DeviceInventory, FakeDevice
 from ..discovery.base import ChipHealth
 from ..utils.lockrank import make_condition
 from ..utils.log import get_logger
@@ -74,15 +76,24 @@ class TpuSharePlugin(DevicePluginServicer):
         inventory: DeviceInventory,
         allocate_fn: Callable[[Sequence[Sequence[str]]], list] | None,
         config: PluginConfig | None = None,
+        devices_fn: Callable[..., list[FakeDevice]] | None = None,
+        preferred_fn: Callable[[list[str], int], list[str]] | None = None,
     ):
         """``allocate_fn`` receives the per-container granted fake-ID lists
         and returns ``ContainerAllocation``s (see allocator.env); raising
         ``Exception`` maps to a gRPC error, which kubelet surfaces as an
         UnexpectedAdmissionError for the pod (``allocate.go:99-105``).
-        The advertised list is the inventory's per-GiB fan-out."""
+
+        ``devices_fn(health=...)`` overrides the advertised device list
+        (default: the inventory's per-GiB fan-out). ``preferred_fn(available,
+        size)`` orders GetPreferredAllocation picks (the core plugin steers
+        kubelet away from cards with fractional usage).
+        """
         self._inv = inventory
         self._allocate_fn = allocate_fn
         self._cfg = config or PluginConfig()
+        self._devices_fn = devices_fn or inventory.mem_fake_devices
+        self._preferred_fn = preferred_fn
         self._health: dict[str, ChipHealth] = {}
         self._cond = make_condition("plugin.stream")
         self._version = 0  # bumped on every health change
@@ -102,6 +113,10 @@ class TpuSharePlugin(DevicePluginServicer):
     # ------------------------------------------------------------------
     # health ingestion (fed by the manager's health watcher thread)
     # ------------------------------------------------------------------
+
+    def set_allocate_fn(self, fn: Callable[[Sequence[Sequence[str]]], list]) -> None:
+        """Late-bind the allocator (it may need this plugin's health view)."""
+        self._allocate_fn = fn
 
     def set_chip_health(self, chip_id: str | None, health: ChipHealth) -> None:
         """Mark one chip (or all, when ``chip_id`` is None) and wake streams."""
@@ -134,7 +149,7 @@ class TpuSharePlugin(DevicePluginServicer):
         )
 
     def _snapshot(self) -> pb.ListAndWatchResponse:
-        devices = self._inv.mem_fake_devices(health=dict(self._health))
+        devices = self._devices_fn(health=dict(self._health))
         return pb.ListAndWatchResponse(
             devices=[
                 pb.Device(ID=d.id, health=HEALTHY if d.healthy else UNHEALTHY)
@@ -172,13 +187,23 @@ class TpuSharePlugin(DevicePluginServicer):
             yield self._snapshot()
 
     def GetPreferredAllocation(self, request, context) -> pb.PreferredAllocationResponse:
-        # Fake HBM-unit devices are fungible (which IDs kubelet grants is
-        # irrelevant by design — Allocate only counts them), so the mem
-        # plugin takes the first N.
+        # Fake memory-unit devices are fungible (which IDs kubelet grants
+        # is irrelevant by design — Allocate only counts them), so the mem
+        # plugin takes the first N. The core plugin injects a preferred_fn
+        # that steers kubelet toward conflict-free cards.
         resp = pb.PreferredAllocationResponse()
         for creq in request.container_requests:
             cresp = resp.container_responses.add()
-            cresp.deviceIDs.extend(list(creq.available_deviceIDs)[: creq.allocation_size])
+            available = list(creq.available_deviceIDs)
+            if self._preferred_fn is not None:
+                try:
+                    picks = self._preferred_fn(available, creq.allocation_size)
+                except Exception as e:  # noqa: BLE001 — preference only
+                    log.warning("preferred_fn failed: %s", e)
+                    picks = available[: creq.allocation_size]
+            else:
+                picks = available[: creq.allocation_size]
+            cresp.deviceIDs.extend(picks)
         return resp
 
     def Allocate(self, request, context) -> pb.AllocateResponse:
@@ -321,6 +346,14 @@ class TpuSharePlugin(DevicePluginServicer):
     def serve(self) -> None:
         self.start()
         self.register()
+
+    def quiesce(self) -> None:
+        """Refuse new Allocate calls from now on, without waiting. The
+        manager quiesces every plugin before draining any, so later
+        plugins cannot keep admitting work while earlier ones drain."""
+        with self._cond:
+            self._stopping = True
+            self._cond.notify_all()
 
     def drain(self, timeout_s: float = 5.0) -> bool:
         """Refuse new Allocate calls and wait for in-flight ones to finish

@@ -7,8 +7,7 @@ with nothing armed is one dict read and a return; a test (or
 stalls, flaps or "crashes" exactly there.
 
 ======================  =====================================================
-``discovery.probe``     inventory (re)build at plugin (re)start (the
-                        daemon's; no site fires it yet)
+``discovery.probe``     inventory (re)build at plugin (re)start
 ``discovery.watch_health``  health-event stream (supervised loop entry +
                         every mock-backend poll)
 ``plugin.allocate``     Allocate RPC entry (kubelet-facing)
@@ -40,7 +39,8 @@ stalls, flaps or "crashes" exactly there.
 
 Each point sits immediately *after* a journal step takes durable effect,
 so arming it with the ``crash`` mode leaves the files exactly as a
-SIGKILL at that instruction would.
+SIGKILL at that instruction would (and, through the crash hook, dumps a
+flight record first).
 
 Modes:
 
@@ -173,6 +173,15 @@ class FaultRegistry:
     def __init__(self) -> None:
         self._lock = make_lock("faults.registry")
         self._faults: dict[str, _Fault] = {}
+        # Flight-recorder hook: called (outside the registry lock, the
+        # dump does file I/O) with the point name just before a crash-
+        # mode fault raises SimulatedCrash — so injected kills leave the
+        # same postmortem a production SIGKILL site would.
+        self._crash_hook: Callable[[str], Any] | None = None
+
+    def set_crash_hook(self, hook: Callable[[str], Any] | None) -> None:
+        with self._lock:
+            self._crash_hook = hook
 
     def inject(
         self,
@@ -213,19 +222,33 @@ class FaultRegistry:
         """Called at the injection site. No-op unless the point is armed."""
         if not self._faults:  # fast path: nothing armed anywhere
             return
+        crash: SimulatedCrash | None = None
         with self._lock:
             fault = self._faults.get(point)
             if fault is None:
                 return
-            # counters/cycle mutate under the lock; the latency sleep must
-            # not hold it (it would serialize unrelated points)
-            if fault.mode != "latency":
-                fault.apply()  # raises or passes through
-                return
-            if fault.times is not None and fault.fired >= fault.times:
-                return
-            fault.fired += 1
-            delay = fault.latency_s
+            # counters/cycle mutate under the lock; the latency sleep and
+            # the crash hook's dump I/O must not hold it (they would
+            # serialize unrelated points)
+            if fault.mode == "latency":
+                if fault.times is not None and fault.fired >= fault.times:
+                    return
+                fault.fired += 1
+                delay = fault.latency_s
+            else:
+                try:
+                    fault.apply()  # raises or passes through
+                    return
+                except SimulatedCrash as e:
+                    crash = e
+            hook = self._crash_hook
+        if crash is not None:
+            if hook is not None:
+                try:
+                    hook(point)
+                except Exception as e:  # noqa: BLE001 — crashing anyway
+                    log.warning("crash hook failed at %s: %s", point, e)
+            raise crash
         time.sleep(delay)
 
     @contextlib.contextmanager

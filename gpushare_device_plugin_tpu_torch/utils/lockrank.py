@@ -5,8 +5,9 @@ Counterpart of ``gpushare_device_plugin_tpu/utils/lockrank.py``, cut to
 the locks the port's protocol modules take (the WAL, its group-commit
 writer, the assume cache, the SLO budget, the decision log, the fleet's
 router, membership and scale executor, the KV handoff's ledger and peer
-client, the circuit breaker, the fault table, the page allocator, and the
-device plugin's stream condition, health watcher and standalone allocator).
+client, the circuit breaker, the fault table, the page allocator, the
+device plugin's stream condition, health watcher and standalone allocator,
+and the node agent's timeline ring and flight recorder).
 Each entry is the reference's: same name, rank, kind, I/O rule and reason.
 
 - :data:`RANKS`: a total order. A thread may only acquire a lock whose
@@ -81,6 +82,11 @@ RANKS: dict[str, LockRank] = dict((
        "(provenance is observability, not durability — the WAL owns "
        "that). I/O by definition; taken only after decisions.ring "
        "is released."),
+    _r("timeline.ring", 67, "lock", False,
+       "ClusterTimeline's time-bucketed sample ring: the sampler "
+       "loop writes one bucket per tick, /timeline and the flight "
+       "recorder snapshot under it and serialize outside. Pure "
+       "memory, fixed-size by construction."),
     _r("wal.batcher", 70, "condition", False,
        "GroupBatcher's queue condition: submit() runs under "
        "checkpoint.journal; the flush itself happens with the "
@@ -142,6 +148,10 @@ RANKS: dict[str, LockRank] = dict((
     _r("faults.registry", 90, "lock", False,
        "Fault-injection rule table; fire() sites run everywhere, "
        "so this must be a near-leaf."),
+    _r("flightrec.ring", 94, "lock", False,
+       "FlightRecorder's bounded log-record ring: fed from a "
+       "logging handler, which can run under any lock that logs. "
+       "dump() snapshots under it and writes the file outside."),
 ))
 
 

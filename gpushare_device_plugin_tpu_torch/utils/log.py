@@ -1,24 +1,29 @@
 """Leveled logging with glog-style verbosity tiers and trace correlation.
 
 Counterpart of ``gpushare_device_plugin_tpu/utils/log.py``, cut to what
-the protocol modules call: :func:`get_logger` (a ``Logger`` with
-``info``/``warning``/``error`` and ``v(n, ...)``, emitted at DEBUG when
-the process verbosity is at least ``n``), :func:`setup` and
+the port calls: :func:`get_logger` (a ``Logger`` with
+``info``/``warning``/``error``/``fatal`` and ``v(n, ...)``, emitted at
+DEBUG when the process verbosity is at least ``n``), :func:`setup` and
 :func:`verbosity`. ``setup`` stamps every record with the ids of the span
 current on the emitting thread (``utils.tracing``), rendered as
 `` [trace/span]`` between the logger name and the message.
+
+Fatal hooks: ``Logger.fatal`` runs the hooks registered with
+:func:`on_fatal` (the flight recorder's dump-on-fatal) before raising
+SystemExit, so a dying daemon leaves a postmortem behind.
 """
 
 from __future__ import annotations
 
 import logging
 import sys
-from typing import Any
+from typing import Any, Callable
 
 from . import tracing
 
 _VERBOSITY = 0
 _factory_installed = False
+_fatal_hooks: list[Callable[[str], Any]] = []
 
 
 def _install_record_factory() -> None:
@@ -56,6 +61,15 @@ def verbosity() -> int:
     return _VERBOSITY
 
 
+def on_fatal(hook: Callable[[str], Any]) -> None:
+    """Register a hook run (with the fatal message) before a fatal exit."""
+    _fatal_hooks.append(hook)
+
+
+def clear_fatal_hooks() -> None:
+    _fatal_hooks.clear()
+
+
 class Logger:
     """Thin wrapper adding ``.v(n)`` gated verbose logging."""
 
@@ -70,6 +84,16 @@ class Logger:
 
     def error(self, msg: str, *args: object) -> None:
         self._log.error(msg, *args)
+
+    def fatal(self, msg: str, *args: object) -> None:
+        self._log.critical(msg, *args)
+        rendered = msg % args if args else msg
+        for hook in list(_fatal_hooks):
+            try:
+                hook(rendered)
+            except Exception as e:  # noqa: BLE001 — dying anyway; best effort
+                self._log.error("fatal hook failed: %s", e)
+        raise SystemExit(255)
 
     def v(self, level: int, msg: str, *args: object) -> None:
         if _VERBOSITY >= level:

@@ -1,12 +1,14 @@
 """Prometheus-exposition metrics for a serving pod (stdlib only).
 
 Counterpart of ``gpushare_device_plugin_tpu/utils/metrics.py``, cut to
-what a pod exports: :class:`MetricsRegistry` (counters, gauges and
-fixed-bucket histograms with a trace-id exemplar per bucket), the
-process-wide :data:`REGISTRY`, :func:`publish_build_info`, and
-:class:`MetricsServer` with the pod's endpoints: ``/metrics`` (text
-format 0.0.4, or OpenMetrics with exemplars when the scraper asks for
-it), ``/traces`` (OTLP-JSON from the trace store) and ``/healthz``.
+what a pod and the node agent export: :class:`MetricsRegistry`
+(counters, gauges and fixed-bucket histograms with a trace-id exemplar
+per bucket), the process-wide :data:`REGISTRY`, :func:`publish_build_info`,
+and :class:`MetricsServer` with the endpoints: ``/metrics`` (text format
+0.0.4, or OpenMetrics with exemplars when the scraper asks for it),
+``/traces`` (OTLP-JSON from the trace store), ``/decisions``,
+``/timeline``, ``/healthz`` and ``/readyz``. The reference's ``/shards``
+and ``/fleet`` wait for cluster mode.
 
 One lock per registry; every write is one dict update under it.
 """
@@ -17,6 +19,7 @@ import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable
 from urllib.parse import parse_qs, urlparse
 
 from . import tracing
@@ -244,17 +247,35 @@ def publish_build_info(component: str, registry: MetricsRegistry | None = None) 
 
 
 class MetricsServer:
-    """The pod's HTTP endpoint: ``/metrics`` (text format 0.0.4, or
-    OpenMetrics when the ``Accept`` header names
-    ``application/openmetrics-text``), ``/traces`` (the trace store as
-    OTLP-JSON; ``?trace_id=`` narrows to one trace) and ``/healthz``."""
+    """The HTTP endpoint: ``/metrics`` (text format 0.0.4, or OpenMetrics
+    when the ``Accept`` header names ``application/openmetrics-text``),
+    ``/traces`` (the trace store as OTLP-JSON; ``?trace_id=`` narrows to
+    one trace), ``/decisions`` (the decision-provenance ring as JSON;
+    ``?pod=ns/name`` and ``?verb=`` narrow), ``/timeline`` (the
+    cluster-state timeline ring), ``/healthz`` (liveness: 200 while the
+    server thread runs) and ``/readyz``, which consults ``ready_fn``: 200
+    when it returns truthy, 503 otherwise (the daemon's probe gates on
+    plugin registration)."""
 
     def __init__(self, registry: MetricsRegistry = REGISTRY, host: str = "0.0.0.0",
-                 port: int = 0, trace_store: "tracing.TraceStore | None" = None) -> None:
+                 port: int = 0, trace_store: "tracing.TraceStore | None" = None,
+                 decisions: Any = None, timeline: Any = None,
+                 ready_fn: Callable[[], bool] | None = None) -> None:
         self._registry = registry
         self._host = host
         self._port = port
         self._store = trace_store if trace_store is not None else tracing.STORE
+        if decisions is None:
+            from .decisions import DECISIONS
+
+            decisions = DECISIONS
+        self._decisions = decisions
+        if timeline is None:
+            from .timeline import TIMELINE
+
+            timeline = TIMELINE
+        self._timeline = timeline
+        self._ready_fn = ready_fn
         self._server: ThreadingHTTPServer | None = None
 
     @property
@@ -265,6 +286,9 @@ class MetricsServer:
     def start(self) -> "MetricsServer":
         registry = self._registry
         store = self._store
+        decisions = self._decisions
+        timeline = self._timeline
+        ready_fn = self._ready_fn
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -291,8 +315,23 @@ class MetricsServer:
                     tid = (parse_qs(url.query).get("trace_id") or [None])[0]
                     self._reply(200, "application/json",
                                 json.dumps(store.to_otlp(trace_id=tid)).encode())
+                elif url.path == "/decisions":
+                    q = parse_qs(url.query)
+                    doc = decisions.to_doc(pod=(q.get("pod") or [None])[0],
+                                           verb=(q.get("verb") or [None])[0])
+                    self._reply(200, "application/json", json.dumps(doc).encode())
+                elif url.path == "/timeline":
+                    self._reply(200, "application/json",
+                                json.dumps(timeline.to_doc()).encode())
                 elif url.path == "/healthz":
                     self._reply(200, "text/plain", b"ok\n")
+                elif url.path == "/readyz":
+                    try:
+                        ready = ready_fn is None or bool(ready_fn())
+                    except Exception:  # noqa: BLE001 — not ready, not dead
+                        ready = False
+                    self._reply(200 if ready else 503, "text/plain",
+                                b"ok\n" if ready else b"not ready\n")
                 else:
                     self._reply(404, "text/plain", b"not found\n")
 

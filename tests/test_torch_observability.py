@@ -296,7 +296,10 @@ def test_metrics_server_endpoints():
         assert body.rstrip().endswith("# EOF")
         assert _get(f"{url}/healthz")[2] == "ok\n"
         assert _get(f"{url}/nope")[0] == 404
-        assert _get(f"{url}/decisions")[0] == 404  # the control plane's, not a pod's
+        assert _get(f"{url}/shards")[0] == 404  # cluster mode's: not ported
+        code, ctype, body = _get(f"{url}/decisions")
+        assert code == 200 and ctype == "application/json" and "records" in json.loads(body)
+        assert _get(f"{url}/readyz")[0] == 200  # no ready_fn: always ready
         _, ctype, body = _get(f"{url}/traces?trace_id={ctx.trace_id}")
         assert ctype == "application/json"
         spans = JTr.spans_from_otlp(json.loads(body))  # the reference reads it

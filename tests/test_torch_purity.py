@@ -52,9 +52,14 @@ def test_no_reference_or_jax_import_in_the_port():
     # device plugin's node agent included
     walked = set(_port_files())
     assert PORT / "extender" / "policy.py" in walked
-    for sub in ("discovery", "device", "allocator", "manager", "plugin", "native"):
+    for sub in ("discovery", "device", "allocator", "manager", "plugin", "native", "cli"):
         assert any(p.parent == PORT / sub for p in walked), sub
     assert PORT / "plugin" / "api" / "deviceplugin_pb2.py" in walked
+    # the node agent's modules
+    for rel in ("manager/lifecycle.py", "manager/watchers.py", "cli/daemon.py",
+                "allocator/cluster.py", "utils/flightrec.py", "utils/timeline.py",
+                "utils/stacktrace.py"):
+        assert PORT / rel in walked, rel
 
 
 def test_nvml_discovery_imports_no_torch():
@@ -65,13 +70,67 @@ def test_nvml_discovery_imports_no_torch():
             "gpushare_device_plugin_tpu_torch.discovery.nvmldev",
             "gpushare_device_plugin_tpu_torch.device",
             "gpushare_device_plugin_tpu_torch.allocator.local",
-            "gpushare_device_plugin_tpu_torch.manager.health"]
+            "gpushare_device_plugin_tpu_torch.allocator.cluster",
+            "gpushare_device_plugin_tpu_torch.manager.health",
+            "gpushare_device_plugin_tpu_torch.manager.watchers",
+            "gpushare_device_plugin_tpu_torch.manager.lifecycle",
+            "gpushare_device_plugin_tpu_torch.utils.flightrec",
+            "gpushare_device_plugin_tpu_torch.utils.timeline",
+            "gpushare_device_plugin_tpu_torch.utils.stacktrace",
+            "gpushare_device_plugin_tpu_torch.utils.metrics",
+            "gpushare_device_plugin_tpu_torch.plugin.server",
+            "gpushare_device_plugin_tpu_torch.cli.daemon"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "from gpushare_device_plugin_tpu_torch.discovery import from_name\n"
         "from_name('nvml', library='/nonexistent/libnvidia-ml.so.1').probe()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'torch']\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_manager_loads_and_accounts_without_grpc():
+    """The card's machine has no grpc: with it blocked, the manager, the
+    daemon's module and the flight recorder import, and the inventory,
+    both allocate functions and the health sink build and run. Only the
+    plugins, which serve gRPC, need it; they import it where they are
+    built."""
+    code = (
+        "import sys\n"
+        "sys.modules['grpc'] = None  # any import of grpc raises ImportError\n"
+        "import gpushare_device_plugin_tpu_torch.cli.daemon\n"
+        "from gpushare_device_plugin_tpu_torch.discovery import MockBackend, ChipHealth\n"
+        "from gpushare_device_plugin_tpu_torch.manager import ManagerConfig, TpuShareManager\n"
+        "from gpushare_device_plugin_tpu_torch.utils.flightrec import FLIGHT\n"
+        "m = TpuShareManager(MockBackend(num_chips=2, hbm_bytes=4 << 30),\n"
+        "                    ManagerConfig(standalone=True, plugin_dir='/nonexistent'))\n"
+        "inv = m._build_inventory()\n"
+        "mem = m._build_allocator(inv, unhealthy_fn=lambda: [])\n"
+        "core = m._build_core_allocate_fn(inv, unhealthy_fn=lambda: [])\n"
+        "assert core([[inv.chips()[0].id]])[0].envs['TPU_VISIBLE_CHIPS'] == '0'\n"
+        "sink = m._local_sink(inv)\n"
+        "sink(inv.chips()[1].id, ChipHealth.UNHEALTHY)\n"
+        "try:\n"
+        "    mem([['a']])\n"
+        "    raise SystemExit('a held and a sick card took a grant')\n"
+        "except RuntimeError:\n"
+        "    pass\n"
+        "sink(None, ChipHealth.HEALTHY)\n"
+        "assert mem([['a', 'b']])[0].envs['TPU_VISIBLE_CHIPS'] == '1'\n"
+        "try:\n"
+        "    m._build_plugins(inv)\n"
+        "    raise SystemExit('the plugins built without grpc')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "bad = [n for n in sys.modules if sys.modules[n] is not None and (\n"
+        "       n.split('.')[0] in ('torch', 'grpc') or n.startswith('google.protobuf'))]\n"
         "assert not bad, bad[:5]\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
