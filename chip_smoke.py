@@ -319,14 +319,41 @@ Phases, each of which fails the run with a non-zero exit:
    must take under 5 s. The daemon's gRPC half is held to the reference
    on the CPU too (``tests/test_torch_manager.py``,
    ``tests/test_torch_daemon.py``).
+23. The node agent in cluster mode. ``tests/fake_apiserver.py`` (loaded
+   by path; it imports only the standard library) holds 50 nodes of 110
+   pods each (the kubelet's default ``max-pods``; the Kubernetes
+   documentation's large-cluster scale cut from 5,000 nodes). This node's
+   pods: 94 that ask for nothing, and 16 pending share pods with the
+   scheduler extender's assume annotations for card 0 (phase 11's six
+   slices and ten more of 2 GiB: 76 GiB). (a) The port's informer lists
+   this node's 110 pods; the daemon (``python -m
+   gpushare_device_plugin_tpu_torch.cli.daemon --node-name N
+   --health-check --checkpoint-path ...``, ``auto`` discovery, a JSON
+   kubeconfig) registers with a kubelet made of the port's bindings,
+   which sends the 16 Allocates eight at a time: every pod ends assigned,
+   every env is its pod's units on card 0, and ``cluster_chip_state``
+   equals the annotations' sum. A 16-GiB pod is refused on the full card,
+   then admitted once a 16-GiB and a 2-GiB pod are deleted. (b) A daemon
+   with ``TPUSHARE_FAULTS=allocator.post_persist=crash:1`` and
+   ``--reconcile-interval 0`` dies in one Allocate after its PATCH (the
+   WAL holds one unresolved begin) and is SIGKILLed; a second daemon on
+   the same plugin dir and WAL registers, replays exactly one entry,
+   raises the fence generation by one, lets its reconciler commit the
+   entry, admits a fresh pod and exits 0 on SIGTERM. (c) Each daemon holds
+   under ``CONTEXT_BYTES`` of the card, where a control context holds
+   more, and maps no ``libtorch``. It prints the informer's first list,
+   the Allocates' ms p50 / p99, the reclaim's seconds, the replay count,
+   the fence generations and its seconds, and must take under 30 s. The
+   cluster half is held to the reference on the CPU
+   (``tests/test_torch_cluster_*.py``).
 
-The phases run in the order 1, 21, 22, 2, 3, 7, 8, 13, 15, 16, 17, 18, 14,
-4, 5, 6, 9-12, 19, 20; each phase's seconds print on one JSON line
-(``phase seconds``) before the script's. ``python3 chip_smoke.py --phase
-17`` (or ``--phase 18``, ``--phase 19`` or ``--phase 20``) builds the
-kernels and runs that phase alone on fresh weights (a quick check; it
-prints no contract lines); ``--phase 21`` and ``--phase 22`` run that
-phase alone and build nothing (they launch no kernel).
+The phases run in the order 1, 21, 22, 23, 2, 3, 7, 8, 13, 15, 16, 17,
+18, 14, 4, 5, 6, 9-12, 19, 20; each phase's seconds print on one JSON
+line (``phase seconds``) before the script's. ``python3 chip_smoke.py
+--phase 17`` (or ``--phase 18``, ``--phase 19`` or ``--phase 20``) builds
+the kernels and runs that phase alone on fresh weights (a quick check; it
+prints no contract lines); ``--phase 21``, ``--phase 22`` and ``--phase
+23`` run that phase alone and build nothing (they launch no kernel).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -789,6 +816,25 @@ out.update(torch_loaded="torch" in sys.modules, grpc_loaded="grpc" in sys.module
 print(json.dumps(out), flush=True)
 sys.stdin.readline()  # the parent reads the card's free memory while this process lives
 '''
+# Phase 23: the node agent in cluster mode. The fake apiserver
+# (tests/fake_apiserver.py, loaded by path: it imports only the standard
+# library) holds CLUSTER_NODES nodes of CLUSTER_NODE_PODS pods each: the
+# kubelet's default max-pods (110) at the Kubernetes documentation's
+# "Considerations for large clusters" scale, cut from 5,000 nodes to 50 for
+# the phase's time. This node's pods: CLUSTER_NODE_PODS less the share pods
+# ask for nothing; the share pods are phase 11's six slices and ten more of
+# 2 GiB (76 of the card's 79 GiB), pending with the extender's assume
+# annotations for card 0. A kubelet made of the port's v1beta1 bindings
+# sends their Allocates CLUSTER_WORKERS at a time.
+CLUSTER_NODES, CLUSTER_NODE_PODS = 50, 110
+CLUSTER_SHARE_UNITS = [units for _, _, units, _ in PODS] + [2] * 10
+CLUSTER_WORKERS = 8
+CLUSTER_NODE = "h100-node-0"
+CLUSTER_BUDGET_S = 30.0
+CLUSTER_DAEMON_TIMEOUT_S = 20.0
+# The extender's per-container allocation annotation (the reference's
+# const.ANN_EXTENDER_ALLOCATION), written with its assume annotations.
+ANN_EXTENDER_ALLOCATION = "scheduler.framework.tpushare.allocation"
 OOM_MARK = "POD-OOM"
 READY = "POD-READY"
 POD_TIMEOUT_S = 600
@@ -4513,14 +4559,393 @@ def phase_node_agent() -> dict:
     return report
 
 
+def load_fake_apiserver():
+    """``tests/fake_apiserver.py`` by path (a module of the standard library
+    alone, not a package)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fake_apiserver.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_fake_apiserver", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cluster_pod(name: str, node: str, units: int = 0, *, phase: str = "Pending",
+                annotations: dict | None = None, labels: dict | None = None,
+                created: int = 0) -> dict:
+    limits = {const.RESOURCE_MEM: str(units)} if units else {}
+    return {
+        "metadata": {"name": name, "namespace": "default", "uid": f"uid-{node}-{name}",
+                     "creationTimestamp": time.strftime(
+                         "%Y-%m-%dT%H:%M:%SZ", time.gmtime(1767225600 + created)),
+                     "annotations": annotations or {}, "labels": labels or {}},
+        "spec": {"nodeName": node, "containers": [
+            {"name": "c0", "image": "busybox", "resources": {"limits": limits}}]},
+        "status": {"phase": phase},
+    }
+
+
+def assumed_on_card0(units: int, card_units: int) -> dict:
+    """The annotations the scheduler extender writes at bind: card 0."""
+    return {const.ENV_MEM_IDX: "0", const.ENV_MEM_POD: str(units),
+            const.ENV_MEM_DEV: str(card_units), const.ENV_ASSIGNED_FLAG: "false",
+            const.ENV_ASSUME_TIME: str(time.time_ns()),
+            ANN_EXTENDER_ALLOCATION: json.dumps({"c0": {"0": units}})}
+
+
+def seed_cluster(api, card_units: int) -> list[tuple[str, int]]:
+    """CLUSTER_NODES nodes of CLUSTER_NODE_PODS pods; -> this node's share
+    pods as (name, units), oldest first."""
+    share = []
+    for n in range(CLUSTER_NODES):
+        node = CLUSTER_NODE if n == 0 else f"h100-node-{n}"
+        cap = {const.RESOURCE_MEM: str(card_units), const.RESOURCE_COUNT: "1"}
+        api.add_node(node, capacity=cap)
+        prefix = "" if n == 0 else f"n{n}-"  # pod names are unique per namespace
+        for i, units in enumerate(CLUSTER_SHARE_UNITS):
+            name = f"{prefix}share-{i}"
+            if n == 0:
+                api.add_pod(cluster_pod(name, node, units, created=i,
+                                        annotations=assumed_on_card0(units, card_units)))
+                share.append((name, units))
+            else:  # admitted and running elsewhere
+                ann = {**assumed_on_card0(units, card_units), const.ENV_ASSIGNED_FLAG: "true"}
+                api.add_pod(cluster_pod(name, node, units, phase="Running", annotations=ann,
+                                        labels={const.LABEL_RESOURCE_KEY:
+                                                const.LABEL_RESOURCE_VALUE}))
+        for i in range(CLUSTER_NODE_PODS - len(CLUSTER_SHARE_UNITS)):
+            api.add_pod(cluster_pod(f"{prefix}plain-{i}", node, phase="Running", created=i))
+    return share
+
+
+def annotated_units(api) -> dict[int, int]:
+    """Units per card from this node's assigned pods' annotations alone."""
+    used: dict[int, int] = {}
+    with api._lock:
+        for pod in api.pods.values():
+            meta = pod["metadata"]
+            ann = meta.get("annotations") or {}
+            if (pod["spec"].get("nodeName") == CLUSTER_NODE
+                    and ann.get(const.ENV_ASSIGNED_FLAG) == "true"):
+                idx = int(ann[const.ENV_MEM_IDX])
+                used[idx] = used.get(idx, 0) + int(ann[const.ENV_MEM_POD])
+    return used
+
+
+def wal_pending(path: str) -> set:
+    """Keys the journal file begins and never commits or aborts."""
+    pending: set = set()
+    if not os.path.exists(path):
+        return pending
+    for line in open(path).read().splitlines():
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue  # a torn tail
+        key = tuple(rec.get("key") or ())
+        if rec.get("op") == "begin":
+            pending.add(key)
+        elif rec.get("op") in ("commit", "abort"):
+            pending.discard(key)
+    return pending
+
+
+class ClusterDaemon:
+    """``python -m gpushare_device_plugin_tpu_torch.cli.daemon --node-name
+    N`` in cluster mode (``auto`` discovery, so NVML), reading the fake
+    apiserver through a JSON kubeconfig, against a kubelet made of the
+    port's v1beta1 bindings on the plugin dir."""
+
+    def __init__(self, tmp: str, name: str, kubelet, *args: str, faults: str = ""):
+        self.kubelet = kubelet
+        self.log_path = os.path.join(tmp, f"{name}.log")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(KUBECONFIG=os.path.join(tmp, "kubeconfig.json"), HOME=tmp,
+                   TPUSHARE_FAULTS=faults)
+        while not kubelet.registrations.empty():  # an earlier daemon's
+            kubelet.registrations.get_nowait()
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "gpushare_device_plugin_tpu_torch.cli.daemon",
+                 "--node-name", CLUSTER_NODE, "--health-check", "--plugin-dir",
+                 kubelet.plugin_dir, "--coredump-dir", tmp, "--checkpoint-path",
+                 os.path.join(tmp, "wal.ckpt"), "-v", "1", *args],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+        got = [kubelet.registrations.get(timeout=CLUSTER_DAEMON_TIMEOUT_S) for _ in range(2)]
+        self.regs = {r.resource_name: r for r, _ in got}
+        self.registered_s = max(t for _, t in got) - self.t0
+        self.mem_ids = kubelet.first_list(self.regs[const.RESOURCE_MEM].endpoint)
+
+    def allocate(self, ids: list[str], timeout: float = 10):
+        import grpc
+
+        from gpushare_device_plugin_tpu_torch.plugin.api import DevicePluginStub, pb
+
+        path = os.path.join(self.kubelet.plugin_dir, self.regs[const.RESOURCE_MEM].endpoint)
+        with grpc.insecure_channel(f"unix:{path}") as ch:
+            resp = DevicePluginStub(ch).Allocate(pb.AllocateRequest(container_requests=[
+                pb.ContainerAllocateRequest(devicesIDs=ids)]), timeout=timeout)
+        return dict(resp.container_responses[0].envs)
+
+    def log(self) -> str:
+        return open(self.log_path).read()
+
+    def finish(self, sig=signal.SIGTERM) -> dict:
+        """Stop the daemon; -> its exit code, the card memory it held, and
+        whether it mapped libtorch."""
+        maps = open(f"/proc/{self.proc.pid}/maps").read()
+        during = torch.cuda.mem_get_info()[0]
+        self.proc.send_signal(sig)
+        try:
+            code = self.proc.wait(timeout=15)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        return {"exit": code, "held_bytes": free_device_bytes() - during,
+                "torch_mapped": "libtorch" in maps, "registered_s": self.registered_s}
+
+
+def cluster_kubelet(plugin_dir: str):
+    """A kubelet's registration service and ListAndWatch reader, made of
+    the port's v1beta1 bindings."""
+    import queue
+    from concurrent import futures
+
+    import grpc
+
+    from gpushare_device_plugin_tpu_torch.plugin.api import (
+        DevicePluginStub,
+        RegistrationServicer,
+        add_registration_servicer,
+        pb,
+    )
+
+    class Kubelet(RegistrationServicer):
+        plugin_dir = ""
+        registrations = queue.Queue()
+
+        def Register(self, request, context):
+            self.registrations.put((request, time.perf_counter()))
+            return pb.Empty()
+
+        def first_list(self, endpoint):
+            path = os.path.join(self.plugin_dir, endpoint)
+            with grpc.insecure_channel(f"unix:{path}") as ch:
+                call = DevicePluginStub(ch).ListAndWatch(pb.Empty(), timeout=10)
+                ids = [d.ID for d in next(call).devices]
+                call.cancel()
+                return ids
+
+    kubelet = Kubelet()
+    kubelet.plugin_dir = plugin_dir
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+    add_registration_servicer(kubelet, server)
+    server.add_insecure_port(f"unix:{os.path.join(plugin_dir, 'kubelet.sock')}")
+    server.start()
+    return kubelet, server
+
+
+def phase_cluster_agent() -> dict:
+    """Phase 23: the node agent in cluster mode against a 50-node fake
+    apiserver. (a) 16 share pods admitted through the daemon's informer and
+    ClusterAllocator, and a deleted pod's units reclaimed; (b) a crash after
+    an admission's PATCH, and the restart that replays, fences and
+    reconciles it; (c) neither daemon takes card memory. Returns the
+    report."""
+    from concurrent import futures
+
+    from gpushare_device_plugin_tpu_torch.allocator.cluster import cluster_chip_state
+    from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient
+    from gpushare_device_plugin_tpu_torch.cluster.informer import PodInformer
+    from gpushare_device_plugin_tpu_torch.cluster.podsource import ApiServerPodSource
+
+    print("phase 23: the node agent in cluster mode (informer, ClusterAllocator, WAL, "
+          "fence, reconciler) against a 50-node fake apiserver", flush=True)
+    torch.zeros(1, device="cuda")  # this process's context (phase 1 made it in a whole run)
+    t_phase = time.perf_counter()
+    card_units = card_gib()
+    fake = load_fake_apiserver()
+    api = fake.FakeApiServer()
+    share = seed_cluster(api, card_units)
+    api.start()
+    report: dict = {"pods": len(api.pods), "nodes": len(api.nodes), "card_units": card_units}
+    fail: list[str] = []
+    daemons: list[ClusterDaemon] = []
+    tails: list[str] = []  # each daemon's log's end, for a failure's message
+    control = {}
+
+    def context_control():
+        rc, held = held_device_bytes(subprocess.Popen(
+            [sys.executable, "-c", CUDA_CONTEXT_CHILD], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True))
+        control.update(rc=rc.strip(), bytes=held)
+
+    control_thread = threading.Thread(target=context_control)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "kubeconfig.json"), "w") as f:
+                json.dump({"current-context": "fake",
+                           "contexts": [{"name": "fake", "context": {"cluster": "fake"}}],
+                           "clusters": [{"name": "fake", "cluster": {"server": api.url}}]}, f)
+            plugin_dir = os.path.join(tmp, "plugins")
+            os.makedirs(plugin_dir)
+            kubelet, kubelet_server = cluster_kubelet(plugin_dir)
+            client = ApiServerClient(api.url)
+            try:
+                # the informer's first LIST of this node's pods, as the daemon's
+                t = time.perf_counter()
+                informer = PodInformer(client, CLUSTER_NODE).start(sync_timeout_s=10)
+                report["informer_list"] = {"seconds": time.perf_counter() - t,
+                                           "pods": len(informer.all_pods())}
+                informer.stop()
+                control_thread.start()  # meanwhile: the context control
+                # --- (a) admission, reclaim ------------------------------
+                a = ClusterDaemon(tmp, "a", kubelet, "--reconcile-interval", "0.5")
+                daemons.append(a)
+                report["mem_devices"] = len(a.mem_ids)
+                slices, at = [], 0
+                for _, units in share:
+                    slices.append(a.mem_ids[at:at + units])
+                    at += units
+
+                def timed_allocate(ids):
+                    t = time.perf_counter()
+                    envs = a.allocate(ids)
+                    return envs, (time.perf_counter() - t) * 1e3
+
+                with futures.ThreadPoolExecutor(CLUSTER_WORKERS) as pool:
+                    results = list(pool.map(timed_allocate, slices))
+                ms = [m for _, m in results]
+                report["allocate_ms"] = {"p50": ceil_rank_quantile(ms, 0.5),
+                                         "p99": ceil_rank_quantile(ms, 0.99), "n": len(ms)}
+                bad_env = [(units, e.get(const.ENV_MEM_POD), e.get(const.ENV_TPU_VISIBLE_CHIPS))
+                           for (_, units), (e, _) in zip(share, results)
+                           if e.get(const.ENV_MEM_POD) != str(units)
+                           or e.get(const.ENV_TPU_VISIBLE_CHIPS) != "0"
+                           or e.get(const.ENV_MEM_IDX) != "0"]
+                if bad_env:
+                    fail.append(f"envs not their pods' units on card 0: {bad_env}")
+                unassigned = [n for n, _ in share if api.pods[("default", n)]["metadata"][
+                    "annotations"].get(const.ENV_ASSIGNED_FLAG) != "true"]
+                if unassigned:
+                    fail.append(f"pods not assigned: {unassigned}")
+                source = ApiServerPodSource(client, CLUSTER_NODE)
+                ledger = cluster_chip_state(source)()[0]
+                report["ledger"] = ledger
+                if ledger != annotated_units(api) or ledger != {0: sum(CLUSTER_SHARE_UNITS)}:
+                    fail.append(f"ledger {ledger} is not the annotations' "
+                                f"{annotated_units(api)}")
+                # reclaim: a 16-GiB pod cannot fit until two pods are deleted
+                big = next(n for n, u in share if u == 16)
+                small = next(n for n, u in share if u == 2)
+                api.add_pod(cluster_pod("late-16", CLUSTER_NODE, 16, created=200))
+                try:
+                    a.allocate(a.mem_ids[:16])
+                    fail.append("a 16-GiB pod was admitted onto a card with 3 GiB free")
+                except Exception:  # refused: the card is full
+                    pass
+                t = time.perf_counter()
+                api.delete_pod("default", big)
+                api.delete_pod("default", small)
+                envs = None
+                while envs is None and time.perf_counter() - t < 10:
+                    try:
+                        envs = a.allocate(a.mem_ids[:16])
+                    except Exception:  # the informer has not seen the deletes yet
+                        time.sleep(0.02)
+                report["reclaim_s"] = time.perf_counter() - t
+                if not envs or envs.get(const.ENV_MEM_POD) != "16":
+                    fail.append(f"the 16-GiB pod was not admitted after the deletes: {envs}")
+                report["daemon_a"] = a.finish()
+                # --- (b) a crash after the PATCH, and the restart ---------
+                b1 = ClusterDaemon(tmp, "b1", kubelet, "--reconcile-interval", "0",
+                                   faults="allocator.post_persist=crash:1")
+                daemons.append(b1)
+                gen1 = int(api.nodes[CLUSTER_NODE]["metadata"]["annotations"][
+                    "tpushare.aliyun.com/fence-generation"].partition(":")[0])
+                api.add_pod(cluster_pod("victim", CLUSTER_NODE, 2, created=201,
+                                        annotations=assumed_on_card0(2, card_units)))
+                try:  # the crashed admission never answers: a short deadline
+                    b1.allocate(b1.mem_ids[:2], timeout=2)
+                    fail.append("(b) the crash site did not fire")
+                except Exception:  # the admission died after its PATCH
+                    pass
+                wal = os.path.join(tmp, "wal.ckpt")
+                report["wal_pending_after_crash"] = len(wal_pending(wal))
+                if wal_pending(wal) != {("default", "victim")}:
+                    fail.append(f"(b) the WAL holds {wal_pending(wal)}, not the victim's begin")
+                report["daemon_b1"] = b1.finish(signal.SIGKILL)
+                b2 = ClusterDaemon(tmp, "b2", kubelet, "--reconcile-interval", "0.5")
+                daemons.append(b2)
+                gen2 = int(api.nodes[CLUSTER_NODE]["metadata"]["annotations"][
+                    "tpushare.aliyun.com/fence-generation"].partition(":")[0])
+                report["fence_generations"] = [gen1, gen2]
+                if gen2 != gen1 + 1:
+                    fail.append(f"(b) the fence went {gen1} -> {gen2}, not up by one")
+                replayed = [line for line in b2.log().splitlines() if "device-state replay" in line]
+                report["replayed"] = replayed[-1].split("replay: ")[1].split()[0] if replayed else "0"
+                if report["replayed"] != "1":
+                    fail.append(f"(b) replayed {report['replayed']} entries, not 1")
+                t = time.perf_counter()
+                while wal_pending(wal) and time.perf_counter() - t < 10:
+                    time.sleep(0.02)
+                report["reconciled_s"] = time.perf_counter() - t
+                if wal_pending(wal):
+                    fail.append("(b) the reconciler left the victim's entry pending")
+                api.add_pod(cluster_pod("fresh", CLUSTER_NODE, 2, created=202,
+                                        annotations=assumed_on_card0(2, card_units)))
+                envs = b2.allocate(b2.mem_ids[:2])
+                if envs.get(const.ENV_MEM_POD) != "2" or envs.get(const.ENV_MEM_IDX) != "0":
+                    fail.append(f"(b) the fresh pod's env is {envs}")
+                report["daemon_b2"] = b2.finish()
+                ledger = cluster_chip_state(source)()[0]
+                report["final_ledger"] = ledger
+                if ledger != annotated_units(api):
+                    fail.append(f"(b) ledger {ledger} is not the annotations' "
+                                f"{annotated_units(api)}")
+            finally:
+                for d in daemons:
+                    if d.proc.poll() is None:
+                        d.proc.kill()
+                        d.proc.wait()
+                    tails.append(f"\n--- {os.path.basename(d.log_path)}\n{d.log()[-1500:]}")
+                kubelet_server.stop(0)
+                if control_thread.ident:
+                    control_thread.join(60)
+    finally:
+        api.stop()
+    # --- (c) the agent takes none of the card ---------------------------
+    report["control_bytes"] = control.get("bytes")
+    if (control.get("bytes") or 0) < CONTEXT_BYTES:
+        fail.append(f"a CUDA context cost {control.get('bytes')} bytes, under {CONTEXT_BYTES}: "
+                    "the memory check cannot see one")
+    for name in ("daemon_a", "daemon_b1", "daemon_b2"):
+        d = report.get(name, {})
+        if name != "daemon_b1" and d.get("exit") != 0:
+            fail.append(f"{name} exited {d.get('exit')} on SIGTERM")
+        if d.get("held_bytes", CONTEXT_BYTES) >= CONTEXT_BYTES or d.get("torch_mapped"):
+            fail.append(f"{name} held {d.get('held_bytes')} bytes of the card, libtorch "
+                        f"mapped: {d.get('torch_mapped')}")
+    report["seconds"] = time.perf_counter() - t_phase
+    if report["seconds"] >= CLUSTER_BUDGET_S:
+        fail.append(f"the phase took {report['seconds']:.2f} s, not under {CLUSTER_BUDGET_S}")
+    print("  phase 23", json.dumps(report), flush=True)
+    if fail:
+        raise SystemExit("phase 23 failed: " + "; ".join(fail) + "".join(tails))
+    return report
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23),
                     help="build the kernels and run only this phase (a quick check; "
-                         "the contract's lines are not printed); phases 21 and 22 build "
-                         "nothing")
+                         "the contract's lines are not printed); phases 21, 22 and 23 "
+                         "build nothing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4539,6 +4964,11 @@ def main(argv: list[str]) -> int:
     if args.phase == 22:
         report = phase_node_agent()
         print(f"phase 22: {report['seconds']:.2f} s; chip_smoke: "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+        return 0
+    if args.phase == 23:
+        report = phase_cluster_agent()
+        print(f"phase 23: {report['seconds']:.2f} s; chip_smoke: "
               f"{time.perf_counter() - t_script:.1f} s", flush=True)
         return 0
     seconds = {}  # each phase's, printed on one line before the script's
@@ -4580,6 +5010,7 @@ def main(argv: list[str]) -> int:
     forward = timed("1", phase_kernels, gen)
     grants, _ = timed("21", phase_plugin)
     timed("22", phase_node_agent)
+    timed("23", phase_cluster_agent)
 
     serve_launches, serve_decode_p50_ms, params, cfg = timed("2-3", phase_serve, gen)
     paged_launches, paged_stats, paged_report = timed(

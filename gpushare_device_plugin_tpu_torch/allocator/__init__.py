@@ -1,3 +1,4 @@
-"""The journal and the claim ledger the port's protocols run on, and the
-device plugin's placement: the binpack policy, the env a granted
-container receives, and the standalone allocator."""
+"""The journal and the reservation ledger the port's protocols run on, and
+the device plugin's placement: the binpack policy, the env a granted
+container receives, the standalone allocator, and cluster mode's
+apiserver-backed allocators."""

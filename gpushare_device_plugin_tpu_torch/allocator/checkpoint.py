@@ -2,14 +2,28 @@
 
 Counterpart of ``gpushare_device_plugin_tpu/allocator/checkpoint.py``, the
 same file format and semantics, so a journal written by either package
-loads in the other. In the port its user is the KV handoff
-(``serving/handoffproto.py``), which journals each phase of a handoff as
-a fresh ``begin`` under the handoff's key and resolves it with ``commit``
-(delivered) or ``abort`` (rolled back to re-prefill).
+loads in the other. Its users in the port:
+
+- the node agent's allocators (``allocator/cluster.py``): the Allocate
+  flow has a window where the truth is in flight (the chip decision is
+  made and the annotation PATCH is on the wire, yet nothing durable on
+  this node records it). Each admission journals its decision (``"mem"``,
+  ``"core"`` or ``"gang"``: pod key, chips, units, the annotations about
+  to be written) before the PATCH leaves the node;
+- the KV handoff (``serving/handoffproto.py``) and the fleet's scale-down
+  (``serving/router.py``), which journal each phase as a fresh ``begin``
+  under their key.
 
 1. **begin** — appended and fsync'd *before* the side effect it guards.
 2. **commit** — appended once the side effect took hold.
 3. **abort** — appended when the step was abandoned before it took hold.
+
+A restarted daemon replays every unresolved entry as a ledger reservation
+(:func:`replay_checkpoint`): conservative, the chip is protected whether
+or not the PATCH landed. The drift reconciler (``cluster/reconciler.py``)
+then resolves each entry against the apiserver: annotation present, the
+PATCH won, retro-commit; absent, nothing persisted, retro-abort. Either
+way the reservation is released.
 
 File format: JSON lines (``{"op": "header"|"begin"|"commit"|"abort", ...}``),
 append-only between compactions. A torn final line (crash mid-append) is
@@ -34,10 +48,6 @@ Fault points ``checkpoint.begin|commit|abort`` fire immediately *after*
 each record is durable; ``checkpoint.wal_queue`` after a record is queued
 but *before* its durability wait, and ``checkpoint.batch_fsync`` in the
 writer right after a batch became durable (see ``utils/faults.py``).
-
-The reference's ``replay_checkpoint`` (re-installing chip reservations)
-is not carried: a handoff entry reserves nothing in a chip ledger, and
-its resolver reads :meth:`AllocationCheckpoint.pending` directly.
 """
 
 from __future__ import annotations
@@ -57,11 +67,12 @@ from ..utils.metric_catalog import (
     CHECKPOINT_ERRORS_TOTAL as JOURNAL_ERRORS,
     CHECKPOINT_FENCED as FENCE_GAUGE,
     CHECKPOINT_FSYNC_SECONDS as FSYNC_SECONDS,
+    CHECKPOINT_REPLAYED_TOTAL,
     CHECKPOINT_WAL_BATCH_RECORDS as BATCH_RECORDS,
 )
 from ..utils.metrics import REGISTRY
 from ..utils.tracing import TRACER
-from .assume import PodKey
+from .assume import AssumeCache, PodKey
 
 log = get_logger("allocator.checkpoint")
 
@@ -182,6 +193,10 @@ class AllocationCheckpoint:
     # --- introspection ----------------------------------------------------
 
     @property
+    def path(self) -> str:
+        return self._path
+
+    @property
     def generation(self) -> int:
         with self._lock:
             return self._generation
@@ -190,6 +205,13 @@ class AllocationCheckpoint:
     def fenced(self) -> bool:
         with self._lock:
             return self._fenced
+
+    @property
+    def last_seq(self) -> int:
+        """The newest begin's sequence stamp (0 before any begin): the
+        cheapest "how far has this WAL advanced" signal."""
+        with self._lock:
+            return self._seq
 
     def pending(self) -> dict[PodKey, dict]:
         """Begun-but-unresolved entries (the replay set)."""
@@ -636,3 +658,75 @@ def _node_fence(node: dict) -> tuple[int, str]:
         return int(gen_s), token
     except (TypeError, ValueError):
         return 0, token
+
+
+def replay_checkpoint(ckpt: AllocationCheckpoint, assume: AssumeCache) -> int:
+    """Re-install every unresolved journal entry as a ledger reservation.
+
+    Conservative by design: whether the crashed PATCH landed or not, the
+    chip is protected until the reconciler resolves the entry against the
+    apiserver. An admission placed during the replay-to-reconcile window
+    sees the reservation through the usual overlay and routes around it:
+    it can under-pack briefly, never double-book. No claims are taken:
+    the crashed admission's kubelet RPC died with the old process, and a
+    retried Allocate for the same pod must be free to re-match it.
+    """
+    n = 0
+    for key, data in ckpt.pending().items():
+        kind = data.get("kind")
+        if kind == "mem":
+            try:
+                assume.reserve_mem(key, int(data["idx"]), int(data["units"]))
+            except (KeyError, TypeError, ValueError):
+                log.warning("checkpoint replay: malformed mem entry for %s", key)
+                continue
+        elif kind == "core":
+            ids = data.get("ids") or []
+            try:
+                assume.reserve_core(key, [int(i) for i in ids])
+            except (TypeError, ValueError):
+                log.warning("checkpoint replay: malformed core entry for %s", key)
+                continue
+        elif kind == "gang":
+            # one atomic gang entry: every member chip replays protected
+            # together (a partial replay would be exactly the stranded
+            # sliver the gang protocol forbids)
+            try:
+                per = int(data["per_chip"])
+                members = [(int(i), per) for i in (data.get("chips") or [])]
+                assume.reserve_gang(key, members)
+            except (KeyError, TypeError, ValueError):
+                log.warning("checkpoint replay: malformed gang entry for %s", key)
+                continue
+        elif kind == "move":
+            # a defragmentation move (written by the reference's daemon;
+            # the port has no defragmenter yet) died mid-protocol: protect
+            # the DESTINATION chip. The source stays protected by the
+            # moving pod's own annotation, so counting the destination
+            # twice after the switch is over-reservation, never a
+            # double-booking.
+            try:
+                assume.reserve_mem(key, int(data["dst"]), int(data["units"]))
+            except (KeyError, TypeError, ValueError):
+                log.warning("checkpoint replay: malformed move entry for %s", key)
+                continue
+        elif kind in ("handoff", "scale"):
+            # a KV handoff (serving/handoffproto.py) or a fleet scale-down
+            # (serving/router.py) died mid-protocol. Nothing to re-install
+            # in the chip ledger: their state lives in the journal record
+            # and the engines' own page pools. The pending entry itself is
+            # the protection; its resolver rolls it forward or back.
+            pass
+        else:
+            log.warning("checkpoint replay: unknown entry kind %r for %s", kind, key)
+            continue
+        n += 1
+        log.info("replayed in-flight %s reservation for %s/%s", kind, *key)
+    if n:
+        REGISTRY.counter_inc(
+            CHECKPOINT_REPLAYED_TOTAL,
+            "In-flight journal entries re-installed as ledger reservations "
+            "at daemon (re)start",
+            value=float(n),
+        )
+    return n

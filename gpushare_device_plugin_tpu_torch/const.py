@@ -16,6 +16,17 @@ import enum
 RESOURCE_MEM = "aliyun.com/tpu-mem"
 # Whole-chip resource for pods that want exclusive chips.
 RESOURCE_CORE = "aliyun.com/tpu-core"
+# Physical chip count, patched into node status (reference const.py:19).
+RESOURCE_COUNT = "aliyun.com/tpu-count"
+# The GPU family's names, kept for the mixed-fleet vocabulary
+# (reference const.py:21-33).
+RESOURCE_GPU_MEM = "aliyun.com/gpu-mem"
+RESOURCE_GPU_COUNT = "aliyun.com/gpu-count"
+ENV_GPU_MEM_IDX = "ALIYUN_COM_GPU_MEM_IDX"
+ENV_GPU_MEM_POD = "ALIYUN_COM_GPU_MEM_POD"
+ENV_GPU_MEM_DEV = "ALIYUN_COM_GPU_MEM_DEV"
+ENV_GPU_MEM_ASSIGNED = "ALIYUN_COM_GPU_MEM_ASSIGNED"
+ENV_GPU_MEM_ASSUME_TIME = "ALIYUN_COM_GPU_MEM_ASSUME_TIME"
 
 # --- Device-plugin sockets (reference const.py:34-39) -----------------------
 DEVICE_PLUGIN_PATH = "/var/lib/kubelet/device-plugins/"
@@ -24,16 +35,43 @@ MEM_SOCKET_NAME = "aliyuntpushare.sock"
 CORE_SOCKET_NAME = "aliyuntpucore.sock"
 API_VERSION = "v1beta1"
 
+# --- Pod selector label (reference const.py:41-46) --------------------------
+LABEL_RESOURCE_KEY = "tpu/resource"
+LABEL_RESOURCE_VALUE = "tpu-mem"
+# Whole-chip pods carry the same key with this value.
+LABEL_CORE_VALUE = "tpu-core"
+
 # --- The memory-slice env the plugin injects (reference const.py:49-60) ----
 ENV_MEM_IDX = "ALIYUN_COM_TPU_MEM_IDX"  # assigned physical chip index
 ENV_MEM_POD = "ALIYUN_COM_TPU_MEM_POD"  # this pod's tpu-mem request
 ENV_MEM_CONTAINER = "ALIYUN_COM_TPU_MEM_CONTAINER"  # container's request
 ENV_MEM_DEV = "ALIYUN_COM_TPU_MEM_DEV"  # total units on the assigned chip
+ENV_ASSIGNED_FLAG = "ALIYUN_COM_TPU_MEM_ASSIGNED"  # "false" until kubelet admits
+ENV_ASSUME_TIME = "ALIYUN_COM_TPU_MEM_ASSUME_TIME"  # ns timestamp of assignment
+# Whole-chip holds: the granted chip indices, comma-separated, persisted so
+# a restart re-derives exclusive holds from the apiserver.
+ENV_CORE_IDS = "ALIYUN_COM_TPU_CORE_IDS"
+ENV_CORE_POD = "ALIYUN_COM_TPU_CORE_POD"  # this pod's tpu-core request
 
 # --- Multi-chip gang grant (reference const.py:93-95) -----------------------
+# A pod asks for a multi-chip gang with the slice shape it needs ("2x2x1",
+# or a bare chip count "4"); its tpu-mem limit is the total over the gang
+# (reference const.py:62-92). Pods sharing a gang group are one job
+# admitted all-or-nothing; a group member may name its serving tier.
+ANN_GANG_SHAPE = "tpushare.aliyun.com/gang-shape"
+ANN_GANG_GROUP = "tpushare.aliyun.com/gang-group"
+ANN_SERVING_TIER = "tpushare.aliyun.com/serving-tier"
+SERVING_TIER_PREFILL = "prefill"
+SERVING_TIER_DECODE = "decode"
+SERVING_TIERS = (SERVING_TIER_PREFILL, SERVING_TIER_DECODE)
+# The persisted gang decision, on the pod and in its env: member chips,
+# the normalized shape, and the units on each member chip.
 ENV_GANG_CHIPS = "ALIYUN_COM_TPU_GANG_CHIPS"
 ENV_GANG_SHAPE = "ALIYUN_COM_TPU_GANG_SHAPE"
 ENV_GANG_PER_CHIP = "ALIYUN_COM_TPU_GANG_PER_CHIP"
+# Node label declaring the host's chip grid ("2x2x1"); absent or garbled,
+# the grid derives from the advertised chip count.
+LABEL_NODE_TOPOLOGY = "tpushare.aliyun.com/topology"
 
 # --- Workload env (reference const.py:102-104, 121) -------------------------
 ENV_TPU_VISIBLE_CHIPS = "TPU_VISIBLE_CHIPS"
@@ -56,15 +94,28 @@ ENV_COORDINATOR_ADDRESS = "TPUSHARE_COORDINATOR_ADDRESS"
 ENV_NUM_PROCESSES = "TPUSHARE_NUM_PROCESSES"
 ENV_PROCESS_ID = "TPUSHARE_PROCESS_ID"
 
+# Node label that disables the cooperative memory cap (reference
+# const.py:128).
+LABEL_DISABLE_ISOLATION = "ctpu.disable.isolation"
+
+# "trace_id:span_id" of the admission trace, written by the scheduler
+# extender with its bind annotations and adopted by the allocator after
+# the pod match (reference const.py:137).
+ANN_TRACE_ID = "tpushare.aliyun.com/trace-id"
+
 # --- Workload classes (reference const.py:146-149) --------------------------
 # Unknown or absent values normalize to latency-critical: the safe default
 # is to protect, never to throttle.
 WORKLOAD_LATENCY_CRITICAL = "latency-critical"
 WORKLOAD_BEST_EFFORT = "best-effort"
 WORKLOAD_CLASSES = (WORKLOAD_LATENCY_CRITICAL, WORKLOAD_BEST_EFFORT)
+# The pod declares its class here; admission normalizes and re-persists it
+# with the decision PATCH and mirrors it into the env.
+ANN_WORKLOAD_CLASS = "tpushare.aliyun.com/workload-class"
 ENV_WORKLOAD_CLASS = "ALIYUN_COM_TPU_WORKLOAD_CLASS"
 
 # Per-tenant LoRA adapter id (reference const.py:159): "" = the base model.
+ANN_LORA_ADAPTER = "tpushare.aliyun.com/lora-adapter"
 ENV_LORA_ADAPTER = "ALIYUN_COM_TPU_LORA_ADAPTER"
 
 # SLO tier names: latency-critical requests admit ahead of best-effort ones.
@@ -118,3 +169,7 @@ def translate_memory_units(value: str | None) -> MemoryUnit:
 # instance observing a higher generation, or its own under a foreign
 # token, is stale and refuses journal writes (allocator/checkpoint.py).
 ANN_FENCE_GENERATION = "tpushare.aliyun.com/fence-generation"
+
+# Optimistic-lock conflict marker in apiserver PATCH errors (reference
+# const.py:245).
+OPTIMISTIC_LOCK_ERROR_MSG = "the object has been modified; please apply your changes to the latest version and try again"

@@ -1,5 +1,5 @@
-"""The node agent's managers: the daemon's lifecycle in standalone mode
-(``lifecycle``), the kubelet-socket and plugin-dir watchers
+"""The node agent's managers: the daemon's lifecycle, standalone or in
+cluster mode (``lifecycle``), the kubelet-socket and plugin-dir watchers
 (``watchers``) and the health watcher (``health``)."""
 
 from .health import HealthWatcher

@@ -1,12 +1,11 @@
-"""Daemon lifecycle manager, standalone mode.
+"""Daemon lifecycle manager.
 
-Counterpart of ``gpushare_device_plugin_tpu/manager/lifecycle.py``, cut
-to standalone mode (upstream: ``sharedGPUManager.Run``,
-``gpumanager.go:33-108``):
+Counterpart of ``gpushare_device_plugin_tpu/manager/lifecycle.py``
+(upstream: ``sharedGPUManager.Run``, ``gpumanager.go:33-108``):
 
 - park forever (never crash-loop) on nodes without cards,
 - serve the device plugins (``tpu-mem`` fan-out and whole-card
-  ``tpu-core``), accounted in-process by one ``LocalAllocator``,
+  ``tpu-core``),
 - feed the health watcher into both plugins and the allocator, so binpack
   and core holds route around sick cards,
 - rebuild and re-register when kubelet restarts (plugin-dir watcher) or
@@ -15,11 +14,21 @@ to standalone mode (upstream: ``sharedGPUManager.Run``,
 - SIGTERM/SIGINT quiesce every plugin, drain in-flight Allocate calls
   against one deadline, then stop.
 
-Cluster mode (``standalone=False``, an apiserver client or a pod source:
-the WAL checkpoint and its replay, the drift reconciler, live
-defragmentation and its move hooks, the interference loop, the timeline
-sampler and node events) is not ported yet and raises
-``NotImplementedError``.
+Standalone mode accounts grants in one in-process ``LocalAllocator`` and
+never reclaims them. Cluster mode (an apiserver client and a pod source)
+admits the pods the scheduler extender assumed through
+``ClusterAllocator`` and ``ClusterCoreAllocator`` over one shared
+``AssumeCache``, journals each admission to the WAL checkpoint before its
+annotation PATCH, patches the node's chip count and reads its isolation
+label at every (re)build, claims the fence and replays unresolved journal
+entries before the plugins serve, posts health transitions as node
+events, and runs the drift reconciler, whose first pass resolves what the
+replay re-reserved. A deleted pod's units come back with it, since the
+annotations are the ledger.
+
+Cluster mode still lacks the reference's live defragmentation
+(``set_move_hooks`` raises), its interference loop and its timeline
+sampler.
 
 This module imports no grpc when it loads: the plugin server is imported
 where plugins are built, so the inventory, the allocators and the health
@@ -35,6 +44,8 @@ import time
 from typing import Sequence
 
 from .. import const
+from ..allocator.assume import AssumeCache
+from ..allocator.checkpoint import AllocationCheckpoint, replay_checkpoint
 from ..allocator.env import build_core_allocation
 from ..allocator.local import LocalAllocator
 from ..device.fanout import DeviceInventory
@@ -48,28 +59,34 @@ from .watchers import PluginDirWatcher
 log = get_logger("manager")
 
 
-def _cluster_mode(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is cluster mode, which the port does not have yet: "
-        "run the manager standalone (ManagerConfig(standalone=True), "
-        "the daemon's --standalone)"
-    )
-
-
 @dataclasses.dataclass
 class ManagerConfig:
     plugin_dir: str = const.DEVICE_PLUGIN_PATH
+    node_name: str = ""
     memory_unit: const.MemoryUnit = const.MemoryUnit.GiB
     policy: str = "first-fit"
     health_check: bool = False
     # No apiserver: LocalAllocator accounting. Without the apiserver there
     # is no pod-lifecycle feed, so allocations are never reclaimed until
-    # the daemon restarts (a rebuild starts a fresh allocator). False is
-    # cluster mode, which the port does not have yet.
+    # the daemon restarts (a rebuild starts a fresh allocator).
     standalone: bool = False
     serve_core_resource: bool = True
     disable_isolation: bool = False
     coredump_dir: str = "/etc/kubernetes"
+    # Write-ahead allocation journal (allocator/checkpoint.py). Empty
+    # disables it; cluster mode should point it at a path that survives
+    # container restarts (the device-plugin dir is the natural hostPath).
+    checkpoint_path: str = ""
+    # WAL durability mode: "batch" (group commit: one fsync covers every
+    # record queued within the gather window) or "always" (fsync per
+    # record). Durability semantics are identical; see --wal-fsync.
+    wal_fsync: str = "batch"
+    wal_batch_window_s: float = 0.002
+    # Coalesce concurrently-committed pod-annotation PATCHes through one
+    # pipelined dispatcher (cluster/apiserver.py PodPatchPipeline).
+    patch_coalesce: bool = True
+    # Drift-reconciler cadence (cluster/reconciler.py); <= 0 disables.
+    reconcile_interval_s: float = 30.0
     # How long graceful shutdown waits for in-flight Allocate calls.
     drain_timeout_s: float = 5.0
     # Flight-recorder dump directory (utils/flightrec.py): SIGUSR1, fatal
@@ -92,17 +109,50 @@ class TpuShareManager:
         api_client=None,
         pod_source=None,
     ):
-        if not config.standalone or api_client is not None or pod_source is not None:
-            raise _cluster_mode(
-                "a manager with an apiserver (the WAL checkpoint, the "
-                "reconciler, defragmentation, interference, the timeline "
-                "loop and node events)"
-            )
         self._backend = backend
         self._cfg = config
+        self._api = api_client
+        self._pod_source = pod_source
+        # cluster mode: the apiserver is the database and the allocators
+        # persist every decision there
+        self._cluster = api_client is not None and not config.standalone
         self._plugins: list = []  # plugin.server.TpuSharePlugin, built in _serve_all
         self._health: HealthWatcher | None = None
-        self._local: LocalAllocator | None = None
+        self._events = None  # NodeEventEmitter in cluster mode with health
+        self._local: LocalAllocator | None = None  # standalone accounting
+        # effective isolation toggle: config flag OR node label, re-read at
+        # every plugin (re)build (upstream: podmanager.go:59-72 read at
+        # server.go:60-74)
+        self._disable_isolation = config.disable_isolation
+        # One reservation ledger across the mem and core allocators: both
+        # resources share one physical-card ledger, so their in-flight
+        # claims and reservations must be mutually visible.
+        self._alloc_assume = AssumeCache()
+        # Crash-safe state (cluster mode): the WAL the allocators journal
+        # through, and the drift reconciler that keeps annotations, ledger,
+        # checkpoint and kubelet coherent.
+        self._ckpt: AllocationCheckpoint | None = None
+        if config.checkpoint_path and self._cluster:
+            try:
+                self._ckpt = AllocationCheckpoint(
+                    config.checkpoint_path,
+                    fsync=config.wal_fsync,
+                    batch_window_s=config.wal_batch_window_s,
+                )
+            except OSError as e:
+                log.warning(
+                    "allocation checkpoint unavailable (%s); running "
+                    "unjournaled: restart recovery degraded", e,
+                )
+        # Coalesced admission writes: both allocators route their pod
+        # PATCHes through one group-commit dispatcher, so a storm of
+        # concurrent admissions batches its apiserver round-trips.
+        self._patch_pipeline = None
+        if config.patch_coalesce and self._cluster:
+            from ..cluster.apiserver import PodPatchPipeline
+
+            self._patch_pipeline = PodPatchPipeline(api_client)
+        self._reconciler = None
         # Decision-provenance configuration applies process-wide (the
         # allocators emit through the module singleton).
         from ..utils.decisions import DECISIONS
@@ -129,7 +179,9 @@ class TpuShareManager:
         return bool(plugins) and all(p.registered for p in plugins)
 
     def set_move_hooks(self, drain_fn=None, restore_fn=None) -> None:
-        raise _cluster_mode("live defragmentation (set_move_hooks)")
+        raise NotImplementedError(
+            "live defragmentation (set_move_hooks) is not ported yet"
+        )
 
     # ------------------------------------------------------------------
 
@@ -143,30 +195,83 @@ class TpuShareManager:
         return DeviceInventory(chips, unit=self._cfg.memory_unit)
 
     def _build_allocator(self, inventory: DeviceInventory, unhealthy_fn):
-        """The mem plugin's allocate function. Standalone accounting in
-        one ``LocalAllocator``, whose health view the watcher feeds
-        through :meth:`_local_sink` (``unhealthy_fn``, the plugin's view,
-        is what cluster mode reads)."""
-        log.warning(
-            "standalone mode: allocations are accounted in-process and "
-            "never reclaimed on pod deletion (dev/bench only)"
-        )
-        self._local = LocalAllocator(
+        """The mem plugin's allocate function: ``ClusterAllocator`` in
+        cluster mode (it reads ``unhealthy_fn``, the plugin's live health
+        view), else one ``LocalAllocator``, whose health view the watcher
+        feeds through :meth:`_local_sink`."""
+        if not self._cluster:
+            log.warning(
+                "standalone mode: allocations are accounted in-process and "
+                "never reclaimed on pod deletion (dev/bench only)"
+            )
+            self._local = LocalAllocator(
+                inventory,
+                policy=self._cfg.policy,
+                disable_isolation=self._disable_isolation,
+            )
+            local = self._local
+            return lambda granted: local.allocate([len(g) for g in granted])
+        from ..allocator.cluster import ClusterAllocator
+
+        cluster = ClusterAllocator(
             inventory,
+            self._api,
+            self._pod_source,
+            self._cfg.node_name,
             policy=self._cfg.policy,
-            disable_isolation=self._cfg.disable_isolation,
+            disable_isolation=self._disable_isolation,
+            unhealthy_chips_fn=unhealthy_fn,
+            assume=self._alloc_assume,
+            checkpoint=self._ckpt,
+            patcher=self._patcher(),
+            chip_topology=self._node_chip_topology(inventory),
         )
-        local = self._local
-        return lambda granted: local.allocate([len(g) for g in granted])
+        return cluster.allocate
+
+    def _patcher(self):
+        return self._patch_pipeline.patch_pod if self._patch_pipeline is not None else None
+
+    def _node_chip_topology(self, inventory: DeviceInventory):
+        """This node's chip grid for gang placement: the same
+        ``tpushare.aliyun.com/topology`` label rule the extender applies,
+        so the allocator's gang decisions agree with the extender's grid.
+        An unreachable apiserver or a missing label falls back to the
+        default grid for the card count."""
+        from ..topology import ChipTopology
+
+        n_chips = len(inventory.units_by_index())
+        node: dict = {}
+        try:
+            node = self._api.get_node(self._cfg.node_name)
+        except Exception as e:  # noqa: BLE001 — degrade to the default grid
+            log.v(4, "node topology label read failed (%s); using default", e)
+        return ChipTopology.from_node(node, max(1, n_chips))
 
     def _build_core_allocate_fn(self, inventory: DeviceInventory, unhealthy_fn):
         """Whole-card allocator for the tpu-core resource.
 
-        Unlike tpu-mem, core device IDs *are* the real card ids. Standalone
+        Unlike tpu-mem, core device IDs *are* the real card ids. Cluster
+        mode validates them against fractional usage and existing holds
+        and persists the decision (``ClusterCoreAllocator``); standalone
         mode accounts the hold in-process so mem binpack and core grants
         cannot double-book a card.
         """
         topo = self._backend.topology()
+        if self._cluster:
+            from ..allocator.cluster import ClusterCoreAllocator
+
+            core = ClusterCoreAllocator(
+                inventory,
+                self._api,
+                self._pod_source,
+                self._cfg.node_name,
+                topology=topo,
+                unhealthy_chips_fn=unhealthy_fn,
+                assume=self._alloc_assume,
+                checkpoint=self._ckpt,
+                patcher=self._patcher(),
+            )
+            return core.allocate
         local = self._local
 
         def allocate(granted: Sequence[Sequence[str]]):
@@ -220,12 +325,17 @@ class TpuShareManager:
         )
         plugins.append(mem_plugin)
         if self._cfg.serve_core_resource:
-            local = self._local
+            if self._cluster:
+                from ..allocator.cluster import cluster_chip_state
 
-            def state_fn():
-                if local is None:
-                    return {}, set()
-                return local.used_by_chip(), local.core_held()
+                state_fn = cluster_chip_state(self._pod_source, assume=self._alloc_assume)
+            else:
+                local = self._local
+
+                def state_fn():
+                    if local is None:
+                        return {}, set()
+                    return local.used_by_chip(), local.core_held()
 
             core_plugin = TpuSharePlugin(
                 inventory,
@@ -252,6 +362,25 @@ class TpuShareManager:
         inventory = self._build_inventory()
         if inventory is None:
             raise RuntimeError("no cards found at rebuild")
+        if self._cluster and self._cfg.node_name:
+            self._patch_node(inventory)
+        # Crash recovery BEFORE the plugins serve: claim the fencing
+        # generation (a stale duplicate instance observes it and refuses)
+        # and replay unresolved journal entries into the ledger, so the
+        # first Allocate after a restart already sees every in-flight
+        # reservation the previous incarnation died holding.
+        if self._ckpt is not None:
+            if self._cfg.node_name:
+                try:
+                    self._ckpt.acquire_fence(self._api, self._cfg.node_name)
+                except Exception as e:
+                    log.warning("fence acquire failed (%s); continuing unfenced", e)
+            n = replay_checkpoint(self._ckpt, self._alloc_assume)
+            if n:
+                log.info(
+                    "device-state replay: %d in-flight allocation(s) "
+                    "restored from checkpoint", n,
+                )
         self._plugins = self._build_plugins(inventory)
         for plugin in self._plugins:
             plugin.serve()
@@ -259,13 +388,100 @@ class TpuShareManager:
             sinks = [p.set_chip_health for p in self._plugins]
             if self._local is not None:
                 sinks.append(self._local_sink(inventory))
-            self._health = HealthWatcher(self._backend, sinks=sinks)
+            on_event = None
+            if self._cluster and self._cfg.node_name:
+                on_event = self._node_event_hook()
+            self._health = HealthWatcher(self._backend, sinks=sinks, on_event=on_event)
             self._health.start()
+        # The drift reconciler runs for the lifetime of this build; its
+        # first pass resolves whatever the replay above re-reserved.
+        if (
+            self._cluster
+            and self._pod_source is not None
+            and self._cfg.reconcile_interval_s > 0
+        ):
+            from ..cluster.reconciler import DriftReconciler
+
+            self._reconciler = DriftReconciler(
+                api=self._api,
+                pod_source=self._pod_source,
+                assume=self._alloc_assume,
+                checkpoint=self._ckpt,
+                node_name=self._cfg.node_name,
+                inventory=inventory,
+                interval_s=self._cfg.reconcile_interval_s,
+            ).start()
+
+    def _patch_node(self, inventory: DeviceInventory) -> None:
+        """Advertise the card count on the node's status and re-read the
+        isolation label, at every (re)build (upstream: podmanager.go:59-99
+        read at server.go:60-74)."""
+        from ..cluster.node import isolation_disabled, patch_chip_count
+
+        try:
+            patch_chip_count(self._api, self._cfg.node_name, inventory.chip_count)
+        except Exception as e:
+            log.warning("node capacity patch failed: %s", e)
+        self._disable_isolation = self._cfg.disable_isolation or isolation_disabled(
+            self._api, self._cfg.node_name
+        )
+        if self._disable_isolation:
+            log.info("memory isolation disabled (config flag or node label)")
+
+    def _node_event_hook(self):
+        """The health watcher's ``on_event`` in cluster mode: each event
+        becomes a node Event, posted by one worker with a bounded queue
+        (an unreachable apiserver must neither stall health propagation
+        nor grow a thread per poll tick; overflow drops are counted). Soft
+        events are rate-limited per (card, reason): a ticking correctable
+        error counter must not write an Event every poll. Hard transitions
+        are rare (edge-triggered in the backend) and always pass."""
+        from ..cluster.events import (
+            REASON_CHIP_APP_FAULT,
+            REASON_CHIP_RECOVERED,
+            REASON_CHIP_TRANSIENT,
+            REASON_CHIP_UNHEALTHY,
+            NodeEventEmitter,
+        )
+
+        self._events = NodeEventEmitter(self._api, self._cfg.node_name).start()
+        emitter = self._events
+        last_emit: dict[tuple, float] = {}
+        min_interval_s = 300.0
+
+        def on_event(event) -> None:
+            if event.severity == "app":
+                reason, etype = REASON_CHIP_APP_FAULT, "Warning"
+            elif event.severity == "transient":
+                reason, etype = REASON_CHIP_TRANSIENT, "Normal"
+            elif event.health == ChipHealth.UNHEALTHY:
+                reason, etype = REASON_CHIP_UNHEALTHY, "Warning"
+            else:
+                reason, etype = REASON_CHIP_RECOVERED, "Normal"
+            if event.severity != "hard":
+                key = (event.chip_id, reason)
+                now = time.monotonic()
+                if now - last_emit.get(key, -min_interval_s) < min_interval_s:
+                    return
+                last_emit[key] = now
+            emitter.emit(
+                reason,
+                f"chip {event.chip_id or 'ALL'}: {event.reason}",
+                event_type=etype,
+            )
+
+        return on_event
 
     def _stop_all(self) -> None:
+        if self._reconciler is not None:
+            self._reconciler.stop()
+            self._reconciler = None
         if self._health is not None:
             self._health.stop()
             self._health = None
+        if self._events is not None:
+            self._events.stop()
+            self._events = None
         # Graceful drain first: refuse new Allocate RPCs on EVERY plugin
         # at once (quiesce), then wait for in-flight ones against one
         # shared deadline: the total drain must fit one grace budget, not N.
@@ -291,6 +507,8 @@ class TpuShareManager:
             except Exception as e:
                 log.warning("plugin stop failed: %s", e)
         self._plugins = []
+        if self._ckpt is not None:
+            self._ckpt.flush()
 
     # ------------------------------------------------------------------
 
@@ -371,3 +589,11 @@ class TpuShareManager:
         finally:
             watcher.stop()
             self._stop_all()
+            if self._patch_pipeline is not None:
+                # after the drain: in-flight admissions have finished their
+                # PATCHes, so stopping the dispatcher strands nothing
+                self._patch_pipeline.stop()
+            if self._ckpt is not None:
+                # graceful shutdown: the journal is flushed and closed so
+                # the next incarnation loads a clean file
+                self._ckpt.close()

@@ -20,7 +20,7 @@ State is exported as ``tpushare_circuit_state`` (0 closed / 1 half-open /
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Any, Callable
 
 from .log import get_logger
 from .metric_catalog import (
@@ -131,6 +131,18 @@ class CircuitBreaker:
             raise CircuitOpenError(
                 self.name, max(0.0, self._reset_timeout - elapsed)
             )
+
+    def call(self, fn: Callable) -> Any:
+        """:meth:`before` and the outcome's accounting around one callable
+        (an exception is a failure, a return a success)."""
+        self.before()
+        try:
+            result = fn()
+        except Exception:
+            self.record_failure()
+            raise
+        self.record_success()
+        return result
 
     def record_success(self) -> None:
         with self._lock:

@@ -7,6 +7,9 @@ with nothing armed is one dict read and a return; a test (or
 stalls, flaps or "crashes" exactly there.
 
 ======================  =====================================================
+``apiserver.request``   every unary verb (LIST/GET/PATCH/POST)
+``apiserver.watch``     watch-stream establishment
+``kubelet.pods``        kubelet ``/pods`` read
 ``discovery.probe``     inventory (re)build at plugin (re)start
 ``discovery.watch_health``  health-event stream (supervised loop entry +
                         every mock-backend poll)
@@ -18,6 +21,8 @@ stalls, flaps or "crashes" exactly there.
                         BEFORE its durability wait
 ``checkpoint.batch_fsync``  in the group-commit writer, after a batch
                         became durable
+``allocator.post_persist``  after the pod PATCH landed, before the WAL
+                        commit (the crash window the replay closes)
 ``handoff.export``      after the KV handoff's "export" phase record is
                         durable, before the wire payload materializes
 ``handoff.transfer``    after the "transfer" record is durable, before
@@ -79,6 +84,9 @@ log = get_logger("utils.faults")
 ENV_FAULTS = "TPUSHARE_FAULTS"
 
 POINTS = (
+    "apiserver.request",
+    "apiserver.watch",
+    "kubelet.pods",
     "discovery.probe",
     "discovery.watch_health",
     "plugin.allocate",
@@ -87,6 +95,7 @@ POINTS = (
     "checkpoint.abort",
     "checkpoint.wal_queue",
     "checkpoint.batch_fsync",
+    "allocator.post_persist",
     "handoff.export",
     "handoff.transfer",
     "handoff.import",
@@ -178,6 +187,7 @@ class FaultRegistry:
         # mode fault raises SimulatedCrash — so injected kills leave the
         # same postmortem a production SIGKILL site would.
         self._crash_hook: Callable[[str], Any] | None = None
+        self._yield_hook: Callable[[str], Any] | None = None
 
     def set_crash_hook(self, hook: Callable[[str], Any] | None) -> None:
         with self._lock:
@@ -218,8 +228,18 @@ class FaultRegistry:
             f = self._faults.get(point)
             return f.fired if f is not None else 0
 
+    def set_yield_hook(self, hook: Callable[[str], Any] | None) -> None:
+        """Install (or clear) a yield hook, called with the point name at
+        the top of every :meth:`fire`, before the armed-fault check, so an
+        unarmed point still yields (a deterministic scheduler's seam)."""
+        self._yield_hook = hook
+
     def fire(self, point: str) -> None:
-        """Called at the injection site. No-op unless the point is armed."""
+        """Called at the injection site. No-op unless the point is armed
+        (and, with a yield hook installed, a scheduler yield point)."""
+        hook = self._yield_hook
+        if hook is not None:
+            hook(point)
         if not self._faults:  # fast path: nothing armed anywhere
             return
         crash: SimulatedCrash | None = None

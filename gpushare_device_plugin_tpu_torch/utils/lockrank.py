@@ -2,7 +2,9 @@
 lock-order witness.
 
 Counterpart of ``gpushare_device_plugin_tpu/utils/lockrank.py``, cut to
-the locks the port's protocol modules take (the WAL, its group-commit
+the locks the port's modules take (the node agent's cluster half: the
+allocators' serial and match locks, the pod informer and its indexes,
+the node-PATCH coalescer; the WAL, its group-commit
 writer, the assume cache, the SLO budget, the decision log, the fleet's
 router, membership and scale executor, the KV handoff's ledger and peer
 client, the circuit breaker, the fault table, the page allocator, the
@@ -57,6 +59,16 @@ def _r(name: str, rank: int, kind: str, io_ok: bool, doc: str) -> tuple[str, Loc
 
 
 RANKS: dict[str, LockRank] = dict((
+    _r("allocator.serial", 10, "rlock", True,
+       "Legacy full-serialization guard for list-backed pod sources "
+       "(AssumeCache.serial_lock): wraps an entire admission, PATCH "
+       "included, so it outranks everything and is the one lock "
+       "allowed to cover the full I/O flow."),
+    _r("allocator.match", 22, "lock", True,
+       "Per-size match stripes (ClusterAllocator/_CoreAllocator): "
+       "serialize same-size matches. May refresh() the pod source "
+       "(one synchronous LIST) on a match miss, the documented "
+       "close-the-bind-window exception, so I/O is allowed."),
     _r("allocator.ledger", 30, "rlock", False,
        "AssumeCache's claim/reservation ledger: one atomic "
        "snapshot-overlay-decide-reserve step. Pure memory; the "
@@ -65,6 +77,16 @@ RANKS: dict[str, LockRank] = dict((
        "AllocationCheckpoint's entry/sequence state. In `always` "
        "mode the record append+fsync runs under it by design "
        "(durability before the caller proceeds), so I/O is allowed."),
+    _r("informer.cache", 50, "lock", False,
+       "PodInformer's cache/tombstone map and index fan-out. Watch "
+       "apply, merge, and reads are in-memory; the LIST that feeds "
+       "refresh()/relist runs before the lock is taken."),
+    _r("cluster.usage", 60, "lock", False,
+       "NodeChipUsage per-chip aggregates (maintained under "
+       "informer.cache via the index protocol)."),
+    _r("cluster.podindex", 61, "lock", False,
+       "Bucketed pod-set indexes (pending-by-resource, "
+       "labeled-by-value); same nesting as cluster.usage."),
     _r("slo.budget", 64, "lock", False,
        "SloBudget's time-bucketed good/bad event counters and "
        "burn-rate state. record() runs at engine retire (no other "
@@ -117,6 +139,9 @@ RANKS: dict[str, LockRank] = dict((
        "the engine drain handshake (serving.drain, rank 89) both "
        "run with this lock released — the protocol's I/O and "
        "engine calls are never under it, mirroring defrag.moves."),
+    _r("apiserver.coalescer", 80, "lock", False,
+       "Lazy construction of the node-PATCH coalescer; the merged "
+       "PATCH itself runs outside it."),
     _r("handoff.peer", 81, "lock", False,
        "HandoffPeerClient's transfer counters (calls, retries, "
        "pages/bytes shipped). Never held across a transport call "

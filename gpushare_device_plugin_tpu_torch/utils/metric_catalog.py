@@ -1,19 +1,23 @@
-"""The ``tpushare_*`` metric families the port's pods publish.
+"""The ``tpushare_*`` metric families the port publishes.
 
 Counterpart of ``gpushare_device_plugin_tpu/utils/metric_catalog.py``,
-cut to the families a serving pod exports: the engine's step profile,
-pages, prefix cache, preemptions, speculative decoding and adapters, the
-best-effort governor, SLO budgets, the build identity, the KV
-handoff's protocol layer (the handoff itself, the WAL, the circuit
-breaker and the assume cache's claim expiry), and the serving fleet's
-router, replica table and scale-down; and the device plugin's node
-agent: Allocate's latency and outcomes, and the health watcher's events,
-restarts and unhealthy chips. Names, types
-and label sets are the reference's letter for letter, so the reference
-control plane's scrapers (``cluster/interference.py``, the inspect CLI)
-read a port pod as they read a reference pod. A site may emit a subset
-of a family's labels (the ``pod`` label only when the engine is
-pod-scoped).
+cut to the families of the port's modules:
+
+- a serving pod: the engine's step profile, pages, prefix cache,
+  preemptions, speculative decoding and adapters, the best-effort
+  governor, SLO budgets and the build identity;
+- the protocol layer: the KV handoff, the WAL, the circuit breaker and
+  the assume cache's expiry; the serving fleet's router, replica table
+  and scale-down;
+- the node agent: Allocate's latency and outcomes, the allocators' lock
+  waits, the health watcher, the pod informer, the apiserver PATCH
+  pipeline, node events and the drift reconciler.
+
+Names, types and label sets are the reference's letter for letter, so
+the reference control plane's scrapers (``cluster/interference.py``, the
+inspect CLI) read a port pod as they read a reference pod. A site may
+emit a subset of a family's labels (the ``pod`` label only when the
+engine is pod-scoped).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ def _m(name: str, mtype: str, *labels: str) -> tuple[str, MetricSpec]:
 
 ALLOCATE_SECONDS = "tpushare_allocate_seconds"
 ALLOCATE_TOTAL = "tpushare_allocate_total"
+ALLOCATOR_LOCK_WAIT_SECONDS = "tpushare_allocator_lock_wait_seconds"
 ASSUME_EXPIRED_TOTAL = "tpushare_assume_expired_total"
 BUILD_INFO = "tpushare_build_info"
 CHECKPOINT_APPENDS_TOTAL = "tpushare_checkpoint_appends_total"
@@ -89,6 +94,17 @@ HANDOFF_TRANSFER_SECONDS = "tpushare_handoff_transfer_seconds"
 HANDOFF_TRANSFERS_TOTAL = "tpushare_handoff_transfers_total"
 HEALTH_EVENTS_TOTAL = "tpushare_health_events_total"
 HEALTH_WATCHER_RESTARTS_TOTAL = "tpushare_health_watcher_restarts_total"
+INFORMER_APPLY_BATCH_EVENTS = "tpushare_informer_apply_batch_events"
+INFORMER_INDEX_REBUILDS_TOTAL = "tpushare_informer_index_rebuilds_total"
+INFORMER_STALENESS_SECONDS = "tpushare_informer_staleness_seconds"
+NODE_EVENTS_DROPPED_TOTAL = "tpushare_node_events_dropped_total"
+PATCH_BATCH_RECORDS = "tpushare_patch_batch_records"
+PATCH_COALESCED_TOTAL = "tpushare_patch_coalesced_total"
+PATCH_REQUESTS_TOTAL = "tpushare_patch_requests_total"
+RECONCILE_DRIFT_TOTAL = "tpushare_reconcile_drift_total"
+RECONCILE_REPAIRS_TOTAL = "tpushare_reconcile_repairs_total"
+RECONCILE_RUNS_TOTAL = "tpushare_reconcile_runs_total"
+RECONCILE_SECONDS = "tpushare_reconcile_seconds"
 ROUTER_PREFIX_AFFINITY_HITS_TOTAL = "tpushare_router_prefix_affinity_hits_total"
 ROUTER_ROUTED_TOTAL = "tpushare_router_routed_total"
 ROUTER_SHED_TOTAL = "tpushare_router_shed_total"
@@ -105,6 +121,7 @@ PREFIX_ROUTER = "tpushare_router_"
 CATALOG: dict[str, MetricSpec] = dict((
     _m(ALLOCATE_SECONDS, HISTOGRAM, "resource"),
     _m(ALLOCATE_TOTAL, COUNTER, "resource", "outcome"),
+    _m(ALLOCATOR_LOCK_WAIT_SECONDS, HISTOGRAM, "lock"),
     _m(ASSUME_EXPIRED_TOTAL, COUNTER, "kind"),
     _m(BUILD_INFO, GAUGE, "component", "version", "git_rev", "python", "jax"),
     _m(CHECKPOINT_APPENDS_TOTAL, COUNTER, "op"),
@@ -154,6 +171,17 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(HANDOFF_TRANSFERS_TOTAL, COUNTER, "outcome", "pod"),
     _m(HEALTH_EVENTS_TOTAL, COUNTER, "health", "severity"),
     _m(HEALTH_WATCHER_RESTARTS_TOTAL, COUNTER),
+    _m(INFORMER_APPLY_BATCH_EVENTS, HISTOGRAM, "scope"),
+    _m(INFORMER_INDEX_REBUILDS_TOTAL, COUNTER, "reason", "scope"),
+    _m(INFORMER_STALENESS_SECONDS, GAUGE, "scope"),
+    _m(NODE_EVENTS_DROPPED_TOTAL, COUNTER, "reason"),
+    _m(PATCH_BATCH_RECORDS, HISTOGRAM, "kind"),
+    _m(PATCH_COALESCED_TOTAL, COUNTER, "kind"),
+    _m(PATCH_REQUESTS_TOTAL, COUNTER, "transport"),
+    _m(RECONCILE_DRIFT_TOTAL, COUNTER, "kind"),
+    _m(RECONCILE_REPAIRS_TOTAL, COUNTER, "kind"),
+    _m(RECONCILE_RUNS_TOTAL, COUNTER, "outcome"),
+    _m(RECONCILE_SECONDS, HISTOGRAM),
     _m(ROUTER_PREFIX_AFFINITY_HITS_TOTAL, COUNTER, "pod"),
     _m(ROUTER_ROUTED_TOTAL, COUNTER, "engine", "outcome", "pod"),
     _m(ROUTER_SHED_TOTAL, COUNTER, "tier", "pod"),

@@ -468,6 +468,26 @@ class Tracer:
         self._store.add(sp)
         return sp.context()
 
+    def adopt_current_trace(self, ctx: SpanContext | None) -> bool:
+        """Re-parent this thread's open span stack under ``ctx``.
+
+        The device plugin's Allocate starts its span before it knows which
+        pod it admits; once the pod is matched and its
+        ``tpushare.aliyun.com/trace-id`` annotation read, adoption rewrites
+        the open spans' trace ids and links the outermost one under the
+        extender's bind span: one stitched trace. Spans that already ended
+        keep their ids (adopt early). No-op on None or unsampled contexts.
+        True when anything changed."""
+        if ctx is None or not ctx.sampled or not ctx.trace_id:
+            return False
+        stack = [s for s in self._stack() if s.recording and not s.end_ns]
+        if not stack:
+            return False
+        stack[0].parent_id = ctx.span_id
+        for sp in stack:
+            sp.trace_id = ctx.trace_id
+        return True
+
 
 # One store and one tracer per process, as the metrics REGISTRY.
 STORE = TraceStore()

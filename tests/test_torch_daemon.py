@@ -9,7 +9,9 @@ that SIGHUP re-registers, that SIGQUIT writes a stack dump and SIGUSR1 a
 flight record, that SIGTERM during a slow in-flight Allocate drains it and
 exits 0, that the process never imports torch or the JAX package (``-X
 importtime`` lists every module it imports), and that without
-``--standalone`` it exits nonzero. Every wait and RPC has a timeout, and
+``--standalone`` and without a node name it exits nonzero with the
+reference's message (cluster mode needs the node's name; its drive is
+``tests/test_torch_cluster_daemon.py``). Every wait and RPC has a timeout, and
 every daemon is killed in a ``finally``.
 """
 
@@ -219,10 +221,13 @@ def test_sigterm_drains_a_slow_inflight_allocate_and_exits_zero(tmp_path):
 
 
 def test_without_standalone_it_exits_nonzero(tmp_path):
-    daemon = Daemon(tmp_path, standalone=False)
+    """Without --standalone the daemon runs cluster mode, which needs the
+    node's name: with none it exits nonzero with the reference's message
+    before serving anything."""
+    daemon = Daemon(tmp_path, "--node-name", "", standalone=False)
     try:
         assert daemon.proc.wait(TIMEOUT) != 0
-        assert "cluster mode is not ported yet" in daemon.log()
+        assert "NODE_NAME env (or --node-name) is required in cluster mode" in daemon.log()
         assert not daemon.plugin_dir.exists()
     finally:
         daemon.close()

@@ -384,16 +384,48 @@ def test_stop_drains_an_inflight_allocate(nodes):
 
 
 def test_cluster_mode_raises_not_implemented(tmp_path):
-    """A config that is not standalone, an apiserver client or a pod source
-    asks for cluster mode, which the port has not taken yet; so does
-    registering defrag's move hooks."""
-    cfg = ManagerConfig(plugin_dir=str(tmp_path), standalone=True)
-    for kw in ({"api_client": object()}, {"pod_source": object()}):
-        with pytest.raises(NotImplementedError, match="cluster mode"):
-            TpuShareManager(MockBackend(num_chips=1), cfg, **kw)
-    with pytest.raises(NotImplementedError, match="--standalone"):
-        TpuShareManager(MockBackend(num_chips=1), ManagerConfig(plugin_dir=str(tmp_path)))
-    manager = TpuShareManager(MockBackend(num_chips=1), cfg)
-    with pytest.raises(NotImplementedError, match="set_move_hooks"):
-        manager.set_move_hooks(lambda key: None, lambda key, snap: None)
+    """An apiserver client makes the manager build the cluster allocators
+    (the mem plugin's ClusterAllocator and the core plugin's
+    ClusterCoreAllocator over one shared ledger, journaling to the WAL);
+    registering defrag's move hooks still raises, as defragmentation is not
+    ported yet. A standalone config ignores the client."""
+    from gpushare_device_plugin_tpu_torch.allocator.cluster import (
+        ClusterAllocator,
+        ClusterCoreAllocator,
+    )
+    from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient
+    from gpushare_device_plugin_tpu_torch.cluster.podsource import ApiServerPodSource
+
+    from fake_apiserver import FakeApiServer
+
+    api = FakeApiServer()
+    api.add_node("node-a")
+    api.start()
+    try:
+        client = ApiServerClient(api.url)
+        cfg = ManagerConfig(plugin_dir=str(tmp_path), node_name="node-a",
+                            checkpoint_path=str(tmp_path / "wal.ckpt"))
+        manager = TpuShareManager(MockBackend(num_chips=2), cfg, api_client=client,
+                                  pod_source=ApiServerPodSource(client, "node-a"))
+        inv = manager._build_inventory()
+        mem_fn = manager._build_allocator(inv, unhealthy_fn=set)
+        core_fn = manager._build_core_allocate_fn(inv, unhealthy_fn=set)
+        assert isinstance(mem_fn.__self__, ClusterAllocator)
+        assert isinstance(core_fn.__self__, ClusterCoreAllocator)
+        assert mem_fn.__self__._assume is core_fn.__self__._assume is manager._alloc_assume
+        assert mem_fn.__self__._ckpt is core_fn.__self__._ckpt is manager._ckpt is not None
+        with pytest.raises(NotImplementedError, match="set_move_hooks"):
+            manager.set_move_hooks(lambda key: None, lambda key, snap: None)
+        manager._ckpt.close()
+        manager._patch_pipeline.stop()
+        standalone = TpuShareManager(
+            MockBackend(num_chips=1),
+            ManagerConfig(plugin_dir=str(tmp_path), standalone=True,
+                          checkpoint_path=str(tmp_path / "unused.ckpt")),
+            api_client=client,
+        )
+        assert standalone._ckpt is None and standalone._patch_pipeline is None
+    finally:
+        api.stop()
+    manager = standalone
     assert not manager.ready()  # nothing served yet

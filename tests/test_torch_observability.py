@@ -61,7 +61,7 @@ def both(scenario):
 
 
 def test_catalog_families_are_the_references_letter_for_letter():
-    assert len(Cat.CATALOG) == 58
+    assert len(Cat.CATALOG) == 70  # with the node agent's cluster half's 12
     for name, spec in Cat.CATALOG.items():
         ref = JCat.CATALOG[name]
         assert (spec.name, spec.type, spec.labels) == (ref.name, ref.type, ref.labels)
@@ -69,6 +69,7 @@ def test_catalog_families_are_the_references_letter_for_letter():
               and v.startswith("tpushare_")}
     assert consts and all(getattr(JCat, k) == v for k, v in consts.items())
     assert "tpushare_allocate_total" in Cat.CATALOG  # the device plugin's own family
+    assert "tpushare_reconcile_drift_total" in Cat.CATALOG  # the node agent's cluster half
     assert "tpushare_extender_verb_total" not in Cat.CATALOG  # the cluster control plane's
 
 

@@ -52,7 +52,8 @@ def test_no_reference_or_jax_import_in_the_port():
     # device plugin's node agent included
     walked = set(_port_files())
     assert PORT / "extender" / "policy.py" in walked
-    for sub in ("discovery", "device", "allocator", "manager", "plugin", "native", "cli"):
+    for sub in ("discovery", "device", "allocator", "manager", "plugin", "native", "cli",
+                "cluster", "topology"):
         assert any(p.parent == PORT / sub for p in walked), sub
     assert PORT / "plugin" / "api" / "deviceplugin_pb2.py" in walked
     # the node agent's modules
@@ -60,6 +61,50 @@ def test_no_reference_or_jax_import_in_the_port():
                 "allocator/cluster.py", "utils/flightrec.py", "utils/timeline.py",
                 "utils/stacktrace.py"):
         assert PORT / rel in walked, rel
+    # and its cluster half
+    for rel in ("cluster/apiserver.py", "cluster/informer.py", "cluster/kubelet.py",
+                "cluster/podsource.py", "cluster/pods.py", "cluster/node.py",
+                "cluster/noderes.py", "cluster/usage.py", "cluster/indexes.py",
+                "cluster/events.py", "cluster/reconciler.py", "topology/model.py",
+                "allocator/assume.py", "allocator/checkpoint.py"):
+        assert PORT / rel in walked, rel
+
+
+def _load_time_imports(path):
+    """The imports a module runs when it loads: those outside any function."""
+    tree = ast.parse(path.read_text(), str(path))
+    nested = {
+        id(n)
+        for f in ast.walk(tree) if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+        for n in ast.walk(f)
+    }
+    for node in ast.walk(tree):
+        if id(node) in nested:
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_module_needs_requests_urllib3_or_yaml():
+    """The card's machine has none of them. The port talks HTTP through
+    http.client; yaml is imported only where a kubeconfig that is not JSON
+    is read (``ApiServerClient.from_kubeconfig``), never when a module
+    loads; requests and urllib3 are imported nowhere."""
+    third_party = ("requests", "urllib3", "yaml")
+    at_load = [
+        f"{p.relative_to(ROOT)}: {name}"
+        for p in _port_files() for name in _load_time_imports(p)
+        if name.split(".")[0] in third_party
+    ]
+    assert not at_load, at_load
+    anywhere = {
+        (str(p.relative_to(ROOT)), name.split(".")[0])
+        for p in _port_files() for name in _imports(p)
+        if name.split(".")[0] in third_party
+    }
+    assert anywhere == {("gpushare_device_plugin_tpu_torch/cluster/apiserver.py", "yaml")}
 
 
 def test_nvml_discovery_imports_no_torch():
@@ -131,6 +176,55 @@ def test_the_manager_loads_and_accounts_without_grpc():
         "    pass\n"
         "bad = [n for n in sys.modules if sys.modules[n] is not None and (\n"
         "       n.split('.')[0] in ('torch', 'grpc') or n.startswith('google.protobuf'))]\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_cluster_half_loads_and_admits_without_torch_or_grpc():
+    """With torch, grpc, requests, urllib3 and yaml all blocked, the
+    cluster modules and the daemon's module import, a cluster-mode manager
+    builds its allocators against a fake apiserver read through a JSON
+    kubeconfig, and the mem allocator admits a pod and persists it."""
+    code = (
+        "import json, os, sys, tempfile\n"
+        "for name in ('grpc', 'torch', 'requests', 'urllib3', 'yaml'):\n"
+        "    sys.modules[name] = None  # any import of them raises\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import gpushare_device_plugin_tpu_torch.cli.daemon\n"
+        "from fake_apiserver import FakeApiServer\n"
+        "from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient\n"
+        "from gpushare_device_plugin_tpu_torch.cluster.informer import PodInformer\n"
+        "from gpushare_device_plugin_tpu_torch.discovery import MockBackend\n"
+        "from gpushare_device_plugin_tpu_torch.manager import ManagerConfig, TpuShareManager\n"
+        "api = FakeApiServer(); api.add_node('n'); api.start()\n"
+        "kc = os.path.join(tempfile.mkdtemp(), 'kubeconfig')\n"
+        "json.dump({'current-context': 'c', 'contexts': [{'name': 'c', 'context':\n"
+        "    {'cluster': 'k'}}], 'clusters': [{'name': 'k', 'cluster': {'server': api.url}}]},\n"
+        "    open(kc, 'w'))\n"
+        "client = ApiServerClient.from_kubeconfig(kc)\n"
+        "api.add_pod({'metadata': {'name': 'p', 'namespace': 'default', 'uid': 'u',\n"
+        "    'creationTimestamp': '2026-01-01T00:00:00Z'}, 'spec': {'nodeName': 'n',\n"
+        "    'containers': [{'name': 'c', 'resources': {'limits': {'aliyun.com/tpu-mem': '2'}}}]},\n"
+        "    'status': {'phase': 'Pending'}})\n"
+        "informer = PodInformer(client, 'n').start(sync_timeout_s=5)\n"
+        "m = TpuShareManager(MockBackend(num_chips=2, hbm_bytes=4 << 30),\n"
+        "                    ManagerConfig(plugin_dir='/nonexistent', node_name='n'),\n"
+        "                    api_client=client, pod_source=informer)\n"
+        "inv = m._build_inventory()\n"
+        "mem = m._build_allocator(inv, unhealthy_fn=lambda: [])\n"
+        "m._build_core_allocate_fn(inv, unhealthy_fn=lambda: [])\n"
+        "assert mem([['a', 'b']])[0].envs['ALIYUN_COM_TPU_MEM_POD'] == '2'\n"
+        "ann = api.pods[('default', 'p')]['metadata']['annotations']\n"
+        "assert ann['ALIYUN_COM_TPU_MEM_ASSIGNED'] == 'true', ann\n"
+        "informer.stop(); m._patch_pipeline.stop(); api.stop()\n"
+        "bad = [n for n in sys.modules if sys.modules[n] is not None and (\n"
+        "       n.split('.')[0] in ('torch', 'grpc', 'requests', 'urllib3', 'yaml'))]\n"
         "assert not bad, bad[:5]\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
