@@ -58,18 +58,19 @@ Phases, each of which fails the run with a non-zero exit:
    the same width and depth (B=1, S=2048) with ``attention="flash"`` and
    with ``"plain"``: every leaf gets a nonzero gradient, losses and
    gradients agree.
-7. Paged serve, on phase 2's weights (run straight after phase 3): a
+7. Paged serve, on phase 2's weights cut to their first 4 layers
+   (PAGED_LAYERS; run straight after phase 3): a
    24-request ``shared_prefix_trace`` (two 1024-token system prompts,
    64-512-token tails, half critical, half best-effort) through
    ``PagedSlotEngine(max_len=2048, prefill_chunk=512, page_size=16)``
    twice. Run A: 16 slots over the pages ``paged_plan_from_pod_env`` grants a
-   24 GiB slice (3,399 pages). Run B: 8 slots over 256 pages (two max_len rows), so
+   24 GiB slice (73,797 pages). Run B: 8 slots over 256 pages (two max_len rows), so
    requests preempt. Launch counts are zeroed just before each run and
    read just after, and the prefill program's dispatches are counted.
    Each run must serve every request, keep the shape guard at one shape
    per program, leak no page (used pages == the radix cache's), launch
-   ``flash_fwd`` exactly 32 times per prefill dispatch (and more than
-   0) and ``flash_fwd_scalar`` never; run A must hit the prefix cache and
+   ``flash_fwd`` exactly once per layer per prefill dispatch (and more
+   than 0) and ``flash_fwd_scalar`` never; run A must hit the prefix cache and
    run B must preempt. Each run's decode step is profiled
    (``torch.profiler``): kernels, busy share, page gather and scatter time.
 8. Paged correctness: every preempted request of run B and four prefix-hit
@@ -108,13 +109,13 @@ Phases, each of which fails the run with a non-zero exit:
    phase 9's peak (whole GiB, rounded down) must die of
    ``torch.cuda.OutOfMemoryError`` (a marker it prints), while an MNIST
    control child at the same slice passes.
-13. Multi-LoRA paged serve, on phase 2's weights cut to their first 16
+13. Multi-LoRA paged serve, on phase 2's weights cut to their first 4
    layers (run straight after phase 8): four tenants' adapters (rank 8, alpha 16, on wq, wkv, wo, wi
    and wdown; seeded, ``b`` random, each target's delta scaled to 0.2 of
    its weight in Frobenius norm) serve phase 7's trace with
    ``adapters=["t0", "t1", "t2", "t3", ""]``. Run A: 16 slots over
    ``paged_plan_from_pod_env(lora=True)`` for the 24-unit env. Run B: the
-   first 12 requests, 8 slots over 544 pages (two max_len rows and two
+   first 12 requests, 8 slots over 328 pages (two max_len rows and two
    adapters), so adapters evict and rows preempt. Each run has phase 7's
    gates (leaks counted with the resident adapters' pages), and at least
    four adapter misses; run A
@@ -137,25 +138,30 @@ Phases, each of which fails the run with a non-zero exit:
    (past it the pod trains at half the batch, and says so). Then, in this
    process, one ``lora_loss_fn`` backward at full width cut to 4 layers,
    B=1, flash against plain by phase 6's rule.
-15. Speculative paged serve, on phase 2's weights (run straight after
-   phase 13): a draft of Llama-3.2-1B's published shape (16 layers, d 2048,
+15. Speculative paged serve, on phase 2's weights cut to their first 4
+   layers (SPEC_LAYERS; run straight after phase 13): a draft
+   of Llama-3.2-1B's published shape cut to its first 4 of 16 layers
+   (DRAFT_LAYERS; d 2048,
    32/8 heads at head dim 64; seeded, see the constants) proposes
-   ``SPEC_K`` tokens a round. Run A: the 8B target with that draft, 16
+   ``SPEC_K`` tokens a round. First the plain paged engine serves phase
+   7's trace at this depth, 16 slots over the 24-unit env's plan (the
+   tokens the speculative runs are held to). Run A: the 8B target with
+   that draft, 16
    slots over ``paged_plan_from_pod_env(draft_cfg=, draft_weight_bytes=)``
    for the 24-unit env, on phase 7's trace. Run B: the target as its own
    draft, 8 slots, the trace's first 8 requests, beside the plain engine
    on the same requests and pool. Each run has phase 7's gates with five
    programs in the shape guard and ``flash_fwd`` launched once per target
-   and draft layer per prefill dispatch (48 in run A, 64 in run B); run A
+   and draft layer per prefill dispatch (8 in run A, 8 in run B); run A
    must roll back pages, run B must accept at least SPEC_ACCEPT_MIN of its
    proposals and take fewer ticks than the plain engine. Every request's
-   tokens equal phase 7 run A's, or solo decode's by phase 3's near-tie
+   tokens equal the plain run's, or solo decode's by phase 3's near-tie
    rule. Run A's spec engine is drained at mid-run into a plain engine,
    and a plain engine's drained rows into the spec engine, each with the
    same tokens and no request lost or twice. Then ``speculative_generate``
    at B=1 on a 512-token prompt with each draft against ``generate``.
    Each round's wall time is kept, and one round is profiled.
-16. Interference, on phase 2's weights cut to their first 16 layers (run
+16. Interference, on phase 2's weights cut to their first 4 layers (run
    straight after phase 15): a latency-critical ``SlotEngine(slots=8, max_len=2048, prefill_chunk=512,
    metrics_pod=CRIT_POD)`` beside a best-effort ``PagedSlotEngine(slots=16,
    total_pages=1024, page_size=16, radix=False, metrics_pod=BE_POD)`` with
@@ -175,8 +181,17 @@ Phases, each of which fails the run with a non-zero exit:
    entry never), ``/metrics`` (scraped and parsed here) carries the step
    p99 of both pods and the governor, SLO, page and preemption families,
    and ``/traces`` holds each critical request's ``serve.request`` tree.
+   An ``InterferenceDetector`` (threshold 1.25, the reference's) runs one
+   ``InterferenceLoop`` pass after each solo and governor-off trial:
+   residency from a fake apiserver holding the critical pod alone on card
+   0, then the best-effort pod beside it; step p99s scraped by
+   ``step_p99s_from_urls`` from the phase's ``/metrics``. Fails unless it
+   gives card 0 a verdict with the critical pod as victim and the
+   best-effort pod as aggressor, and the node annotation that
+   ``interference_from_node`` reads back is that verdict; its ratio prints
+   beside the phase's own p99 over solo (governor off), not gated.
 17. Disaggregated prefill/decode serving, on phase 2's weights cut to
-   their first 16 layers (run straight after phase 16; see
+   their first 4 layers (run straight after phase 16; see
    DISAGG_LAYERS): the reference's ``bench_serve_disagg`` trace
    at its full settings (24 requests, every 4th prompt 512-768 tokens, the
    rest 16-64, max_new from (16, 32, 128); see the constants) through one
@@ -198,7 +213,7 @@ Phases, each of which fails the run with a non-zero exit:
    engine's, handoffs by outcome, pages and bytes shipped, and a
    handoff's wall time split into the device-to-host fetch, the encode,
    the CRCs and protocol, the decode and the host-to-device write.
-18. The serving fleet, on phase 2's weights cut to their first 16 layers
+18. The serving fleet, on phase 2's weights cut to their first 4 layers
    (run straight after phase 17): the reference's ``bench_serve_fleet`` trace at its full settings
    (24 requests over three 384-token system prompts; see the constants)
    through one unified ``PagedSlotEngine(slots=24, total_pages=384,
@@ -249,7 +264,7 @@ Phases, each of which fails the run with a non-zero exit:
    phase 19. First the three main-path kernels at a tp=2 training rank's
    shape (2 x 2,048, 16/4 heads, causal) against their plain versions,
    timed beside SDPA. (a1) ``llama3_8b()``'s weights drawn at 32 layers and
-   served cut to their first 16, in bf16, on the
+   served cut to their first 4, in bf16, on the
    reference's ``bench_serve_tp`` trace at its full settings: a solo
    ``SlotEngine`` here, then ``SlotEngine(mesh=gang_mesh(...))`` on two
    ranks given a 2-chip gang's env, each drawing its shards of the same
@@ -344,13 +359,47 @@ Phases, each of which fails the run with a non-zero exit:
    more, and maps no ``libtorch``. It prints the informer's first list,
    the Allocates' ms p50 / p99, the reclaim's seconds, the replay count,
    the fence generations and its seconds, and must take under 30 s. The
+   daemon (a) also runs the node's loops (``--defrag-interval 0.25
+   --interference-interval 0.25 --timeline-interval 0.25 --metrics-port N``):
+   after the admissions the node's defrag status must show 0 moves on one
+   card, and ``python -m gpushare_device_plugin_tpu_torch.cli.inspect``
+   (what ``kubectl-inspect-gpushare-cuda`` runs) in a child that imports no
+   torch must show card 0 at 76 of 79 GiB with every pod on it; before (a)
+   stops, the child renders the daemon's ``/timeline`` with at least two
+   ``util_pct`` samples (its buckets are 10 s wide, so this waits for a
+   second one). The
    cluster half is held to the reference on the CPU
    (``tests/test_torch_cluster_*.py``).
 
+24. A live defragmentation move of a serving pod's slice, on phase 2's
+   weights cut to their first 4 layers (DEFRAG_LAYERS). A fake apiserver's
+   node lists two cards, 0 and 1, and both are the one H100 (a move
+   across cards needs two; phase 20's gang env is written by hand for the
+   same reason). Two ``PagedSlotEngine``s, each sized by the plugin env of
+   an 8-GiB slice, serve an 8-request ``poisson_trace`` (prompts 128-512,
+   max_new 32-64); one undrained run gives the reference tokens. Then
+   three moves of a pod from card 0 to card 1 through the port's
+   ``SliceMover`` (a real WAL, ``AssumeCache`` and apiserver PATCHes): its
+   drain hook calls ``request_drain`` / ``wait_drained`` on the source
+   while it serves on a thread, its restore hook ``restore_snapshot`` on
+   the destination. One move is clean; one dies past the switch
+   (``defrag.switch``) and a fresh ``DriftReconciler`` rolls it forward
+   from the journaled snapshot; one dies before it (``defrag.copy``) and
+   rolls back, the source re-serving its own snapshot. Fails unless the
+   pre-drain plus the restored tokens are the undrained run's (or leave
+   them only at a near tie, phase 3's rule), no request is lost or served
+   twice, a second delivery of the journaled snapshot serves nothing, the
+   WAL and the ledger are empty, the pod's annotation names card 1 (card
+   0 after the roll-back), and each restore launched ``flash_fwd`` once a
+   layer per prefill dispatch. Prints each move's host seconds (drain,
+   WAL and PATCH, restore) and, for the clean move's restore, run under
+   ``torch.profiler`` (which slows its host seconds), its kernel seconds.
+
 The phases run in the order 1, 21, 22, 23, 2, 3, 7, 8, 13, 15, 16, 17,
-18, 14, 4, 5, 6, 9-12, 19, 20; each phase's seconds print on one JSON
+18, 24, 14, 4, 5, 6, 9-12, 19, 20; each phase's seconds print on one JSON
 line (``phase seconds``) before the script's. ``python3 chip_smoke.py
---phase 17`` (or ``--phase 18``, ``--phase 19`` or ``--phase 20``) builds
+--phase 17`` (or ``--phase 18``, ``--phase 19``, ``--phase 20`` or
+``--phase 24``) builds
 the kernels and runs that phase alone on fresh weights (a quick check; it
 prints no contract lines); ``--phase 21``, ``--phase 22`` and ``--phase
 23`` run that phase alone and build nothing (they launch no kernel).
@@ -373,7 +422,7 @@ JSON line ``{"kernels": [...]}``, whose launches per path include
 pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B),
 ``interference`` (phase 16, both tenants), ``disagg`` (phase 17's
 live handoff run, both tiers), ``fleet`` (phase 18's affinity run,
-all three engines), ``ring`` and ``ulysses`` (phase 19 (b)'s runs, both
+all three engines), ``defrag`` (phase 24's restores), ``ring`` and ``ulysses`` (phase 19 (b)'s runs, both
 ranks), ``tp_serve``, ``tp_paged`` and ``tp_train`` (phase 20's (a1),
 (a2) and (b), both ranks, (b) both meshes); the forward rows carry
 ``at_draft_shape``, and the main-path rows ``at_ring_hop_shape``,
@@ -489,25 +538,29 @@ LOGIT_REL = 2.0 ** -5
 SERVED_S = 512  # the engine's prompt chunk: the kernel's shape on the main path
 EOS_ID = 128001  # Llama-3's end-of-text token
 # Phase 7: run A sizes its pool for a 24-unit (GiB) slice of the card from
-# the env the plugin injects, which for the 8B weights buys 3,399 pages (the
-# plan PR 5 sized from 24 GiB directly); run B gets two max_len rows of
-# pages (the minimum is one), so requests preempt.
+# the env the plugin injects, which for the 8B weights at PAGED_LAYERS layers
+# buys 73,797 pages of 0.25 MiB (3,399 of 2 MiB at 32); run B gets two
+# max_len rows of pages (the minimum is one), so requests preempt. Phases 7
+# and 8 serve phase 2's model cut to its first PAGED_LAYERS layers (full
+# width): at 32 layers they took 147 s on one H100, at 8 42 s, which the
+# script's time limit cannot spare on a slower host.
 PAGED_SLICE_UNITS = 24
-RUN_A_PAGES = 3399
+PAGED_LAYERS = 4
+RUN_A_PAGES = 73797
 PRESSURE_PAGES = 256
 PAGED_PROFILE_CONTEXT = 1536  # positions each row reads in the profiled decode step
 # Phase 13: four tenants' adapters on every target the hooks have, each
 # target's delta scaled to LORA_RATIO of its weight (Frobenius norms over
 # the layer stack), so every tenant's tokens leave the base model's. The
 # phase serves phase 2's model cut to its first LORA_SERVE_LAYERS layers
-# (full width): at 32 layers it took 197-243 s on one H100, which the
-# script's time limit cannot spare beside phase 17. At rank 8 and 16 layers an adapter
-# is 9,437,184 floats, 144 slab pages of 16 x 4096; run B's pool holds two
-# max_len rows and two adapters, so adapters evict and rows preempt.
+# (full width): at 32 layers it took 197-243 s on one H100, at 16 86 s, at
+# 8 47 s, which the script's time limit cannot spare. At rank 8 and 4 layers
+# an adapter is 2,359,296 floats, 36 slab pages of 16 x 4096; run B's pool holds
+# two max_len rows and two adapters, so adapters evict and rows preempt.
 LORA_TENANTS = ("t0", "t1", "t2", "t3")
 LORA_TARGETS = ("wq", "wkv", "wo", "wi", "wdown")
 LORA_RANK, LORA_ALPHA, LORA_RATIO = 8, 16.0, 0.2
-LORA_SERVE_LAYERS = 16
+LORA_SERVE_LAYERS = 4
 # Run B serves the trace's first LORA_PRESSURE_REQUESTS requests (of 24),
 # to keep the script's time down: it then evicts 6 adapters in 364 ticks
 # (24 requests: 8 in 722), as the same lengths and pages give on the CPU.
@@ -537,7 +590,9 @@ LORA_TOP2_GAP_REL = 2.0 ** -5
 # published model where TransformerConfig models less: its output head is
 # a matrix of its own (the published one is tied to the embedding), and
 # RoPE has no llama3 frequency scaling. 1.50 B parameters, 3.0 GB; a page
-# of its KV (16 positions) is 0.5 MiB beside the target's 2 MiB. Run B's
+# of its KV (16 positions) is 0.5 MiB beside the target's 2 MiB (at the
+# phase's DRAFT_LAYERS and SPEC_LAYERS: 0.77 B, 1.5 GB; 0.125 and 0.25
+# MiB). Run B's
 # self-draft accepts all but a few proposals (bf16 near ties between the
 # draft's one-token steps and the verify's block): at least SPEC_ACCEPT_MIN.
 SPEC_K = 4
@@ -545,12 +600,20 @@ DRAFT_D = 64
 SPEC_B_REQUESTS = 8
 SPEC_ACCEPT_MIN = 0.9
 SPEC_MAX_NEW = 32  # the contiguous speculative_generate's run, on a 512-token prompt
+# Phase 15 serves the first SPEC_LAYERS of the 8B weights' 32 layers and the
+# draft's first DRAFT_LAYERS of its 16: at 16 and 16 it took 150 s on one
+# H100, at 8 and 16 121 s (run A's draft rounds most of it), which the
+# script's time limit cannot spare on a slower host.
+SPEC_LAYERS = 4
+DRAFT_LAYERS = 4
 # Phase 16: a latency-critical tenant's SlotEngine beside a best-effort
 # tenant's PagedSlotEngine, both Llama-3-8B, in one process on one card,
 # with the parameters of the reference's bench_mfu.py::bench_serve_interference
 # (the objective at 1.3x the solo step p99, goal 0.95; the governor at 0.2
 # dispatches a second, a bucket of 0.2, a poll every dispatch, no release).
 CRIT_POD, BE_POD = "smoke/critical", "smoke/besteffort"
+INTERFERENCE_NODE = "h100-interference-node"
+INTERFERENCE_POD_UNITS = 8  # each tenant's slice, as the detector reads the pods
 INTERFERENCE_OBJECTIVE = 1.3
 INTERFERENCE_GOAL = 0.95
 INTERFERENCE_TRIALS = 3
@@ -559,8 +622,8 @@ GOVERNOR_KW = dict(throttled_steps_per_s=0.2, burst=0.2, poll_interval_steps=1,
 BE_SEED = 16  # the best-effort tenant's own weights
 # Both tenants are Llama-3-8B at full width cut to their first
 # INTERFERENCE_LAYERS layers: at 32 layers the phase took 191-236 s on one
-# H100, which the script's time limit cannot spare beside phase 17.
-INTERFERENCE_LAYERS = 16
+# H100, at 16 116 s, at 8 67 s, which the script's time limit cannot spare.
+INTERFERENCE_LAYERS = 4
 # The busy-share windows profile a short critical trial: the same requests
 # with 16 new tokens, whose tokens are the first 16 of the full trial's (a
 # row's tokens depend on its own row only).
@@ -572,8 +635,8 @@ BUSY_MAX_NEW = 16
 # chunks of 256. A prefill tier of 4 slots over 64 pages (4 max_len rows)
 # and a decode tier of 8 over 128, beside one unified engine of 8 slots over
 # the same 192 pages (a page of the 8B model's KV is 8 MiB at 32 layers, 32
-# x 64 positions x 8 kv heads x 128 x 2 bytes x K and V; at the phase's 16
-# layers 4 MiB, 0.75 GiB in all). The
+# x 64 positions x 8 kv heads x 128 x 2 bytes x K and V; at the phase's 4
+# layers 1 MiB, 0.1875 GiB in all). The
 # engines stop at Llama-3's EOS like every phase here (the bench's eos is 2).
 DISAGG_REQUESTS, DISAGG_RATE, DISAGG_SEED = 24, 0.1, 17
 DISAGG_SHORT, DISAGG_LONG, DISAGG_MIX = (16, 64), (512, 768), (16, 32, 128)
@@ -585,18 +648,18 @@ DISAGG_PREFILL_SLOTS, DISAGG_DECODE_SLOTS = 4, 8
 # the phase on one H100), which the script's time limit cannot spare.
 DISAGG_FALLBACK_REQUESTS = 12
 # Phase 17 serves phase 2's model cut to its first DISAGG_LAYERS layers (full
-# width): at 32 layers it took 155-166 s on one H100, which the script's
-# time limit cannot spare beside phase 18.
-DISAGG_LAYERS = 16
+# width): at 32 layers it took 155-166 s on one H100, at 16 61 s, at 8 39 s,
+# which the script's time limit cannot spare.
+DISAGG_LAYERS = 4
 # Phase 18: the reference's bench_mfu.py::bench_serve_fleet at its full
 # settings: shared_prefix_trace(24, seed=23, rate=0.15, prefixes=(3, 384),
 # tail_lens=(16, 64), max_new drawn from [16, 32, 128]) over the 8B vocabulary:
 # three 384-token system prompts, six 64-token pages each. Three engines of 8
-# slots over 128 pages (8 max_len rows of 16 pages; 0.5 GiB each at 16
+# slots over 128 pages (8 max_len rows of 16 pages; 0.125 GiB each at 4
 # layers), max_len 1024, prompt chunks of 256, beside one unified engine of
 # 24 slots over 384 pages, on phase 2's model cut to its first FLEET_LAYERS
 # layers (full width): at 32 layers the phase took 200.7-357.8 s on one
-# H100, which the script's time limit cannot spare. The scale-down drains e0 at tick 3 (the bench's); the kill run
+# H100, at 16 138 s, at 8 83 s, which the script's time limit cannot spare. The scale-down drains e0 at tick 3 (the bench's); the kill run
 # serves the trace's first FLEET_KILL_REQUESTS requests and kills e0
 # FLEET_KILL_AFTER ticks after its first request arrives, when that request
 # is decoding (2 prompt chunks, then at least 16 new tokens). The engines
@@ -607,7 +670,7 @@ FLEET_ENGINES, FLEET_SLOTS = 3, 8
 FLEET_MAX_LEN, FLEET_PAGE, FLEET_CHUNK = 1024, 64, 256
 FLEET_SCALE_TICK = 3
 FLEET_KILL_REQUESTS, FLEET_KILL_AFTER = 12, 8
-FLEET_LAYERS = 16
+FLEET_LAYERS = 4
 # Phase 14: the LoRA pod's slice, batch and steps.
 LORA_TRAIN_UNITS, LORA_TRAIN_B, LORA_TRAIN_S, LORA_TRAIN_STEPS = 32, 2, 2048, 8
 # Backward kernels vs plain. f32: the same f32 sums in another order, over
@@ -862,8 +925,8 @@ CP_TIMEOUT_S = 600  # a run of ranks, start to exit
 # (bench_mfu.py): slots 8, max_len 1,024, chunk 256, 24 requests, prompts
 # 64-512, max_new drawn from (16, 24, 32, 192), seed 13, on llama3_8b()'s
 # weights drawn at 32 layers and served cut to their first TP_SERVE_LAYERS
-# (at 32 the phase took 131.4-243.9 s on one H100, which the script's time
-# limit cannot spare); each rank holds half the weights (8.0 GB drawn) and
+# (at 32 the phase took 131.4-243.9 s on one H100, at 16 117 s, at 8 90 s,
+# which the script's time limit cannot spare); each rank holds half the weights (8.0 GB drawn) and
 # half the KV, inside a TP_SERVE_UNITS-GiB share of the card (its init
 # draws the largest leaf, wi at 7.5 GB in bf16, whole). (a2) the first
 # TP_PAGED_REQUESTS requests of phase 13's trace and its four tenants on
@@ -880,7 +943,7 @@ TP_SEED, TP_RANKS = 20, 2
 TP_SERVE_KW = dict(slots=8, max_len=1024, prefill_chunk=256, eos_id=EOS_ID)
 TP_TRACE = dict(n=24, seed=13, rate=0.2, prompt_lens=(64, 512), max_new=[16, 24, 32, 192])
 TP_SERVE_UNITS = 24
-TP_SERVE_LAYERS = 16
+TP_SERVE_LAYERS = 4
 TP_PAGED_LAYERS, TP_PAGED_REQUESTS, TP_PAGED_UNITS = 4, 8, 12
 TP_PAGED_GEO = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
 TP_TRAIN_LAYERS, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 2, 2, 2048, 2
@@ -1482,11 +1545,12 @@ def paged_trace(cfg, seed=0, adapters=None) -> list:
     )
 
 
-def phase_paged(params, cfg, serve_decode_p50_ms) -> tuple[dict, object, dict]:
+def phase_paged(params, cfg, serve_decode_p50_ms) -> dict:
     """Phases 7 and 8, on the 8B weights of phase 2; returns the kernel
-    launches of runs A and B together, and run A's stats and report (phase
-    15 holds its tokens to run A's)."""
-    print("phase 7: paged serve llama3_8b (32 layers, bf16)", flush=True)
+    launches of runs A and B together."""
+    print(f"phase 7: paged serve llama3_8b ({PAGED_LAYERS} of 32 layers, bf16)", flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=PAGED_LAYERS)
+    params = {**params, "layers": {k: v[:PAGED_LAYERS] for k, v in params["layers"].items()}}
     weight_bytes = tensor_bytes(params)
     pod = PodTpuEnv.from_env(plugin_env(PAGED_SLICE_UNITS))
     plan = paged_plan_from_pod_env(
@@ -1513,8 +1577,9 @@ def phase_paged(params, cfg, serve_decode_p50_ms) -> tuple[dict, object, dict]:
     )
     if report_b["cache_stats"]["preemptions"] < 1:
         raise SystemExit("phase 7 failed (run B): no preemption")
-    print("  decode step p50 at 8 slots: paged", report_b["decode_step_p50_ms"],
-          "ms, contiguous (phase 2)", serve_decode_p50_ms, "ms", flush=True)
+    print(f"  decode step p50 at 8 slots: paged ({PAGED_LAYERS} layers)",
+          report_b["decode_step_p50_ms"], "ms, contiguous (phase 2, 32 layers)",
+          serve_decode_p50_ms, "ms", flush=True)
     del run_b
 
     print("phase 8: paged engine vs solo generate, drain/restore, page export/import",
@@ -1562,7 +1627,7 @@ def phase_paged(params, cfg, serve_decode_p50_ms) -> tuple[dict, object, dict]:
     print(f"  export/import of {len(pages)} pages of request 0: same bits {same}", flush=True)
     if not pages or not same:
         raise SystemExit("phase 8 failed: export/import did not round-trip")
-    return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}, stats_a, report_a
+    return {name: launches_a[name] + launches_b[name] for name in fa.LAUNCHES}
 
 
 def lora_store_for(params, cfg, lcfg) -> tuple[dict, dict]:
@@ -1749,11 +1814,14 @@ def llama32_1b_shape() -> T.TransformerConfig:
     )
 
 
-def phase_spec_serve(params, cfg, plain_stats, plain_report) -> dict:
-    """Phase 15, on phase 2's weights; ``plain_stats`` / ``plain_report``
-    are phase 7's run A. Returns the launches of runs A and B together."""
-    print("phase 15: speculative paged serve llama3_8b, a Llama-3.2-1B-shaped draft", flush=True)
-    dcfg = llama32_1b_shape()
+def phase_spec_serve(params, cfg) -> dict:
+    """Phase 15, on phase 2's weights cut to their first SPEC_LAYERS
+    layers, the draft cut to its first DRAFT_LAYERS. Returns the launches of runs A and B together."""
+    print(f"phase 15: speculative paged serve llama3_8b ({SPEC_LAYERS} of 32 layers), a "
+          f"Llama-3.2-1B-shaped draft ({DRAFT_LAYERS} of 16 layers)", flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+    params = {**params, "layers": {k: v[:SPEC_LAYERS] for k, v in params["layers"].items()}}
+    dcfg = dataclasses.replace(llama32_1b_shape(), n_layers=DRAFT_LAYERS)
     dparams = init_params(dcfg, torch.Generator(device="cuda").manual_seed(15), device="cuda",
                           dtype=torch.bfloat16)
     draft_bytes = tensor_bytes(dparams)
@@ -1768,8 +1836,14 @@ def phase_spec_serve(params, cfg, plain_stats, plain_report) -> dict:
           json.dumps(dataclasses.asdict(plan_b)), flush=True)
     trace = paged_trace(cfg)
     by_rid = {r.rid: r for r in trace}
-    served = {r.rid: r.tokens for r in plain_stats.results}
     geo = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
+    plan_plain = paged_plan_from_pod_env(cfg, 2048, slots=16, **plan_kw)
+    plain_engine, plain_report, plain_stats, _ = paged_run(
+        "plain run (no draft)",
+        lambda: PagedSlotEngine(params, cfg, slots=16, total_pages=plan_plain.total_pages, **geo),
+        trace, phase="phase 15", profile=False)
+    del plain_engine
+    served = {r.rid: r.tokens for r in plain_stats.results}
     solos, diverged, fail = {}, [], []
 
     def spec_engine(draft_params, draft_cfg, slots, pages):
@@ -1778,7 +1852,7 @@ def phase_spec_serve(params, cfg, plain_stats, plain_report) -> dict:
                                        spec_k=SPEC_K, **geo)
 
     def hold(run, got):
-        """Each request's tokens (``got``, by rid) against phase 7 run A's,
+        """Each request's tokens (``got``, by rid) against the plain run's,
         or solo greedy decode's by phase 3's rule."""
         for rid, tokens in got.items():
             diverged.extend(dict(d, run=run) for d in check_vs_solo(
@@ -1869,16 +1943,16 @@ def phase_spec_serve(params, cfg, plain_stats, plain_report) -> dict:
         "acceptance": {"A": spec_a["accepted"] / max(spec_a["proposed"], 1), "B": acceptance_b},
         "speculative": {"A": spec_a, "B": spec_b},
         "ticks": {"A": stats_a.ticks, "B": stats_b.ticks, "B plain": stats_plain_b.ticks,
-                  "phase 7 A": plain_stats.ticks},
+                  "plain": plain_stats.ticks},
         "round_wall_p50_ms": {"A": rep_a["round_wall_p50_ms"], "B": rep_b["round_wall_p50_ms"]},
         "round_profile": {"A": rep_a["round_profile"], "B": rep_b["round_profile"]},
         "decode_step_p50_ms": {"A": rep_a["decode_step_p50_ms"],
                                "B plain": rep_plain_b["decode_step_p50_ms"],
-                               "phase 7 A": plain_report["decode_step_p50_ms"]},
+                               "plain": plain_report["decode_step_p50_ms"]},
         "goodput_tokens_per_s": {"A": rep_a["goodput_tokens_per_s"],
                                  "B": rep_b["goodput_tokens_per_s"],
                                  "B plain": rep_plain_b["goodput_tokens_per_s"],
-                                 "phase 7 A": plain_report["goodput_tokens_per_s"]},
+                                 "plain": plain_report["goodput_tokens_per_s"]},
         "flash_fwd_per_prefill": per_prefill,
         "drain": moves,
         "contiguous": contiguous,
@@ -2400,11 +2474,35 @@ def parse_exposition(text: str) -> dict[str, list[tuple[dict, float]]]:
     return out
 
 
+def interference_pod(key: str, *, best_effort: bool = False) -> dict:
+    """A share pod ``ns/name`` running on card 0 of INTERFERENCE_NODE, as
+    the interference detector reads it from the apiserver."""
+    ns, name = key.split("/")
+    ann = {**assumed_on_card0(INTERFERENCE_POD_UNITS, card_gib()),
+           const.ENV_ASSIGNED_FLAG: "true"}
+    if best_effort:
+        ann[const.ANN_WORKLOAD_CLASS] = const.WORKLOAD_BEST_EFFORT
+    pod = cluster_pod(name, INTERFERENCE_NODE, INTERFERENCE_POD_UNITS, phase="Running",
+                      annotations=ann,
+                      labels={const.LABEL_RESOURCE_KEY: const.LABEL_RESOURCE_VALUE})
+    pod["metadata"]["namespace"] = ns
+    return pod
+
+
 def phase_interference(params, cfg) -> tuple[dict, dict]:
     """Phase 16, on phase 2's weights cut to their first INTERFERENCE_LAYERS
     layers: a latency-critical SlotEngine beside a best-effort
-    PagedSlotEngine with weights of its own, governor off and on. Returns
-    the path's kernel launches and the phase's report."""
+    PagedSlotEngine with weights of its own, governor off and on. An
+    ``InterferenceDetector`` (the reference's threshold, 1.25) runs one
+    pass after each solo and governor-off trial: residency from a fake
+    apiserver holding the critical pod alone on card 0, then the
+    best-effort pod beside it; step p99s scraped from the phase's own
+    ``/metrics``. Returns the path's kernel launches and the phase's
+    report."""
+    from gpushare_device_plugin_tpu_torch.cluster import interference as TI
+    from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient
+    from gpushare_device_plugin_tpu_torch.cluster.podsource import ApiServerPodSource
+
     print("phase 16: interference, critical llama3_8b SlotEngine beside best-effort "
           f"llama3_8b PagedSlotEngine ({INTERFERENCE_LAYERS} of 32 layers, bf16)", flush=True)
     t_phase = time.perf_counter()
@@ -2426,6 +2524,17 @@ def phase_interference(params, cfg) -> tuple[dict, dict]:
     tracing.TRACER.configure(sample_ratio=1.0)
     server = MetricsServer(host="127.0.0.1", port=0).start()
     report: dict = {"weights_gb": round((tensor_bytes(params) + tensor_bytes(be_params)) / 1e9, 3)}
+    api = load_fake_apiserver().FakeApiServer()
+    api.add_node(INTERFERENCE_NODE, capacity={const.RESOURCE_MEM: str(card_gib()),
+                                              const.RESOURCE_COUNT: "1"})
+    api.add_pod(interference_pod(CRIT_POD))
+    api.start()
+    client = ApiServerClient(api.url)
+    detector = TI.InterferenceDetector(threshold=1.25)
+    detect = TI.InterferenceLoop(detector, client, INTERFERENCE_NODE,
+                                 ApiServerPodSource(client, INTERFERENCE_NODE),
+                                 scrape_urls=[f"http://127.0.0.1:{server.port}"])
+    passes: list[list] = []
     try:
         crit.warmup()
         be.warmup()
@@ -2447,6 +2556,7 @@ def phase_interference(params, cfg) -> tuple[dict, dict]:
                 crit.profiler.record = lambda *a, **k: None
             stats = crit.run(crit_reqs)
             crit.profiler.__dict__.pop("record", None)
+            passes.append(detect.run_once())
             toks = {r.rid: list(r.tokens) for r in stats.results}
             crit_tokens = crit_tokens or toks
             if toks != crit_tokens:
@@ -2485,7 +2595,7 @@ def phase_interference(params, cfg) -> tuple[dict, dict]:
                 if p99 == p99:  # not nan
                     budget.record(TIER_CRITICAL, p99 <= target_s)
 
-        def window(label: str) -> dict:
+        def window(label: str, after_trial=None) -> dict:
             """The critical trace INTERFERENCE_TRIALS times while the
             best-effort tenant loops its own trace on a thread and the
             monitor thread grades the critical tenant; then a short trial
@@ -2516,6 +2626,8 @@ def phase_interference(params, cfg) -> tuple[dict, dict]:
                 for _ in range(INTERFERENCE_TRIALS):
                     last = crit.run(crit_reqs)
                     check_tokens(last, label)
+                    if after_trial is not None:
+                        after_trial()
                 p50, p99, steps = crit.profiler.p50(), crit.profiler.p99(), crit.profiler.count
                 busy_stats, busy = busy_share(lambda: crit.run(busy_reqs))
                 check_tokens(busy_stats, f"{label}, busy window", BUSY_MAX_NEW)
@@ -2548,8 +2660,35 @@ def phase_interference(params, cfg) -> tuple[dict, dict]:
                     "besteffort_tokens": be_out["tokens"] + drained_tokens,
                     "besteffort_tokens_per_s": (be_out["tokens"] + drained_tokens) / wall}
 
-        # --- governor off: one window, after which the budget must page
-        off = window("governor off")
+        # --- governor off: one window, after which the budget must page;
+        # the detector sees the best-effort pod beside the critical one
+        solo_baseline = detector.baseline(CRIT_POD)
+        api.add_pod(interference_pod(BE_POD, best_effort=True))
+        off = window("governor off", after_trial=lambda: passes.append(detect.run_once()))
+        verdicts = passes[-1]
+        published = TI.interference_from_node(client.get_node(INTERFERENCE_NODE)) or {}
+        mine = [r for r in verdicts if r.chip == 0 and r.victim == CRIT_POD]
+        report["detector"] = {
+            "passes": len(passes), "solo_baseline_p99_ms": (solo_baseline or 0.0) * 1e3,
+            "verdicts": [r.to_dict() for r in verdicts],
+            "annotation": published,
+            "ratio_vs_phase_p99_over_solo": {
+                "detector": mine[0].ratio if mine else None,
+                "phase": off["p99_over_solo"]},
+        }
+        print("  interference detector", json.dumps(report["detector"]), flush=True)
+        if solo_baseline is None:
+            fail.append("the detector took no solo baseline for the critical pod")
+        if not mine or mine[0].aggressors != (BE_POD,):
+            fail.append(f"the detector gave no verdict for card 0 with {CRIT_POD} as victim "
+                        f"and {BE_POD} as aggressor: {[r.to_dict() for r in verdicts]}")
+        else:
+            row = published.get("chips", {}).get("0", {})
+            want = {"victim": CRIT_POD, "aggressors": [BE_POD], "ratio": round(mine[0].ratio, 3),
+                    "flagged": mine[0].flagged}
+            if row != want or published.get("threshold") != 1.25:
+                fail.append(f"the node's interference annotation {published} is not the "
+                            f"report {want}")
         off_verdict = budget.publish(pod=CRIT_POD)[TIER_CRITICAL]
         report["off"] = {k: v for k, v in off.items() if k != "last_stats"}
         report["off"].update(severity=off_verdict.severity,
@@ -2637,6 +2776,7 @@ def phase_interference(params, cfg) -> tuple[dict, dict]:
             fail.append(f"/traces holds {trees} of {len(crit_reqs)} request trees")
     finally:
         server.stop()
+        api.stop()
     report["launches"] = launches
     report["seconds"] = time.perf_counter() - t_phase
     print("  interference", json.dumps({
@@ -4748,6 +4888,87 @@ def cluster_kubelet(plugin_dir: str):
     return kubelet, server
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def inspect_child(tmp: str, *argv: str) -> dict:
+    """``python -m gpushare_device_plugin_tpu_torch.cli.inspect ARGV`` (what
+    ``kubectl-inspect-gpushare-cuda`` runs) in a child process reading the
+    fake apiserver through the phase's kubeconfig; -> its exit code, its
+    output, its seconds and the torch modules it imported (``-X
+    importtime`` lists every module the child loads)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(KUBECONFIG=os.path.join(tmp, "kubeconfig.json"), HOME=tmp)
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "gpushare_device_plugin_tpu_torch.cli.inspect",
+         *argv], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=60)
+    loaded = [line.rsplit("|", 1)[-1].strip() for line in out.stderr.splitlines()
+              if line.startswith("import time:")]
+    return {"rc": out.returncode, "out": out.stdout, "seconds": time.perf_counter() - t,
+            "torch": [m for m in loaded if m.split(".")[0] == "torch"],
+            "err": "\n".join(line for line in out.stderr.splitlines()
+                             if not line.startswith("import time:"))[-1500:]}
+
+
+def check_inspect(tmp: str, api, share, ledger_units: int,
+                  card_units: int, fail: list) -> dict:
+    """Phase 23's inspect child against daemon (a): the summary and the
+    details after the admissions, and the timeline once the daemon's ring
+    holds two samples."""
+    from gpushare_device_plugin_tpu_torch.allocator.defrag import status_from_node
+
+    t = time.perf_counter()
+    status = None
+    while status is None and time.perf_counter() - t < 10:
+        status = status_from_node(api.nodes[CLUSTER_NODE])
+        if status is None:
+            time.sleep(0.05)
+    out: dict = {"defrag_status": status, "defrag_wait_s": time.perf_counter() - t}
+    if status is None or status.get("planned") != 0 or status.get("completed") != 0:
+        fail.append(f"(a) the node's defrag status is {status}, not 0 moves on one card")
+    summary = inspect_child(tmp, CLUSTER_NODE)
+    details = inspect_child(tmp, "-d", CLUSTER_NODE)
+    out["summary"], out["details"] = summary["out"], details["out"]
+    out["child_s"] = [summary["seconds"], details["seconds"]]
+    for label, run in (("summary", summary), ("details", details)):
+        if run["rc"] != 0 or run["torch"]:
+            fail.append(f"(a) inspect {label} exited {run['rc']}, imported torch "
+                        f"{run['torch'][:3]}: {run['err']}")
+    if f"chip0: {ledger_units}/{card_units}" not in summary["out"]:
+        fail.append(f"(a) the summary does not show card 0 at {ledger_units}/{card_units}: "
+                    f"{summary['out']}")
+    missing = [n for n, _ in share if f" {n} " not in details["out"]]
+    if missing or f"Allocated : {ledger_units} " not in details["out"]:
+        fail.append(f"(a) the details lack pods {missing} or {ledger_units} allocated: "
+                    f"{details['out'][:1500]}")
+    return out
+
+
+def check_timeline(tmp: str, metrics_url: str, fail: list) -> dict:
+    """The daemon's ``/timeline`` rendered by the inspect child, once it
+    holds two samples of ``util_pct`` (its buckets are 10 s wide)."""
+    t = time.perf_counter()
+    points = 0
+    while points < 2 and time.perf_counter() - t < 12:
+        doc = json.loads(scrape(f"{metrics_url}/timeline"))
+        points = len(doc["series"].get("util_pct", []))
+        if points < 2:
+            time.sleep(0.1)
+    run = inspect_child(tmp, "timeline", "--timeline-url", metrics_url)
+    rows = [line for line in run["out"].splitlines() if line.startswith("util_pct")]
+    n = int(rows[0].rsplit("n=", 1)[1]) if rows else 0
+    if run["rc"] != 0 or run["torch"] or n < 2:
+        fail.append(f"(a) inspect timeline exited {run['rc']} with {n} util_pct samples, "
+                    f"imported torch {run['torch'][:3]}: {run['out']} {run['err']}")
+    return {"timeline": run["out"], "timeline_wait_s": time.perf_counter() - t - run["seconds"],
+            "child_s": run["seconds"], "util_pct_samples": n}
+
+
 def phase_cluster_agent() -> dict:
     """Phase 23: the node agent in cluster mode against a 50-node fake
     apiserver. (a) 16 share pods admitted through the daemon's informer and
@@ -4802,8 +5023,12 @@ def phase_cluster_agent() -> dict:
                                            "pods": len(informer.all_pods())}
                 informer.stop()
                 control_thread.start()  # meanwhile: the context control
-                # --- (a) admission, reclaim ------------------------------
-                a = ClusterDaemon(tmp, "a", kubelet, "--reconcile-interval", "0.5")
+                # --- (a) admission, inspect, reclaim ---------------------
+                metrics_url = f"http://127.0.0.1:{free_port()}"
+                a = ClusterDaemon(tmp, "a", kubelet, "--reconcile-interval", "0.5",
+                                  "--defrag-interval", "0.25", "--interference-interval", "0.25",
+                                  "--timeline-interval", "0.25", "--metrics-port",
+                                  metrics_url.rsplit(":", 1)[1])
                 daemons.append(a)
                 report["mem_devices"] = len(a.mem_ids)
                 slices, at = [], 0
@@ -4838,6 +5063,8 @@ def phase_cluster_agent() -> dict:
                 if ledger != annotated_units(api) or ledger != {0: sum(CLUSTER_SHARE_UNITS)}:
                     fail.append(f"ledger {ledger} is not the annotations' "
                                 f"{annotated_units(api)}")
+                report["inspect"] = check_inspect(tmp, api, share,
+                                                  ledger.get(0, 0), card_units, fail)
                 # reclaim: a 16-GiB pod cannot fit until two pods are deleted
                 big = next(n for n, u in share if u == 16)
                 small = next(n for n, u in share if u == 2)
@@ -4859,6 +5086,7 @@ def phase_cluster_agent() -> dict:
                 report["reclaim_s"] = time.perf_counter() - t
                 if not envs or envs.get(const.ENV_MEM_POD) != "16":
                     fail.append(f"the 16-GiB pod was not admitted after the deletes: {envs}")
+                report["inspect"].update(check_timeline(tmp, metrics_url, fail))
                 report["daemon_a"] = a.finish()
                 # --- (b) a crash after the PATCH, and the restart ---------
                 b1 = ClusterDaemon(tmp, "b1", kubelet, "--reconcile-interval", "0",
@@ -4938,11 +5166,242 @@ def phase_cluster_agent() -> dict:
     return report
 
 
+# Phase 24: a live defragmentation move of a serving pod's slice.
+DEFRAG_LAYERS = 4  # phase 2's weights cut to their first 4 layers
+DEFRAG_SLICE_UNITS = 8
+DEFRAG_NODE = "h100-defrag-node"
+DEFRAG_TRACE = dict(seed=24, rate=0.5, prompt_lens=(128, 512), max_new=(32, 64))
+DEFRAG_REQUESTS = 8
+DEFRAG_DRAIN_TICK = 60  # the move starts this far into the serving run
+# (label, the fault site the mover dies at or None, rolled forward)
+DEFRAG_MOVES = (("clean", None, True), ("rolled forward", "defrag.switch", True),
+                ("rolled back", "defrag.copy", False))
+
+
+def phase_defrag(params, cfg) -> tuple[dict, dict]:
+    """Phase 24, on phase 2's weights cut to their first DEFRAG_LAYERS
+    layers: a serving pod's slice moved by the port's ``SliceMover`` three
+    times (clean, crashed past the switch and rolled forward, crashed
+    before it and rolled back). Returns the launches of the moves and the
+    phase's report.
+
+    The fake apiserver's node lists two cards, 0 and 1, and both are the
+    one H100: a move across cards needs two, as phase 20's gang env does,
+    so the destination engine is a second ``PagedSlotEngine`` on the same
+    card, each sized by the plugin env of its slice."""
+    from gpushare_device_plugin_tpu_torch.allocator import defrag as TD
+    from gpushare_device_plugin_tpu_torch.allocator.assume import AssumeCache
+    from gpushare_device_plugin_tpu_torch.allocator.checkpoint import (
+        AllocationCheckpoint,
+        replay_checkpoint,
+    )
+    from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient
+    from gpushare_device_plugin_tpu_torch.cluster.podsource import ApiServerPodSource
+    from gpushare_device_plugin_tpu_torch.cluster.reconciler import DriftReconciler
+    from gpushare_device_plugin_tpu_torch.utils.faults import FAULTS, SimulatedCrash
+
+    print(f"phase 24: live defragmentation of a serving llama3_8b slice ({DEFRAG_LAYERS} of 32 "
+          "layers, bf16), moved clean, rolled forward and rolled back", flush=True)
+    t_phase = time.perf_counter()
+    fail: list[str] = []
+    cfg = dataclasses.replace(cfg, n_layers=DEFRAG_LAYERS)
+    params = {**params, "layers": {k: v[:DEFRAG_LAYERS] for k, v in params["layers"].items()}}
+    card_units = card_gib()
+    pod_env = PodTpuEnv.from_env(plugin_env(DEFRAG_SLICE_UNITS))
+    plan = paged_plan_from_pod_env(cfg, 2048, weight_bytes=tensor_bytes(params), page_size=16,
+                                   prefill_chunk=512, env=pod_env, slots=8)
+    geo = dict(slots=8, total_pages=plan.total_pages, max_len=2048, prefill_chunk=512,
+               page_size=16, eos_id=EOS_ID)
+    src, dst = PagedSlotEngine(params, cfg, **geo), PagedSlotEngine(params, cfg, **geo)
+    src.warmup()
+    dst.warmup()
+    trace = poisson_trace(DEFRAG_REQUESTS, vocab=cfg.vocab, **DEFRAG_TRACE)
+    by_rid = {r.rid: r for r in trace}
+    ref = {r.rid: list(r.tokens) for r in src.run(trace).results}
+    report: dict = {"plan": {"slots": plan.slots, "total_pages": plan.total_pages},
+                    "moves": []}
+    prefills: list[int] = []
+    program = dst._prefill
+
+    def counted(*args):
+        prefills.append(1)
+        return program(*args)
+
+    dst._prefill = counted
+    fake = load_fake_apiserver()
+    api = fake.FakeApiServer()
+    cap = {const.RESOURCE_MEM: str(2 * card_units), const.RESOURCE_COUNT: "2"}
+    api.add_node(DEFRAG_NODE, capacity=cap)
+    api.start()
+    units_by_index = lambda: {0: card_units, 1: card_units}  # noqa: E731
+    solos: dict = {}
+    launches = {name: 0 for name in fa.LAUNCHES}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, (label, site, forward) in enumerate(DEFRAG_MOVES):
+                name = f"serve-{i}"
+                api.add_pod(cluster_pod(
+                    name, DEFRAG_NODE, DEFRAG_SLICE_UNITS, phase="Running", created=i,
+                    annotations={**assumed_on_card0(DEFRAG_SLICE_UNITS, card_units),
+                                 const.ENV_ASSIGNED_FLAG: "true"},
+                    labels={const.LABEL_RESOURCE_KEY: const.LABEL_RESOURCE_VALUE}))
+                wal = os.path.join(tmp, f"wal-{i}.ckpt")
+                times = {"drain_s": 0.0, "restore_s": 0.0}
+                restored: list = []
+                drained: list = []
+
+                def drain(key):
+                    t = time.perf_counter()
+                    src.request_drain()
+                    snap = src.wait_drained(timeout=60)
+                    times["drain_s"] = time.perf_counter() - t
+                    drained.append(snap)
+                    return snap
+
+                def restore(key, snap, times=times, restored=restored, profiled=i == 0):
+                    t = time.perf_counter()
+                    before = len(prefills)
+                    for n in fa.LAUNCHES:
+                        fa.LAUNCHES[n] = 0
+                    # the first move's restore runs under the profiler for
+                    # its kernel seconds (which slows its host seconds)
+                    if profiled:
+                        rest, busy = busy_share(lambda: dst.restore_snapshot(snap))
+                    else:
+                        rest, busy = dst.restore_snapshot(snap), None
+                    torch.cuda.synchronize()
+                    got = dict(fa.LAUNCHES)
+                    for n, v in got.items():
+                        launches[n] += v
+                    times["restore_s"] = time.perf_counter() - t
+                    times["restore_device_s"] = (busy or {}).get("kernel_s")
+                    times["restore_prefills"] = len(prefills) - before
+                    times["restore_flash_fwd"] = got["flash_fwd"]
+                    restored.append((snap, rest))
+
+                client = ApiServerClient(api.url)
+                source = ApiServerPodSource(client, DEFRAG_NODE)
+                ckpt = AllocationCheckpoint(wal)
+                assume = AssumeCache()
+                mover = TD.SliceMover(client, source, assume, ckpt, DEFRAG_NODE, units_by_index,
+                                      drain_fn=drain, restore_fn=restore)
+                served: dict = {}
+                src.ticks = 0  # the last run's count; the new run restarts it
+                thread = threading.Thread(target=lambda: served.update(part=src.run(trace)),
+                                          name="serving", daemon=True)
+                thread.start()
+                while src.ticks < DEFRAG_DRAIN_TICK and thread.is_alive():
+                    time.sleep(0.001)
+                t_move = time.perf_counter()
+                move = TD.MovePlan(pod=("default", name), src=0, dst=1, units=DEFRAG_SLICE_UNITS)
+                outcome = None
+                if site is None:
+                    outcome = "completed" if mover.execute(move) else "aborted"
+                else:
+                    try:
+                        with FAULTS.injected(site, "crash", times=1):
+                            mover.execute(move)
+                    except SimulatedCrash:
+                        pass
+                    ckpt.abandon()  # the process died: nothing flushed or closed
+                    ckpt = AllocationCheckpoint(wal)
+                    assume = AssumeCache()
+                    replay_checkpoint(ckpt, assume)
+                    drift = DriftReconciler(api=client, pod_source=source, assume=assume,
+                                            checkpoint=ckpt, node_name=DEFRAG_NODE,
+                                            move_restore_fn=restore).reconcile_once()
+                    outcome = next(iter(drift), None)
+                move_s = time.perf_counter() - t_move
+                thread.join(timeout=120)
+                part = served.get("part")
+                snap = drained[0] if drained else None
+                if thread.is_alive() or part is None or not snap or not snap.get("requests"):
+                    fail.append(f"{label}: the source did not drain mid-run")
+                    continue
+                if not forward:
+                    # rolled back: the workload never left the source, whose
+                    # own supervisor re-serves the snapshot it drained
+                    if restored:
+                        fail.append(f"{label}: a rolled-back move restored on the destination")
+                    t = time.perf_counter()
+                    rest = src.restore_snapshot(snap)
+                    torch.cuda.synchronize()
+                    times["restore_s"] = time.perf_counter() - t
+                    restored.append((snap, rest))
+                elif len(restored) != 1:
+                    fail.append(f"{label}: {len(restored)} restores on the destination, not 1")
+                    continue
+                journaled, rest = restored[0]
+                again = dst.restore_snapshot(journaled) if forward else None
+                if again is not None and again.results:
+                    fail.append(f"{label}: a repeated delivery served {len(again.results)} "
+                                "requests")
+                pre = {r.rid: list(r.tokens) for r in part.results}
+                post = {r.rid: list(r.tokens) for r in rest.results}
+                if set(pre) & set(post) or sorted({**pre, **post}) != sorted(ref):
+                    fail.append(f"{label}: requests lost or served twice "
+                                f"({len(pre)} before the drain, {len(post)} restored)")
+                diverged = []
+                for rid, toks in {**pre, **post}.items():
+                    diverged += check_vs_solo("phase 24", params, cfg, by_rid[rid], toks,
+                                              want=ref.get(rid), solos=solos)
+                pod = client.get_pod("default", name)
+                ann = pod["metadata"]["annotations"]
+                want_idx = "1" if forward else "0"
+                mem_used, _held = source.chip_state()
+                if ann.get(const.ENV_MEM_IDX) != want_idx:
+                    fail.append(f"{label}: the pod's annotation names card "
+                                f"{ann.get(const.ENV_MEM_IDX)}, not {want_idx}")
+                if forward and mem_used.get(1, 0) < DEFRAG_SLICE_UNITS:
+                    fail.append(f"{label}: the ledger {mem_used} does not count card 1")
+                if ckpt.pending() or any(assume.snapshot()):
+                    fail.append(f"{label}: the WAL holds {list(ckpt.pending())}, the ledger "
+                                f"{assume.snapshot()}")
+                if forward and not (times.get("restore_flash_fwd") ==
+                                    DEFRAG_LAYERS * times.get("restore_prefills", 0) > 0):
+                    fail.append(f"{label}: the restore's flash_fwd launches "
+                                f"{times.get('restore_flash_fwd')} are not {DEFRAG_LAYERS} x "
+                                f"{times.get('restore_prefills')} prefill dispatches")
+                ckpt.close()
+                want_outcome = {"clean": "completed", "rolled forward": "move_rollforward",
+                                "rolled back": "move_rollback"}[label]
+                if outcome != want_outcome:
+                    fail.append(f"{label}: the move ended {outcome!r}, not {want_outcome!r}")
+                row = {"move": label, "crash_site": site, "outcome": outcome,
+                       "drain_tick": snap.get("drain_tick"), "retired_before_drain": len(pre),
+                       "restored_requests": len(post), "host_s": move_s,
+                       "drain_s": times["drain_s"],
+                       "wal_patch_s": move_s - times["drain_s"] - (
+                           times["restore_s"] if forward else 0.0),
+                       "restore_s": times["restore_s"], "restore_profiled": i == 0,
+                       "restore_device_s": times.get("restore_device_s"),
+                       "restore_prefills": times.get("restore_prefills"),
+                       "restore_flash_fwd": times.get("restore_flash_fwd"),
+                       "card": ann.get(const.ENV_MEM_IDX), "diverged_at_near_ties": diverged}
+                report["moves"].append(row)
+                print("  move", json.dumps(row), flush=True)
+    finally:
+        api.stop()
+        del dst._prefill
+    if dst.allocator.used_pages != dst.radix.cached_pages:
+        fail.append(f"destination pages leaked: {dst.allocator.used_pages} used, "
+                    f"{dst.radix.cached_pages} cached")
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    print("  phase 24", json.dumps({k: v for k, v in report.items() if k != "moves"}),
+          flush=True)
+    del src, dst
+    torch.cuda.empty_cache()
+    if fail:
+        raise SystemExit("phase 24 failed: " + "; ".join(fail))
+    return launches, report
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24),
                     help="build the kernels and run only this phase (a quick check; "
                          "the contract's lines are not printed); phases 21, 22 and 23 "
                          "build nothing")
@@ -5003,7 +5462,8 @@ def main(argv: list[str]) -> int:
     if args.phase is not None:
         cfg = llama3_8b()
         params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
-        launches, report = (phase_disagg if args.phase == 17 else phase_fleet)(params, cfg)
+        run = {17: phase_disagg, 18: phase_fleet, 24: phase_defrag}[args.phase]
+        launches, report = run(params, cfg)
         print(f"phase {args.phase}: {report['seconds']:.1f} s; launches {json.dumps(launches)}; "
               f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
         return 0
@@ -5013,14 +5473,14 @@ def main(argv: list[str]) -> int:
     timed("23", phase_cluster_agent)
 
     serve_launches, serve_decode_p50_ms, params, cfg = timed("2-3", phase_serve, gen)
-    paged_launches, paged_stats, paged_report = timed(
+    paged_launches = timed(
         "7-8", phase_paged, params, cfg, serve_decode_p50_ms)
     lora_serve_launches = timed("13", phase_lora_serve, params, cfg)
-    spec_launches = timed("15", phase_spec_serve, params, cfg, paged_stats, paged_report)
-    del paged_stats, paged_report
+    spec_launches = timed("15", phase_spec_serve, params, cfg)
     interference_launches, _ = timed("16", phase_interference, params, cfg)
     disagg_launches, _ = timed("17", phase_disagg, params, cfg)
     fleet_launches, _ = timed("18", phase_fleet, params, cfg)
+    defrag_launches, _ = timed("24", phase_defrag, params, cfg)
     del params
     torch.cuda.empty_cache()
     lora_train_launches = timed("14", phase_lora_train)
@@ -5041,7 +5501,8 @@ def main(argv: list[str]) -> int:
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
              "lora_train": lora_train_launches, "spec_serve": spec_launches,
              "interference": interference_launches, "disagg": disagg_launches,
-             "fleet": fleet_launches, "ring": ring_launches, "ulysses": ulysses_launches,
+             "fleet": fleet_launches, "defrag": defrag_launches, "ring": ring_launches,
+             "ulysses": ulysses_launches,
              "tp_serve": tp_serve_launches, "tp_paged": tp_paged_launches,
              "tp_train": tp_train_launches}
     cp_numbers = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,1 +1,2 @@
-"""Command-line entry points: the node agent's daemon (``daemon``)."""
+"""Command-line entry points: the node agent's daemon (``daemon``), the
+inspect CLI (``inspect``) and the kubelet pod-list dump (``podgetter``)."""

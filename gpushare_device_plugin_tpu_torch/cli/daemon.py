@@ -22,8 +22,11 @@ before writing the pod's annotations, and on restart claims the fence and
 replays unresolved entries for the drift reconciler
 (``--reconcile-interval``) to resolve. A deleted pod's units come back
 with it. ``--standalone`` runs without an apiserver and accounts grants
-in-process, never reclaimed. Cluster mode still lacks the reference's
-live defragmentation, interference loop and timeline sampler.
+in-process, never reclaimed. Cluster mode also runs the node's loops: live
+defragmentation (``--defrag-interval``, off by default), the interference
+detector (``--interference-interval``, off by default, scraping each
+``--interference-scrape-url``) and the timeline sampler
+(``--timeline-interval``, every 10 s by default).
 
 Signals: SIGHUP rebuilds and re-registers, SIGQUIT writes an all-thread
 stack dump into ``--coredump-dir``, SIGUSR1 a flight record into
@@ -120,6 +123,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flightrecord-keep", type=int, default=16,
                    help="keep only the newest K flight-record dump files "
                    "(0 = unbounded)")
+    p.add_argument("--interference-interval", type=float, default=0.0,
+                   help="seconds between interference-detector passes "
+                   "(per-card co-residency against decode-step p99 "
+                   "inflation, published as the tpushare_interference_ratio "
+                   "gauge and the node interference annotation); 0 disables")
+    p.add_argument("--interference-threshold", type=float, default=1.25,
+                   help="step-p99 inflation ratio (current / solo baseline) "
+                   "at which a co-residency verdict is flagged")
+    p.add_argument("--interference-scrape-url", action="append", default=[],
+                   metavar="URL",
+                   help="a serving pod's /metrics endpoint to scrape for its "
+                   "engine's step-p99 gauge (repeatable); without any, the "
+                   "detector reads this process's own registry")
     # degraded-mode knobs
     p.add_argument("--breaker-threshold", type=int, default=5,
                    help="consecutive apiserver failures before the circuit "
@@ -150,6 +166,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout", type=float, default=5.0,
                    help="graceful-shutdown budget for in-flight Allocate "
                    "calls before the gRPC sockets close")
+    p.add_argument("--defrag-interval", type=float, default=0.0,
+                   help="seconds between live slice-defragmentation passes "
+                   "(journaled move protocol); 0 disables (the default: "
+                   "repacking moves running workloads)")
+    p.add_argument("--defrag-quantum", type=int, default=0,
+                   help="stranded-sliver threshold in memory units: free "
+                   "memory on a partially-used card below this counts as "
+                   "stranded; 0 derives it from the largest fractional pod "
+                   "on the node")
+    p.add_argument("--defrag-max-moves", type=int, default=8,
+                   help="upper bound on repacking moves planned per pass")
+    p.add_argument("--timeline-interval", type=float, default=10.0,
+                   help="seconds between cluster-state timeline samples "
+                   "(utilization, stranded %%, pending depth, SLO burn into "
+                   "the /timeline ring and flight records); 0 disables")
     p.add_argument("--decisions-ring", type=int, default=512,
                    help="in-memory decision-provenance ring size, served "
                    "on /decisions; 0 disables emission")
@@ -242,6 +273,13 @@ def main(argv=None) -> int:
         drain_timeout_s=args.drain_timeout,
         flightrecord_dir=flightrecord_dir,
         flightrecord_keep=args.flightrecord_keep,
+        defrag_interval_s=args.defrag_interval,
+        defrag_quantum=args.defrag_quantum,
+        defrag_max_moves=args.defrag_max_moves,
+        interference_interval_s=args.interference_interval,
+        interference_threshold=args.interference_threshold,
+        interference_scrape_urls=tuple(args.interference_scrape_url),
+        timeline_interval_s=args.timeline_interval,
         decisions_ring=args.decisions_ring,
         decisions_log_path=args.decisions_log,
     )

@@ -1,7 +1,6 @@
 """Periodic drift reconciler: annotations vs. ledger vs. checkpoint vs. kubelet.
 
-Counterpart of ``gpushare_device_plugin_tpu/cluster/reconciler.py``,
-without the defragmentation move's resolution (not ported yet).
+Counterpart of ``gpushare_device_plugin_tpu/cluster/reconciler.py``.
 
 Hot state now lives in four places — apiserver pod annotations (the
 database), the AssumeCache reservation ledger (in-flight protection), the
@@ -24,8 +23,10 @@ One pass (``reconcile_once``):
    Either way its ledger reservation is released. Entries whose pod key
    is currently *claimed* belong to a live admission and are skipped.
    ``"handoff"`` and ``"scale"`` entries resolve by protocol phase
-   through their hooks. ``"move"`` entries (the reference's live
-   defragmentation, not ported yet) stay pending and protective.
+   through their hooks; ``"move"`` entries (live defragmentation,
+   ``allocator/defrag.py``) resolve by phase too: roll forward past
+   ``switch`` (re-issue the PATCH, restore the drained engine snapshot on
+   the destination), roll back before it.
 4. **ledger orphans** — unclaimed reservations whose pod is authoritatively
    gone (deleted mid-allocation) or already counted by annotations
    (redundant) are released.
@@ -87,6 +88,7 @@ class DriftReconciler:
         kubelet_grants_fn: Callable[[], dict[PodKey, list[str]]] | None = None,
         interval_s: float = DEFAULT_INTERVAL_S,
         on_fenced: Callable[[], None] | None = None,
+        move_restore_fn: Callable[[PodKey, dict | None], None] | None = None,
         handoff_deliver_fn: Callable[[str, dict], str] | None = None,
         handoff_abort_fn: Callable[[str], Any] | None = None,
         scale_deliver_fn: Callable[[str, dict], Any] | None = None,
@@ -96,7 +98,9 @@ class DriftReconciler:
         kubelet's granted device IDs per pod when a feed exists (the fake
         kubelet in tests; the podresources socket in production); None
         skips that diff. ``on_fenced()`` fires once when this instance
-        discovers it was superseded.
+        discovers it was superseded. ``move_restore_fn(pod_key, snapshot)``
+        re-admits a drained engine snapshot on the destination slice when
+        a defragmentation move is rolled forward (allocator/defrag.py).
         ``handoff_deliver_fn(handoff_id, record)`` /
         ``handoff_abort_fn(handoff_id)`` are the decode tier's idempotent
         delivery sink and staging release for journaled KV handoffs found
@@ -116,6 +120,7 @@ class DriftReconciler:
         self._grants_fn = kubelet_grants_fn
         self._interval = interval_s
         self._on_fenced = on_fenced
+        self._move_restore = move_restore_fn
         self._handoff_deliver = handoff_deliver_fn
         self._handoff_abort = handoff_abort_fn
         self._scale_deliver = scale_deliver_fn
@@ -257,11 +262,20 @@ class DriftReconciler:
             if self._assume.is_claimed(key):
                 continue  # a live admission owns this entry
             if data.get("kind") == "move":
-                # a defragmentation move the reference's daemon journaled
-                # (a DaemonSet upgrade can hand its WAL to the port): the
-                # port has no defragmenter yet to roll it forward or back,
-                # so the entry stays pending and its destination
-                # reservation protective
+                # a defragmentation move found mid-protocol: resolved by
+                # phase — roll forward past "switch" (re-issue the PATCH,
+                # restore the drained snapshot on the destination), roll
+                # back before it (allocator/defrag.py owns the rules)
+                if self._api is None:
+                    continue  # no authoritative read: stay protective
+                from ..allocator import defrag
+
+                outcome = defrag.resolve_move(
+                    self._ckpt, self._assume, self._api, key, data,
+                    restore_fn=self._move_restore,
+                )
+                if outcome is not None:
+                    drift(f"move_{outcome}", repaired=True)
                 continue
             if data.get("kind") == "handoff":
                 # a prefill->decode KV handoff found mid-protocol:

@@ -164,6 +164,24 @@ def translate_memory_units(value: str | None) -> MemoryUnit:
             f"{[u.value for u in MemoryUnit]}"
         ) from None
 
+# Node annotation carrying the interference detector's latest verdicts as
+# JSON ({"chips": {chip: {"victim", "aggressors", "ratio", "flagged"}},
+# "threshold", "time_unix"}), written each detector pass so the inspect CLI
+# (and its `top` view) renders co-tenant interference with no extra
+# endpoint (cluster/interference.py).
+ANN_INTERFERENCE = "tpushare.aliyun.com/interference"
+
+# Node annotation carrying the defragmenter's status as JSON: {"planned",
+# "active", "completed", "failed", "last_move_ms", "quantum",
+# "stranded_units", "stranded_pct"}, written after every defrag pass for
+# the inspect CLI's MOVES and stranded columns (allocator/defrag.py).
+ANN_DEFRAG_STATUS = "tpushare.aliyun.com/defrag-status"
+
+# The scheduler extender's per-container allocation map, JSON
+# map[containerName]map[chipIdx]memUnits written at bind time; the inspect
+# CLI prefers it for per-card attribution (upstream: cmd/inspect/main.go:23).
+ANN_EXTENDER_ALLOCATION = "scheduler.framework.tpushare.allocation"
+
 # "<generation>:<incarnation token>": the newest instance stamps its
 # journal's generation and a random per-open token on the node here; an
 # instance observing a higher generation, or its own under a foreign

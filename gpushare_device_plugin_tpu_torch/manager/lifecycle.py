@@ -24,11 +24,12 @@ label at every (re)build, claims the fence and replays unresolved journal
 entries before the plugins serve, posts health transitions as node
 events, and runs the drift reconciler, whose first pass resolves what the
 replay re-reserved. A deleted pod's units come back with it, since the
-annotations are the ledger.
-
-Cluster mode still lacks the reference's live defragmentation
-(``set_move_hooks`` raises), its interference loop and its timeline
-sampler.
+annotations are the ledger. Beside the reconciler run the node's loops:
+live defragmentation (``--defrag-interval``: the planner and the journaled
+mover, whose engine hand-off a serving integration registers through
+:meth:`TpuShareManager.set_move_hooks`), the interference detector
+(``--interference-interval``) and the cluster-state timeline sampler
+(``--timeline-interval``, on by default).
 
 This module imports no grpc when it loads: the plugin server is imported
 where plugins are built, so the inventory, the allocators and the health
@@ -52,6 +53,7 @@ from ..device.fanout import DeviceInventory
 from ..discovery.base import ChipHealth, DiscoveryBackend
 from ..utils.faults import FAULTS
 from ..utils.log import get_logger
+from ..utils.metric_catalog import SLO_BURN_RATE
 from ..utils.stacktrace import coredump
 from .health import HealthWatcher
 from .watchers import PluginDirWatcher
@@ -95,6 +97,30 @@ class ManagerConfig:
     # the directory to the newest K dump files (0 = unbounded).
     flightrecord_dir: str = ""
     flightrecord_keep: int = 16
+    # Interference detector cadence (cluster/interference.py): every
+    # interval the daemon correlates per-card co-residency with step-p99
+    # inflation and publishes the interference node annotation and ratio
+    # gauges; <= 0 disables (opt-in, so nodes without serving engines pay
+    # nothing).
+    interference_interval_s: float = 0.0
+    interference_threshold: float = 1.25
+    # Serving pods' /metrics endpoints to scrape for the engines' step p99
+    # gauges. Empty: the loop reads the shared in-process registry, which
+    # only sees engines that feed it (co-located integrations); per-pod
+    # engines need their endpoints listed.
+    interference_scrape_urls: tuple[str, ...] = ()
+    # Live slice defragmentation (allocator/defrag.py): scan cadence in
+    # seconds, <= 0 disables (the default: repacking moves workloads and is
+    # an explicit operator opt-in). quantum=0 auto-derives the
+    # stranded-sliver threshold from the node's own pod sizes.
+    defrag_interval_s: float = 0.0
+    defrag_quantum: int = 0
+    defrag_max_moves: int = 8
+    # Cluster-state timeline sampler (utils/timeline.py): every interval the
+    # daemon folds utilization, stranded %, pending depth and SLO burn into
+    # the bounded ring served on /timeline and embedded in flight records.
+    # One chip_state read a tick, so on by default; <= 0 disables.
+    timeline_interval_s: float = 10.0
     # Decision-provenance ring (utils/decisions.py), served on /decisions.
     # 0 disables emission.
     decisions_ring: int = 512
@@ -153,6 +179,17 @@ class TpuShareManager:
 
             self._patch_pipeline = PodPatchPipeline(api_client)
         self._reconciler = None
+        # The node's loops (cluster mode), built with the plugins: live
+        # defragmentation, the interference detector and the timeline
+        # sampler.
+        self._defrag = None  # allocator.defrag.DefragLoop
+        self._interference = None  # cluster.interference.InterferenceLoop
+        self._timeline_loop = None  # utils.timeline.TimelineLoop
+        # The defragmenter's engine hand-off, registered by a serving
+        # integration (set_move_hooks); None means moves skip the drain and
+        # restore phases (workloads that checkpoint themselves).
+        self._move_drain_fn = None
+        self._move_restore_fn = None
         # Decision-provenance configuration applies process-wide (the
         # allocators emit through the module singleton).
         from ..utils.decisions import DECISIONS
@@ -179,9 +216,35 @@ class TpuShareManager:
         return bool(plugins) and all(p.registered for p in plugins)
 
     def set_move_hooks(self, drain_fn=None, restore_fn=None) -> None:
-        raise NotImplementedError(
-            "live defragmentation (set_move_hooks) is not ported yet"
-        )
+        """Register the defragmenter's engine hand-off: ``drain_fn(pod_key)
+        -> snapshot dict | None`` quiesces the pod's serving engine
+        (``PagedSlotEngine.drain_snapshot``), ``restore_fn(pod_key,
+        snapshot)`` re-admits it on the destination slice. Takes effect at
+        once: the mover and the reconciler dispatch through the manager and
+        read the current hooks at call time, so hooks registered after the
+        build (the engine exists only once a pod is served) still cover a
+        move the reconciler resolves."""
+        self._move_drain_fn = drain_fn
+        self._move_restore_fn = restore_fn
+
+    def _move_drain_dispatch(self, pod_key):
+        fn = self._move_drain_fn
+        return None if fn is None else fn(pod_key)
+
+    def _move_restore_dispatch(self, pod_key, snapshot) -> None:
+        fn = self._move_restore_fn
+        if fn is None:
+            if snapshot:
+                # A drained snapshot with no restore hook must not be
+                # dropped: raising means retry-next-pass in both
+                # resolve_move and SliceMover, so the journaled requests
+                # survive until the serving integration registers.
+                raise RuntimeError(
+                    "drained engine snapshot present but no restore hook "
+                    "registered (set_move_hooks)"
+                )
+            return
+        fn(pod_key, snapshot)
 
     # ------------------------------------------------------------------
 
@@ -410,7 +473,119 @@ class TpuShareManager:
                 node_name=self._cfg.node_name,
                 inventory=inventory,
                 interval_s=self._cfg.reconcile_interval_s,
+                move_restore_fn=self._move_restore_dispatch,
             ).start()
+        if self._cluster and self._pod_source is not None:
+            self._start_loops(inventory)
+
+    def _start_loops(self, inventory: DeviceInventory) -> None:
+        """The node's loops for this build, each where its interval is
+        positive: live defragmentation and the interference detector (both
+        need the node's name) and the timeline sampler."""
+        name = self._cfg.node_name
+        if self._cfg.defrag_interval_s > 0 and name:
+            self._defrag = self._build_defrag_loop(inventory).start()
+        if self._cfg.interference_interval_s > 0 and name:
+            from ..cluster.interference import InterferenceDetector, InterferenceLoop
+
+            self._interference = InterferenceLoop(
+                InterferenceDetector(threshold=self._cfg.interference_threshold),
+                self._api,
+                name,
+                self._pod_source,
+                interval_s=self._cfg.interference_interval_s,
+                scrape_urls=self._cfg.interference_scrape_urls,
+            ).start()
+        if self._cfg.timeline_interval_s > 0:
+            self._timeline_loop = self._build_timeline_loop(inventory).start()
+
+    def _build_defrag_loop(self, inventory: DeviceInventory):
+        """Planner over the pod source, mover through the shared ledger, the
+        WAL and the patch pipeline. Its first pass runs one full interval
+        in, so the reconciler's first pass resolves any move the previous
+        incarnation died holding before this one plans new work. Cards the
+        mem plugin reads unhealthy are neither drained nor filled, as the
+        admission allocator refuses to place on them."""
+        from ..allocator.defrag import DefragLoop, DefragPlanner, SliceMover
+
+        unhealthy_fns = [
+            p.unhealthy_chip_indices
+            for p in self._plugins
+            if p.resource_name == const.RESOURCE_MEM
+        ]
+
+        def excluded() -> set[int]:
+            return {i for fn in unhealthy_fns for i in fn()}
+
+        planner = DefragPlanner(
+            inventory.units_by_index,
+            self._pod_source,
+            quantum=self._cfg.defrag_quantum,
+            excluded_fn=excluded,
+            max_moves=self._cfg.defrag_max_moves,
+            node=self._cfg.node_name,
+        )
+        mover = SliceMover(
+            self._api,
+            self._pod_source,
+            self._alloc_assume,
+            self._ckpt,
+            self._cfg.node_name,
+            inventory.units_by_index,
+            drain_fn=self._move_drain_dispatch,
+            restore_fn=self._move_restore_dispatch,
+            patch_fn=self._patcher(),
+        )
+        return DefragLoop(
+            planner, mover, self._api, self._cfg.node_name,
+            interval_s=self._cfg.defrag_interval_s,
+        )
+
+    def _build_timeline_loop(self, inventory: DeviceInventory):
+        """Fold utilization, fragmentation, queue depth and SLO burn into
+        the timeline ring every tick: read-only sources, each best-effort."""
+        from ..allocator.defrag import STRANDED_PCT_GAUGE
+        from ..cluster import pods as PODS
+        from ..utils.metrics import REGISTRY
+        from ..utils.timeline import TIMELINE, TimelineLoop
+
+        total_units = sum(inventory.units_by_index().values())
+        pod_source = self._pod_source
+
+        def util_pct():
+            if not total_units:
+                return None
+            mem_used, _held = pod_source.chip_state()
+            return 100.0 * sum(mem_used.values()) / total_units
+
+        def queue_depth():
+            # one pending-pod read feeds both series (a second LIST a tick
+            # would double the read load on list-backed sources, from two
+            # different snapshots)
+            pending = pod_source.pending_share_pods(const.RESOURCE_MEM)
+            return {
+                "pending_pods": float(len(pending)),
+                "pending_gangs": float(sum(1 for p in pending if PODS.gang_shape_request(p))),
+            }
+
+        def stranded_pct():
+            return REGISTRY.gauge_value(STRANDED_PCT_GAUGE)
+
+        def slo_burn_5m():
+            series = REGISTRY.gauge_series(SLO_BURN_RATE)
+            vals = [v for labels, v in series.items() if dict(labels).get("window") == "5m"]
+            return max(vals) if vals else None
+
+        return TimelineLoop(
+            TIMELINE,
+            {
+                "util_pct": util_pct,
+                "queue_depth": queue_depth,
+                "stranded_pct": stranded_pct,
+                "slo_burn_5m": slo_burn_5m,
+            },
+            interval_s=self._cfg.timeline_interval_s,
+        )
 
     def _patch_node(self, inventory: DeviceInventory) -> None:
         """Advertise the card count on the node's status and re-read the
@@ -473,6 +648,17 @@ class TpuShareManager:
         return on_event
 
     def _stop_all(self) -> None:
+        if self._timeline_loop is not None:
+            self._timeline_loop.stop()
+            self._timeline_loop = None
+        if self._interference is not None:
+            self._interference.stop()
+            self._interference = None
+        if self._defrag is not None:
+            # before the reconciler: a move stopped mid-shutdown must not
+            # lose its resolver while it still journals phases
+            self._defrag.stop()
+            self._defrag = None
         if self._reconciler is not None:
             self._reconciler.stop()
             self._reconciler = None

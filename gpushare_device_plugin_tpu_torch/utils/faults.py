@@ -23,6 +23,16 @@ stalls, flaps or "crashes" exactly there.
                         became durable
 ``allocator.post_persist``  after the pod PATCH landed, before the WAL
                         commit (the crash window the replay closes)
+``defrag.plan``         after the move's "plan" phase record is durable,
+                        before the destination reservation
+``defrag.drain``        after the "drain" record is durable, before the
+                        engine quiesce/snapshot
+``defrag.copy``         after the "copy" record (snapshot included) is
+                        durable
+``defrag.switch``       after the "switch" record is durable, before the
+                        annotation PATCH (the roll-forward boundary)
+``defrag.resume``       after the "resume" record is durable, before the
+                        destination restore and the move's commit
 ``handoff.export``      after the KV handoff's "export" phase record is
                         durable, before the wire payload materializes
 ``handoff.transfer``    after the "transfer" record is durable, before
@@ -96,6 +106,11 @@ POINTS = (
     "checkpoint.wal_queue",
     "checkpoint.batch_fsync",
     "allocator.post_persist",
+    "defrag.plan",
+    "defrag.drain",
+    "defrag.copy",
+    "defrag.switch",
+    "defrag.resume",
     "handoff.export",
     "handoff.transfer",
     "handoff.import",

@@ -3,8 +3,9 @@ lock-order witness.
 
 Counterpart of ``gpushare_device_plugin_tpu/utils/lockrank.py``, cut to
 the locks the port's modules take (the node agent's cluster half: the
-allocators' serial and match locks, the pod informer and its indexes,
-the node-PATCH coalescer; the WAL, its group-commit
+allocators' serial and match locks, the defragmenter's planner report and
+move counters, the interference detector's baselines, the pod informer
+and its indexes, the node-PATCH coalescer; the WAL, its group-commit
 writer, the assume cache, the SLO budget, the decision log, the fleet's
 router, membership and scale executor, the KV handoff's ledger and peer
 client, the circuit breaker, the fault table, the page allocator, the
@@ -69,6 +70,15 @@ RANKS: dict[str, LockRank] = dict((
        "serialize same-size matches. May refresh() the pod source "
        "(one synchronous LIST) on a match miss, the documented "
        "close-the-bind-window exception, so I/O is allowed."),
+    _r("defrag.planner", 24, "lock", False,
+       "DefragPlanner's cached last-scan report: the defrag loop "
+       "writes it, the CLI/status publisher reads it. In-memory "
+       "only; the scan's pod reads run before the lock is taken."),
+    _r("defrag.moves", 26, "lock", False,
+       "SliceMover's move-state counters (planned/active/completed/"
+       "last duration). Never held across a journal fsync or the "
+       "switch PATCH — the move protocol's I/O runs between, not "
+       "under, counter updates."),
     _r("allocator.ledger", 30, "rlock", False,
        "AssumeCache's claim/reservation ledger: one atomic "
        "snapshot-overlay-decide-reserve step. Pure memory; the "
@@ -87,6 +97,11 @@ RANKS: dict[str, LockRank] = dict((
     _r("cluster.podindex", 61, "lock", False,
        "Bucketed pod-set indexes (pending-by-resource, "
        "labeled-by-value); same nesting as cluster.usage."),
+    _r("cluster.interference", 63, "lock", False,
+       "InterferenceDetector's baseline/report state: per-victim "
+       "solo-window step-p99 baselines and the last pass's verdicts. "
+       "Inputs (chip residency, step p99s) are gathered BEFORE the "
+       "lock is taken; gauges publish after it is dropped."),
     _r("slo.budget", 64, "lock", False,
        "SloBudget's time-bucketed good/bad event counters and "
        "burn-rate state. record() runs at engine retire (no other "

@@ -11,7 +11,9 @@ cut to the families of the port's modules:
   and scale-down;
 - the node agent: Allocate's latency and outcomes, the allocators' lock
   waits, the health watcher, the pod informer, the apiserver PATCH
-  pipeline, node events and the drift reconciler.
+  pipeline, node events, the drift reconciler, live defragmentation and
+  the interference detector (and the gang two-phase commit's counter,
+  which the scheduler extender emits).
 
 Names, types and label sets are the reference's letter for letter, so
 the reference control plane's scrapers (``cluster/interference.py``, the
@@ -56,6 +58,10 @@ CHECKPOINT_WAL_BATCH_RECORDS = "tpushare_checkpoint_wal_batch_records"
 CIRCUIT_FASTFAIL_TOTAL = "tpushare_circuit_fastfail_total"
 CIRCUIT_STATE = "tpushare_circuit_state"
 CIRCUIT_TRANSITIONS_TOTAL = "tpushare_circuit_transitions_total"
+DEFRAG_MOVE_SECONDS = "tpushare_defrag_move_seconds"
+DEFRAG_MOVES_TOTAL = "tpushare_defrag_moves_total"
+DEFRAG_STRANDED_PCT = "tpushare_defrag_stranded_pct"
+DEFRAG_STRANDED_UNITS = "tpushare_defrag_stranded_units"
 ENGINE_ADAPTER_CACHE_PAGES = "tpushare_engine_adapter_cache_pages"
 ENGINE_ADAPTER_ENABLED = "tpushare_engine_adapter_enabled"
 ENGINE_ADAPTER_EVICTIONS_TOTAL = "tpushare_engine_adapter_evictions_total"
@@ -92,11 +98,13 @@ HANDOFF_FALLBACK_REPREFILL_TOTAL = "tpushare_handoff_fallback_reprefill_total"
 HANDOFF_PAGES_IN_FLIGHT = "tpushare_handoff_pages_in_flight"
 HANDOFF_TRANSFER_SECONDS = "tpushare_handoff_transfer_seconds"
 HANDOFF_TRANSFERS_TOTAL = "tpushare_handoff_transfers_total"
+GANG2PC_TOTAL = "tpushare_gang2pc_total"
 HEALTH_EVENTS_TOTAL = "tpushare_health_events_total"
 HEALTH_WATCHER_RESTARTS_TOTAL = "tpushare_health_watcher_restarts_total"
 INFORMER_APPLY_BATCH_EVENTS = "tpushare_informer_apply_batch_events"
 INFORMER_INDEX_REBUILDS_TOTAL = "tpushare_informer_index_rebuilds_total"
 INFORMER_STALENESS_SECONDS = "tpushare_informer_staleness_seconds"
+INTERFERENCE_RATIO = "tpushare_interference_ratio"
 NODE_EVENTS_DROPPED_TOTAL = "tpushare_node_events_dropped_total"
 PATCH_BATCH_RECORDS = "tpushare_patch_batch_records"
 PATCH_COALESCED_TOTAL = "tpushare_patch_coalesced_total"
@@ -113,8 +121,12 @@ SLO_ERROR_BUDGET_REMAINING = "tpushare_slo_error_budget_remaining"
 SLO_SEVERITY = "tpushare_slo_severity"
 UNHEALTHY_CHIPS = "tpushare_unhealthy_chips"
 
-# Family prefixes the reference's CLI parsers slice on
-# (`parse_engine_metrics` folds these into `fleet_*` / `router_*` keys).
+# Family prefixes the inspect CLI's parsers slice on
+# (`cli/inspect.py::parse_engine_metrics`, `parse_observability_metrics`).
+PREFIX_ENGINE = "tpushare_engine_"
+PREFIX_SLO = "tpushare_slo_"
+PREFIX_GOVERNOR = "tpushare_governor_"
+PREFIX_HANDOFF = "tpushare_handoff_"
 PREFIX_FLEET = "tpushare_fleet_"
 PREFIX_ROUTER = "tpushare_router_"
 
@@ -133,6 +145,10 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(CIRCUIT_FASTFAIL_TOTAL, COUNTER, "breaker"),
     _m(CIRCUIT_STATE, GAUGE, "breaker"),
     _m(CIRCUIT_TRANSITIONS_TOTAL, COUNTER, "breaker", "to"),
+    _m(DEFRAG_MOVE_SECONDS, HISTOGRAM),
+    _m(DEFRAG_MOVES_TOTAL, COUNTER, "outcome"),
+    _m(DEFRAG_STRANDED_PCT, GAUGE),
+    _m(DEFRAG_STRANDED_UNITS, GAUGE),
     _m(ENGINE_ADAPTER_CACHE_PAGES, GAUGE, "pod"),
     _m(ENGINE_ADAPTER_ENABLED, GAUGE, "pod"),
     _m(ENGINE_ADAPTER_EVICTIONS_TOTAL, COUNTER, "pod"),
@@ -169,11 +185,13 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(HANDOFF_PAGES_IN_FLIGHT, GAUGE, "pod"),
     _m(HANDOFF_TRANSFER_SECONDS, HISTOGRAM, "pod"),
     _m(HANDOFF_TRANSFERS_TOTAL, COUNTER, "outcome", "pod"),
+    _m(GANG2PC_TOTAL, COUNTER, "phase", "outcome"),
     _m(HEALTH_EVENTS_TOTAL, COUNTER, "health", "severity"),
     _m(HEALTH_WATCHER_RESTARTS_TOTAL, COUNTER),
     _m(INFORMER_APPLY_BATCH_EVENTS, HISTOGRAM, "scope"),
     _m(INFORMER_INDEX_REBUILDS_TOTAL, COUNTER, "reason", "scope"),
     _m(INFORMER_STALENESS_SECONDS, GAUGE, "scope"),
+    _m(INTERFERENCE_RATIO, GAUGE, "chip", "victim", "aggressor"),
     _m(NODE_EVENTS_DROPPED_TOTAL, COUNTER, "reason"),
     _m(PATCH_BATCH_RECORDS, HISTOGRAM, "kind"),
     _m(PATCH_COALESCED_TOTAL, COUNTER, "kind"),
@@ -191,3 +209,13 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(UNHEALTHY_CHIPS, GAUGE),
 ))
 
+
+
+def spec_of(name: str) -> MetricSpec:
+    try:
+        return CATALOG[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown metric family {name!r}; declare it in "
+            "gpushare_device_plugin_tpu_torch/utils/metric_catalog.py"
+        ) from None

@@ -8,7 +8,7 @@ and :class:`MetricsServer` with the endpoints: ``/metrics`` (text format
 0.0.4, or OpenMetrics with exemplars when the scraper asks for it),
 ``/traces`` (OTLP-JSON from the trace store), ``/decisions``,
 ``/timeline``, ``/healthz`` and ``/readyz``. The reference's ``/shards``
-and ``/fleet`` wait for cluster mode.
+and ``/fleet`` routes come with the scheduler extender.
 
 One lock per registry; every write is one dict update under it.
 """

@@ -386,9 +386,10 @@ def test_stop_drains_an_inflight_allocate(nodes):
 def test_cluster_mode_raises_not_implemented(tmp_path):
     """An apiserver client makes the manager build the cluster allocators
     (the mem plugin's ClusterAllocator and the core plugin's
-    ClusterCoreAllocator over one shared ledger, journaling to the WAL);
-    registering defrag's move hooks still raises, as defragmentation is not
-    ported yet. A standalone config ignores the client."""
+    ClusterCoreAllocator over one shared ledger, journaling to the WAL).
+    Defrag's move hooks register and dispatch; a drained snapshot with no
+    restore hook raises (so the move is retried, never dropped). A
+    standalone config ignores the client."""
     from gpushare_device_plugin_tpu_torch.allocator.cluster import (
         ClusterAllocator,
         ClusterCoreAllocator,
@@ -414,8 +415,16 @@ def test_cluster_mode_raises_not_implemented(tmp_path):
         assert isinstance(core_fn.__self__, ClusterCoreAllocator)
         assert mem_fn.__self__._assume is core_fn.__self__._assume is manager._alloc_assume
         assert mem_fn.__self__._ckpt is core_fn.__self__._ckpt is manager._ckpt is not None
-        with pytest.raises(NotImplementedError, match="set_move_hooks"):
-            manager.set_move_hooks(lambda key: None, lambda key, snap: None)
+        with pytest.raises(RuntimeError, match="no restore hook"):
+            manager._move_restore_dispatch(("default", "p"), {"requests": []})
+        manager._move_restore_dispatch(("default", "p"), None)  # nothing drained
+        assert manager._move_drain_dispatch(("default", "p")) is None
+        restored = []
+        manager.set_move_hooks(lambda key: {"drained": key},
+                               lambda key, snap: restored.append((key, snap)))
+        assert manager._move_drain_dispatch(("default", "p")) == {"drained": ("default", "p")}
+        manager._move_restore_dispatch(("default", "p"), {"requests": []})
+        assert restored == [(("default", "p"), {"requests": []})]
         manager._ckpt.close()
         manager._patch_pipeline.stop()
         standalone = TpuShareManager(

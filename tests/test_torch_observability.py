@@ -61,7 +61,9 @@ def both(scenario):
 
 
 def test_catalog_families_are_the_references_letter_for_letter():
-    assert len(Cat.CATALOG) == 70  # with the node agent's cluster half's 12
+    # with the node agent's cluster half's 12, then its loops' 6 (defrag,
+    # interference, the gang two-phase commit's counter)
+    assert len(Cat.CATALOG) == 76
     for name, spec in Cat.CATALOG.items():
         ref = JCat.CATALOG[name]
         assert (spec.name, spec.type, spec.labels) == (ref.name, ref.type, ref.labels)
@@ -71,6 +73,14 @@ def test_catalog_families_are_the_references_letter_for_letter():
     assert "tpushare_allocate_total" in Cat.CATALOG  # the device plugin's own family
     assert "tpushare_reconcile_drift_total" in Cat.CATALOG  # the node agent's cluster half
     assert "tpushare_extender_verb_total" not in Cat.CATALOG  # the cluster control plane's
+    # every reference family but the extender's three is declared
+    missing = set(JCat.CATALOG) - set(Cat.CATALOG)
+    assert missing == {JCat.EXTENDER_VERB_SECONDS, JCat.EXTENDER_VERB_TOTAL,
+                       JCat.EXTENDER_VIEW_TOTAL}, missing
+    port, ref = Cat.spec_of(Cat.DEFRAG_MOVES_TOTAL), JCat.spec_of(JCat.DEFRAG_MOVES_TOTAL)
+    assert (port.name, port.type, port.labels) == (ref.name, ref.type, ref.labels)
+    with pytest.raises(ValueError, match="unknown metric family"):
+        Cat.spec_of("tpushare_no_such_family")
 
 
 def test_build_info_carries_a_subset_of_the_family_labels():
@@ -297,7 +307,7 @@ def test_metrics_server_endpoints():
         assert body.rstrip().endswith("# EOF")
         assert _get(f"{url}/healthz")[2] == "ok\n"
         assert _get(f"{url}/nope")[0] == 404
-        assert _get(f"{url}/shards")[0] == 404  # cluster mode's: not ported
+        assert _get(f"{url}/shards")[0] == 404  # the scheduler extender's: not ported
         code, ctype, body = _get(f"{url}/decisions")
         assert code == 200 and ctype == "application/json" and "records" in json.loads(body)
         assert _get(f"{url}/readyz")[0] == 200  # no ready_fn: always ready

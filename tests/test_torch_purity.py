@@ -235,6 +235,45 @@ def test_the_cluster_half_loads_and_admits_without_torch_or_grpc():
     assert out.returncode == 0, out.stderr
 
 
+def test_the_inspect_cli_and_the_node_loops_load_without_torch():
+    """With torch, grpc, requests, urllib3 and yaml all blocked, the inspect
+    CLI, the kubelet pod dump, the defragmenter and the interference
+    detector import, and the CLI renders a fake apiserver's node whose
+    defrag status it reads through the defragmenter."""
+    code = (
+        "import io, json, sys, contextlib\n"
+        "for name in ('grpc', 'torch', 'requests', 'urllib3', 'yaml'):\n"
+        "    sys.modules[name] = None  # any import of them raises\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from fake_apiserver import FakeApiServer\n"
+        "from gpushare_device_plugin_tpu_torch.cli import inspect, podgetter\n"
+        "from gpushare_device_plugin_tpu_torch.allocator import defrag\n"
+        "from gpushare_device_plugin_tpu_torch.cluster import interference\n"
+        "from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient\n"
+        "api = FakeApiServer(); api.add_node('n'); api.start()\n"
+        "api.nodes['n']['status'] = {'capacity': {'aliyun.com/tpu-mem': '64',\n"
+        "    'aliyun.com/tpu-count': '2'}, 'allocatable': {'aliyun.com/tpu-mem': '64',\n"
+        "    'aliyun.com/tpu-count': '2'}}\n"
+        "api.nodes['n']['metadata'].setdefault('annotations', {})[\n"
+        "    'tpushare.aliyun.com/defrag-status'] = json.dumps({'completed': 0, 'quantum': 8})\n"
+        "inspect._client = lambda *a, **k: ApiServerClient(api.url)\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    assert inspect.main([]) == 0\n"
+        "api.stop()\n"
+        "assert 'MOVES' in out.getvalue(), out.getvalue()\n"
+        "bad = [n for n in sys.modules if sys.modules[n] is not None and (\n"
+        "       n.split('.')[0] in ('torch', 'grpc', 'requests', 'urllib3', 'yaml'))]\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
 def test_importing_every_port_module_leaves_jax_out():
     mods = [
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")

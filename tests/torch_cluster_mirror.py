@@ -4,16 +4,22 @@
 a new module whose imports of ``gpushare_device_plugin_tpu.X`` point at
 ``<pkg>.X`` wherever the port has that module (the extender, which the
 port lacks, stays the reference's: a test may admit through the port's
-allocator what the reference's extender assumed). ``run_case`` calls one
+allocator what the reference's extender assumed), and wherever the caller
+does not ask to ``keep`` the reference's module (the inspect CLI's tests
+keep the reference's ``MetricsServer``, whose ``/shards`` and ``/fleet``
+routes come with the port's extender). ``run_case`` calls one
 test function the way pytest would (its module fixtures, autouse ones
-included, plus ``tmp_path`` and ``monkeypatch``), so the reference's own
-assertions run against the port. Around the call it records what each
-package did on the wire: every ``FakeApiServer`` the case started (its
+included, plus ``tmp_path``, ``monkeypatch`` and ``capsys``), so the
+reference's own assertions run against the port. Around the call it
+records what each package did on the wire: every ``FakeApiServer`` the case started (its
 PATCH bodies, pod and node annotations and labels, events, bindings) and
 every ``ClusterAllocator`` / ``ClusterCoreAllocator`` Allocate (the envs
-returned, or the refusal). ``mirror_case`` runs a case under both
+returned, or the refusal), and everything the case printed (a CLI's
+render, read through ``capsys``). ``mirror_case`` runs a case under both
 packages and asserts the two records are equal, after timestamps, trace
-ids, fence tokens and uids are reduced to their form.
+ids, fence tokens, uids, the measured durations in the defrag-status and
+interference node annotations and the clock times a CLI prints are reduced
+to their form.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import dataclasses
 import importlib
 import importlib.util
 import inspect
+import io
 import itertools
 import json
 import re
@@ -39,7 +46,7 @@ REF = "gpushare_device_plugin_tpu"
 PORT = "gpushare_device_plugin_tpu_torch"
 TESTS = Path(__file__).resolve().parent
 
-_MODULES: dict[tuple[str, str], types.ModuleType] = {}
+_MODULES: dict[tuple[str, str, tuple[str, ...]], types.ModuleType] = {}
 
 
 def _port_has(module: str) -> bool:
@@ -49,9 +56,10 @@ def _port_has(module: str) -> bool:
         return False
 
 
-def load(test_file: str, pkg: str) -> types.ModuleType:
-    """``tests/<test_file>.py`` executed with its imports on ``pkg``."""
-    key = (test_file, pkg)
+def load(test_file: str, pkg: str, keep: tuple[str, ...] = ()) -> types.ModuleType:
+    """``tests/<test_file>.py`` executed with its imports on ``pkg``, but for
+    the reference modules named in ``keep`` (``"utils.metrics"``)."""
+    key = (test_file, pkg, keep)
     if key in _MODULES:
         return _MODULES[key]
     path = TESTS / f"{test_file}.py"
@@ -59,10 +67,12 @@ def load(test_file: str, pkg: str) -> types.ModuleType:
     if pkg == PORT:
         def to_port(m: re.Match) -> str:
             target = PORT + m.group(1)
-            return target if _port_has(target) else m.group(0)
+            if m.group(1).lstrip(".") in keep or not _port_has(target):
+                return m.group(0)
+            return target
 
         src = re.sub(rf"\b{REF}((?:\.\w+)*)", to_port, src)
-    mod = types.ModuleType(f"_mirror_{pkg}_{test_file}")
+    mod = types.ModuleType(f"_mirror_{pkg}_{test_file}_{'_'.join(keep)}")
     mod.__file__ = str(path)
     exec(compile(src, str(path), "exec"), mod.__dict__)
     _MODULES[key] = mod
@@ -105,6 +115,34 @@ class _FastServer(ThreadingHTTPServer):
         super().serve_forever(poll_interval)
 
 
+class _Capture:
+    """``capsys`` for a mirrored case: stdout and stderr redirected for the
+    case; ``readouterr`` returns and clears what was written, and
+    ``log`` keeps every read (and, at the end, the rest) for the record."""
+
+    def __init__(self, stack):
+        self._out, self._err = io.StringIO(), io.StringIO()
+        self.log: list[tuple[str, str]] = []
+        stack.callback(self.readouterr)
+        stack.enter_context(contextlib.redirect_stdout(self._out))
+        stack.enter_context(contextlib.redirect_stderr(self._err))
+
+    def readouterr(self):
+        got = (self._out.getvalue(), self._err.getvalue())
+        for buf in (self._out, self._err):
+            buf.seek(0)
+            buf.truncate()
+        if any(got):
+            self.log.append(got)
+        return _Read(*got)
+
+
+@dataclasses.dataclass
+class _Read:
+    out: str
+    err: str
+
+
 def _fixture(mod, name, given, cache, stack, tmp_factory):
     if name in given:
         return given[name]
@@ -115,6 +153,8 @@ def _fixture(mod, name, given, cache, stack, tmp_factory):
     elif name == "monkeypatch":
         value = pytest.MonkeyPatch()
         stack.callback(value.undo)
+    elif name == "capsys":
+        value = _Capture(stack)
     else:
         fx = getattr(mod, name)
         value = _call(mod, fx._get_wrapped_function(), given, cache, stack, tmp_factory)
@@ -149,9 +189,10 @@ def _result_doc(res) -> list:
     ]
 
 
-def run_case(pkg: str, test_file: str, name: str, params: dict, tmp_factory) -> dict:
+def run_case(pkg: str, test_file: str, name: str, params: dict, tmp_factory,
+             keep: tuple[str, ...] = ()) -> dict:
     """Run one case under ``pkg``; -> what it did on the wire."""
-    mod = load(test_file, pkg)
+    mod = load(test_file, pkg, keep)
     cluster = importlib.import_module(f"{pkg}.allocator.cluster")
     servers: list = []
     allocations: list = []
@@ -183,9 +224,12 @@ def run_case(pkg: str, test_file: str, name: str, params: dict, tmp_factory) -> 
         for auto in _autouse(mod):
             _fixture(mod, auto, params, cache, stack, tmp_factory)
         _call(mod, getattr(mod, name), params, cache, stack, tmp_factory)
+    capture = cache.get("capsys")
     return {
         "servers": [_server_doc(s) for s in servers],
         "allocations": allocations,
+        "output": [[_CLOCK.sub("<hh:mm:ss>", text) for text in read]
+                   for read in (capture.log if capture is not None else [])],
     }
 
 
@@ -214,6 +258,12 @@ _NS = re.compile(r"^\d{16,20}$")
 _TRACE = re.compile(r"^[0-9a-f]{32}:[0-9a-f]{16}$")
 _FENCE = re.compile(r"^(\d+):[0-9a-zA-Z_-]+$")
 _TS_KEYS = {"firstTimestamp", "lastTimestamp", "eventTime", "time_unix"}
+_CLOCK = re.compile(r"\b\d\d:\d\d:\d\d\b")  # the `top` view's refresh time
+# node annotations holding JSON with a measured duration or a clock reading
+_JSON_ANNOTATIONS = {
+    "tpushare.aliyun.com/defrag-status": {"last_move_ms"},
+    "tpushare.aliyun.com/interference": {"time_unix"},
+}
 _FORM_KEYS = {
     "ALIYUN_COM_TPU_MEM_ASSUME_TIME": (_NS, "<ns>"),
     "tpushare.aliyun.com/trace-id": (_TRACE, "<trace>"),
@@ -229,6 +279,8 @@ def normalize(doc):
             if k in _FORM_KEYS and isinstance(v, str):
                 pat, token = _FORM_KEYS[k]
                 out[k] = token if pat.match(v) else v
+            elif k in _JSON_ANNOTATIONS and isinstance(v, str):
+                out[k] = _json_annotation(v, _JSON_ANNOTATIONS[k])
             elif k == "tpushare.aliyun.com/fence-generation" and isinstance(v, str):
                 m = _FENCE.match(v)
                 out[k] = f"{m.group(1)}:<token>" if m else v
@@ -244,12 +296,28 @@ def normalize(doc):
     return doc
 
 
+def _json_annotation(raw: str, measured: set[str]):
+    """A JSON annotation parsed, its ``measured`` fields that are positive
+    numbers by form (a zero stays, so "never measured" still compares)."""
+    try:
+        doc = json.loads(raw)
+    except ValueError:
+        return raw
+    if not isinstance(doc, dict):
+        return raw
+    return {
+        k: "<measured>" if k in measured and isinstance(v, (int, float)) and v > 0 else v
+        for k, v in doc.items()
+    }
+
+
 def mirror_case(test_file: str, name: str, params: dict, tmp_factory,
-                compare=("servers", "allocations")) -> tuple[dict, dict]:
+                compare=("servers", "allocations"), keep: tuple[str, ...] = ()
+                ) -> tuple[dict, dict]:
     """The reference's test under the reference, then under the port; the
     two wire records must be equal (the ``compare`` parts of them)."""
     ref = normalize(run_case(REF, test_file, name, params, tmp_factory))
-    port = normalize(run_case(PORT, test_file, name, params, tmp_factory))
+    port = normalize(run_case(PORT, test_file, name, params, tmp_factory, keep))
     for part in compare:
         if port[part] != ref[part]:
             a = json.dumps(ref[part], indent=1, sort_keys=True, default=repr)
