@@ -394,15 +394,49 @@ Phases, each of which fails the run with a non-zero exit:
    layer per prefill dispatch. Prints each move's host seconds (drain,
    WAL and PATCH, restore) and, for the clean move's restore, run under
    ``torch.profiler`` (which slows its host seconds), its kernel seconds.
+25. The scheduler extender, host only (it builds nothing and launches no
+   kernel; under ``EXTENDER_BUDGET_S``). (a) Phase 23's 50-node cluster, the
+   other 49 nodes at 78 of their 79 GiB and this node's 16 share pods
+   pending with no node. The port's extender (``python -m
+   gpushare_device_plugin_tpu_torch.extender.server --port P --metrics-port
+   M1 --checkpoint-path ...``) receives each pod's ``/scheduler/filter``
+   and ``/scheduler/prioritize`` with the 50 node objects (the extender
+   stanza in ``deploy/scheduler-extender.yaml`` is not node-cache capable),
+   then ``/scheduler/bind`` to its top node; phase 23's daemon admits the
+   16 through a kubelet of the port's bindings. Fails unless every pod is
+   bound here, ``simcluster.audit_cluster`` over the 50 nodes is empty,
+   the envs' card and units are the extender's annotations, ``inspect
+   trace default/<pod>`` in a child without torch over both processes'
+   ``/traces`` renders one tree (admission, ``extender.bind``,
+   ``plugin.allocate``), both exit 0 on SIGTERM and the extender loads no
+   torch (``-X importtime``, ``/proc/<pid>/maps``). Prints each verb's ms
+   p50 / p99. (b) In process, the reference bench's largest scale
+   configuration (1,000 ``make_cluster`` nodes, 8 shards each with its own
+   WAL, fanout 2, 8 workers, 600 events) with a gang group every 40
+   arrivals: the audit empty, no gang2pc entry after ``resolve_gang2pc``;
+   prints admissions/s, admit p50 / p99 ms, gang groups and failures. Then
+   the same under the lock-order witness at the bench's smoke settings
+   (``WITNESSED_DRILL``; the witness triples the full run's host time): no
+   lock-order violation either. (c) ``python -m
+   gpushare_device_plugin_tpu_torch.extender.shards --shards 4
+   --checkpoint-dir D --metrics-port M2``'s ``main`` in a child armed with
+   ``TPUSHARE_FAULTS=gang2pc.commit=crash:1`` admits a two-member gang
+   group across shards (the webhook has no verb for a group, so the child
+   drives the router ``main`` built, in process), dies at the commit and
+   is SIGKILLed; a second ``python -m ... extender.shards`` on the same
+   ``D`` must leave no gang in flight and the group whole (its decision
+   was durable: rolled forward), and ``inspect shards`` in a child without
+   torch must render its ``/shards``.
 
-The phases run in the order 1, 21, 22, 23, 2, 3, 7, 8, 13, 15, 16, 17,
+The phases run in the order 1, 21, 22, 23, 25, 2, 3, 7, 8, 13, 15, 16, 17,
 18, 24, 14, 4, 5, 6, 9-12, 19, 20; each phase's seconds print on one JSON
 line (``phase seconds``) before the script's. ``python3 chip_smoke.py
 --phase 17`` (or ``--phase 18``, ``--phase 19``, ``--phase 20`` or
 ``--phase 24``) builds
 the kernels and runs that phase alone on fresh weights (a quick check; it
-prints no contract lines); ``--phase 21``, ``--phase 22`` and ``--phase
-23`` run that phase alone and build nothing (they launch no kernel).
+prints no contract lines); ``--phase 21``, ``--phase 22``, ``--phase
+23`` and ``--phase 25`` run that phase alone and build nothing (they
+launch no kernel).
 Phase 1 and 4 also hold every entry at BERT-base's attention shape
 (bf16, B=32, S=512, H=Hkv=12, D=64, non-causal: the scalar entries on the
 same inputs too), non-causal f32 at S=512, and a non-causal ragged S=300
@@ -436,6 +470,7 @@ import functools
 import gc
 import importlib.util
 import json
+import logging
 import math
 import os
 import signal
@@ -5166,6 +5201,504 @@ def phase_cluster_agent() -> dict:
     return report
 
 
+# Phase 25: the scheduler extender on the card's machine (host only: it
+# builds nothing and launches no kernel). (a) One admission from the
+# scheduler's webhooks to the pod's env: phase 23's cluster (50 nodes of 110
+# pods), the other 49 nodes holding EXTENDER_OTHER_UNITS of their 79 GiB so
+# the filter refuses each; this node's 16 share pods pending with no node.
+# (b) The sharded extender in process at the reference bench's largest scale
+# configuration (bench.py run_scale_bench at SCALE_NODE_COUNTS[-1] and
+# SCALE_SHARD_COUNTS[-1]: 1,000 nodes, 8 shards, fanout 2, 8 workers, 600
+# events, its seed), with a gang group every 40 arrivals (its storm's rate);
+# then the same router under the lock-order witness at WITNESSED_DRILL.
+# (c) The shard router's webhook process, killed in a cross-shard gang bind
+# and restarted on the same WALs.
+EXTENDER_BUDGET_S = 60.0
+EXTENDER_OTHER_UNITS = sum(CLUSTER_SHARE_UNITS) + 2  # 78 of 79: 1 GiB free
+SCALE_NODES, SCALE_SHARDS, SCALE_FANOUT, SCALE_WORKERS = 1000, 8, 2, 8
+SCALE_EVENTS, SCALE_GANG_EVERY, SCALE_SEED = 600, 40, 20260804
+# The lock-order witness roughly triples the scale run's host time (73 s
+# against 27 s on an 8-core CPU), past the phase's budget, so the bench's
+# numbers come from a run without it (as the bench takes them) and the
+# witness checks the bench's --scale-smoke settings with its storm's gang
+# rate (bench.py: 16 nodes, 2 shards, 80 events, 4 workers, a gang group
+# every 12 arrivals) at seed 0, as tests/test_torch_shards.py does.
+WITNESSED_DRILL = dict(nodes=16, shards=2, fanout=2, workers=4, events=80, gang_every=12,
+                       seed=0)
+ROUTER_SHARDS = 4
+ROUTER_GROUP = "h100-xg"
+# The router child: `python -m gpushare_device_plugin_tpu_torch.extender.shards`'s
+# main, run in a thread of a process that then drives one cross-shard gang
+# group through the router main built (the webhook has no verb for a gang
+# group: the reference drives them in process too). Blocked imports make
+# any torch import fail.
+ROUTER_CHILD = r'''
+import json, sys, threading, time
+for name in ("torch", "requests", "urllib3", "yaml"):
+    sys.modules[name] = None
+from gpushare_device_plugin_tpu_torch.extender import shards
+from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient
+from gpushare_device_plugin_tpu_torch.utils.faults import SimulatedCrash
+argv, members, n_nodes = json.loads(sys.argv[1])
+built = []
+init = shards.ShardRouter.__init__
+def capture(self, *a, **kw):
+    init(self, *a, **kw)
+    built.append(self)
+shards.ShardRouter.__init__ = capture
+threading.Thread(target=shards.main, args=(argv,), daemon=True).start()
+t = time.perf_counter()
+while time.perf_counter() - t < 20 and not (built and sum(
+        built[0].shards_doc()["ring"]["nodes_per_shard"].values()) == n_nodes and all(
+        s.core.ready() for s in built[0]._shards.values())):
+    time.sleep(0.02)
+api = ApiServerClient.from_env()
+pods = [api.get_pod("default", name) for name in members]
+try:
+    print("NO-CRASH", json.dumps(built[0].admit_gang_group(pods)), flush=True)
+except SimulatedCrash as e:
+    print("CRASHED", e, flush=True)
+time.sleep(60)  # the parent SIGKILLs this process
+'''
+
+
+def extender_seed_cluster(api, card_units: int) -> tuple[list[str], list[tuple[str, int]]]:
+    """Phase 23's cluster with this node's share pods pending unbound and
+    every other node at EXTENDER_OTHER_UNITS; -> (the node names, this
+    node's share pods as (name, units), oldest first)."""
+    names, share = [], []
+    for n in range(CLUSTER_NODES):
+        node = CLUSTER_NODE if n == 0 else f"h100-node-{n}"
+        names.append(node)
+        api.add_node(node, capacity={const.RESOURCE_MEM: str(card_units),
+                                     const.RESOURCE_COUNT: "1"})
+        prefix = "" if n == 0 else f"n{n}-"
+        units_list = CLUSTER_SHARE_UNITS if n == 0 else CLUSTER_SHARE_UNITS + [2]
+        for i, units in enumerate(units_list):
+            name = f"{prefix}share-{i}"
+            if n == 0:  # pending: the scheduler has not placed it
+                api.add_pod(cluster_pod(name, "", units, created=i))
+                share.append((name, units))
+            else:
+                ann = {**assumed_on_card0(units, card_units), const.ENV_ASSIGNED_FLAG: "true"}
+                api.add_pod(cluster_pod(name, node, units, phase="Running", annotations=ann,
+                                        labels={const.LABEL_RESOURCE_KEY:
+                                                const.LABEL_RESOURCE_VALUE}))
+        for i in range(CLUSTER_NODE_PODS - len(units_list)):
+            api.add_pod(cluster_pod(f"{prefix}plain-{i}", node, phase="Running", created=i))
+    return names, share
+
+
+def torch_imported(log_path: str) -> list[str]:
+    """The torch modules a child run with ``-X importtime`` loaded."""
+    loaded = [line.rsplit("|", 1)[-1].strip() for line in open(log_path).read().splitlines()
+              if line.startswith("import time:")]
+    return [m for m in loaded if m.split(".")[0] == "torch"]
+
+
+def extender_child(tmp: str, name: str, module: str, *args: str, faults: str = ""):
+    """``python -X importtime -m MODULE ARGS`` against the phase's kubeconfig,
+    logging to ``tmp/<name>.log``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(KUBECONFIG=os.path.join(tmp, "kubeconfig.json"), HOME=tmp,
+               TPUSHARE_FAULTS=faults)
+    log_path = os.path.join(tmp, f"{name}.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-X", "importtime", "-m", module, *args],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                stdout=log, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def wait_http(url: str, timeout: float, proc=None) -> float:
+    """Seconds until ``url`` answers 200 (raises past ``timeout``)."""
+    t = time.perf_counter()
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=2) as resp:
+                if resp.status == 200:
+                    return time.perf_counter() - t
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"{url}: the process exited {proc.returncode}")
+        if time.perf_counter() - t > timeout:
+            raise RuntimeError(f"{url} did not answer 200 within {timeout} s")
+        time.sleep(0.05)
+
+
+def post_json(url: str, body: dict) -> tuple[object, float]:
+    """POST ``body`` as JSON; -> (the reply, its ms)."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        out = json.loads(resp.read())
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def stop_child(proc, sig=signal.SIGTERM, timeout: float = 15) -> int:
+    maps = open(f"/proc/{proc.pid}/maps").read() if proc.poll() is None else ""
+    proc.send_signal(sig)
+    try:
+        code = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if "libtorch" in maps:
+        raise RuntimeError(f"pid {proc.pid} mapped libtorch")
+    return code
+
+
+def check_trace_tree(out: str, spans: list) -> str:
+    """Why ``inspect trace``'s render and spans are not one tree admission →
+    extender.bind → plugin.allocate, or ''."""
+    roots = [s["name"] for s in spans if not s.get("parent_id")]
+    ids = {s["span_id"] for s in spans}
+    by_id = {s["span_id"]: s for s in spans}
+    if roots != ["admission"] or any(s["parent_id"] not in ids for s in spans if s["parent_id"]):
+        return f"roots {roots}, orphans {[s['name'] for s in spans if s['parent_id'] and s['parent_id'] not in ids]}"
+    alloc = [s for s in spans if s["name"] == "plugin.allocate"]
+    if not alloc or by_id[alloc[0]["parent_id"]]["name"] != "extender.bind":
+        return "plugin.allocate is not under extender.bind"
+    if by_id[[s for s in spans if s["name"] == "extender.bind"][0]["parent_id"]]["name"] != "admission":
+        return "extender.bind is not under admission"
+    lines = out.splitlines()
+    order = [next((i for i, ln in enumerate(lines) if key in ln), -1)
+             for key in ("admission", "extender.bind", "plugin.allocate")]
+    if -1 in order or order != sorted(order) or sum(ln.startswith("admission") for ln in lines) != 1:
+        return f"the render's order {order}: {out[:800]}"
+    return ""
+
+
+def extender_admission(tmp: str, api, card_units: int, fail: list) -> dict:
+    """Phase 25 (a): the port's extender and daemon, two processes, one
+    admission of 16 pods from the webhooks to the env."""
+    from concurrent import futures
+
+    from gpushare_device_plugin_tpu_torch.extender import simcluster
+
+    node_names, share = extender_seed_cluster(api, card_units)
+    report: dict = {"pods": len(api.pods), "nodes": len(api.nodes)}
+    port, m1, m2 = free_port(), free_port(), free_port()
+    ext, ext_log = extender_child(
+        tmp, "extender", "gpushare_device_plugin_tpu_torch.extender.server", "--port",
+        str(port), "--host", "127.0.0.1", "--metrics-port", str(m1), "--checkpoint-path",
+        os.path.join(tmp, "extender-wal.ckpt"))
+    daemon = None
+    plugin_dir = os.path.join(tmp, "plugins")
+    os.makedirs(plugin_dir)
+    kubelet, kubelet_server = cluster_kubelet(plugin_dir)
+    try:
+        report["extender_ready_s"] = wait_http(f"http://127.0.0.1:{m1}/readyz", 20, ext)
+        daemon = ClusterDaemon(tmp, "daemon", kubelet, "--reconcile-interval", "0.5",
+                               "--metrics-port", str(m2))
+        url = f"http://127.0.0.1:{port}/scheduler"
+        nodes = [api.nodes[n] for n in node_names]
+        ms: dict[str, list] = {"filter": [], "prioritize": [], "bind": []}
+        for name, _ in share:
+            pod = api.pods[("default", name)]
+            got, t = post_json(f"{url}/filter", {"pod": pod, "nodes": {"items": nodes}})
+            ms["filter"].append(t)
+            fits = got.get("nodenames") or []
+            refused = sorted((got.get("failedNodes") or {}))
+            if fits != [CLUSTER_NODE] or len(refused) != CLUSTER_NODES - 1:
+                fail.append(f"(a) filter of {name}: fits {fits}, {len(refused)} refused")
+            scores, t = post_json(f"{url}/prioritize", {
+                "pod": pod, "nodes": {"items": [api.nodes[n] for n in fits]}})
+            ms["prioritize"].append(t)
+            top = max(scores, key=lambda e: e["score"])["host"] if scores else ""
+            out, t = post_json(f"{url}/bind", {"podName": name, "podNamespace": "default",
+                                               "podUID": pod["metadata"]["uid"], "node": top})
+            ms["bind"].append(t)
+            if out != {"error": ""}:
+                fail.append(f"(a) bind of {name} to {top!r}: {out}")
+        report["verb_ms"] = {v: {"p50": ceil_rank_quantile(x, 0.5), "p99": ceil_rank_quantile(x, 0.99),
+                                 "n": len(x)} for v, x in ms.items()}
+        bound = {n: api.pods[("default", n)]["spec"].get("nodeName") for n, _ in share}
+        if set(bound.values()) != {CLUSTER_NODE}:
+            fail.append(f"(a) pods bound elsewhere: {bound}")
+        assumed = {n: dict(api.pods[("default", n)]["metadata"]["annotations"]) for n, _ in share}
+        slices, at = [], 0
+        for _, units in share:
+            slices.append(daemon.mem_ids[at:at + units])
+            at += units
+
+        def timed_allocate(ids):
+            t = time.perf_counter()
+            envs = daemon.allocate(ids)
+            return envs, (time.perf_counter() - t) * 1e3
+
+        with futures.ThreadPoolExecutor(CLUSTER_WORKERS) as pool:
+            results = list(pool.map(timed_allocate, slices))
+        alloc_ms = [m for _, m in results]
+        report["allocate_ms"] = {"p50": ceil_rank_quantile(alloc_ms, 0.5),
+                                 "p99": ceil_rank_quantile(alloc_ms, 0.99)}
+        granted = sorted((e.get(const.ENV_MEM_IDX), e.get(const.ENV_MEM_POD)) for e, _ in results)
+        wrote = sorted((a.get(const.ENV_MEM_IDX), a.get(const.ENV_MEM_POD))
+                       for a in assumed.values())
+        if granted != wrote or any(i != "0" for i, _ in granted):
+            fail.append(f"(a) the envs' (card, units) {granted} are not the extender's {wrote}")
+        unassigned = [n for n, _ in share if api.pods[("default", n)]["metadata"][
+            "annotations"].get(const.ENV_ASSIGNED_FLAG) != "true"]
+        if unassigned:
+            fail.append(f"(a) pods not assigned: {unassigned}")
+        violations = simcluster.audit_cluster(list(api.nodes.values()), list(api.pods.values()))
+        report["audit"] = violations
+        if violations:
+            fail.append(f"(a) audit: {violations[:3]}")
+        first = share[0][0]
+        urls = ("--traces-url", f"http://127.0.0.1:{m1}", "--traces-url", f"http://127.0.0.1:{m2}")
+        text = inspect_child(tmp, "trace", f"default/{first}", *urls)
+        doc = inspect_child(tmp, "trace", f"default/{first}", *urls, "-o", "json")
+        report["trace"] = text["out"]
+        report["inspect_child_s"] = [text["seconds"], doc["seconds"]]
+        why = ("inspect failed" if text["rc"] or doc["rc"] or text["torch"] or doc["torch"]
+               else check_trace_tree(text["out"], json.loads(doc["out"])))
+        if why:
+            fail.append(f"(a) inspect trace: {why} {text['err']}{doc['err']}")
+        report["daemon"] = daemon.finish()
+        if report["daemon"]["exit"] != 0 or report["daemon"]["torch_mapped"]:
+            fail.append(f"(a) the daemon: {report['daemon']}")
+        report["extender_exit"] = stop_child(ext)
+        if report["extender_exit"] != 0:
+            fail.append(f"(a) the extender exited {report['extender_exit']} on SIGTERM")
+        report["extender_torch"] = torch_imported(ext_log)
+        if report["extender_torch"]:
+            fail.append(f"(a) the extender imported {report['extender_torch'][:3]}")
+    finally:
+        for proc in (ext, daemon.proc if daemon else None):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        kubelet_server.stop(0)
+        if fail:
+            fail.append("extender log: " + open(ext_log).read()[-1500:])
+    return report
+
+
+def extender_scale(tmp: str, fake, fail: list, label: str, *, nodes: int, shards: int,
+                   fanout: int, workers: int, events: int, gang_every: int, seed: int,
+                   witness: bool) -> dict:
+    """Phase 25 (b): the sharded extender in process over ``nodes``
+    ``make_cluster`` nodes, each shard with its own WAL, driven by the
+    churn simulator; ``witness`` creates every lock under the lock-order
+    witness."""
+    from gpushare_device_plugin_tpu_torch.allocator.checkpoint import AllocationCheckpoint
+    from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient
+    from gpushare_device_plugin_tpu_torch.cluster.informer import PodInformer
+    from gpushare_device_plugin_tpu_torch.extender import simcluster
+    from gpushare_device_plugin_tpu_torch.extender.shards import (
+        LeaderLease,
+        ShardExtender,
+        ShardRouter,
+        resolve_gang2pc,
+    )
+    from gpushare_device_plugin_tpu_torch.utils import lockrank
+
+    lockrank.set_witness(witness)
+    lockrank.reset_violations()
+    logging.disable(logging.WARNING)  # the churn's refused binds, one line each
+    api = fake.FakeApiServer(chaos=False)
+    catalog = simcluster.make_cluster(nodes, seed=seed)
+    for n in catalog:
+        api.nodes[n["metadata"]["name"]] = n
+    api.start()
+    informer = None
+    try:
+        client = ApiServerClient(api.url)
+        t = time.perf_counter()
+        informer = PodInformer(client).start(sync_timeout_s=60)
+        members = [ShardExtender(f"shard-{i}", client, informer=informer,
+                                 checkpoint=AllocationCheckpoint(
+                                     os.path.join(tmp, f"{label}-shard-{i}.wal")))
+                   for i in range(shards)]
+        lease = LeaderLease()
+        router = ShardRouter(members, fanout=fanout, lease=lease)
+        router.set_nodes(catalog)
+        setup_s = time.perf_counter() - t
+        driver = simcluster.ChurnDriver(
+            create_pod_fn=api.add_pod, delete_pod_fn=api.delete_pod, admit_fn=router.admit,
+            admit_gang_fn=router.admit_gang_group, seed=seed, gang_every=gang_every,
+            workers=workers)
+        stats = driver.run(events)
+        pods = client.list_pods()
+        violations = simcluster.audit_cluster(catalog, pods)
+        resolved = resolve_gang2pc(members, client, lease=lease)
+        pending = sum(len(s.twopc_pending()) for s in members)
+        found = lockrank.violations()
+        report = {"nodes": nodes, "shards": shards, "fanout": fanout, "workers": workers,
+                  "events": events, "gang_every": gang_every, "seed": seed,
+                  "lock_witness": witness, "setup_s": setup_s, "run_s": stats.wall_s,
+                  **simcluster.summarize(stats), "audit": violations[:5],
+                  "gang2pc_resolve": resolved, "gang2pc_pending_after": pending,
+                  "lock_violations": len(found)}
+        if violations:
+            fail.append(f"(b) {label}: audit {violations[:3]}")
+        if pending:
+            fail.append(f"(b) {label}: {pending} gang2pc entries left after resolve_gang2pc")
+        if stats.gang_groups <= 0 or stats.admitted <= 0:
+            fail.append(f"(b) {label}: nothing admitted or no gang group: "
+                        f"{simcluster.summarize(stats)}")
+        if found:
+            fail.append(f"(b) {label}: lock order {found[0].brief()}")
+        return report
+    finally:
+        if informer is not None:
+            informer.stop()
+        api.stop()
+        lockrank.set_witness(None)
+        lockrank.reset_violations()
+        logging.disable(logging.NOTSET)
+
+
+def extender_router(tmp: str, fake, fail: list) -> dict:
+    """Phase 25 (c): the shard router's process killed in a cross-shard gang
+    bind, and a second one on the same WALs."""
+    from gpushare_device_plugin_tpu_torch.extender import simcluster
+    from gpushare_device_plugin_tpu_torch.extender.shards import HashRing
+
+    api = fake.FakeApiServer(chaos=False)
+    ring, nodes, i = HashRing([f"shard-{i}" for i in range(ROUTER_SHARDS)]), {}, 0
+    while len(nodes) < ROUTER_SHARDS:  # one whole-node "2x1" slice a shard
+        name = f"xsn-{i:04d}"
+        i += 1
+        nodes.setdefault(ring.owner(name), simcluster.synth_node(name, "2x1", 2, 32))
+    for n in nodes.values():
+        api.nodes[n["metadata"]["name"]] = n
+    members = [f"{ROUTER_GROUP}-m{m}" for m in range(2)]
+    for name in members:
+        api.add_pod(cluster_pod(name, "", 64, annotations={
+            const.ANN_GANG_SHAPE: "2x1", const.ANN_GANG_GROUP: ROUTER_GROUP}))
+    api.start()
+    wal_dir = os.path.join(tmp, "router-wals")
+    report: dict = {}
+    procs = []
+    try:
+        kc = os.path.join(tmp, "kubeconfig.json")
+        with open(kc, "w") as f:
+            json.dump({"current-context": "fake",
+                       "contexts": [{"name": "fake", "context": {"cluster": "fake"}}],
+                       "clusters": [{"name": "fake", "cluster": {"server": api.url}}]}, f)
+        argv = ["--shards", str(ROUTER_SHARDS), "--checkpoint-dir", wal_dir, "--port",
+                str(free_port()), "--host", "127.0.0.1", "--metrics-port", str(free_port())]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(KUBECONFIG=kc, HOME=tmp, TPUSHARE_FAULTS="gang2pc.commit=crash:1")
+        t = time.perf_counter()
+        first = subprocess.Popen(
+            [sys.executable, "-c", ROUTER_CHILD, json.dumps([argv, members, len(nodes)])],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        procs.append(first)
+        lines = []
+        while first.poll() is None and time.perf_counter() - t < 30:
+            line = first.stdout.readline()
+            lines.append(line)
+            if line.startswith(("CRASHED", "NO-CRASH")):
+                break
+        report["crash"] = lines[-1].strip() if lines else ""
+        report["crash_s"] = time.perf_counter() - t
+        if not report["crash"].startswith("CRASHED"):
+            fail.append(f"(c) the router did not crash at gang2pc.commit: {''.join(lines)[-1500:]}")
+        first.kill()
+        first.wait()
+        journal = [json.loads(line) for w in sorted(os.listdir(wal_dir))
+                   for line in open(os.path.join(wal_dir, w)).read().splitlines() if line.strip()]
+        report["wal_records"] = len(journal)
+        before = [bool(api.pods[("default", m)]["metadata"].get("annotations", {}).get(
+            const.ENV_GANG_CHIPS)) for m in members]
+        report["members_bound_at_crash"] = before
+        m2 = free_port()
+        second, log2 = extender_child(
+            tmp, "router", "gpushare_device_plugin_tpu_torch.extender.shards", "--shards",
+            str(ROUTER_SHARDS), "--checkpoint-dir", wal_dir, "--port", str(free_port()),
+            "--host", "127.0.0.1", "--metrics-port", str(m2))
+        procs.append(second)
+        report["restart_ready_s"] = wait_http(f"http://127.0.0.1:{m2}/readyz", 20, second)
+        doc = {}
+        t = time.perf_counter()
+        while time.perf_counter() - t < 10:  # the catalog refresh has run
+            doc = json.loads(scrape(f"http://127.0.0.1:{m2}/shards"))
+            if sum(doc["ring"]["nodes_per_shard"].values()) == len(nodes):
+                break
+            time.sleep(0.05)
+        report["gangs_2pc_after"] = doc.get("gangs_2pc")
+        after = [bool(api.pods[("default", m)]["metadata"].get("annotations", {}).get(
+            const.ENV_GANG_CHIPS)) for m in members]
+        report["members_bound_after"] = after
+        # the decision was durable before the crash: the group rolls forward
+        if doc.get("gangs_2pc") or not all(after):
+            fail.append(f"(c) after the restart: gangs in flight {doc.get('gangs_2pc')}, "
+                        f"members bound {after} (at the crash {before})")
+        violations = simcluster.audit_cluster(list(nodes.values()), list(api.pods.values()))
+        if violations:
+            fail.append(f"(c) audit: {violations[:3]}")
+        shown = inspect_child(tmp, "shards", "--shards-url", f"http://127.0.0.1:{m2}")
+        report["inspect_shards"] = shown["out"]
+        if (shown["rc"] or shown["torch"]
+                or f"shard map — {ROUTER_SHARDS} shard(s)" not in shown["out"]):
+            fail.append(f"(c) inspect shards: rc {shown['rc']}, torch {shown['torch'][:3]}: "
+                        f"{shown['out']}{shown['err']}")
+        report["router_exit"] = stop_child(second)
+        report["router_torch"] = torch_imported(log2)
+        if report["router_exit"] != 0 or report["router_torch"]:
+            fail.append(f"(c) the router exited {report['router_exit']}, imported "
+                        f"{report['router_torch'][:3]}: {open(log2).read()[-1500:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        api.stop()
+    return report
+
+
+def phase_extender() -> dict:
+    """Phase 25: the port's scheduler extender on the card's machine, host
+    only. Returns the report."""
+    print("phase 25: the scheduler extender (webhooks to env, the sharded router at "
+          "1,000 nodes, the router's crash and restart)", flush=True)
+    t_phase = time.perf_counter()
+    fake = load_fake_apiserver()
+    card_units = card_gib()
+    fail: list[str] = []
+    report: dict = {"card": smi_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        api = fake.FakeApiServer()
+        api.start()
+        try:
+            with open(os.path.join(tmp, "kubeconfig.json"), "w") as f:
+                json.dump({"current-context": "fake",
+                           "contexts": [{"name": "fake", "context": {"cluster": "fake"}}],
+                           "clusters": [{"name": "fake", "cluster": {"server": api.url}}]}, f)
+            t = time.perf_counter()
+            report["a"] = extender_admission(tmp, api, card_units, fail)
+            report["a"]["seconds"] = time.perf_counter() - t
+        finally:
+            api.stop()
+        t = time.perf_counter()
+        report["b"] = extender_scale(
+            tmp, fake, fail, "scale", nodes=SCALE_NODES, shards=SCALE_SHARDS,
+            fanout=SCALE_FANOUT, workers=SCALE_WORKERS, events=SCALE_EVENTS,
+            gang_every=SCALE_GANG_EVERY, seed=SCALE_SEED, witness=False)
+        report["b"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        report["b_witnessed"] = extender_scale(tmp, fake, fail, "witnessed", **WITNESSED_DRILL,
+                                               witness=True)
+        report["b_witnessed"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        report["c"] = extender_router(tmp, fake, fail)
+        report["c"]["seconds"] = time.perf_counter() - t
+    report["seconds"] = time.perf_counter() - t_phase
+    if report["seconds"] >= EXTENDER_BUDGET_S:
+        fail.append(f"the phase took {report['seconds']:.2f} s, not under {EXTENDER_BUDGET_S}")
+    print("  phase 25", json.dumps(report, default=str), flush=True)
+    if fail:
+        raise SystemExit("phase 25 failed: " + "; ".join(fail))
+    return report
+
+
 # Phase 24: a live defragmentation move of a serving pod's slice.
 DEFRAG_LAYERS = 4  # phase 2's weights cut to their first 4 layers
 DEFRAG_SLICE_UNITS = 8
@@ -5401,10 +5934,10 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24, 25),
                     help="build the kernels and run only this phase (a quick check; "
-                         "the contract's lines are not printed); phases 21, 22 and 23 "
-                         "build nothing")
+                         "the contract's lines are not printed); phases 21, 22, 23 and "
+                         "25 build nothing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5428,6 +5961,11 @@ def main(argv: list[str]) -> int:
     if args.phase == 23:
         report = phase_cluster_agent()
         print(f"phase 23: {report['seconds']:.2f} s; chip_smoke: "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+        return 0
+    if args.phase == 25:
+        report = phase_extender()
+        print(f"phase 25: {report['seconds']:.2f} s; chip_smoke: "
               f"{time.perf_counter() - t_script:.1f} s", flush=True)
         return 0
     seconds = {}  # each phase's, printed on one line before the script's
@@ -5471,6 +6009,7 @@ def main(argv: list[str]) -> int:
     grants, _ = timed("21", phase_plugin)
     timed("22", phase_node_agent)
     timed("23", phase_cluster_agent)
+    timed("25", phase_extender)
 
     serve_launches, serve_decode_p50_ms, params, cfg = timed("2-3", phase_serve, gen)
     paged_launches = timed(

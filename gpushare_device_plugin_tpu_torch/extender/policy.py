@@ -1,8 +1,8 @@
 """Pluggable placement policies behind one registration point.
 
 Counterpart of ``gpushare_device_plugin_tpu/extender/policy.py``, copied
-whole; it is the port's only ``extender`` module (the rest of the
-extender is the reference's control plane). A policy sees one
+whole; the extender's scoring (``logic.py``) and the fleet router both go
+through it. A policy sees one
 candidate's placement evidence (:class:`PolicyView`: the decisive chip's
 free units, the node's whole free vector, for gang slices the topology
 objective components, and for fleet routing the prefix pages the

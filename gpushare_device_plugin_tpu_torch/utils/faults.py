@@ -50,7 +50,17 @@ stalls, flaps or "crashes" exactly there.
                         roll-forward boundary)
 ``scale.release``       after the "release" record is durable, before the
                         replica leaves the membership
+``gang2pc.prepare``     after a gang member's 2PC prepare record is durable
+``gang2pc.reserve``     after the member's ledger booking and side-state
+``gang2pc.decide``      after the coordinator's commit decision is durable
+``gang2pc.patch``       after a member's annotations and Binding persisted
+``gang2pc.commit``      after a member's journal entry resolved
+``gang2pc.done``        after every member, before the decision resolves
 ==========================================================================
+
+The ``gang2pc`` points fire where the reference's sharded extender fires
+them; the reference does not list them, so only the port's
+``TPUSHARE_FAULTS`` arms them in a live router process.
 
 Each point sits immediately *after* a journal step takes durable effect,
 so arming it with the ``crash`` mode leaves the files exactly as a
@@ -119,6 +129,12 @@ POINTS = (
     "scale.drain",
     "scale.migrate",
     "scale.release",
+    "gang2pc.prepare",
+    "gang2pc.reserve",
+    "gang2pc.decide",
+    "gang2pc.patch",
+    "gang2pc.commit",
+    "gang2pc.done",
 )
 
 

@@ -10,7 +10,9 @@ writer, the assume cache, the SLO budget, the decision log, the fleet's
 router, membership and scale executor, the KV handoff's ledger and peer
 client, the circuit breaker, the fault table, the page allocator, the
 device plugin's stream condition, health watcher and standalone allocator,
-and the node agent's timeline ring and flight recorder).
+the node agent's timeline ring and flight recorder, and the scheduler
+extender's decision lock, usage index, shard router, coordinator lease,
+2PC side-state, churn simulator and admission-trace registry).
 Each entry is the reference's: same name, rank, kind, I/O rule and reason.
 
 - :data:`RANKS`: a total order. A thread may only acquire a lock whose
@@ -65,6 +67,31 @@ RANKS: dict[str, LockRank] = dict((
        "(AssumeCache.serial_lock): wraps an entire admission, PATCH "
        "included, so it outranks everything and is the one lock "
        "allowed to cover the full I/O flow."),
+    _r("extender.lease", 16, "lock", False,
+       "LeaderLease's per-gang-group coordinator epochs (the 2PC "
+       "fencing tokens). Pure memory, acquired before any shard "
+       "verb runs — outermost of the shard-layer locks."),
+    _r("extender.router", 17, "lock", False,
+       "ShardRouter's cached shard summaries + degraded-shard "
+       "bookkeeping. Never held across a shard verb call (those "
+       "acquire extender.core and the ledger further down-rank)."),
+    _r("extender.simchurn", 19, "lock", False,
+       "ChurnDriver's stats/death-heap guard (the scale bench's "
+       "simulated-cluster worker pool). Held around counter and "
+       "heap flips only — admissions, apiserver calls, and shard "
+       "verbs all run with it released."),
+    _r("extender.core", 20, "rlock", False,
+       "ExtenderCore's decision lock: guards the in-flight overlay "
+       "and the view cache while a bind decision is made. In-memory "
+       "only by design — a network or fsync wait here serializes "
+       "every bind in the cluster behind one I/O."),
+    _r("extender.twopc", 21, "lock", False,
+       "ShardExtender's 2PC side-state (gang2pc reservation key -> "
+       "node map, seen coordinator epochs). Read by the shard's "
+       "usage-overlay hook while the core's decision lock (rank 20) "
+       "is held, so it sits just above extender.core; the journal "
+       "write and the ledger reserve run outside it, strictly "
+       "up-rank."),
     _r("allocator.match", 22, "lock", True,
        "Per-size match stripes (ClusterAllocator/_CoreAllocator): "
        "serialize same-size matches. May refresh() the pod source "
@@ -97,6 +124,9 @@ RANKS: dict[str, LockRank] = dict((
     _r("cluster.podindex", 61, "lock", False,
        "Bucketed pod-set indexes (pending-by-resource, "
        "labeled-by-value); same nesting as cluster.usage."),
+    _r("extender.usageindex", 62, "lock", False,
+       "ClusterUsageIndex per-node aggregates + generations; "
+       "maintained under informer.cache, read under extender.core."),
     _r("cluster.interference", 63, "lock", False,
        "InterferenceDetector's baseline/report state: per-victim "
        "solo-window step-p99 baselines and the last pass's verdicts. "
@@ -188,6 +218,11 @@ RANKS: dict[str, LockRank] = dict((
     _r("faults.registry", 90, "lock", False,
        "Fault-injection rule table; fire() sites run everywhere, "
        "so this must be a near-leaf."),
+    _r("tracing.admissions", 92, "lock", False,
+       "AdmissionTraces' per-pod root-span registry: correlates the "
+       "extender's separate webhook verbs into one trace. Ends "
+       "spans (which append to tracing.store, rank 93) under it, "
+       "so it sits just below the store."),
     _r("flightrec.ring", 94, "lock", False,
        "FlightRecorder's bounded log-record ring: fed from a "
        "logging handler, which can run under any lock that logs. "

@@ -12,8 +12,9 @@ cut to the families of the port's modules:
 - the node agent: Allocate's latency and outcomes, the allocators' lock
   waits, the health watcher, the pod informer, the apiserver PATCH
   pipeline, node events, the drift reconciler, live defragmentation and
-  the interference detector (and the gang two-phase commit's counter,
-  which the scheduler extender emits).
+  the interference detector;
+- the scheduler extender: its verbs' latency and outcomes, its view
+  source and the sharded router's gang two-phase commit.
 
 Names, types and label sets are the reference's letter for letter, so
 the reference control plane's scrapers (``cluster/interference.py``, the
@@ -86,9 +87,13 @@ ENGINE_SPEC_ROLLBACK_PAGES_TOTAL = "tpushare_engine_spec_rollback_pages_total"
 ENGINE_STEP_P50_SECONDS = "tpushare_engine_step_p50_seconds"
 ENGINE_STEP_P99_SECONDS = "tpushare_engine_step_p99_seconds"
 ENGINE_STEP_SECONDS = "tpushare_engine_step_seconds"
+EXTENDER_VERB_SECONDS = "tpushare_extender_verb_seconds"
+EXTENDER_VERB_TOTAL = "tpushare_extender_verb_total"
+EXTENDER_VIEW_TOTAL = "tpushare_extender_view_total"
 FLEET_DRAIN_MIGRATED_REQUESTS_TOTAL = "tpushare_fleet_drain_migrated_requests_total"
 FLEET_REPLICAS = "tpushare_fleet_replicas"
 FLEET_SCALE_OPS_TOTAL = "tpushare_fleet_scale_ops_total"
+GANG2PC_TOTAL = "tpushare_gang2pc_total"
 GOVERNOR_ENGAGED = "tpushare_governor_engaged"
 GOVERNOR_ENGAGEMENTS_TOTAL = "tpushare_governor_engagements_total"
 GOVERNOR_THROTTLE_SECONDS_TOTAL = "tpushare_governor_throttle_seconds_total"
@@ -98,7 +103,6 @@ HANDOFF_FALLBACK_REPREFILL_TOTAL = "tpushare_handoff_fallback_reprefill_total"
 HANDOFF_PAGES_IN_FLIGHT = "tpushare_handoff_pages_in_flight"
 HANDOFF_TRANSFER_SECONDS = "tpushare_handoff_transfer_seconds"
 HANDOFF_TRANSFERS_TOTAL = "tpushare_handoff_transfers_total"
-GANG2PC_TOTAL = "tpushare_gang2pc_total"
 HEALTH_EVENTS_TOTAL = "tpushare_health_events_total"
 HEALTH_WATCHER_RESTARTS_TOTAL = "tpushare_health_watcher_restarts_total"
 INFORMER_APPLY_BATCH_EVENTS = "tpushare_informer_apply_batch_events"
@@ -173,9 +177,13 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(ENGINE_STEP_P50_SECONDS, GAUGE, "pod"),
     _m(ENGINE_STEP_P99_SECONDS, GAUGE, "pod"),
     _m(ENGINE_STEP_SECONDS, HISTOGRAM, "pod"),
+    _m(EXTENDER_VERB_SECONDS, HISTOGRAM, "verb"),
+    _m(EXTENDER_VERB_TOTAL, COUNTER, "verb", "outcome"),
+    _m(EXTENDER_VIEW_TOTAL, COUNTER, "outcome"),
     _m(FLEET_DRAIN_MIGRATED_REQUESTS_TOTAL, COUNTER, "pod"),
     _m(FLEET_REPLICAS, GAUGE, "state", "pod"),
     _m(FLEET_SCALE_OPS_TOTAL, COUNTER, "outcome", "pod"),
+    _m(GANG2PC_TOTAL, COUNTER, "phase", "outcome"),
     _m(GOVERNOR_ENGAGED, GAUGE, "pod"),
     _m(GOVERNOR_ENGAGEMENTS_TOTAL, COUNTER, "pod"),
     _m(GOVERNOR_THROTTLE_SECONDS_TOTAL, COUNTER, "pod"),
@@ -185,7 +193,6 @@ CATALOG: dict[str, MetricSpec] = dict((
     _m(HANDOFF_PAGES_IN_FLIGHT, GAUGE, "pod"),
     _m(HANDOFF_TRANSFER_SECONDS, HISTOGRAM, "pod"),
     _m(HANDOFF_TRANSFERS_TOTAL, COUNTER, "outcome", "pod"),
-    _m(GANG2PC_TOTAL, COUNTER, "phase", "outcome"),
     _m(HEALTH_EVENTS_TOTAL, COUNTER, "health", "severity"),
     _m(HEALTH_WATCHER_RESTARTS_TOTAL, COUNTER),
     _m(INFORMER_APPLY_BATCH_EVENTS, HISTOGRAM, "scope"),

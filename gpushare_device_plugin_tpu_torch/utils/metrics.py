@@ -282,15 +282,23 @@ class MetricsServer:
     ``/traces`` (the trace store as OTLP-JSON; ``?trace_id=`` narrows to
     one trace), ``/decisions`` (the decision-provenance ring as JSON;
     ``?pod=ns/name`` and ``?verb=`` narrow), ``/timeline`` (the
-    cluster-state timeline ring), ``/healthz`` (liveness: 200 while the
-    server thread runs) and ``/readyz``, which consults ``ready_fn``: 200
-    when it returns truthy, 503 otherwise (the daemon's probe gates on
-    plugin registration)."""
+    cluster-state timeline ring), ``/shards`` (the shard router's shard
+    map: ring ownership, each shard's WAL seq and queue depth, the 2PC
+    gangs in flight; what ``inspect shards`` fetches) when
+    ``shards_doc_fn`` is wired, 404 otherwise, ``/fleet`` (the fleet
+    router's replica map, outcomes, scale state and prefix-hit ratio; what
+    ``inspect fleet`` fetches) when ``fleet_doc_fn`` is wired, 404
+    otherwise, ``/healthz`` (liveness: 200 while the server thread runs)
+    and ``/readyz``, which consults ``ready_fn``: 200 when it returns
+    truthy, 503 otherwise (the extender's probe gates on informer sync and
+    WAL replay, the daemon's on plugin registration)."""
 
     def __init__(self, registry: MetricsRegistry = REGISTRY, host: str = "0.0.0.0",
                  port: int = 0, trace_store: "tracing.TraceStore | None" = None,
                  decisions: Any = None, timeline: Any = None,
-                 ready_fn: Callable[[], bool] | None = None) -> None:
+                 ready_fn: Callable[[], bool] | None = None,
+                 shards_doc_fn: Callable[[], dict] | None = None,
+                 fleet_doc_fn: Callable[[], dict] | None = None) -> None:
         self._registry = registry
         self._host = host
         self._port = port
@@ -306,6 +314,8 @@ class MetricsServer:
             timeline = TIMELINE
         self._timeline = timeline
         self._ready_fn = ready_fn
+        self._shards_doc_fn = shards_doc_fn
+        self._fleet_doc_fn = fleet_doc_fn
         self._server: ThreadingHTTPServer | None = None
 
     @property
@@ -319,6 +329,8 @@ class MetricsServer:
         decisions = self._decisions
         timeline = self._timeline
         ready_fn = self._ready_fn
+        shards_doc_fn = self._shards_doc_fn
+        fleet_doc_fn = self._fleet_doc_fn
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -353,6 +365,10 @@ class MetricsServer:
                 elif url.path == "/timeline":
                     self._reply(200, "application/json",
                                 json.dumps(timeline.to_doc()).encode())
+                elif url.path == "/shards" and shards_doc_fn is not None:
+                    self._reply(200, "application/json", json.dumps(shards_doc_fn()).encode())
+                elif url.path == "/fleet" and fleet_doc_fn is not None:
+                    self._reply(200, "application/json", json.dumps(fleet_doc_fn()).encode())
                 elif url.path == "/healthz":
                     self._reply(200, "text/plain", b"ok\n")
                 elif url.path == "/readyz":

@@ -1,8 +1,6 @@
 """Zero-dependency tracing for the serving path, OpenTelemetry-shaped.
 
-Counterpart of ``gpushare_device_plugin_tpu/utils/tracing.py`` (the
-pod's half; the extender's ``AdmissionTraces`` stays with the control
-plane):
+Counterpart of ``gpushare_device_plugin_tpu/utils/tracing.py``:
 
 - :class:`Span` / :class:`SpanContext`: one timed operation with a
   128-bit trace id, a 64-bit span id, a parent link, attributes and
@@ -30,6 +28,12 @@ import threading
 import time
 from collections import OrderedDict
 from typing import Any, Iterator
+
+from .lockrank import make_lock
+
+# The annotation carrying "trace_id:span_id" from the extender to the node
+# agent (const.ANN_TRACE_ID holds the same string).
+TRACE_ANNOTATION = "tpushare.aliyun.com/trace-id"
 
 STATUS_OK = "ok"
 STATUS_ERROR = "error"
@@ -489,9 +493,71 @@ class Tracer:
         return True
 
 
-# One store and one tracer per process, as the metrics REGISTRY.
+class AdmissionTraces:
+    """Per-pod admission root spans: what makes the extender's separate
+    filter, prioritize and bind webhook calls one trace.
+
+    ``root(ns, name)`` starts (or returns) the pod's admission root span
+    context; each verb parents its own span under it. ``finish`` ends the
+    root. Bounded and TTL'd: a pod filtered but never bound must not pin a
+    span forever, so a stale root ends with status ``unfinished`` when it
+    is evicted."""
+
+    def __init__(self, tracer: Tracer, max_pods: int = 512, ttl_s: float = 300.0) -> None:
+        self._tracer = tracer
+        self._max = max_pods
+        self._ttl = ttl_s
+        self._lock = make_lock("tracing.admissions")
+        self._roots: OrderedDict[tuple[str, str], tuple[Span, float]] = OrderedDict()
+
+    def root(self, namespace: str, name: str,
+             attributes: dict[str, Any] | None = None) -> SpanContext | None:
+        """The pod's admission root context, created on first touch. None
+        when the trace was not sampled (every verb's span then no-ops)."""
+        key = (namespace, name)
+        now = time.monotonic()
+        evicted: list[Span] = []
+        with self._lock:
+            entry = self._roots.get(key)
+            if entry is not None and now - entry[1] <= self._ttl:
+                # a pod going filter -> prioritize -> bind must not be the
+                # one that max_pods pressure evicts
+                self._roots.move_to_end(key)
+                span = entry[0]
+            else:
+                if entry is not None:  # stale: end the old incarnation
+                    evicted.append(entry[0])
+                    self._roots.pop(key, None)
+                span = self._tracer.start_span(
+                    "admission", parent=None,
+                    attributes={"pod": f"{namespace}/{name}", **(attributes or {})})
+                if span.recording:
+                    self._roots[key] = (span, now)
+                while len(self._roots) > self._max:
+                    _, (old, _stamp) = self._roots.popitem(last=False)
+                    evicted.append(old)
+        for old in evicted:
+            old.end("unfinished")
+        if not span.recording:
+            return None
+        return span.context()
+
+    def finish(self, namespace: str, name: str, status: str = STATUS_OK) -> None:
+        with self._lock:
+            entry = self._roots.pop((namespace, name), None)
+        if entry is not None:
+            entry[0].end(status)
+
+    def open_count(self) -> int:
+        with self._lock:
+            return len(self._roots)
+
+
+# One store, one tracer and one admission registry per process, as the
+# metrics REGISTRY.
 STORE = TraceStore()
 TRACER = Tracer(store=STORE)
+ADMISSIONS = AdmissionTraces(TRACER)
 
 
 def current_trace_ids() -> tuple[str, str] | None:

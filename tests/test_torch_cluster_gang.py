@@ -1,10 +1,12 @@
 """Gang admission: the port's ClusterAllocator against the reference's.
 
-The reference's ``tests/test_gang_alloc.py`` cases that need no extender run
-on each package (``torch_cluster_mirror``). Then the reference's own
-``extender.server.ExtenderCore`` binds gangs on a ``FakeApiServer``, and each
-package's allocator admits what it assumed, from the same state: the same
-member chips, envs, PATCH bodies and ledger (``cluster_chip_state``).
+The reference's ``tests/test_gang_alloc.py`` cases run on each package
+(``torch_cluster_mirror``), its extender cases on each package's own
+``ExtenderCore``. Then one package's ``extender.server.ExtenderCore`` binds
+gangs on a ``FakeApiServer``, and each package's allocator admits what it
+assumed, from the same state: the same member chips, envs, PATCH bodies and
+ledger (``cluster_chip_state``); the reference's extender first, then the
+port's.
 """
 
 import copy
@@ -14,7 +16,6 @@ import numpy as np
 import pytest
 
 from gpushare_device_plugin_tpu import const
-from gpushare_device_plugin_tpu.extender.server import ExtenderCore
 
 from fake_apiserver import FakeApiServer
 from k8s_fixtures import make_pod
@@ -36,7 +37,16 @@ GANG = [
 ]
 
 
-@pytest.mark.parametrize("name, params", cases("test_gang_alloc", GANG))
+EXTENDER = [
+    "test_extender_gang_bind_persists_whole_gang",
+    "test_extender_inflight_gang_blocks_double_booking",
+    "test_extender_filter_rejects_unfittable_gang",
+    "test_extender_gang_scores_rank_packing",
+    "test_extender_batch_verb_uses_gang_semantics",
+]
+
+
+@pytest.mark.parametrize("name, params", cases("test_gang_alloc", GANG + EXTENDER))
 def test_gang_alloc_matches_reference(name, params, tmp_path_factory):
     mirror_case("test_gang_alloc", name, params, tmp_path_factory)
 
@@ -55,7 +65,7 @@ def _node(chips: int, units: int, label: str) -> dict:
 def _admit(pkg: str, pods: dict, node: dict, chips: int, units: int, order: list):
     """One package's allocator admits ``order`` from a fresh apiserver
     holding ``pods`` (what the extender bound). -> (envs or refusals, the
-    pods' annotations, the ledger)."""
+    pods' annotations, the PATCH bodies, the ledger)."""
     m = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
     api = FakeApiServer()
     api.nodes[NODE] = copy.deepcopy(node)
@@ -81,9 +91,40 @@ def _admit(pkg: str, pods: dict, node: dict, chips: int, units: int, order: list
                 out.append(("refused", str(e)))
         anns = {k[1]: p["metadata"].get("annotations") for k, p in api.pods.items()}
         state = cl.cluster_chip_state(src)()
-        return normalize({"admitted": out, "annotations": anns, "ledger": [state[0], sorted(state[1])]})
+        return normalize({"admitted": out, "annotations": anns, "patches": copy.deepcopy(api.patch_log),
+                          "ledger": [state[0], sorted(state[1])]})
     finally:
         api.stop()
+
+
+def _extender_binds(pkg: str, rng, node: dict) -> tuple[list, dict]:
+    """``pkg``'s ExtenderCore binds six random gangs on a fresh apiserver;
+    -> (the names bound, their pods as the extender left them)."""
+    m = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+    api = FakeApiServer()
+    api.nodes[NODE] = node
+    api.start()
+    bound = []
+    try:
+        client = m("cluster.apiserver").ApiServerClient(api.url)
+        informer = m("cluster.informer").PodInformer(client).start(sync_timeout_s=10)
+        core = m("extender.server").ExtenderCore(client, informer=informer)
+        shapes = ["2x1x1", "1x2x1", "2x2x1", "2", "4", "1"]
+        for i in range(6):
+            shape = shapes[int(rng.integers(len(shapes)))]
+            size = int(np.prod([int(x) for x in shape.split("x")]))
+            per = int(rng.choice([2, 4, 8]))
+            name = f"g{i}"
+            pod = make_pod(name, per * size, node="",
+                           annotations={const.ANN_GANG_SHAPE: shape})
+            api.add_pod(pod)
+            if core.bind({"podNamespace": "default", "podName": name, "node": NODE}) == {"error": ""}:
+                bound.append(name)
+        informer.stop()
+        pods = {k[1]: copy.deepcopy(p) for k, p in api.pods.items() if k[1] in bound}
+    finally:
+        api.stop()
+    return bound, pods
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -98,6 +139,7 @@ def test_port_admits_what_the_reference_extender_assumed(seed):
     try:
         from gpushare_device_plugin_tpu.cluster.apiserver import ApiServerClient
         from gpushare_device_plugin_tpu.cluster.informer import PodInformer
+        from gpushare_device_plugin_tpu.extender.server import ExtenderCore
 
         client = ApiServerClient(api.url)
         informer = PodInformer(client).start(sync_timeout_s=10)
@@ -127,6 +169,31 @@ def test_port_admits_what_the_reference_extender_assumed(seed):
     assert all(kind == "ok" for kind, _ in ref["admitted"])
     # kubelet names only a unit count, so a grant matches the oldest pod
     # of that size: the member sets granted are the ones the extender bound
+    granted = sorted(envs[const.ENV_GANG_CHIPS] for _, envs in ref["admitted"])
+    assumed = sorted(p["metadata"]["annotations"][const.ENV_GANG_CHIPS] for p in pods.values())
+    assert granted == assumed
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_reference_admits_what_the_port_extender_assumed(seed):
+    """The reverse: the port's extender binds the gangs, each package's
+    allocator admits them with the same member chips, envs, PATCH bodies and
+    ledger, and the port's extender wrote what the reference's writes from
+    the same draws."""
+    chips, units, label = 8, 32, "2x2x2"
+    node = _node(chips, units, label)
+    bound, pods = _extender_binds(PORT, np.random.default_rng(seed), node)
+    ref_bound, ref_pods = _extender_binds(REF, np.random.default_rng(seed), _node(chips, units, label))
+    assert bound, "the extender bound no gang"
+    assert bound == ref_bound
+    assert normalize({k: p["metadata"]["annotations"] for k, p in pods.items()}) == normalize(
+        {k: p["metadata"]["annotations"] for k, p in ref_pods.items()})
+    rng = np.random.default_rng(seed + 100)
+    order = list(rng.permutation(bound))
+    ref = _admit(REF, pods, node, chips, units, order)
+    port = _admit(PORT, pods, node, chips, units, order)
+    assert port == ref
+    assert all(kind == "ok" for kind, _ in ref["admitted"])
     granted = sorted(envs[const.ENV_GANG_CHIPS] for _, envs in ref["admitted"])
     assumed = sorted(p["metadata"]["annotations"][const.ENV_GANG_CHIPS] for p in pods.values())
     assert granted == assumed

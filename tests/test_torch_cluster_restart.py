@@ -4,8 +4,8 @@ manager's crash recovery, the port against the reference.
 The reference's cases run on each package through ``torch_cluster_mirror``
 (``tests/test_checkpoint.py`` without the compaction case, which is the WAL
 format the port carried since the KV handoff; ``tests/test_reconciler.py``;
-``tests/test_restart_recovery.py`` without the three extender cases), and
-their wire records (PATCH bodies, annotations, the fence generation on the
+``tests/test_restart_recovery.py``, its three extender cases on each
+package's own ``ExtenderCore`` and bind WAL), and their wire records (PATCH bodies, annotations, the fence generation on the
 node, events, envs and refusals) must be equal.
 """
 
@@ -54,6 +54,9 @@ RECOVERY = [
     "test_manager_replays_and_reconciler_resolves",
     "test_plugin_socket_vanish_triggers_reregistration",
     "test_graceful_drain_finishes_inflight_allocate",
+    "test_extender_warmup_ages_out_stale_entries",
+    "test_extender_warmup_serves_from_checkpoint",
+    "test_expired_bind_abort_journals_outside_the_decision_lock",
 ]
 
 

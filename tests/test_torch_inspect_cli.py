@@ -3,9 +3,8 @@
 The reference's ``tests/test_inspect_cli.py`` (goldens included) runs on
 each package through ``torch_cluster_mirror``, and what each run printed
 must be byte-equal, with the same apiserver traffic. Its ``shards`` and
-``fleet`` cases keep the reference's ``MetricsServer``: the ``/shards``
-and ``/fleet`` routes come with the port's scheduler extender, and the
-port's CLI only renders what they serve. The ``why``, ``timeline``,
+``fleet`` cases run on the port's own ``MetricsServer`` and its
+``/shards`` and ``/fleet`` routes. The ``why``, ``timeline``,
 ``trace`` and ``flightrecord`` views are held to the reference's goldens,
 then driven end to end through both packages' CLIs against the port's
 own endpoints and dumps, whose renders must be byte-equal.
@@ -105,7 +104,7 @@ def _fast_apiserver_teardown(monkeypatch):
 @pytest.mark.parametrize("name, params", cases("test_inspect_cli", INSPECT))
 def test_inspect_cli_matches_reference(name, params, tmp_path_factory):
     mirror_case("test_inspect_cli", name, params, tmp_path_factory,
-                compare=("servers", "allocations", "output"), keep=("utils.metrics",))
+                compare=("servers", "allocations", "output"))
 
 
 def test_every_reference_inspect_test_is_mirrored():

@@ -2,8 +2,8 @@
 reference.
 
 The reference's ``tests/test_interference.py`` runs on each package
-through ``torch_cluster_mirror`` (the extender's usage index, which the
-port lacks, stays the reference's in both runs), and the wire records
+through ``torch_cluster_mirror`` (the extender's usage index each
+package's own), and the wire records
 (the interference node annotation among them) must be equal. Then the
 port's pieces meet the reference's across the wire: each package's
 ``step_p99s_from_urls`` scrapes the other's ``/metrics``, each reads

@@ -62,8 +62,9 @@ def both(scenario):
 
 def test_catalog_families_are_the_references_letter_for_letter():
     # with the node agent's cluster half's 12, then its loops' 6 (defrag,
-    # interference, the gang two-phase commit's counter)
-    assert len(Cat.CATALOG) == 76
+    # interference, the gang two-phase commit's counter), then the
+    # scheduler extender's 3
+    assert len(Cat.CATALOG) == 79
     for name, spec in Cat.CATALOG.items():
         ref = JCat.CATALOG[name]
         assert (spec.name, spec.type, spec.labels) == (ref.name, ref.type, ref.labels)
@@ -72,11 +73,12 @@ def test_catalog_families_are_the_references_letter_for_letter():
     assert consts and all(getattr(JCat, k) == v for k, v in consts.items())
     assert "tpushare_allocate_total" in Cat.CATALOG  # the device plugin's own family
     assert "tpushare_reconcile_drift_total" in Cat.CATALOG  # the node agent's cluster half
-    assert "tpushare_extender_verb_total" not in Cat.CATALOG  # the cluster control plane's
-    # every reference family but the extender's three is declared
-    missing = set(JCat.CATALOG) - set(Cat.CATALOG)
-    assert missing == {JCat.EXTENDER_VERB_SECONDS, JCat.EXTENDER_VERB_TOTAL,
-                       JCat.EXTENDER_VIEW_TOTAL}, missing
+    assert "tpushare_extender_verb_total" in Cat.CATALOG  # the cluster control plane's
+    # every reference family is declared, and so is every family const
+    assert set(JCat.CATALOG) == set(Cat.CATALOG)
+    jconsts = {k: v for k, v in vars(JCat).items() if k.isupper() and isinstance(v, str)
+               and v.startswith("tpushare_")}
+    assert jconsts == consts
     port, ref = Cat.spec_of(Cat.DEFRAG_MOVES_TOTAL), JCat.spec_of(JCat.DEFRAG_MOVES_TOTAL)
     assert (port.name, port.type, port.labels) == (ref.name, ref.type, ref.labels)
     with pytest.raises(ValueError, match="unknown metric family"):
@@ -307,7 +309,9 @@ def test_metrics_server_endpoints():
         assert body.rstrip().endswith("# EOF")
         assert _get(f"{url}/healthz")[2] == "ok\n"
         assert _get(f"{url}/nope")[0] == 404
-        assert _get(f"{url}/shards")[0] == 404  # the scheduler extender's: not ported
+        # the shard router's and the fleet's documents: 404 while unwired
+        assert _get(f"{url}/shards")[0] == 404
+        assert _get(f"{url}/fleet")[0] == 404
         code, ctype, body = _get(f"{url}/decisions")
         assert code == 200 and ctype == "application/json" and "records" in json.loads(body)
         assert _get(f"{url}/readyz")[0] == 200  # no ready_fn: always ready
@@ -316,6 +320,19 @@ def test_metrics_server_endpoints():
         spans = JTr.spans_from_otlp(json.loads(body))  # the reference reads it
         assert sorted(s["name"] for s in spans) == ["serve.queue", "serve.request"]
         assert len(Tr.spans_from_otlp(json.loads(_get(f"{url}/traces")[2]))) == 3
+    finally:
+        srv.stop()
+    # wired, each route serves its function's document as JSON
+    srv = Met.MetricsServer(registry=r, host="127.0.0.1", port=0, trace_store=store,
+                            shards_doc_fn=lambda: {"shards": [{"id": 0}]},
+                            fleet_doc_fn=lambda: {"replicas": {"e0": "up"}}).start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        code, ctype, body = _get(f"{url}/shards")
+        assert (code, ctype, json.loads(body)) == (200, "application/json", {"shards": [{"id": 0}]})
+        code, ctype, body = _get(f"{url}/fleet")
+        assert (code, ctype, json.loads(body)) == (200, "application/json",
+                                                   {"replicas": {"e0": "up"}})
     finally:
         srv.stop()
 
@@ -550,6 +567,103 @@ def _tier_sampling(side):
 
 def test_tracer_per_tier_sampling_overrides():
     assert both(_tier_sampling) == [True, False, False, 0.0, 1.0, 1.0, False, True, False, 0.0]
+
+
+def _admission_registry(side):
+    t = side.tr.Tracer(store=side.tr.TraceStore())
+    adm = side.tr.AdmissionTraces(t)
+    ctx = adm.root("default", "p1")
+    same = adm.root("default", "p1").trace_id == ctx.trace_id  # one trace a pod
+    opened = adm.open_count()
+    adm.finish("default", "p1", "ok")
+    (root,) = t.store.trace(ctx.trace_id)
+    adm.finish("default", "nope")  # an unknown pod: a no-op
+    return same, opened, adm.open_count(), root.name, root.status, root.attributes
+
+
+def test_admission_traces_registry():
+    assert both(_admission_registry) == (True, 1, 0, "admission", "ok", {"pod": "default/p1"})
+
+
+def _admission_bounds(side):
+    t = side.tr.Tracer(store=side.tr.TraceStore(max_traces=64))
+    adm = side.tr.AdmissionTraces(t, max_pods=2)
+    first = adm.root("ns", "a")
+    adm.root("ns", "b")
+    adm.root("ns", "c")  # evicts a
+    (root_a,) = t.store.trace(first.trace_id)
+    unsampled = side.tr.AdmissionTraces(side.tr.Tracer(store=side.tr.TraceStore(),
+                                                       sample_ratio=0.0))
+    stale = side.tr.AdmissionTraces(t, ttl_s=0.0)
+    old = stale.root("ns", "s")
+    renewed = stale.root("ns", "s").trace_id != old.trace_id  # a stale root is replaced
+    (ended,) = t.store.trace(old.trace_id)
+    return (adm.open_count(), root_a.status, unsampled.root("ns", "a"), unsampled.open_count(),
+            renewed, ended.status)
+
+
+def test_admission_traces_bounded_unsampled_and_stale():
+    assert both(_admission_bounds) == (2, "unfinished", None, 0, True, "unfinished")
+
+
+def test_admission_traces_bounds_under_concurrent_writers():
+    store = Tr.TraceStore(max_traces=4096)
+    adm = Tr.AdmissionTraces(Tr.Tracer(store=store), max_pods=16, ttl_s=0.05)
+    errors = []
+
+    def worker(wid):
+        try:
+            for i in range(60):
+                name = f"pod-{wid}-{i % 24}"
+                assert adm.root("ns", name) is not None
+                if i % 3 == 0:
+                    adm.finish("ns", name)
+                if i % 7 == 0:
+                    adm.root("ns", name)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert errors == [] and adm.open_count() <= 16
+    ended = [s for spans in store.snapshot().values() for s in spans if s.name == "admission"]
+    assert ended and all(s.end_ns > 0 for s in ended)  # every evicted root was ended
+
+
+def test_trace_annotation_is_the_references():
+    from gpushare_device_plugin_tpu_torch import const
+
+    assert Tr.TRACE_ANNOTATION == JTr.TRACE_ANNOTATION == const.ANN_TRACE_ID
+    assert Tr.ADMISSIONS._tracer is Tr.TRACER
+
+
+def test_extender_verbs_instrumented():
+    """The reference's ``tests/test_metrics.py::test_extender_verbs_instrumented``
+    on the port: a filter over the webhook counts in the port's registry."""
+    from fake_apiserver import FakeApiServer
+    from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient
+    from gpushare_device_plugin_tpu_torch.extender.server import ExtenderCore, ExtenderHTTPServer
+
+    api = FakeApiServer()
+    api.start()
+    http = ExtenderHTTPServer(ExtenderCore(ApiServerClient(api.url)), host="127.0.0.1", port=0)
+    http.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{http.port}/scheduler/filter",
+            data=json.dumps({"pod": {}, "nodenames": []}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            assert resp.status == 200
+        text = Met.REGISTRY.render()
+        assert 'tpushare_extender_verb_total{outcome="ok",verb="filter"}' in text
+        assert "tpushare_extender_verb_seconds_count" in text
+    finally:
+        http.stop()
+        api.stop()
 
 
 def test_current_trace_ids_follow_the_process_tracer():

@@ -68,6 +68,11 @@ def test_no_reference_or_jax_import_in_the_port():
                 "cluster/events.py", "cluster/reconciler.py", "topology/model.py",
                 "allocator/assume.py", "allocator/checkpoint.py"):
         assert PORT / rel in walked, rel
+    # and the scheduler extender
+    for rel in ("extender/logic.py", "extender/index.py", "extender/server.py",
+                "extender/shards.py", "extender/simcluster.py", "utils/tracing.py",
+                "utils/metrics.py", "utils/lockrank.py"):
+        assert PORT / rel in walked, rel
 
 
 def _load_time_imports(path):
@@ -262,6 +267,61 @@ def test_the_inspect_cli_and_the_node_loops_load_without_torch():
         "    assert inspect.main([]) == 0\n"
         "api.stop()\n"
         "assert 'MOVES' in out.getvalue(), out.getvalue()\n"
+        "bad = [n for n in sys.modules if sys.modules[n] is not None and (\n"
+        "       n.split('.')[0] in ('torch', 'grpc', 'requests', 'urllib3', 'yaml'))]\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_extender_loads_and_binds_without_torch():
+    """With torch, grpc, requests, urllib3 and yaml all blocked, the
+    extender's modules import, the webhook server binds a pod through
+    filter, prioritize and bind over HTTP, and the sharded router admits
+    one and serves ``/shards``: what the extender's Deployment runs."""
+    code = (
+        "import json, sys, tempfile, urllib.request\n"
+        "for name in ('grpc', 'torch', 'requests', 'urllib3', 'yaml'):\n"
+        "    sys.modules[name] = None  # any import of them raises\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from fake_apiserver import FakeApiServer\n"
+        "from k8s_fixtures import make_pod\n"
+        "from gpushare_device_plugin_tpu_torch.extender import index, logic, simcluster\n"
+        "from gpushare_device_plugin_tpu_torch.extender.server import ExtenderCore, ExtenderHTTPServer\n"
+        "from gpushare_device_plugin_tpu_torch.extender.shards import ShardExtender, ShardRouter\n"
+        "from gpushare_device_plugin_tpu_torch.cluster.apiserver import ApiServerClient\n"
+        "from gpushare_device_plugin_tpu_torch.utils.metrics import MetricsServer\n"
+        "api = FakeApiServer()\n"
+        "nodes = simcluster.make_cluster(4, seed=0)\n"
+        "for n in nodes: api.nodes[n['metadata']['name']] = n\n"
+        "api.start()\n"
+        "client = ApiServerClient(api.url)\n"
+        "http = ExtenderHTTPServer(ExtenderCore(client), host='127.0.0.1', port=0); http.start()\n"
+        "def post(verb, body):\n"
+        "    req = urllib.request.Request(f'http://127.0.0.1:{http.port}/scheduler/{verb}',\n"
+        "        data=json.dumps(body).encode(), headers={'Content-Type': 'application/json'})\n"
+        "    return json.load(urllib.request.urlopen(req, timeout=10))\n"
+        "pod = make_pod('p0', 4, node=''); api.add_pod(pod)\n"
+        "names = [n['metadata']['name'] for n in nodes]\n"
+        "fit = post('filter', {'pod': pod, 'nodenames': names})['nodenames']\n"
+        "best = max(post('prioritize', {'pod': pod, 'nodenames': fit}), key=lambda e: e['score'])\n"
+        "assert post('bind', {'podName': 'p0', 'podNamespace': 'default', 'node': best['host']})\\\n"
+        "    == {'error': ''}\n"
+        "http.stop()\n"
+        "router = ShardRouter([ShardExtender(f'shard-{i}', client) for i in range(2)])\n"
+        "router.set_nodes(nodes)\n"
+        "pod = make_pod('p1', 4, node=''); api.add_pod(pod)\n"
+        "assert router.admit(pod)['error'] == ''\n"
+        "srv = MetricsServer(host='127.0.0.1', port=0, shards_doc_fn=router.shards_doc).start()\n"
+        "doc = json.load(urllib.request.urlopen(f'http://127.0.0.1:{srv.port}/shards', timeout=10))\n"
+        "assert doc['ring']['shards'] == 2, doc\n"
+        "srv.stop(); api.stop()\n"
+        "assert simcluster.audit_cluster(nodes, client.list_pods()) == []\n"
         "bad = [n for n in sys.modules if sys.modules[n] is not None and (\n"
         "       n.split('.')[0] in ('torch', 'grpc', 'requests', 'urllib3', 'yaml'))]\n"
         "assert not bad, bad[:5]\n"

@@ -2,12 +2,11 @@
 
 ``load(test_file, pkg)`` reads ``tests/<test_file>.py`` and executes it as
 a new module whose imports of ``gpushare_device_plugin_tpu.X`` point at
-``<pkg>.X`` wherever the port has that module (the extender, which the
-port lacks, stays the reference's: a test may admit through the port's
-allocator what the reference's extender assumed), and wherever the caller
-does not ask to ``keep`` the reference's module (the inspect CLI's tests
-keep the reference's ``MetricsServer``, whose ``/shards`` and ``/fleet``
-routes come with the port's extender). ``run_case`` calls one
+``<pkg>.X`` wherever the port has that module (a module the port lacks,
+such as the JAX workloads', stays the reference's) and wherever the caller
+does not ask to ``keep`` the reference's module. The scheduler extender is
+the port's own in the port's column, so a mirrored case admits the port's
+extender's bindings through the port's allocator. ``run_case`` calls one
 test function the way pytest would (its module fixtures, autouse ones
 included, plus ``tmp_path``, ``monkeypatch`` and ``capsys``), so the
 reference's own assertions run against the port. Around the call it
@@ -19,7 +18,8 @@ render, read through ``capsys``). ``mirror_case`` runs a case under both
 packages and asserts the two records are equal, after timestamps, trace
 ids, fence tokens, uids, the measured durations in the defrag-status and
 interference node annotations and the clock times a CLI prints are reduced
-to their form.
+to their form (in what a case printed: clock times, trace ids and a
+record's ``time_unix``; decision-record ids count from the first printed).
 """
 
 from __future__ import annotations
@@ -228,9 +228,25 @@ def run_case(pkg: str, test_file: str, name: str, params: dict, tmp_factory,
     return {
         "servers": [_server_doc(s) for s in servers],
         "allocations": allocations,
-        "output": [[_CLOCK.sub("<hh:mm:ss>", text) for text in read]
+        "output": [[_text(text) for text in read]
                    for read in (capture.log if capture is not None else [])],
     }
+
+
+def _text(text: str) -> str:
+    """What a case printed, its clock times and trace ids by form, and its
+    decision-record ids from the first one printed (the ring numbers the
+    records of the whole process, so a case's first id depends on the
+    tests that ran before it in the worker)."""
+    text = _CLOCK.sub("<hh:mm:ss>", text)
+    text = _TRACE_TEXT.sub("<trace>", text)
+    text = _TIME_TEXT.sub('"time_unix": "<time>"', text)
+    ids = [int(m.group(2) or m.group(4)) for m in _RECORD_ID.finditer(text)]
+    if not ids or ("decision record" not in text and '"verb": ' not in text):
+        return text
+    first = ids[0]
+    return _RECORD_ID.sub(
+        lambda m: f"{m.group(1) or m.group(3)}+{int(m.group(2) or m.group(4)) - first}", text)
 
 
 def _server_doc(srv) -> dict:
@@ -259,6 +275,9 @@ _TRACE = re.compile(r"^[0-9a-f]{32}:[0-9a-f]{16}$")
 _FENCE = re.compile(r"^(\d+):[0-9a-zA-Z_-]+$")
 _TS_KEYS = {"firstTimestamp", "lastTimestamp", "eventTime", "time_unix"}
 _CLOCK = re.compile(r"\b\d\d:\d\d:\d\d\b")  # the `top` view's refresh time
+_TRACE_TEXT = re.compile(r"\b[0-9a-f]{32}\b")  # a trace id `inspect why` prints
+_TIME_TEXT = re.compile(r'"time_unix": \d+(\.\d+)?')  # a record's clock, `-o json`
+_RECORD_ID = re.compile(r'(\[#)(\d+)(?=\])|("id": )(\d+)')  # `inspect why`'s record ids
 # node annotations holding JSON with a measured duration or a clock reading
 _JSON_ANNOTATIONS = {
     "tpushare.aliyun.com/defrag-status": {"last_move_ms"},
