@@ -34,6 +34,13 @@ Phases, each of which fails the run with a non-zero exit:
    against the port's solo greedy ``generate``, and one full-depth
    prefill's last-position logits with ``attention="flash"`` against
    ``"plain"``.
+   (c) The static lockstep baseline: ``run_static_baseline`` on phase 2's
+   weights cut to their first 4 layers (PAGED_LAYERS), phase 2's trace, in
+   waves of 8 (one padded prefill, then the trace's largest ``max_new``
+   decode steps for every row). Each request's tokens must equal solo
+   greedy decode's at that depth or pass phase 3's near-tie rule; its
+   launches are one ``flash_fwd`` a layer per wave (the off-clock warmup
+   wave included) and nothing else. Prints ticks, wall and goodput.
 4. The backward kernels against ``flash_bwd_plain`` at the same attention
    shapes, each case through the entries ``flash_bwd`` picks for its dtype
    and head dim (bf16 at D in {64, 128}: the tensor-core ``flash_bwd_dq``
@@ -283,7 +290,6 @@ Phases, each of which fails the run with a non-zero exit:
    losses falling, launches 4 / 2 / 2, and its parameter and AdamW bytes
    the sum of its shards'. Prints walls, decode p50, goodput, step p50,
    peaks and every exchange's calls, bytes and seconds per rank.
-
 21. The device plugin's own path, from discovering the card to the env a
    pod is granted (run straight after phase 1: every later pod env comes
    from it). (a) Discovery: in a child process that must never import
@@ -428,11 +434,34 @@ Phases, each of which fails the run with a non-zero exit:
    was durable: rolled forward), and ``inspect shards`` in a child without
    torch must render its ``/shards``.
 
-The phases run in the order 1, 21, 22, 23, 25, 2, 3, 7, 8, 13, 15, 16, 17,
-18, 24, 14, 4, 5, 6, 9-12, 19, 20; each phase's seconds print on one JSON
-line (``phase seconds``) before the script's. ``python3 chip_smoke.py
---phase 17`` (or ``--phase 18``, ``--phase 19``, ``--phase 20`` or
-``--phase 24``) builds
+26. BERT's and ResNet's sharded training on the one card, two gloo ranks
+   as in phase 19, each capped by the plugin's env for a 16-GiB slice.
+   First the three main-path kernels at a rank's BERT-base shapes (fsdp=2:
+   4 x 512, 12 heads; tp=2: 8 x 512, 6 heads; D=64, non-causal) against
+   their plain versions, timed beside SDPA. Then ``bert_base()`` at full
+   width and depth, bf16, remat, B=8 x S=512 of ``demo_batch``, AdamW, 6
+   steps: a 1-rank control here, then ``MeshSpec(fsdp=2)`` and
+   ``MeshSpec(tp=2)`` on the two ranks; and ``resnet50()`` at 224, B=16,
+   SGD with Nesterov momentum 0.9 at 0.001 for 8 steps: a control, then
+   dp=2 and fsdp=2. Each rank first runs the first step in f32 on its shards and
+   the control's in f32 and bf16: its f32 loss by phase 6's rule, every
+   leaf's f32 gradient (summed over the leaf's axes; its blocks against
+   the control's, the squares added over the axes a leaf is cut on) by
+   phase 6's rule and none zero, ResNet's new BN state by the same rule.
+   Then the bf16 run: its first loss by phase 6's rule against the
+   control's, its first-step gradients nonzero (their error against the
+   bf16 control's printed), ResNet's BN running mean and variance after
+   step 1 by phase 6's rule (synchronized batch norm), losses falling,
+   its parameter bytes its shards', and BERT's launches per rank and mesh
+   ``flash_fwd`` 2 x 12 x 6 = 144, ``flash_bwd_dq`` 72, ``flash_bwd_dkv`` 72
+   and no scalar entry. Prints each run's step p50,
+   peak reserved memory and exchanges (calls, bytes, host seconds).
+
+The phases run in the order 1, 21, 22, 23, 25, 2, 3, 2 (c), 7, 8, 13, 15,
+16, 17, 18, 24, 14, 4, 5, 6, 9-12, 19, 20, 26; each phase's seconds print
+on one JSON line (``phase seconds``) before the script's. ``python3
+chip_smoke.py --phase 17`` (or ``--phase 18``, ``--phase 19``, ``--phase
+20``, ``--phase 24`` or ``--phase 26``) builds
 the kernels and runs that phase alone on fresh weights (a quick check; it
 prints no contract lines); ``--phase 21``, ``--phase 22``, ``--phase
 23`` and ``--phase 25`` run that phase alone and build nothing (they
@@ -458,9 +487,12 @@ pod, from its JSON line), ``spec_serve`` (phase 15, runs A and B),
 live handoff run, both tiers), ``fleet`` (phase 18's affinity run,
 all three engines), ``defrag`` (phase 24's restores), ``ring`` and ``ulysses`` (phase 19 (b)'s runs, both
 ranks), ``tp_serve``, ``tp_paged`` and ``tp_train`` (phase 20's (a1),
-(a2) and (b), both ranks, (b) both meshes); the forward rows carry
-``at_draft_shape``, and the main-path rows ``at_ring_hop_shape``,
-``at_ulysses_shape`` (phase 19) and ``at_tp_train_shape`` (phase 20).
+(a2) and (b), both ranks, (b) both meshes), ``static_baseline`` (phase 2
+(c)), ``train_bert_fsdp`` and ``train_bert_tp`` (phase 26, both ranks);
+the forward rows carry ``at_draft_shape``, and the main-path rows
+``at_ring_hop_shape``, ``at_ulysses_shape`` (phase 19),
+``at_tp_train_shape`` (phase 20), ``at_bert_fsdp_shape`` and
+``at_bert_tp_shape`` (phase 26).
 """
 
 from __future__ import annotations
@@ -521,6 +553,7 @@ from gpushare_device_plugin_tpu_torch.serving.engine import (
     SlotEngine,
     paged_plan_from_pod_env,
     poisson_trace,
+    run_static_baseline,
     shared_prefix_trace,
 )
 from gpushare_device_plugin_tpu_torch.serving.pages import paged_plan_for_slice
@@ -571,6 +604,8 @@ LSE_ATOL = 1e-4
 TOP2_GAP_REL = 2.0 ** -6
 LOGIT_REL = 2.0 ** -5
 SERVED_S = 512  # the engine's prompt chunk: the kernel's shape on the main path
+SERVE_TRACE = dict(n=16, seed=0, rate=0.5, prompt_lens=(128, 1536), max_new=(16, 64))
+STATIC_BATCH = 8  # phase 2 (c)'s lockstep waves
 EOS_ID = 128001  # Llama-3's end-of-text token
 # Phase 7: run A sizes its pool for a 24-unit (GiB) slice of the card from
 # the env the plugin injects, which for the 8B weights at PAGED_LAYERS layers
@@ -985,6 +1020,33 @@ TP_TRAIN_LAYERS, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 2, 2, 2048, 2
 TP_TRAIN_UNITS, TP_CLIP_NORM = 36, 1.0
 # The kernels at a tp=2 training rank's shape: (B, S, H, Hkv, causal).
 TP_KERNEL_SHAPES = {"tp_train": (TP_TRAIN_B, TP_TRAIN_S, 32 // TP_RANKS, 8 // TP_RANKS, True)}
+# Phase 26: BERT's and ResNet's sharded training on the one card,
+# SHARD_RANKS gloo ranks, each capped by the plugin's env for a
+# SHARD_UNITS-GiB slice (NCCL refuses two ranks on one card). BERT-base at
+# full width and depth (12 layers, d 768, 12 heads, vocab 30,522), bf16,
+# remat, B=8 x S=512 of demo_batch, the default AdamW: a 1-rank control
+# here, then fsdp=2 and tp=2 in the same two ranks, 6 steps (at 3 the
+# control's loss had not fallen, 10.814 -> 10.849 -> 10.817 on one H100;
+# steps 4-8 sat at 10.67-10.74). ResNet-50 at 224 x 224, B=16: a control,
+# then dp=2 and fsdp=2, 8 steps of SGD with Nesterov momentum 0.9 at
+# SHARD_RESNET_LR. At the reference's 0.1 (phase 10) random images drive
+# the loss up 5-25x before it falls, and over steps 25-32 it still spiked
+# above the first step's (9.3 and 11.7 against 6.57 on one H100), so
+# "losses falling" would pass or fail by chance; at 0.001 it falls step by
+# step. Each rank computes the control's first step in f32 and in bf16 and
+# holds its own blocks against them: the gradients in f32 (in bf16 a
+# rank's batch of another size takes other GEMM and convolution
+# algorithms, and their rounding grows through the network: 3.7% of a
+# BERT leaf, 1.2x of ResNet's stem in a first run).
+SHARD_SEED, SHARD_RANKS, SHARD_UNITS = 26, 2, 16
+SHARD_BERT_B, SHARD_BERT_S, SHARD_BERT_STEPS = 8, 512, 6
+SHARD_RESNET_B, SHARD_RESNET_STEPS, SHARD_RESNET_LR = 16, 8, 1e-3
+SHARD_MESHES = {"bert": ("fsdp", "tp"), "resnet": ("dp", "fsdp")}
+# The kernels at a rank's new BERT-base shapes: (B, S, H, Hkv, causal, D).
+SHARD_KERNEL_SHAPES = {
+    "bert_fsdp": (SHARD_BERT_B // SHARD_RANKS, SHARD_BERT_S, 12, 12, False, 64),
+    "bert_tp": (SHARD_BERT_B, SHARD_BERT_S, 12 // SHARD_RANKS, 12 // SHARD_RANKS, False, 64),
+}
 # Phase 6, flash vs plain at full width in bf16: the kernels round P and dS
 # to bf16 where the plain path keeps f32 softmax (and its bf16 scores), so
 # the losses may differ by one bf16 step and each gradient leaf by 2^-5 in
@@ -1301,9 +1363,7 @@ def phase_serve(gen):
     weight_gb = tensor_bytes(params) / 1e9
     engine = SlotEngine(params, cfg, slots=8, max_len=2048, prefill_chunk=512, eos_id=EOS_ID)
     engine.warmup()
-    trace = poisson_trace(
-        16, seed=0, rate=0.5, vocab=cfg.vocab, prompt_lens=(128, 1536), max_new=(16, 64)
-    )
+    trace = poisson_trace(vocab=cfg.vocab, **SERVE_TRACE)
     torch.cuda.reset_peak_memory_stats()
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
@@ -1361,6 +1421,42 @@ def phase_serve(gen):
         raise SystemExit(f"phase 3 failed: flash vs plain logits differ by {diff}")
 
     return launches, serve["decode_step_p50_ms"], params, cfg
+
+
+def phase_static_baseline(params, cfg) -> dict:
+    """Phase 2 (c), on phase 2's weights cut to their first PAGED_LAYERS
+    layers: ``run_static_baseline`` over phase 2's trace in lockstep waves
+    of STATIC_BATCH. Each request's tokens must equal solo greedy decode's
+    at the same depth, or pass phase 3's near-tie rule; the launches are
+    the waves' padded prefills alone (the warmup's wave included), one
+    ``flash_fwd`` a layer, and nothing else. Returns its kernel launches."""
+    print(f"phase 2 (c): static lockstep baseline, llama3_8b ({PAGED_LAYERS} of 32 layers), "
+          f"waves of {STATIC_BATCH}", flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=PAGED_LAYERS)
+    params = {**params, "layers": {k: v[:PAGED_LAYERS] for k, v in params["layers"].items()}}
+    trace = poisson_trace(vocab=cfg.vocab, **SERVE_TRACE)
+    fresh_run()
+    stats = run_static_baseline(params, cfg, trace, batch=STATIC_BATCH, eos_id=EOS_ID)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    summary = stats.summary()
+    waves = len({r.first_token_tick for r in stats.results})
+    report = {k: summary[k] for k in ("requests", "tokens", "ticks", "wall_s",
+                                      "goodput_tokens_per_s", "goodput_tokens_per_tick",
+                                      "ttft_p50_ticks", "ttft_p99_ticks", "ttft_p99_ms")}
+    report.update(waves=waves, launches=launches)
+    by_rid = {r.rid: r for r in trace}
+    diverged = []
+    for res in stats.results:
+        diverged += check_vs_solo("phase 2 (c)", params, cfg, by_rid[res.rid], res.tokens)
+    report["diverged_at_near_ties"] = diverged
+    print("  static", json.dumps(report), flush=True)
+    want = {e: 0 for e in fa.LAUNCHES} | {"flash_fwd": (waves + 1) * cfg.n_layers}
+    if launches != want:
+        raise SystemExit(f"phase 2 (c) failed: launches {launches} != {want}")
+    if len(stats.results) != len(trace):
+        raise SystemExit("phase 2 (c) failed: not every request was served")
+    return launches
 
 
 def profile_paged_decode_step(engine, steps: int = 3) -> dict:
@@ -3533,11 +3629,12 @@ def cp_kernel_rows(gen, shapes=CP_KERNEL_SHAPES, phase: str = "phase 19") -> dic
     heads) and Ulysses's whole-sequence call at sp=2 (1 x 8,192, 16/4
     heads, causal; phase (b)). Returns rows by (entry, shape label)."""
     rows, failures = {}, 0
-    for label, (Bk, S, H, Hkv, causal) in shapes.items():
-        q, k, v = attention_inputs(gen, Bk, S, H, Hkv, 128, torch.bfloat16)
+    for label, (Bk, S, H, Hkv, causal, *head_dim) in shapes.items():
+        D = head_dim[0] if head_dim else 128
+        q, k, v = attention_inputs(gen, Bk, S, H, Hkv, D, torch.bfloat16)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
         bounds = dict(causal=causal, start=None, kv_len=None)
-        sc = 128 ** -0.5
+        sc = D ** -0.5
         plain = lambda: fa.flash_fwd_plain(q, k, v, scale=sc, **bounds)  # noqa: E731
         po, plse = plain()
         plain_ms = cuda_ms(plain, 2, warmup=1)
@@ -3551,7 +3648,7 @@ def cp_kernel_rows(gen, shapes=CP_KERNEL_SHAPES, phase: str = "phase 19") -> dic
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
         rows[("flash_fwd", label)] = dict(
-            shape=f"bf16 B={Bk} S={S} H={H} Hkv={Hkv} D=128 " + ("causal" if causal else "non-causal"),
+            shape=f"bf16 B={Bk} S={S} H={H} Hkv={Hkv} D={D} " + ("causal" if causal else "non-causal"),
             max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib_ms, tflops=flops / ms / 1e9,
             bound_fraction=bound_ms / ms)
@@ -3561,7 +3658,7 @@ def cp_kernel_rows(gen, shapes=CP_KERNEL_SHAPES, phase: str = "phase 19") -> dic
         want = dict(zip(("dq", "dk", "dv"), bplain()))
         bplain_ms = cuda_ms(bplain, 1, warmup=0)
         lib_bwd_ms = sdpa_backward_ms(q, k, v, do, None, causal)
-        for entry in fa.bwd_entries(torch.bfloat16, 128):
+        for entry in fa.bwd_entries(torch.bfloat16, D):
             brun = lambda: fa._launch_bwd(entry, q, k, v, do, lse, delta, scale=sc, **bounds)  # noqa: E731
             got = brun()
             names = ("dq",) if entry in DQ_ENTRIES else ("dk", "dv")
@@ -4123,6 +4220,303 @@ def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
     if fail:
         raise SystemExit("phase 20 failed: " + "; ".join(fail))
     return launches_serve, launches_paged, launches_train, rows, report
+
+
+def shard_task(model: str, optimizer=None):
+    """Phase 26's task for ``model`` ("bert" or "resnet"), trained by
+    ``optimizer`` (:func:`shard_optimizer` unless given)."""
+    optimizer = optimizer or shard_optimizer(model)
+    if model == "bert":
+        return BertTask(B.bert_base(), batch=SHARD_BERT_B, seq=SHARD_BERT_S, optimizer=optimizer)
+    return ResNetTask(R.resnet50(), batch=SHARD_RESNET_B, image_size=RESNET_SIZE,
+                      optimizer=optimizer)
+
+
+def shard_steps(model: str) -> int:
+    return SHARD_BERT_STEPS if model == "bert" else SHARD_RESNET_STEPS
+
+
+def shard_optimizer(model: str):
+    return B.make_optimizer() if model == "bert" else R.make_optimizer(SHARD_RESNET_LR)
+
+
+def shard_first_step(model: str, dtype: torch.dtype, mesh=None) -> dict:
+    """The first step of ``model``'s phase 26 run at compute ``dtype``,
+    without the optimizer: its loss, every leaf's gradient by name (on a
+    ``mesh``, this rank's shards, summed over ``grad_sum_axes`` as the step
+    sums them) and ResNet's new BN state. The 1-rank control without a
+    mesh."""
+    M = B if model == "bert" else R
+    task = shard_task(model)
+    cfg = dataclasses.replace(task.cfg, compute_dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(fold_in(SHARD_SEED, 0))
+    params = M.init_params(cfg, gen, mesh=mesh)
+    params, bn = (params, None) if model == "bert" else params
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    batch = task.make_batch(torch.Generator().manual_seed(fold_in(fold_in(SHARD_SEED, 1), 0)), 0)
+    batch = tuple(t.cuda() for t in batch)
+    out = {}
+    if model == "bert":
+        loss = B.loss_fn(params, *batch, cfg, mesh)
+    else:
+        loss, new_bn = R.loss_fn(params, bn, *batch, cfg, mesh)
+        out["bn"] = {n: t.detach() for n, t in T._flatten(new_bn).items()}
+    grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
+    if mesh is not None:
+        for g, axes in zip(grads, M.grad_sum_axes(params, mesh, cfg)):
+            all_reduce_sum_([g], mesh, axes)
+        out["specs"] = dict(zip(T._flatten(params), M.leaf_specs(params, mesh, cfg)))
+    out.update(loss=float(loss.detach()),
+               grads=dict(zip(T._flatten(params), (g.detach() for g in grads))))
+    del params, leaves, loss
+    gc.collect()
+    return out
+
+
+def rel_by_leaf(mesh, got: dict, want: dict, specs: dict) -> tuple[dict, list]:
+    """Per leaf, the relative Frobenius error of this rank's blocks
+    ``got`` against the matching blocks of the whole ``want``, the squared
+    sums added over the axes each leaf is cut on; and the leaves whose
+    gradient is zero or not finite."""
+    names = list(got)
+    sq = torch.stack([torch.stack([(got[n].float() - c.float()).square().sum(),
+                                   c.float().square().sum(), got[n].float().square().sum()])
+                      for n, c in ((n, shard(want[n], mesh, specs[n])) for n in names)], 1)
+    for axis in mesh.shape:
+        on = torch.tensor([axis in shard_axes(specs[n]) for n in names], device=sq.device)
+        if bool(on.any()):
+            sq = torch.where(on, all_reduce(sq, mesh, axis), sq)
+    sq = sq.tolist()
+    rel = {n: math.sqrt(d / c) if c > 0 else (0.0 if d == 0 else math.inf)
+           for n, d, c in zip(names, sq[0], sq[1])}
+    zero = [n for n, g in zip(names, sq[2]) if not (math.isfinite(g) and g > 0)]
+    return rel, zero
+
+
+def _no_seg(model: str, grads: dict) -> dict:
+    """BERT's ``seg_embed`` is unused without segments: zero in every run."""
+    return {n: g for n, g in grads.items() if not (model == "bert" and n == "seg_embed")}
+
+
+def shard_train_rank(mesh, model: str, controls: dict) -> dict:
+    """Phase 26 on one rank of ``mesh``. First the gradient check in f32
+    (in bf16, rounding that a rank's other batch size moves through other
+    GEMM and convolution algorithms grows through the network to more
+    than 2^-5 of a leaf; f32 leaves the check its bugs to find): the first
+    step's loss, every leaf's summed gradient and ResNet's new BN state on
+    the rank's shards against the f32 control's. Then ``run_train_loop``
+    of ``model``'s task in bf16 on the rank's shards, whose first-step
+    gradients (as the optimizer receives them) are held against the bf16
+    control's for being nonzero, with their error printed, and whose BN
+    state after step 1 is held against the bf16 control's."""
+    M = B if model == "bert" else R
+    check = shard_first_step(model, torch.float32, mesh)
+    ref = controls[torch.float32]
+    rel, zero = rel_by_leaf(mesh, _no_seg(model, check["grads"]), ref["grads"], check["specs"])
+    doc: dict = {"mesh": mesh.shape, "f32_first_loss": check["loss"],
+                 "f32_control_loss": ref["loss"], "f32_grad_rel_by_leaf": rel,
+                 "f32_zero_grads": zero}
+    if model == "resnet":
+        doc["f32_bn_rel_by_leaf"] = {n: float((check["bn"][n] - c).norm() / c.norm())
+                                     for n, c in ref["bn"].items()}
+    del check
+    gc.collect()
+    opt = shard_optimizer(model)
+    update = opt.update
+
+    def checked_update(grads, state, params, **kw):
+        if "grad_rel_by_leaf" not in doc:
+            names = list(T._flatten(params))
+            specs = dict(zip(names, M.leaf_specs(params, mesh, task.cfg)))
+            doc["grad_rel_by_leaf"], doc["zero_grads"] = rel_by_leaf(
+                mesh, _no_seg(model, dict(zip(names, grads))), controls[torch.bfloat16]["grads"],
+                specs)
+        return update(grads, state, params, **kw)
+
+    opt.update = checked_update
+    task = shard_task(model, opt)
+    make_step = task.make_step
+
+    def make_checked_step(mesh=None):
+        step = make_step(mesh)
+
+        def fn(state, batch):
+            state, loss = step(state, batch)
+            if model == "resnet" and "bn_rel_by_leaf" not in doc:
+                bn = T._flatten(state[1])
+                doc["bn_rel_by_leaf"] = {n: float((bn[n] - c).norm() / c.norm())
+                                         for n, c in controls[torch.bfloat16]["bn"].items()}
+            return state, loss
+
+        return fn
+
+    task.make_step = make_checked_step
+    fresh_run()
+    mesh.traffic.clear()
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_metrics(step, value):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(value)
+
+    steps = shard_steps(model)
+    state, _ = run_train_loop(task, TrainLoopConfig(total_steps=steps, log_every=1), SHARD_SEED,
+                              mesh=mesh, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    specs = M.leaf_specs(state[0], mesh, task.cfg)
+    shapes = T._flatten(M.param_shapes(task.cfg) if model == "bert"
+                        else M.param_shapes(task.cfg)[0])
+    want_bytes = sum(int(np.prod(T.local_shape(shapes[n], sp, mesh))) * 4
+                     for n, sp in zip(T._flatten(state[0]), specs))
+    expected = {e: 0 for e in fa.LAUNCHES}
+    if model == "bert":  # forward and remat's recompute, then the backward: one call a layer
+        per_run = task.cfg.n_layers * steps
+        expected |= {"flash_fwd": 2 * per_run, "flash_bwd_dq": per_run, "flash_bwd_dkv": per_run}
+    doc.update(
+        first_loss=losses[0], losses=losses, step_s=step_s, step_p50_s=after_first_p50(step_s),
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        launches=launches, expected_launches=expected,
+        param_bytes=nbytes(state[0]), expected_param_bytes=want_bytes,
+        exchanges={kind: dataclasses.asdict(t) for kind, t in mesh.traffic.items()},
+    )
+    del state
+    gc.collect()
+    return doc
+
+
+def shard_rank_main(argv: list[str]) -> int:
+    """One rank of phase 26, in a child whose env is the plugin's plus the
+    multi-host bootstrap: cap the process, join the gloo world, and for
+    each model compute the control's first step in f32 and in bf16, then
+    check and train on each of its meshes. Prints one JSON line."""
+    configure_torch_from_env()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = initialize_multihost(backend="gloo", timeout_s=CP_COLLECTIVE_TIMEOUT_S)
+    doc = {}
+    for model, kinds in SHARD_MESHES.items():
+        controls = {dt: shard_first_step(model, dt) for dt in (torch.float32, torch.bfloat16)}
+        for kind in kinds:
+            mesh = make_mesh(MeshSpec(**{kind: spec.num_processes}), backend="gloo")
+            doc[f"{model}_{kind}"] = shard_train_rank(mesh, model, controls)
+        del controls
+        gc.collect()
+    print(json.dumps({"job": argv[0], "rank": mesh.rank, "device": str(mesh.device), **doc}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def shard_control_run(model: str) -> dict:
+    """Phase 26's 1-rank control for ``model``: ``run_train_loop`` here, no
+    mesh."""
+    fresh_run()
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_metrics(step, value):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(value)
+
+    state, _ = run_train_loop(shard_task(model), TrainLoopConfig(total_steps=shard_steps(model),
+                                                                 log_every=1),
+                              SHARD_SEED, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    control = {"losses": losses, "step_s": step_s, "step_p50_s": after_first_p50(step_s),
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+               "param_bytes": nbytes(state[0]), "launches": dict(fa.LAUNCHES)}
+    print(f"   {model} control", json.dumps(control), flush=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return control
+
+
+def phase_sharded_training(gen) -> tuple[dict, dict, dict, dict]:
+    """Phase 26; returns the kernel launches of the BERT runs at fsdp=2 and
+    at tp=2 (each summed over both ranks), the kernel rows at a rank's
+    BERT shapes, and a report."""
+    print(f"phase 26: BERT-base and ResNet-50 sharded training, {SHARD_RANKS} gloo ranks on "
+          "one card", flush=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = cp_kernel_rows(gen, SHARD_KERNEL_SHAPES, "phase 26")
+    report: dict = {}
+    fail: list[str] = []
+    t0 = time.perf_counter()
+    controls = {model: shard_control_run(model) for model in SHARD_MESHES}
+    report["controls_s"] = time.perf_counter() - t0
+    per_run = B.bert_base().n_layers * SHARD_BERT_STEPS
+    want = {e: 0 for e in fa.LAUNCHES} | {"flash_fwd": 2 * per_run, "flash_bwd_dq": per_run,
+                                          "flash_bwd_dkv": per_run}
+    if controls["bert"]["launches"] != want:
+        fail.append(f"bert control launches {controls['bert']['launches']} != {want}")
+    for model, control in controls.items():
+        if not falling(control["losses"]):
+            fail.append(f"{model} control losses {control['losses']}")
+    report["controls"] = controls
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        docs = run_ranks("shard", SHARD_RANKS, SHARD_UNITS, workdir, entry="shard_rank_main",
+                         phase="phase 26")
+    report["ranks_s"] = time.perf_counter() - t0
+    launches = {}
+    for model, kinds in SHARD_MESHES.items():
+        first = controls[model]["losses"][0]
+        for kind in kinds:
+            key = f"{model}_{kind}"
+            launches[key] = {e: sum(d[key]["launches"][e] for d in docs) for e in fa.LAUNCHES}
+            rows_k = []
+            for d in docs:
+                run = dict(d[key], rank=d["rank"])
+                tag = f"{model} {kind}={SHARD_RANKS} rank {d['rank']}"
+                rel = run.pop("f32_grad_rel_by_leaf")
+                bf16_rel = run.pop("grad_rel_by_leaf", {})
+                bn_rels = {k: run.pop(k, {}) for k in ("f32_bn_rel_by_leaf", "bn_rel_by_leaf")}
+                run["f32_grad_rel_max"] = max(rel.values(), default=None)
+                run["f32_grad_rel_top"] = dict(sorted(rel.items(), key=lambda kv: -kv[1])[:3])
+                run["bf16_grad_rel_max"] = max(bf16_rel.values(), default=None)
+                run["bf16_grad_rel_by_leaf"] = {n: round(e, 4) for n, e in bf16_rel.items()}
+                for k, v in bn_rels.items():
+                    run[k.replace("_by_leaf", "_max")] = max(v.values(), default=None)
+                print(f"   {key}", json.dumps(run), flush=True)
+                rows_k.append(run)
+                if abs(run["first_loss"] - first) > GRAD_LOSS_REL * abs(first):
+                    fail.append(f"{tag}: first loss {run['first_loss']} vs control {first}")
+                f32_first = run["f32_control_loss"]
+                if abs(run["f32_first_loss"] - f32_first) > GRAD_LOSS_REL * abs(f32_first):
+                    fail.append(f"{tag}: f32 first loss {run['f32_first_loss']} vs {f32_first}")
+                if not falling(run["losses"]):
+                    fail.append(f"{tag}: losses {run['losses']}")
+                if run["launches"] != run["expected_launches"]:
+                    fail.append(f"{tag}: launches {run['launches']} != {run['expected_launches']}")
+                if run["param_bytes"] != run["expected_param_bytes"]:
+                    fail.append(f"{tag}: params {run['param_bytes']} bytes, its shards "
+                                f"{run['expected_param_bytes']}")
+                bad = {n: e for n, e in rel.items() if not e <= GRAD_LEAF_REL}
+                if not rel or bad or run["f32_zero_grads"]:
+                    fail.append(f"{tag}: f32 gradients {bad}, zero {run['f32_zero_grads']}")
+                if not bf16_rel or run["zero_grads"]:
+                    fail.append(f"{tag}: bf16 step's zero gradients {run['zero_grads']}")
+                for k, v in bn_rels.items():
+                    bad_bn = {n: e for n, e in v.items() if not e <= GRAD_LEAF_REL}
+                    if model == "resnet" and (not v or bad_bn):
+                        fail.append(f"{tag}: BN running statistics after step 1 ({k}) {bad_bn}")
+            report[key] = rows_k
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 26: {report['seconds']:.1f} s (controls {report['controls_s']:.1f}, ranks "
+          f"{report['ranks_s']:.1f})", flush=True)
+    if fail:
+        raise SystemExit("phase 26 failed: " + "; ".join(fail))
+    return launches["bert_fsdp"], launches["bert_tp"], rows, report
 
 
 def pod_main(argv: list[str]) -> int:
@@ -5934,7 +6328,7 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24, 25),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24, 25, 26),
                     help="build the kernels and run only this phase (a quick check; "
                          "the contract's lines are not printed); phases 21, 22, 23 and "
                          "25 build nothing")
@@ -5991,6 +6385,12 @@ def main(argv: list[str]) -> int:
               f"tp_paged {json.dumps(tp_paged)}, tp_train {json.dumps(tp_train)}; chip_smoke: "
               f"{time.perf_counter() - t_script:.1f} s", flush=True)
         return 0
+    if args.phase == 26:
+        bert_fsdp, bert_tp, _, report = phase_sharded_training(gen)
+        print(f"phase 26: {report['seconds']:.1f} s; launches train_bert_fsdp "
+              f"{json.dumps(bert_fsdp)}, train_bert_tp {json.dumps(bert_tp)}; chip_smoke: "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+        return 0
     if args.phase == 19:
         ring, ulysses, _, report = phase_context_parallel(gen)
         print(f"phase 19: {report['seconds']:.1f} s; launches ring {json.dumps(ring)}, ulysses "
@@ -6012,6 +6412,7 @@ def main(argv: list[str]) -> int:
     timed("25", phase_extender)
 
     serve_launches, serve_decode_p50_ms, params, cfg = timed("2-3", phase_serve, gen)
+    static_launches = timed("2c", phase_static_baseline, params, cfg)
     paged_launches = timed(
         "7-8", phase_paged, params, cfg, serve_decode_p50_ms)
     lora_serve_launches = timed("13", phase_lora_serve, params, cfg)
@@ -6034,7 +6435,9 @@ def main(argv: list[str]) -> int:
     ring_launches, ulysses_launches, cp_rows, _ = timed("19", phase_context_parallel, gen)
     tp_serve_launches, tp_paged_launches, tp_train_launches, tp_rows, _ = timed(
         "20", phase_tensor_parallel, gen)
-    cp_rows = {**cp_rows, **tp_rows}
+    bert_fsdp_launches, bert_tp_launches, shard_rows, _ = timed(
+        "26", phase_sharded_training, gen)
+    cp_rows = {**cp_rows, **tp_rows, **shard_rows}
 
     paths = {"serve": serve_launches, "paged_serve": paged_launches, "train": train_launches,
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
@@ -6043,7 +6446,8 @@ def main(argv: list[str]) -> int:
              "fleet": fleet_launches, "defrag": defrag_launches, "ring": ring_launches,
              "ulysses": ulysses_launches,
              "tp_serve": tp_serve_launches, "tp_paged": tp_paged_launches,
-             "tp_train": tp_train_launches}
+             "tp_train": tp_train_launches, "static_baseline": static_launches,
+             "train_bert_fsdp": bert_fsdp_launches, "train_bert_tp": bert_tp_launches}
     cp_numbers = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                   "tflops", "bound_fraction")
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
@@ -6075,7 +6479,7 @@ def main(argv: list[str]) -> int:
                          "(the Llama-3.2-1B-shaped draft's prefill, phase 15)",
                 **{k: forward[(entry, "draft")][k] for k in fwd_numbers}},
             **({f"at_{label}_shape": {k: cp_rows[(entry, label)][k] for k in cp_numbers}
-                for label in {**CP_KERNEL_SHAPES, **TP_KERNEL_SHAPES}}
+                for label in {**CP_KERNEL_SHAPES, **TP_KERNEL_SHAPES, **SHARD_KERNEL_SHAPES}}
                if entry == fwd_main else {}),
         })
     main_path = fa.bwd_entries(torch.bfloat16, 128)
@@ -6095,7 +6499,7 @@ def main(argv: list[str]) -> int:
             "at_bert_shape": {"shape": bert_shape,
                               **{k: backward[(entry, "bert")][k] for k in bwd_numbers}},
             **({f"at_{label}_shape": {k: cp_rows[(entry, label)][k] for k in cp_numbers}
-                for label in {**CP_KERNEL_SHAPES, **TP_KERNEL_SHAPES}}
+                for label in {**CP_KERNEL_SHAPES, **TP_KERNEL_SHAPES, **SHARD_KERNEL_SHAPES}}
                if entry in main_path else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)

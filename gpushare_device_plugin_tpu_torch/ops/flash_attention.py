@@ -48,6 +48,11 @@ import torch
 
 from . import _build
 
+# The masked score, and the lse of a row that sees no key (the
+# reference's NEG_INF; its LANES and STAT_LANES are the TPU's 128-lane
+# VMEM tiling of those stats, which the CUDA kernels store as [B, H, S]).
+NEG_INF = float("-inf")
+
 # Launches per kernel entry, counted where each wrapper launches it.
 LAUNCHES = {
     "flash_fwd": 0,
@@ -124,7 +129,7 @@ def flash_fwd_plain(
     qg = q.float().reshape(B, S, Hkv, g, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
     vis = _visible(B, S, causal=causal, start=start, kv_len=kv_len, device=q.device)
-    s = s.masked_fill(~vis[:, None, None], float("-inf"))
+    s = s.masked_fill(~vis[:, None, None], NEG_INF)
     m = s.amax(-1, keepdim=True)
     m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m_safe)
@@ -132,7 +137,7 @@ def flash_fwd_plain(
     pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     l_q = l[..., 0].permute(0, 3, 1, 2)[..., None]  # [B, S, Hkv, g, 1]
     o = pv / torch.where(l_q == 0, torch.ones_like(l_q), l_q)
-    lse = torch.where(l == 0, torch.full_like(l, float("-inf")), m + torch.log(l))
+    lse = torch.where(l == 0, torch.full_like(l, NEG_INF), m + torch.log(l))
     lse = lse[..., 0].permute(0, 3, 1, 2).reshape(B, S, H)
     return o.reshape(B, S, H, D).to(q.dtype), lse
 
@@ -154,7 +159,7 @@ def flash_bwd_plain(
     kf, vf = k.float(), v.float()
     s = torch.einsum("bkgqd,bskd->bkgqs", qg, kf) * scale
     vis = _visible(B, S, causal=causal, start=start, kv_len=kv_len, device=q.device)
-    s = s.masked_fill(~vis[:, None, None], float("-inf"))
+    s = s.masked_fill(~vis[:, None, None], NEG_INF)
     lse_g = _grouped(lse, Hkv)[..., None]
     p = torch.exp(s - torch.where(torch.isneginf(lse_g), torch.zeros_like(lse_g), lse_g))
     dp = torch.einsum("bkgqd,bskd->bkgqs", dog, vf)

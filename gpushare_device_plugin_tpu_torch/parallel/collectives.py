@@ -15,7 +15,11 @@ sharded projection: :func:`copy_to_tp` (identity forward, all-reduce
 backward) at the input of a column-parallel one, :func:`reduce_from_tp`
 (all-reduce forward, identity backward) after a row-parallel one.
 :func:`all_gather` makes an FSDP shard whole; its backward is the
-reduce-scatter. Sums run in f32 whatever the dtype. Every rank must make the same collectives
+reduce-scatter. :func:`gather_from_tp` makes a tp-cut tensor whole where
+everything after it is alike on every tp rank; its backward keeps the
+rank's own block. :func:`psum` sums over the batch axes and its backward
+sums the gradients over them too (synchronized batch norm). Sums run in
+f32 whatever the dtype. Every rank must make the same collectives
 in the same order, forward and backward. So one call moves all its
 tensors in one exchange (K and V travel together), and a Function's
 backward makes its exchanges in a fixed order: two exchanges in
@@ -307,6 +311,55 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor
     if mesh.shape[axis] == 1:
         return x
     return _AllGather.apply(x, mesh, axis, dim)
+
+
+class _GatherFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.args = (mesh, dim, x.shape[dim])
+        return _gather(mesh, "tp", x, dim, "all_gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, dim, n = ctx.args
+        return grad.narrow(dim, mesh.axis_index("tp") * n, n), None, None
+
+
+def gather_from_tp(x: torch.Tensor, mesh: Mesh | None, dim: int) -> torch.Tensor:
+    """The tp ranks' blocks of ``x`` joined along ``dim``, for a tensor
+    that everything after uses whole and alike on every tp rank (BERT's
+    MLM dense weight, cut on its output features, ahead of a layer norm).
+    The backward hands each rank its own block of the gradient, which is
+    already whole there: a sum over tp would count it tp times. The
+    identity without a tp axis."""
+    return _GatherFromTp.apply(x, mesh, dim) if _tp_active(mesh) else x
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        out = x.detach().clone()
+        all_reduce_sum_([out], mesh, axes)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axes = ctx.args
+        out = grad.clone()
+        all_reduce_sum_([out], mesh, axes)
+        return out, None, None
+
+
+def psum(x: torch.Tensor, mesh: Mesh | None, axes) -> torch.Tensor:
+    """``jax.lax.psum`` over the batch ``axes``: the sum of every rank's
+    partial ``x``, the same on every rank; the backward sums the ranks'
+    gradients over the same axes (psum's transpose), since each rank's
+    loss share depends on the total. Synchronized batch norm's statistics
+    go through it. The identity without a mesh or on axes of size 1."""
+    if mesh is None or all(mesh.shape[a] == 1 for a in axes):
+        return x
+    return _Psum.apply(x, mesh, tuple(axes))
 
 
 def gather_whole(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:

@@ -298,6 +298,44 @@ def prune_unshardable(specs, shapes, mesh: Mesh):
     return tuple(out)
 
 
+def own_tile(tile: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """A tile that owns its memory (a view would keep the whole leaf)."""
+    return tile if tile.shape == whole.shape else tile.clone()
+
+
+def local_shape(shape, spec, mesh: Mesh) -> tuple[int, ...]:
+    """The shape of a rank's tile of a ``shape`` leaf under ``spec``."""
+    out = []
+    for n, axes in zip(shape, spec):
+        names = () if axes is None else (axes,) if isinstance(axes, str) else axes
+        out.append(n // math.prod(mesh.shape[a] for a in names))
+    return tuple(out) + tuple(shape[len(spec):])
+
+
+def shard_tree(tree, specs, shapes, mesh: Mesh):
+    """This rank's shard of every leaf of ``tree`` (dicts of tensors) under
+    the matching tree of (pruned) ``specs``, whose whole shapes are
+    ``shapes``. A whole leaf is cut (its tile owns its memory); a leaf
+    that already has its shard's shape is kept as it is, so a sharded tree
+    passes through unchanged; any other shape raises."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], shapes[k], mesh) for k, v in tree.items()}
+    if tuple(tree.shape) == tuple(shapes):
+        return own_tile(shard(tree, mesh, specs), tree)
+    if tuple(tree.shape) != local_shape(shapes, specs, mesh):
+        raise ValueError(f"leaf of shape {tuple(tree.shape)} is neither whole {tuple(shapes)} "
+                         f"nor this rank's shard {local_shape(shapes, specs, mesh)}")
+    return tree
+
+
+def tree_specs(tree, specs) -> list[tuple]:
+    """The spec of every leaf of ``tree``, in ``tree_leaves`` order (a
+    tree's key order is its own), from the matching tree of ``specs``."""
+    if isinstance(tree, dict):
+        return [s for key, val in tree.items() for s in tree_specs(val, specs[key])]
+    return [specs]
+
+
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
     dp_total = mesh.shape["dp"] * mesh.shape["fsdp"]
     if global_batch % dp_total:

@@ -37,7 +37,13 @@ import dataclasses
 import threading
 
 from ..const import WORKLOAD_LATENCY_CRITICAL
-from ..utils.metric_catalog import ENGINE_ADAPTER_CACHE_PAGES, ENGINE_ADAPTER_RESIDENT
+from ..utils.metric_catalog import (
+    ENGINE_ADAPTER_CACHE_PAGES,
+    ENGINE_ADAPTER_EVICTIONS_TOTAL,
+    ENGINE_ADAPTER_HITS_TOTAL,
+    ENGINE_ADAPTER_MISSES_TOTAL,
+    ENGINE_ADAPTER_RESIDENT,
+)
 from ..utils.metrics import REGISTRY, MetricsRegistry
 from .pages import PageAllocator
 
@@ -244,3 +250,13 @@ class AdapterCache:
                            "LoRA adapters resident in the paged slab", **labels)
         registry.gauge_set(ENGINE_ADAPTER_CACHE_PAGES, resident * self.pages_per_adapter,
                            "Pool pages holding resident LoRA adapters", **labels)
+
+
+# The counter families the engine publishes for this cache
+# (``PagedSlotEngine._publish_adapters``), for callers that parse them
+# without importing the engine.
+ADAPTER_COUNTER_FAMILIES = (
+    ENGINE_ADAPTER_HITS_TOTAL,
+    ENGINE_ADAPTER_MISSES_TOTAL,
+    ENGINE_ADAPTER_EVICTIONS_TOTAL,
+)

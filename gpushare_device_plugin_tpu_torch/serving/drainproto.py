@@ -88,3 +88,15 @@ class DrainHandshake:
                 self._snapshot = None
                 self._request_evt.clear()
                 self._drained_evt.set()
+
+    # --- introspection ----------------------------------------------------
+
+    def doc(self) -> dict:
+        """The flags and whether a snapshot waits (debugging, invariant
+        checks)."""
+        with self._lock:
+            return {
+                "armed": self._request_evt.is_set(),
+                "drained": self._drained_evt.is_set(),
+                "has_snapshot": self._snapshot is not None,
+            }

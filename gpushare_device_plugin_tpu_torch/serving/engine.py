@@ -2179,6 +2179,87 @@ def shared_prefix_trace(
     return out
 
 
+# --- the static lockstep baseline ----------------------------------------------
+
+
+def run_static_baseline(
+    params,
+    cfg: TransformerConfig,
+    requests: Sequence[Request],
+    *,
+    batch: int,
+    eos_id: int | None = None,
+    kv_dtype: str | None = None,
+    warmup: bool = True,
+    trials: int = 1,
+    device: str | torch.device | None = None,
+) -> ServeStats:
+    """The pre-engine serving discipline, as the reference instruments it:
+    waves of up to ``batch`` requests run lockstep through
+    ``generate.make_generate(padded=True)`` (one padded prefill and the
+    global ``max_new`` decode steps for every row), and nothing is
+    admitted until the whole wave retires.
+
+    The reference's accounting: a wave is taken the moment the pool is
+    idle from whatever has arrived, its prefill costs one tick and each
+    decode step one more; a member's tokens exist only when the wave
+    returns, so its first token and its finish are the wave's completion
+    on both clocks. Tokens are cut to each request's ``max_new`` and
+    first EOS. Every wave has the shape (``batch``, longest prompt), dummy
+    rows holding a one-token prompt. ``warmup`` runs one wave off the
+    clock first (``SlotEngine.warmup``'s counterpart); of ``trials`` runs,
+    whose ticks and tokens are the same, the fastest wall is kept. On
+    ``device`` (``cuda`` unless ``"cpu"`` is passed)."""
+    dev = resolve_device(device)
+    gmax = max(r.max_new for r in requests)
+    tp_max = max(len(r.prompt) for r in requests)
+    gen = G.make_generate(cfg, max_new=gmax, eos_id=eos_id, padded=True, kv_dtype=kv_dtype,
+                          device=dev)
+    incoming = sorted(requests, key=lambda r: (r.arrival, r.rid))
+    if warmup:
+        gen(params, torch.zeros((batch, tp_max), dtype=torch.long, device=dev),
+            torch.ones((batch,), dtype=torch.long, device=dev)).cpu()
+    best: ServeStats | None = None
+    for _ in range(max(1, trials)):
+        results: list[RequestResult] = []
+        tick = 0
+        i = 0
+        t0 = time.perf_counter()
+        while i < len(incoming):
+            if incoming[i].arrival > tick:
+                tick = int(math.ceil(incoming[i].arrival))
+            wave = [r for r in incoming[i:] if r.arrival <= tick][:batch]
+            i += len(wave)
+            prompts = np.zeros((batch, tp_max), np.int64)
+            lens = np.ones((batch,), np.int64)  # dummy rows: a one-token prompt
+            for row, r in enumerate(wave):
+                prompts[row, :len(r.prompt)] = r.prompt
+                lens[row] = len(r.prompt)
+            out = gen(params, torch.from_numpy(prompts).to(dev),
+                      torch.from_numpy(lens).to(dev)).tolist()
+            tick += 1 + gmax  # one prefill tick, then the lockstep decode ticks
+            wall = time.perf_counter() - t0
+            for row, r in enumerate(wave):
+                toks = out[row][:r.max_new]
+                if eos_id is not None and eos_id in toks:
+                    toks = toks[:toks.index(eos_id) + 1]
+                results.append(RequestResult(
+                    rid=r.rid, prompt_len=len(r.prompt), tokens=toks, arrival_tick=r.arrival,
+                    first_token_tick=tick, finish_tick=tick, first_token_s=wall, finish_s=wall,
+                ))
+        wall_total = time.perf_counter() - t0
+        # A lockstep run has no live arrival clock: arrivals convert at the
+        # run's seconds per tick, so its wall TTFT compares with the engine's.
+        spt = wall_total / max(tick, 1)
+        for res in results:
+            res.arrival_s = min(res.arrival_tick * spt, res.first_token_s)
+        results.sort(key=lambda r: r.rid)
+        stats = ServeStats(results=results, ticks=tick, wall_s=wall_total, trace_counts={})
+        if best is None or stats.wall_s < best.wall_s:
+            best = stats
+    return best
+
+
 def kv_slot_bytes(cfg: TransformerConfig, max_len: int, kv_dtype: str | None = None) -> int:
     """Device bytes one slot row pins: K+V across layers at ``max_len``
     positions (+ per-(token, head) f32 scales for int8 caches)."""

@@ -173,6 +173,14 @@ class PagedPlan:
     adapter_bytes: int = 0
 
     @property
+    def max_pages_per_row(self) -> int:
+        """The page-table width the planner gave each row (``table_bytes``
+        is ``slots * (max_pages * 4 + 4)``); 0 without slots."""
+        if self.slots == 0:
+            return 0
+        return (self.table_bytes // self.slots - 4) // 4
+
+    @property
     def pool_bytes(self) -> int:
         """Everything the paged pool itself pins against the slice."""
         return (

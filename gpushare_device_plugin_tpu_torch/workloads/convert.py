@@ -11,6 +11,12 @@ int8 and f32), its LoRA adapters (:func:`lora_from_jax_numpy`), BERT
 reference's HWIO to PyTorch's OIHW, its BN state with them. bfloat16
 arrays, which numpy holds as the 2-byte ``ml_dtypes`` type, cross bit for
 bit.
+
+HF-Llama state dicts (``model.layers.{i}.self_attn.q_proj.weight``, each
+a ``[out, in]`` matrix) cross both ways with :func:`from_hf_llama` and
+:func:`to_hf_llama`: names, reshapes and transposes only, as the
+reference's (the RoPE pairs are HF's "rotate_half" layout, so no
+permutation).
 """
 
 from __future__ import annotations
@@ -162,3 +168,83 @@ def mnist_from_jax_numpy(
     shapes = {"w1": (M.IMAGE_DIM, hidden), "b1": (hidden,),
               "w2": (hidden, M.N_CLASSES), "b2": (M.N_CLASSES,)}
     return _copy_tree(tree, shapes, resolve_device(device))
+
+
+def _hf_names(i: int) -> dict[str, str]:
+    p = f"model.layers.{i}."
+    return {
+        "wq": p + "self_attn.q_proj.weight",
+        "wk": p + "self_attn.k_proj.weight",
+        "wv": p + "self_attn.v_proj.weight",
+        "wo": p + "self_attn.o_proj.weight",
+        "wgate": p + "mlp.gate_proj.weight",
+        "wup": p + "mlp.up_proj.weight",
+        "wdown": p + "mlp.down_proj.weight",
+        "ln1": p + "input_layernorm.weight",
+        "ln2": p + "post_attention_layernorm.weight",
+    }
+
+
+def from_hf_llama(
+    state: Mapping[str, Any], cfg: TransformerConfig, *,
+    device: str | torch.device | None = None,
+) -> Params:
+    """An HF-Llama name -> matrix mapping (torch tensors or numpy arrays,
+    ``[out, in]`` each) as the port's decoder tree, f32 on ``device``:
+    ``model.embed_tokens.weight``, ``model.layers.{i}.*`` for each of
+    ``cfg``'s layers, ``model.norm.weight`` and ``lm_head.weight``. Raises
+    KeyError with the missing name when the mapping lacks one."""
+    dev = resolve_device(device)
+    d, H, Dh, Hkv, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads, cfg.n_layers
+
+    def arr(name: str) -> torch.Tensor:
+        val = state[name]
+        t = val.detach() if isinstance(val, torch.Tensor) else _tensor(np.asarray(val), dev)
+        return t.to(dev, torch.float32)
+
+    layers: dict[str, list] = {k: [] for k in ("wq", "wkv", "wo", "wi", "wdown", "ln1", "ln2")}
+    for i in range(L):
+        n = _hf_names(i)
+        layers["wq"].append(arr(n["wq"]).reshape(H, Dh, d).permute(2, 0, 1))  # [d, H, Dh]
+        wk = arr(n["wk"]).reshape(Hkv, Dh, d).permute(2, 0, 1)
+        wv = arr(n["wv"]).reshape(Hkv, Dh, d).permute(2, 0, 1)
+        layers["wkv"].append(torch.stack([wk, wv], dim=1))  # [d, 2, Hkv, Dh]
+        layers["wo"].append(arr(n["wo"]).reshape(d, H, Dh).permute(1, 2, 0))  # [H, Dh, d]
+        layers["wi"].append(torch.stack([arr(n["wgate"]).T, arr(n["wup"]).T], dim=1))  # [d, 2, F]
+        layers["wdown"].append(arr(n["wdown"]).T)  # [F, d]
+        layers["ln1"].append(arr(n["ln1"]))
+        layers["ln2"].append(arr(n["ln2"]))
+    return {
+        "embed": arr("model.embed_tokens.weight").contiguous(),
+        "layers": {k: torch.stack(v).contiguous() for k, v in layers.items()},
+        "final_norm": arr("model.norm.weight").contiguous(),
+        "out": arr("lm_head.weight").T.contiguous(),  # [V, d] -> [d, V]
+    }
+
+
+def to_hf_llama(params: Params, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """The exact inverse of :func:`from_hf_llama`: the HF-Llama state dict
+    of a decoder tree, contiguous f32 tensors on the host."""
+    d, H, Dh, Hkv, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads, cfg.n_layers
+
+    def host(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu", torch.float32).contiguous()
+
+    lp = params["layers"]
+    out = {
+        "model.embed_tokens.weight": host(params["embed"]),
+        "model.norm.weight": host(params["final_norm"]),
+        "lm_head.weight": host(params["out"].T),
+    }
+    for i in range(L):
+        n = _hf_names(i)
+        out[n["wq"]] = host(lp["wq"][i].permute(1, 2, 0).reshape(H * Dh, d))
+        out[n["wk"]] = host(lp["wkv"][i, :, 0].permute(1, 2, 0).reshape(Hkv * Dh, d))
+        out[n["wv"]] = host(lp["wkv"][i, :, 1].permute(1, 2, 0).reshape(Hkv * Dh, d))
+        out[n["wo"]] = host(lp["wo"][i].permute(2, 0, 1).reshape(d, H * Dh))
+        out[n["wgate"]] = host(lp["wi"][i, :, 0].T)
+        out[n["wup"]] = host(lp["wi"][i, :, 1].T)
+        out[n["wdown"]] = host(lp["wdown"][i].T)
+        out[n["ln1"]] = host(lp["ln1"][i])
+        out[n["ln2"]] = host(lp["ln2"][i])
+    return out

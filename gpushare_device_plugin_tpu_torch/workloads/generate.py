@@ -858,3 +858,37 @@ def make_speculative_generate(
         )
 
     return run
+
+
+def make_generate(
+    cfg: TransformerConfig,
+    *,
+    max_new: int,
+    temperature: float = 0.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    eos_id: int | None = None,
+    padded: bool = False,
+    kv_dtype: str | None = None,
+    device: str | torch.device | None = None,
+):
+    """The reference's generate closure, with a ``torch.Generator`` where it
+    takes a key (None for greedy decoding). ``padded=False``: (params,
+    prompt, generator) -> [B, Tp + max_new]; ``padded=True``: (params,
+    prompt, prompt_lens, generator) -> [B, max_new], the right-padded
+    variable-length serving path. ``kv_dtype="int8"`` serves from a
+    quantized KV cache; sampling as :func:`sample_logits`. The reference
+    jits it; nothing compiles here."""
+    kw = dict(max_new=max_new, temperature=temperature, top_k=top_k, top_p=top_p,
+              eos_id=eos_id, kv_dtype=kv_dtype, device=device)
+    if padded:
+        def run_padded(params, prompt, prompt_lens, generator=None):
+            return generate(params, prompt, cfg, generator=generator, prompt_lens=prompt_lens,
+                            **kw)
+
+        return run_padded
+
+    def run(params, prompt, generator=None):
+        return generate(params, prompt, cfg, generator=generator, **kw)
+
+    return run

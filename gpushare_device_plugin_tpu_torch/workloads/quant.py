@@ -75,6 +75,28 @@ def cast_decoder(params: Params, dtype=torch.bfloat16) -> Params:
     }
 
 
+def dequantize_tree(tree: Any, dtype=torch.float32) -> Any:
+    """The tree with every quantized tensor replaced by its full-precision
+    values in ``dtype``; other leaves as they are."""
+    if is_qtensor(tree):
+        return dequantize(tree, dtype)
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v, dtype) for k, v in tree.items()}
+    return tree
+
+
+def param_bytes(tree: Any) -> int:
+    """The bytes of a tree's tensors (dicts, lists and tuples of them); a
+    quantized tensor counts its int8 values and its f32 scales."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(v) for v in tree)
+    return 0
+
+
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x [..., Dh] -> (q8 [..., Dh] int8, scale [...] f32), one scale per
     (..., token, head)."""

@@ -34,7 +34,7 @@ from ..parallel.mesh import Mesh, shard, unshard_to
 from . import bert as B
 from . import resnet as R
 from . import transformer as T
-from .optim import AdamW, tree_leaves
+from .optim import SGD, AdamW, tree_leaves
 
 log = logging.getLogger(__name__)
 
@@ -53,7 +53,7 @@ class Task(Protocol):
 
     def init_state(self, generator: torch.Generator, mesh: Mesh | None) -> Any:
         """Training state (params, optimizer state, ...) on the generator's
-        device, made from it; a whole replica on each rank of ``mesh``."""
+        device, made from it; on a ``mesh``, this rank's shards of it."""
         ...
 
     def make_step(self, mesh: Mesh | None) -> Callable[[Any, Any], tuple[Any, torch.Tensor]]:
@@ -217,29 +217,26 @@ class DecoderTask:
         return params + [()] + params + params
 
 
-def _no_mesh(mesh: Mesh | None, model: str) -> None:
-    if mesh is not None:
-        raise ValueError(f"{model} trains on one rank: its mesh sharding is not ported yet")
-
-
 def _on(device: torch.device, batch: tuple) -> tuple:
     return tuple(t.to(device) for t in batch)
 
 
 class BertTask:
-    """BERT MLM encoder (``workloads/bert.py``) on ``demo_batch`` batches;
+    """BERT MLM encoder (``workloads/bert.py``) on ``demo_batch`` batches,
+    trained by ``optimizer`` (AdamW at BERT's defaults unless given);
     state ``(params, opt_state)``."""
 
-    def __init__(self, cfg: B.BertConfig, batch: int, seq: int):
+    def __init__(self, cfg: B.BertConfig, batch: int, seq: int,
+                 optimizer: AdamW | None = None):
         self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.optimizer = optimizer
 
     def init_state(self, generator: torch.Generator, mesh: Mesh | None = None):
-        _no_mesh(mesh, "BERT")
-        return B.init_train_state(self.cfg, generator, device=generator.device)
+        return B.init_train_state(self.cfg, generator, self.optimizer, device=generator.device,
+                                  mesh=mesh)
 
     def make_step(self, mesh: Mesh | None = None):
-        _no_mesh(mesh, "BERT")
-        step = B.make_train_step(self.cfg)
+        step = B.make_train_step(self.cfg, self.optimizer, mesh=mesh)
 
         def fn(state, batch):
             params, opt_state, loss = step(*state, *_on(state[0]["embed"].device, batch))
@@ -250,21 +247,29 @@ class BertTask:
     def make_batch(self, generator: torch.Generator, step: int):
         return B.demo_batch(generator, self.batch, self.seq, self.cfg)
 
+    def state_specs(self, state, mesh: Mesh) -> list:
+        """Specs of ``(params, opt_state)``'s leaves: the params', AdamW's
+        replicated count, then the moments, cut as their params."""
+        params = B.leaf_specs(state[0], mesh, self.cfg)
+        return params + [()] + params + params
+
 
 class ResNetTask:
     """ResNet classifier (``workloads/resnet.py``) on ``demo_batch``
-    images; state ``(params, bn_state, opt_state)``."""
+    images, trained by ``optimizer`` (the reference's SGD recipe unless
+    given); state ``(params, bn_state, opt_state)``."""
 
-    def __init__(self, cfg: R.ResNetConfig, batch: int, image_size: int = 32):
+    def __init__(self, cfg: R.ResNetConfig, batch: int, image_size: int = 32,
+                 optimizer: SGD | None = None):
         self.cfg, self.batch, self.image_size = cfg, batch, image_size
+        self.optimizer = optimizer
 
     def init_state(self, generator: torch.Generator, mesh: Mesh | None = None):
-        _no_mesh(mesh, "ResNet")
-        return R.init_train_state(self.cfg, generator, device=generator.device)
+        return R.init_train_state(self.cfg, generator, self.optimizer, device=generator.device,
+                                  mesh=mesh)
 
     def make_step(self, mesh: Mesh | None = None):
-        _no_mesh(mesh, "ResNet")
-        step = R.make_train_step(self.cfg)
+        step = R.make_train_step(self.cfg, self.optimizer, mesh=mesh)
 
         def fn(state, batch):
             params, bn, opt_state, loss = step(
@@ -276,3 +281,11 @@ class ResNetTask:
 
     def make_batch(self, generator: torch.Generator, step: int):
         return R.demo_batch(generator, self.batch, self.image_size)
+
+    def state_specs(self, state, mesh: Mesh) -> list:
+        """Specs of ``(params, bn_state, opt_state)``'s leaves: the
+        params', the BN state whole, then the momentum traces (if any),
+        cut as their params."""
+        params = R.leaf_specs(state[0], mesh, self.cfg)
+        traces = params if state[2]["trace"] else []
+        return params + [()] * len(tree_leaves(state[1])) + traces

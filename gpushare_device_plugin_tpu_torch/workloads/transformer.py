@@ -66,11 +66,22 @@ from ..parallel.collectives import (
     reduce_from_tp,
     sum_shares,
 )
-from ..parallel.mesh import Mesh, batch_sharding, prune_unshardable, shard, shard_axes
+from ..parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    local_shape,  # noqa: F401  (re-exported)
+    own_tile,
+    prune_unshardable,
+    shard,
+    shard_axes,
+    shard_tree,
+    tree_specs,
+)
 from ..parallel.ring import ring_attention
 from ..parallel.ulysses import ulysses_attention
 from .attention import flash_or_plain, grouped_full_attention, ulysses_inner_attn, use_flash
-from .optim import AdamW, make_optimizer, tree_leaves
+from .optim import AdamW, tree_leaves
+from .optim import make_optimizer as _make_adamw
 from .quant import embed_lookup, is_qtensor, matmul_weight
 
 Params = dict[str, Any]
@@ -153,7 +164,7 @@ def init_params(
         spec = specs
         for key in path:
             spec = spec[key]
-        return _own(shard(w, mesh, spec), w)
+        return own_tile(shard(w, mesh, spec), w)
 
     def norm(shape, fan_in, *path):
         w = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
@@ -220,56 +231,21 @@ def param_shardings(mesh: Mesh, cfg: TransformerConfig) -> Params:
     return prune_unshardable(param_specs(cfg), param_shapes(cfg), mesh)
 
 
-def _own(tile: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
-    """A tile that owns its memory (a view would keep the whole leaf)."""
-    return tile if tile.shape == whole.shape else tile.clone()
-
-
-def local_shape(shape, spec, mesh: Mesh) -> tuple[int, ...]:
-    """The shape of a rank's tile of a ``shape`` leaf under ``spec``."""
-    out = []
-    for n, axes in zip(shape, spec):
-        names = () if axes is None else (axes,) if isinstance(axes, str) else axes
-        out.append(n // math.prod(mesh.shape[a] for a in names))
-    return tuple(out) + tuple(shape[len(spec):])
-
-
 def shard_params(params: Params, mesh: Mesh, cfg: TransformerConfig) -> Params:
     """This rank's shard of every leaf of a whole params tree (as
     ``convert.from_jax_numpy`` or :func:`init_params` without a mesh give
     it). A leaf that already has its shard's shape is kept as it is, so
     sharded params pass through unchanged."""
     check_mesh(mesh, cfg)
-
-    def cut(w, spec, shape):
-        if is_qtensor(w):
-            raise ValueError("int8 weights are not sharded: serve tp with float weights")
-        if isinstance(w, dict):
-            return {k: cut(w[k], spec[k], shape[k]) for k in w}
-        if tuple(w.shape) == tuple(shape):
-            return _own(shard(w, mesh, spec), w)
-        if tuple(w.shape) != local_shape(shape, spec, mesh):
-            raise ValueError(f"leaf of shape {tuple(w.shape)} is neither whole {tuple(shape)} "
-                             f"nor this rank's shard {local_shape(shape, spec, mesh)}")
-        return w
-
-    return cut(params, param_shardings(mesh, cfg), param_shapes(cfg))
+    if any(is_qtensor(w) for w in (params["embed"], params["out"], *params["layers"].values())):
+        raise ValueError("int8 weights are not sharded: serve tp with float weights")
+    return shard_tree(params, param_shardings(mesh, cfg), param_shapes(cfg), mesh)
 
 
 def leaf_specs(params: Params, mesh: Mesh, cfg: TransformerConfig) -> list[tuple]:
     """The pruned spec (:func:`param_shardings`) of every leaf of
     ``params``, in ``tree_leaves`` order (a tree's key order is its own)."""
-    out: list[tuple] = []
-
-    def walk(node, spec):
-        if isinstance(node, dict):
-            for key, val in node.items():
-                walk(val, spec[key])
-        else:
-            out.append(spec)
-
-    walk(params, param_shardings(mesh, cfg))
-    return out
+    return tree_specs(params, param_shardings(mesh, cfg))
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -597,7 +573,21 @@ def _nll_sum(logits: torch.Tensor, targets: torch.Tensor, cfg: TransformerConfig
     own logits."""
     if mesh is None or logits.shape[-1] == cfg.vocab:
         return F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(), reduction="sum")
+    return token_nll(logits, targets, cfg.vocab, mesh).sum()
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor, vocab: int,
+              mesh: Mesh | None) -> torch.Tensor:
+    """The cross-entropy of ``logits`` [..., V] at ``targets`` [...], one
+    value per target. Logits cut on the vocabulary (V = vocab/tp) are
+    vocab-parallel: the max, the sum of exponentials and the target's
+    logit are each combined over tp, and every tp rank returns the same
+    values while differentiating its own logits. Whole logits (no mesh,
+    or a vocabulary that tp does not divide) take ``F.cross_entropy``."""
     width = logits.shape[-1]
+    if mesh is None or width == vocab:
+        return F.cross_entropy(logits.reshape(-1, width), targets.reshape(-1).long(),
+                               reduction="none").view(targets.shape)
     top = all_reduce(logits.detach().amax(-1), mesh, "tp", op="max", kind="tp_all_reduce")
     z = logits - top[..., None]
     sumexp = reduce_from_tp(z.exp().sum(-1), mesh)
@@ -605,7 +595,7 @@ def _nll_sum(logits: torch.Tensor, targets: torch.Tensor, cfg: TransformerConfig
     hit = (local >= 0) & (local < width)
     picked = torch.gather(z, -1, local.clamp(0, width - 1)[..., None])[..., 0]
     target = reduce_from_tp(torch.where(hit, picked, torch.zeros_like(picked)), mesh)
-    return (sumexp.log() - target).sum()
+    return sumexp.log() - target
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -633,7 +623,12 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     return sum_shares(nll / (B * (S - 1)), mesh, REPLICA_AXES)
 
 
-# --- training (make_optimizer comes from optim.py) ---------------------------
+# --- training ---------------------------------------------------------------
+
+
+def make_optimizer(lr: float = 3e-4, **kw) -> AdamW:
+    """AdamW (+ clip, + warmup-cosine with ``total_steps=``): ``optim.py``."""
+    return _make_adamw(lr, **kw)
 
 
 def make_train_step(cfg: TransformerConfig, optimizer: AdamW | None = None,

@@ -137,3 +137,38 @@ def test_step_profiler_and_quantiles_equal_reference():
     assert prof.p50() == 0.5 and prof.p99() == 0.9
     prof.reset()
     assert prof.count == 0 and np.isnan(prof.p50())
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_static_baseline_ticks_tokens_and_ttfts_equal_reference(model, kv_dtype):
+    """tests/test_serving_engine.py's static-baseline trace: the lockstep
+    waves' ticks, each request's tokens and its first-token tick (the
+    wave's completion) equal the reference's; and the tokens equal the
+    slot engine's, which wins on ticks."""
+    jcfg, tcfg, jp, tp = model
+    trace = dict(n=10, seed=13, rate=0.25, prompt_lens=(2, 8), max_new=[2, 3, 4, 12])
+    kw = dict(batch=3, eos_id=EOS, kv_dtype=kv_dtype, warmup=False)
+    js = JE.run_static_baseline(jp, jcfg, JE.poisson_trace(**trace, vocab=jcfg.vocab), **kw)
+    reqs = E.poisson_trace(**trace, vocab=tcfg.vocab)
+    ts = E.run_static_baseline(tp, tcfg, reqs, **kw, device="cpu")
+    assert ts.ticks == js.ticks
+    assert [r.rid for r in ts.results] == [r.rid for r in js.results]
+    assert [r.tokens for r in ts.results] == [r.tokens for r in js.results]
+    assert [r.first_token_tick for r in ts.results] == [r.first_token_tick for r in js.results]
+    assert [r.finish_tick for r in ts.results] == [r.finish_tick for r in js.results]
+    assert all(r.first_token_s >= r.arrival_s for r in ts.results)
+    assert ts.summary()["ttft_p99_ticks"] == js.summary()["ttft_p99_ticks"]
+    eng = E.SlotEngine(tp, tcfg, slots=3, max_len=32, prefill_chunk=4, eos_id=EOS,
+                       kv_dtype=kv_dtype, device="cpu")
+    es = eng.run(reqs)
+    assert [r.tokens for r in es.results] == [r.tokens for r in ts.results]
+    assert es.ticks < ts.ticks
+
+
+def test_static_baseline_keeps_the_fastest_of_its_trials(model):
+    _, tcfg, _, tp = model
+    reqs = E.poisson_trace(n=4, seed=2, rate=1.0, prompt_lens=(2, 6), max_new=(2, 4),
+                           vocab=tcfg.vocab)
+    stats = E.run_static_baseline(tp, tcfg, reqs, batch=2, eos_id=EOS, trials=2, device="cpu")
+    assert stats.trace_counts == {} and stats.wall_s > 0
+    assert sorted(r.rid for r in stats.results) == [r.rid for r in reqs]

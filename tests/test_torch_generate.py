@@ -6,6 +6,7 @@ quantization step: a value at a rounding boundary may land either side
 after f32 sums in another order); greedy tokens are exactly equal.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -152,3 +153,36 @@ def test_mask_after_eos_and_sampler_contract():
         G.sample_logits(logits, top_p=1.5)
     with pytest.raises(ValueError, match="kv_dtype"):
         G.init_cache(configs()[1], 1, 4, kv_dtype="fp8", device="cpu")
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("padded", [False, True])
+def test_make_generate_greedy_tokens_equal_reference(model, padded, kv_dtype):
+    jcfg, tcfg, jp, tp = model
+    prompt = tokens((3, 10), seed=11)
+    lens = np.array([10, 4, 7], np.int32)
+    kw = dict(max_new=9, eos_id=EOS, padded=padded, kv_dtype=kv_dtype)
+    jgen = JG.make_generate(jcfg, **kw)
+    gen = G.make_generate(tcfg, **kw, device="cpu")
+    if padded:
+        want = jgen(jp, jnp.asarray(prompt), jnp.asarray(lens), jax.random.key(0))
+        got = gen(tp, prompt, lens)
+        assert got.shape == (3, 9)
+    else:
+        want = jgen(jp, jnp.asarray(prompt), jax.random.key(0))
+        got = gen(tp, prompt)
+        assert got.shape == (3, 19)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_make_generate_sampling_reproducible_from_one_generator(model):
+    _, tcfg, _, tp = model
+    prompt = tokens((2, 6), seed=12)
+    gen = G.make_generate(tcfg, max_new=8, temperature=1.0, top_k=20, top_p=0.9, device="cpu")
+    first = gen(tp, prompt, torch.Generator().manual_seed(7))
+    again = gen(tp, prompt, torch.Generator().manual_seed(7))
+    other = gen(tp, prompt, torch.Generator().manual_seed(8))
+    assert first.shape == (2, 14) and torch.equal(first, again)
+    assert not torch.equal(first, other)
+    with pytest.raises(ValueError, match="generator"):
+        gen(tp, prompt)

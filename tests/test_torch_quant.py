@@ -90,3 +90,26 @@ def test_embed_lookup_and_matmul_weight_match_reference(quantized):
         Q.matmul_weight(tw, torch.float32).numpy(),
         np.asarray(JQ.matmul_weight(jw, jnp.float32)), atol=1e-6,
     )
+
+
+@pytest.mark.parametrize("tree_kind", ["float", "int8", "bf16"])
+def test_param_bytes_and_dequantize_tree_match_reference(tree_kind):
+    """``param_bytes`` counts a quantized leaf's int8 values and f32
+    scales, and gives the reference's count for the same tree;
+    ``dequantize_tree`` leaves float leaves as they are."""
+    jcfg, tcfg = configs()
+    transform = {"float": None, "int8": JQ.quantize_decoder, "bf16": JQ.cast_decoder}[tree_kind]
+    jp, tp = params_pair(jcfg, tcfg, transform=transform)
+    assert Q.param_bytes(tp) == JQ.param_bytes(jp)
+    jd = to_numpy(JQ.dequantize_tree(jp))
+    td = Q.dequantize_tree(tp)
+    assert not any(Q.is_qtensor(v) for v in (td["embed"], td["out"], *td["layers"].values()))
+    for name in ("embed", "out"):
+        np.testing.assert_allclose(td[name].float().numpy(), np.asarray(jd[name], np.float32),
+                                   atol=1e-6, rtol=0)
+    for name, w in jd["layers"].items():
+        np.testing.assert_allclose(td["layers"][name].float().numpy(), np.asarray(w, np.float32),
+                                   atol=1e-6, rtol=0, err_msg=name)
+    if tree_kind == "int8":
+        assert Q.dequantize_tree(tp, torch.bfloat16)["embed"].dtype == torch.bfloat16
+        assert Q.param_bytes(tp) < Q.param_bytes(Q.dequantize_tree(tp)) / 3

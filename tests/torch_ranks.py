@@ -414,7 +414,134 @@ def tp_serve(meshes, *, tp, kind, cfg, params, engine, trace, lora=None, draft=N
     return out
 
 
+def _model(kind: str):
+    """The port's module for ``kind`` ("bert" or "resnet")."""
+    from gpushare_device_plugin_tpu_torch.workloads import bert, resnet
+
+    return {"bert": bert, "resnet": resnet}[kind]
+
+
+def _model_shards(meshes, kind, spec, params, cfg, state=None):
+    """The mesh, the module, its f32 config, and this rank's trainable
+    shards of the reference-made ``params`` (ResNet's: and its BN state)."""
+    from gpushare_device_plugin_tpu_torch.workloads import convert
+
+    mesh = _mesh(meshes, spec)
+    M = _model(kind)
+    if kind == "bert":
+        mcfg = M.BertConfig(**cfg, compute_dtype=torch.float32)
+        whole, bn = convert.bert_from_jax_numpy(params, mcfg, device="cpu"), None
+        shards = M.shard_params(whole, mesh, mcfg)
+    else:
+        mcfg = M.ResNetConfig(**cfg, compute_dtype=torch.float32)
+        whole, bn = convert.resnet_from_jax_numpy(params, state, mcfg, device="cpu")
+        shards, bn = M.shard_params(whole, bn, mesh, mcfg)
+    from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+
+    for t in tree_leaves(shards):
+        t.requires_grad_()
+    return mesh, M, mcfg, shards, bn
+
+
+def _by_name(M, mcfg, mesh, tree, leaves):
+    """``leaves`` (this rank's shards of ``tree``'s leaves, in order)
+    gathered whole, by flattened leaf name."""
+    from gpushare_device_plugin_tpu_torch.parallel.mesh import unshard
+    from gpushare_device_plugin_tpu_torch.workloads.transformer import _flatten
+
+    return {n: unshard(t.detach(), mesh, spec).numpy() for n, t, spec in
+            zip(_flatten(tree), leaves, M.leaf_specs(tree, mesh, mcfg))}
+
+
+def _flat_numpy(tree) -> dict:
+    from gpushare_device_plugin_tpu_torch.workloads.transformer import _flatten
+
+    return {n: t.detach().numpy() for n, t in _flatten(tree).items()}
+
+
+def _batch_tensors(batch) -> tuple:
+    return tuple(torch.from_numpy(np.asarray(a)) for a in batch)
+
+
+def model_grads(meshes, *, kind, spec, params, cfg, batch, state=None):
+    """BERT's or ResNet's sharded loss and every leaf's gradient after the
+    sums of ``grad_sum_axes``, gathered whole (ResNet's: and its new BN
+    state); with the traffic of the exchanges and the rank's specs."""
+    from gpushare_device_plugin_tpu_torch.parallel.collectives import all_reduce_sum_
+    from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+
+    mesh, M, mcfg, shards, bn = _model_shards(meshes, kind, spec, params, cfg, state)
+    mesh.traffic.clear()
+    leaves = tree_leaves(shards)
+    args = _batch_tensors(batch)
+    out = {}
+    if kind == "bert":
+        loss = M.loss_fn(shards, *args, mcfg, mesh)
+    else:
+        loss, new_bn = M.loss_fn(shards, bn, *args, mcfg, mesh)
+        out["bn"] = _flat_numpy(new_bn)
+    grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
+    for g, axes in zip(grads, M.grad_sum_axes(shards, mesh, mcfg)):
+        all_reduce_sum_([g], mesh, axes)
+    out.update(loss=float(loss.detach()), grads=_by_name(M, mcfg, mesh, shards, grads),
+               specs=dict(zip(_flat_numpy(shards), M.leaf_specs(shards, mesh, mcfg))),
+               shard_bytes=nbytes(shards),
+               traffic={k: (t.calls, t.bytes) for k, t in mesh.traffic.items()})
+    return out
+
+
+def model_train_steps(meshes, *, kind, spec, params, cfg, batch, steps, lr, state=None):
+    """``steps`` sharded steps of BERT's (AdamW at ``lr``) or ResNet's (SGD,
+    Nesterov 0.9 at ``lr``) ``make_train_step`` on the same global batch;
+    the losses, the params after, gathered whole (ResNet's: and the BN
+    state)."""
+    mesh, M, mcfg, shards, bn = _model_shards(meshes, kind, spec, params, cfg, state)
+    opt = M.make_optimizer(lr)
+    step = M.make_train_step(mcfg, opt, mesh=mesh)
+    opt_state = opt.init(shards)
+    args = _batch_tensors(batch)
+    losses = []
+    for _ in range(steps):
+        if kind == "bert":
+            shards, opt_state, loss = step(shards, opt_state, *args)
+        else:
+            shards, bn, opt_state, loss = step(shards, bn, opt_state, *args)
+        losses.append(float(loss))
+    from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+
+    out = {"losses": losses,
+           "params": _by_name(M, mcfg, mesh, shards, tree_leaves(shards))}
+    if bn is not None:
+        out["bn"] = _flat_numpy(bn)
+    return out
+
+
+def task_checkpoint(meshes, *, kind, spec, cfg, batch, size, steps, ckpt_dir):
+    """``run_train_loop`` of a ``BertTask`` (``size``: the sequence) or a
+    ``ResNetTask`` (``size``: the image side) on the mesh for ``steps``
+    steps, checkpointing into ``ckpt_dir`` every 2; the state after,
+    gathered whole."""
+    from gpushare_device_plugin_tpu_torch.parallel.mesh import unshard
+    from gpushare_device_plugin_tpu_torch.workloads.optim import tree_leaves
+    from gpushare_device_plugin_tpu_torch.workloads.trainer import (
+        BertTask, ResNetTask, TrainLoopConfig, run_train_loop)
+
+    mesh = _mesh(meshes, spec)
+    M = _model(kind)
+    if kind == "bert":
+        task = BertTask(M.BertConfig(**cfg, compute_dtype=torch.float32), batch, size)
+    else:
+        task = ResNetTask(M.ResNetConfig(**cfg, compute_dtype=torch.float32), batch, size)
+    state, loss = run_train_loop(task, TrainLoopConfig(total_steps=steps, log_every=1,
+                                                       ckpt_dir=ckpt_dir, ckpt_every=2),
+                                 seed=0, mesh=mesh)
+    whole = [unshard(t.detach(), mesh, s).numpy()
+             for t, s in zip(tree_leaves(state), task.state_specs(state, mesh))]
+    return {"loss": loss, "state": whole}
+
+
 JOBS = {"attention": attention, "decoder_grads": decoder_grads, "train_steps": train_steps,
         "shard_blocks": shard_blocks, "tp_grads": tp_grads, "tp_train_steps": tp_train_steps,
         "tp_checkpoint": tp_checkpoint, "tp_serve": tp_serve,
-        "collectives": collectives}
+        "collectives": collectives, "model_grads": model_grads,
+        "model_train_steps": model_train_steps, "task_checkpoint": task_checkpoint}
