@@ -400,6 +400,12 @@ Phases, each of which fails the run with a non-zero exit:
    layer per prefill dispatch. Prints each move's host seconds (drain,
    WAL and PATCH, restore) and, for the clean move's restore, run under
    ``torch.profiler`` (which slows its host seconds), its kernel seconds.
+   The whole phase runs under the port's lock-order witness
+   (``lockrank.set_witness(True)`` before its engines, WAL and mover are
+   made): it prints the violations counted and the names of the ranked
+   locks acquired, and fails on any violation or unless ``serving.drain``
+   and ``serving.radix`` (the drain handshake's and the radix cache's
+   locks, taken by the serving thread and the mover) are among them.
 25. The scheduler extender, host only (it builds nothing and launches no
    kernel; under ``EXTENDER_BUDGET_S``). (a) Phase 23's 50-node cluster, the
    other 49 nodes at 78 of their 79 GiB and this node's 16 share pods
@@ -6105,12 +6111,47 @@ DEFRAG_MOVES = (("clean", None, True), ("rolled forward", "defrag.switch", True)
                 ("rolled back", "defrag.copy", False))
 
 
+# ranks phase 24 must take under the witness: the drain handshake's lock
+# (mover and serving thread) and the radix cache's (the engines' prefix tree)
+DEFRAG_WITNESSED_RANKS = ("serving.drain", "serving.radix")
+
+
 def phase_defrag(params, cfg) -> tuple[dict, dict]:
-    """Phase 24, on phase 2's weights cut to their first DEFRAG_LAYERS
-    layers: a serving pod's slice moved by the port's ``SliceMover`` three
-    times (clean, crashed past the switch and rolled forward, crashed
-    before it and rolled back). Returns the launches of the moves and the
-    phase's report.
+    """Phase 24 under the port's lock-order witness: :func:`defrag_moves`
+    with ``lockrank.set_witness(True)`` from before its engines and locks
+    are made to its end. Fails on any of the moves' failures, on any
+    lock-order violation, or unless the ranks of DEFRAG_WITNESSED_RANKS were
+    acquired. Returns the launches of the moves and the phase's report,
+    which gains ``witness``: the violations counted and the ranks
+    acquired."""
+    from gpushare_device_plugin_tpu_torch.utils import lockrank
+
+    lockrank.set_witness(True)
+    lockrank.reset_violations()
+    try:
+        launches, report, fail = defrag_moves(params, cfg)
+        found = lockrank.violations()
+        ranks = lockrank.acquired_ranks()
+    finally:
+        lockrank.set_witness(None)
+        lockrank.reset_violations()
+    report["witness"] = {"violations": len(found), "ranks_acquired": ranks}
+    print("  phase 24 witness", json.dumps(report["witness"]), flush=True)
+    fail += [f"lock-order violation: {v.brief()}" for v in found]
+    missing = [name for name in DEFRAG_WITNESSED_RANKS if name not in ranks]
+    if missing:
+        fail.append(f"the witness saw no acquire of {missing}")
+    if fail:
+        raise SystemExit("phase 24 failed: " + "; ".join(fail))
+    return launches, report
+
+
+def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
+    """Phase 24's moves, on phase 2's weights cut to their first
+    DEFRAG_LAYERS layers: a serving pod's slice moved by the port's
+    ``SliceMover`` three times (clean, crashed past the switch and rolled
+    forward, crashed before it and rolled back). Returns the launches of
+    the moves, the phase's report and what failed.
 
     The fake apiserver's node lists two cards, 0 and 1, and both are the
     one H100: a move across cards needs two, as phase 20's gang env does,
@@ -6319,9 +6360,7 @@ def phase_defrag(params, cfg) -> tuple[dict, dict]:
           flush=True)
     del src, dst
     torch.cuda.empty_cache()
-    if fail:
-        raise SystemExit("phase 24 failed: " + "; ".join(fail))
-    return launches, report
+    return launches, report, fail
 
 
 def main(argv: list[str]) -> int:

@@ -34,9 +34,9 @@ lock, because a metrics scrape may read occupancy from another thread.
 from __future__ import annotations
 
 import dataclasses
-import threading
 
 from ..const import WORKLOAD_LATENCY_CRITICAL
+from ..utils.lockrank import make_lock
 from ..utils.metric_catalog import (
     ENGINE_ADAPTER_CACHE_PAGES,
     ENGINE_ADAPTER_EVICTIONS_TOTAL,
@@ -73,7 +73,7 @@ class AdapterCache:
     def __init__(self, allocator: PageAllocator, pages_per_adapter: int) -> None:
         if pages_per_adapter < 1:
             raise ValueError(f"pages_per_adapter must be >= 1, got {pages_per_adapter}")
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.adapters")
         self._alloc = allocator
         self.pages_per_adapter = pages_per_adapter
         self._entries: dict[str, _Entry] = {}

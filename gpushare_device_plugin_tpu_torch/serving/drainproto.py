@@ -17,11 +17,15 @@ Three flips under one lock:
 - **run end** (:meth:`DrainHandshake.finish_run`): a run that retired
   everything answers a concurrent drain with None and disarms; an earlier
   cycle's uncollected capture is left for its waiter.
+
+Its lock (rank ``serving.drain``) and its two events are made through the
+``lockrank`` factory, so the witness sees the lock and, under the model
+checker, every flip is a yield point.
 """
 
 from __future__ import annotations
 
-import threading
+from ..utils.lockrank import make_event, make_lock
 
 
 class DrainHandshake:
@@ -29,9 +33,9 @@ class DrainHandshake:
     one mover thread. The lock is held around flag flips only."""
 
     def __init__(self) -> None:
-        self._request_evt = threading.Event()
-        self._drained_evt = threading.Event()
-        self._lock = threading.Lock()
+        self._request_evt = make_event("serving.drain.request")
+        self._drained_evt = make_event("serving.drain.drained")
+        self._lock = make_lock("serving.drain")
         self._snapshot: dict | None = None
 
     # --- mover side -------------------------------------------------------

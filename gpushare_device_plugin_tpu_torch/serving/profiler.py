@@ -12,8 +12,8 @@ gauges; the engine flushes once per run, never per step.
 from __future__ import annotations
 
 import math
-import threading
 
+from ..utils.lockrank import make_lock
 from ..utils.metric_catalog import ENGINE_STEP_P50_SECONDS as P50_GAUGE
 from ..utils.metric_catalog import ENGINE_STEP_P99_SECONDS as P99_GAUGE
 from ..utils.metric_catalog import ENGINE_STEP_SECONDS as STEP_METRIC
@@ -47,7 +47,7 @@ class StepProfiler:
     def __init__(self, capacity: int = 1024) -> None:
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.profiler")
         self._ring: list[float] = [0.0] * capacity
         self._tokens: list[float] = [1.0] * capacity
         self._cap = capacity

@@ -39,10 +39,10 @@ from __future__ import annotations
 
 import dataclasses
 import struct
-import threading
 import zlib
 from typing import Iterator
 
+from ..utils.lockrank import make_lock
 from .pages import PageAllocator
 
 
@@ -88,7 +88,7 @@ class RadixCache:
     def __init__(self, page_size: int, allocator: PageAllocator) -> None:
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.radix")
         self.page_size = page_size
         self._alloc = allocator
         # adapter id -> that adapter's tree of first pages

@@ -1,35 +1,44 @@
-"""Declared lock ranking, the ranked-lock factory and the runtime
-lock-order witness.
+"""Declared lock ranking, the ranked-lock factory, the runtime
+lock-order witness and the model checker's seam.
 
-Counterpart of ``gpushare_device_plugin_tpu/utils/lockrank.py``, cut to
-the locks the port's modules take (the node agent's cluster half: the
-allocators' serial and match locks, the defragmenter's planner report and
-move counters, the interference detector's baselines, the pod informer
-and its indexes, the node-PATCH coalescer; the WAL, its group-commit
-writer, the assume cache, the SLO budget, the decision log, the fleet's
-router, membership and scale executor, the KV handoff's ledger and peer
-client, the circuit breaker, the fault table, the page allocator, the
-device plugin's stream condition, health watcher and standalone allocator,
-the node agent's timeline ring and flight recorder, and the scheduler
-extender's decision lock, usage index, shard router, coordinator lease,
-2PC side-state, churn simulator and admission-trace registry).
-Each entry is the reference's: same name, rank, kind, I/O rule and reason.
+Counterpart of ``gpushare_device_plugin_tpu/utils/lockrank.py``, with
+every lock the reference ranks: the node agent's (the allocators' serial
+and match locks, the defragmenter's planner report and move counters, the
+interference detector's baselines, the pod informer and its indexes, the
+node-PATCH coalescer), the WAL, its group-commit writer, the assume cache,
+the SLO budget, the decision log, the fleet's router, membership and scale
+executor, the KV handoff's ledger and peer client, the serving engine's
+adapter cache, radix tree, page allocator, drain handshake and step
+profiler, the circuit breaker, the fault table, the device plugin's stream
+condition, health watcher and standalone allocator, the node agent's
+timeline ring and flight recorder, the scheduler extender's decision lock,
+usage index, shard router, coordinator lease, 2PC side-state, churn
+simulator and admission-trace registry, and the trace store and metrics
+registry. Each entry is the reference's: same name, rank, kind, I/O rule
+and reason.
 
 - :data:`RANKS`: a total order. A thread may only acquire a lock whose
   rank is strictly greater than every lock it already holds (re-entering
   the same RLock is fine), so two code paths that respect it can never
   deadlock.
-- :func:`make_lock` / :func:`make_rlock` / :func:`make_condition`: every
-  ranked lock is created here, naming its rank. By default they return
-  plain ``threading`` primitives.
-- The witness: with ``TPUSHARE_LOCK_WITNESS=1`` in the environment, or
-  after :func:`set_witness` ``(True)``, locks created from then on check
-  each acquire against the ranking on their thread and record a
-  :class:`Violation` (with both acquisition stacks) for any down-rank
-  acquire; :func:`assert_clean` raises on any recorded one.
-
-The reference's model-checker seam (``set_mc_factory``, ``make_event``)
-is not carried: its checker is not part of the port.
+- :func:`make_lock` / :func:`make_rlock` / :func:`make_condition` /
+  :func:`make_event`: every ranked lock, and every event a protocol waits
+  on, is created here, naming its rank. By default they return plain
+  ``threading`` primitives.
+- The witness: with ``TPUSHARE_LOCK_WITNESS=1`` or ``TPUSHARE_TEST_CHAOS=1``
+  in the environment, or after :func:`set_witness` ``(True)``, locks
+  created from then on check each acquire against the ranking on their
+  thread and record a :class:`Violation` (with both acquisition stacks)
+  for any down-rank acquire (raised at once under
+  ``TPUSHARE_LOCK_WITNESS_RAISE=1``); :func:`assert_clean` raises on any
+  recorded one.
+- The model checker's seam (:func:`set_mc_factory`): while a factory is
+  installed, the four ``make_*`` functions hand out its primitives (after
+  the rank check), so every acquire, release, wait and set becomes a
+  yield point of a deterministic scheduler. With
+  ``FaultRegistry.set_yield_hook`` it is what the reference's
+  ``tools/tpumc`` checker drives, and it drives the port's protocols
+  through it unchanged (``tests/torch_mc_mirror.py``).
 
 Stdlib only: every other module imports this one to create its locks.
 """
@@ -40,7 +49,7 @@ import dataclasses
 import os
 import sys
 import threading
-from typing import Any
+from typing import Any, Iterator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +104,7 @@ RANKS: dict[str, LockRank] = dict((
     _r("allocator.match", 22, "lock", True,
        "Per-size match stripes (ClusterAllocator/_CoreAllocator): "
        "serialize same-size matches. May refresh() the pod source "
-       "(one synchronous LIST) on a match miss, the documented "
+       "(one synchronous LIST) on a match miss — the documented "
        "close-the-bind-window exception, so I/O is allowed."),
     _r("defrag.planner", 24, "lock", False,
        "DefragPlanner's cached last-scan report: the defrag loop "
@@ -184,6 +193,13 @@ RANKS: dict[str, LockRank] = dict((
        "the engine drain handshake (serving.drain, rank 89) both "
        "run with this lock released — the protocol's I/O and "
        "engine calls are never under it, mirroring defrag.moves."),
+    _r("serving.adapters", 79, "lock", False,
+       "AdapterCache's residency table (adapter id -> slab pages, "
+       "pin counts, LRU clock, hit/miss/eviction/stall telemetry). "
+       "Loads and evictions allocate/release through the page "
+       "allocator (serving.pages, rank 87) while held — strictly "
+       "up-rank, the serving.handoff precedent. Device slab writes "
+       "happen in the engine loop with this lock released."),
     _r("apiserver.coalescer", 80, "lock", False,
        "Lazy construction of the node-PATCH coalescer; the merged "
        "PATCH itself runs outside it."),
@@ -203,6 +219,11 @@ RANKS: dict[str, LockRank] = dict((
        "strictly up-rank."),
     _r("manager.health", 84, "lock", False,
        "HealthWatcher's unhealthy-chip set."),
+    _r("serving.radix", 85, "lock", False,
+       "RadixCache's shared-prefix tree (nodes, LRU clock, hit "
+       "telemetry). Page reference updates (serving.pages, rank "
+       "87) run after the tree lock is dropped; any unavoidable "
+       "nesting goes radix -> pages, strictly up-rank."),
     _r("allocator.local", 86, "lock", False,
        "LocalAllocator's standalone usage table (never nests over "
        "cluster locks; ranked near the leaves)."),
@@ -215,18 +236,40 @@ RANKS: dict[str, LockRank] = dict((
     _r("circuit.breaker", 88, "lock", False,
        "CircuitBreaker state counters; the guarded call runs with "
        "the lock released."),
+    _r("serving.drain", 89, "lock", False,
+       "PagedSlotEngine's drain-handshake state (arm / capture / "
+       "consume transitions of the _drain/_drained events and the "
+       "captured snapshot). Near-leaf: held around Event/dict "
+       "flips a few times per run — never per tick, never over "
+       "another lock."),
     _r("faults.registry", 90, "lock", False,
        "Fault-injection rule table; fire() sites run everywhere, "
        "so this must be a near-leaf."),
+    _r("serving.profiler", 91, "lock", False,
+       "StepProfiler's preallocated per-decode-step ring + "
+       "counters: the engine's host loop writes one float per "
+       "decode dispatch, the /metrics publisher and the "
+       "interference detector read rolling quantiles. Near-leaf "
+       "pure memory; flush() snapshots under it and feeds the "
+       "metrics registry (rank 95) outside."),
     _r("tracing.admissions", 92, "lock", False,
        "AdmissionTraces' per-pod root-span registry: correlates the "
        "extender's separate webhook verbs into one trace. Ends "
        "spans (which append to tracing.store, rank 93) under it, "
        "so it sits just below the store."),
+    _r("tracing.store", 93, "lock", False,
+       "TraceStore's finished-span ring: spans end under almost "
+       "any other lock (a traced section can close inside a locked "
+       "region), so the store is a near-leaf like the metrics "
+       "registry. Pure memory — export snapshots, then serializes "
+       "outside the lock."),
     _r("flightrec.ring", 94, "lock", False,
        "FlightRecorder's bounded log-record ring: fed from a "
        "logging handler, which can run under any lock that logs. "
        "dump() snapshots under it and writes the file outside."),
+    _r("metrics.registry", 95, "lock", False,
+       "MetricsRegistry: the innermost leaf — counters and "
+       "histograms are recorded under every other lock."),
 ))
 
 
@@ -270,6 +313,7 @@ class Violation:
 _state_lock = threading.Lock()  # raw on purpose: the witness never recurses
 _violations: list[Violation] = []
 _forced: bool | None = None
+_acquired: set[str] = set()  # names of witnessed locks taken (set.add is atomic)
 _TRUTHY = ("1", "true", "yes", "on")
 
 
@@ -277,14 +321,22 @@ def witness_enabled() -> bool:
     """Whether locks created now are witnessed."""
     if _forced is not None:
         return _forced
-    return os.environ.get("TPUSHARE_LOCK_WITNESS", "").lower() in _TRUTHY
+    return any(os.environ.get(var, "").lower() in _TRUTHY
+               for var in ("TPUSHARE_LOCK_WITNESS", "TPUSHARE_TEST_CHAOS"))
 
 
 def set_witness(enabled: bool | None) -> None:
     """Force the witness on or off for locks created from now on (None:
-    the environment decides again)."""
+    the environment decides again), and forget the ranks acquired."""
     global _forced
     _forced = enabled
+    _acquired.clear()
+
+
+def acquired_ranks() -> list[str]:
+    """The names of the witnessed locks acquired on any thread since the
+    last :func:`set_witness`, outermost rank first."""
+    return [r.name for r in ordered(list(_acquired.copy()))]
 
 
 def violations() -> list[Violation]:
@@ -306,12 +358,30 @@ def assert_clean(context: str = "") -> None:
                              + "\n".join(v.report() for v in found))
 
 
+def _record(violation: Violation) -> None:
+    with _state_lock:
+        _violations.append(violation)
+    if os.environ.get("TPUSHARE_LOCK_WITNESS_RAISE", "").lower() in _TRUTHY:
+        raise LockOrderError(violation.report())
+
+
 class _HeldStack(threading.local):
     def __init__(self) -> None:
         self.entries: list[list[Any]] = []  # [lock id, name, rank, count, stack]
 
 
 _held = _HeldStack()
+
+# A plain Lock may be released by another thread than its holder. Then the
+# holder's entry is found here (id(lock) -> the holder's entries list and
+# entry) and removed, so it does not turn into false violations for the
+# rest of the holder's life. Guarded by _state_lock; non-reentrant only.
+_handoff: dict[int, tuple[list[list[Any]], list[Any]]] = {}
+
+
+def held_locks() -> list[tuple[str, int]]:
+    """(name, count) for every witnessed lock this thread holds."""
+    return [(e[1], e[3]) for e in _held.entries]
 
 
 def _stack() -> str:
@@ -345,8 +415,7 @@ class _WitnessedLock:
     def _violation(self, holding: str, rank: int, held_stack: str) -> Violation:
         v = Violation(threading.current_thread().name, self._name, self._rank, holding,
                       rank, _stack(), held_stack)
-        with _state_lock:
-            _violations.append(v)
+        _record(v)
         return v
 
     def _check_order(self) -> None:
@@ -367,15 +436,28 @@ class _WitnessedLock:
         if mine is not None and self._reentrant:
             mine[3] += n
             return
-        _held.entries.append([id(self), self._name, self._rank, n, _stack()])
+        entry = [id(self), self._name, self._rank, n, _stack()]
+        _held.entries.append(entry)
+        _acquired.add(self._name)
+        if not self._reentrant:
+            with _state_lock:
+                _handoff[id(self)] = (_held.entries, entry)
 
     def _pop(self, n: int = 1) -> None:
         mine = self._entry()
         if mine is None:
+            # released by a thread that never acquired it: drop the holder's entry
+            with _state_lock:
+                owner = _handoff.pop(id(self), None)
+            if owner is not None and owner[1] in owner[0]:
+                owner[0].remove(owner[1])
             return
         mine[3] -= n
         if mine[3] <= 0:
             _held.entries.remove(mine)
+            if not self._reentrant:
+                with _state_lock:
+                    _handoff.pop(id(self), None)
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
         self._check_order()
@@ -394,6 +476,12 @@ class _WitnessedLock:
 
     def __exit__(self, *exc: Any) -> None:
         self.release()
+
+    def __getattr__(self, name: str) -> Any:
+        # the rest of the inner primitive's surface (Lock.locked, ...)
+        if name == "_inner":
+            raise AttributeError(name)
+        return getattr(self._inner, name)
 
     def _is_owned(self) -> bool:
         inner = self._inner
@@ -417,6 +505,28 @@ class _WitnessedLock:
         self._push(depth)
 
 
+# The model checker's factory: while set, the make_* functions below hand
+# out its primitives after the rank check. None in production: one global
+# read when a primitive is made, nothing on the acquire path.
+_mc_factory: Any | None = None
+
+
+def set_mc_factory(factory: Any | None) -> None:
+    """Install (or clear, with None) the model checker's primitive factory:
+    an object with ``lock(name)``, ``rlock(name)``, ``condition(name)`` and
+    ``event(name)``. Affects primitives made from now on, so a checker
+    installs it before it builds a model's objects; module-level singletons
+    made at import (the metrics registry, the fault table, the trace store)
+    stay plain, and so atomic to the checker."""
+    global _mc_factory
+    _mc_factory = factory
+
+
+def mc_active() -> bool:
+    """Whether primitives made now are the model checker's."""
+    return _mc_factory is not None
+
+
 def _check_kind(name: str, kind: str) -> None:
     rank = rank_of(name)
     if rank.kind != kind:
@@ -426,6 +536,8 @@ def _check_kind(name: str, kind: str) -> None:
 def make_lock(name: str) -> Any:
     """A non-reentrant mutex at the declared rank ``name``."""
     _check_kind(name, "lock")
+    if _mc_factory is not None:
+        return _mc_factory.lock(name)
     if witness_enabled():
         return _WitnessedLock(name, threading.Lock(), reentrant=False)
     return threading.Lock()
@@ -434,6 +546,8 @@ def make_lock(name: str) -> Any:
 def make_rlock(name: str) -> Any:
     """A reentrant mutex at the declared rank ``name``."""
     _check_kind(name, "rlock")
+    if _mc_factory is not None:
+        return _mc_factory.rlock(name)
     if witness_enabled():
         return _WitnessedLock(name, threading.RLock(), reentrant=True)
     return threading.RLock()
@@ -442,6 +556,23 @@ def make_rlock(name: str) -> Any:
 def make_condition(name: str) -> threading.Condition:
     """A condition variable whose mutex carries rank ``name``."""
     _check_kind(name, "condition")
+    if _mc_factory is not None:
+        return _mc_factory.condition(name)
     if witness_enabled():
         return threading.Condition(_WitnessedLock(name, threading.RLock(), reentrant=True))
     return threading.Condition()
+
+
+def make_event(name: str) -> Any:
+    """An event flag named for diagnostics. Events carry no rank (they are
+    not mutual exclusion), but a wait parks a thread and a set releases it,
+    so a protocol's events are made here too and the model checker
+    schedules them."""
+    if _mc_factory is not None:
+        return _mc_factory.event(name)
+    return threading.Event()
+
+
+def ordered(names: list[str]) -> Iterator[LockRank]:
+    """The declared ranks of ``names``, outermost first."""
+    return iter(sorted((rank_of(n) for n in names), key=lambda r: r.rank))

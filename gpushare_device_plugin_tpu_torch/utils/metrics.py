@@ -24,6 +24,7 @@ from typing import Any, Callable, Iterator
 from urllib.parse import parse_qs, urlparse
 
 from . import tracing
+from .lockrank import make_lock
 from .metric_catalog import BUILD_INFO as BUILD_INFO_GAUGE
 
 # Latency buckets (seconds): 0.5 ms .. 10 s, roughly log-spaced.
@@ -47,7 +48,7 @@ def _fmt_labels(labels: tuple[tuple[str, str], ...]) -> str:
 
 class MetricsRegistry:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.registry")
         self._counters: dict[tuple[str, tuple], float] = {}
         self._gauges: dict[tuple[str, tuple], float] = {}
         # name -> (buckets, {labels -> [counts..., sum, count]})

@@ -193,7 +193,7 @@ class TraceStore:
     and a trace keeps at most ``max_spans_per_trace`` spans."""
 
     def __init__(self, max_traces: int = 256, max_spans_per_trace: int = 512) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("tracing.store")
         self._max_traces = max_traces
         self._max_spans = max_spans_per_trace
         self._traces: OrderedDict[str, list[Span]] = OrderedDict()

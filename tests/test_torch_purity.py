@@ -354,6 +354,41 @@ def test_importing_every_port_module_leaves_jax_out():
     assert out.returncode == 0, out.stderr
 
 
+def _raw_locks(path):
+    """``threading.Lock/RLock/Condition`` made in ``path``: called as
+    ``threading.X()`` (or through an alias of the module) or imported with
+    ``from threading import X``."""
+    tree = ast.parse(path.read_text(), str(path))
+    kinds = ("Lock", "RLock", "Condition")
+    modules = {"threading"} | {a.asname for node in ast.walk(tree)
+                               if isinstance(node, ast.Import)
+                               for a in node.names if a.name == "threading" and a.asname}
+    bare = {a.asname or a.name for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.module == "threading"
+            for a in node.names if a.name in kinds}
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        fn = node.func
+        if (isinstance(fn, ast.Attribute) and isinstance(fn.value, ast.Name)
+                and fn.value.id in modules and fn.attr in kinds):
+            yield f"{path.relative_to(ROOT)}:{node.lineno} threading.{fn.attr}"
+        elif isinstance(fn, ast.Name) and fn.id in bare:
+            yield f"{path.relative_to(ROOT)}:{node.lineno} {fn.id}"
+
+
+def test_every_port_lock_is_made_through_the_ranked_factory():
+    """tpulint's unranked-lock rule (``tools/tpulint/rules_locks.py``) on
+    the port: no module but ``utils/lockrank.py`` makes a threading Lock,
+    RLock or Condition, so the witness and the model checker see every
+    lock. The one exception is the kernel build's module lock
+    (``ops/_build.py``), which no control-plane path takes. Events stay
+    allowed (stop flags); a protocol's events go through ``make_event``."""
+    raw = [hit for p in sorted(PORT.rglob("*.py")) if p != PORT / "utils" / "lockrank.py"
+           for hit in _raw_locks(p)]
+    assert [hit.split(":")[0] for hit in raw] == ["gpushare_device_plugin_tpu_torch/ops/_build.py"], raw
+
+
 def test_entry_points_refuse_to_drop_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
