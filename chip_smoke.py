@@ -463,11 +463,38 @@ Phases, each of which fails the run with a non-zero exit:
    and no scalar entry. Prints each run's step p50,
    peak reserved memory and exchanges (calls, bytes, host seconds).
 
+27. Quantized serving, on phase 2's bf16 weights at full width and depth
+   (run straight after phase 24). (a) The reference bench's
+   ``bench_serve``: ``quantize_decoder`` (a layer, or a block of the
+   embedding's rows or the head's columns, at a time; layers 0-1 of ``wi``
+   and the whole head must equal a whole-leaf ``quantize``), the bf16 and
+   int8 ``param_bytes`` and the KV bytes at batch 8 x (2,048 + 32) for both
+   cache dtypes; one 2,048-token prompt's int8 prefill logits against
+   bf16's, rel-L2 at most 0.1 (the reference's gate), and whether the
+   argmax matches; then ``make_generate`` for bf16, int8, bf16 with an
+   int8 KV cache and int8 with an int8 KV cache at batch 1 and 8 on
+   2,048-token prompts, 32 new tokens (the reference's 128, cut for time),
+   a warm-up of 2 tokens and one timed run each: every output of the expected shape
+   in the vocabulary, every wall at least 32 weight streams at 3.35 TB/s
+   over 1.25, ``flash_fwd`` 32 times a generate call. (b) The int8 pod: a
+   child with only the plugin's env for a 16-GiB slice caps itself
+   (``configure_torch_from_env``), must see ``slots_from_pod_env`` refuse
+   the bf16 tree's bytes with the reference's "quantize" error, draws an
+   int8 8B tree a leaf at a time (the whole bf16 tree does not fit),
+   sizes ``PagedSlotEngine`` with ``paged_plan_from_pod_env(kv_dtype=
+   "int8")`` (212 slots over 6,864 pages: the reference's plan), serves
+   phase 2's trace's first 8 requests at 32 layers with an int8 KV cache,
+   and holds each request's tokens to solo greedy decode on the same tree
+   and cache (phase 3's near-tie rule); shape guard, no page leaked,
+   ``flash_fwd`` 32 times a prefill dispatch, peak reserved memory at or
+   below the cap; an OOM fails the phase. Prints the pages, slots, peak,
+   cap, TTFT and decode step p50.
+
 The phases run in the order 1, 21, 22, 23, 25, 2, 3, 2 (c), 7, 8, 13, 15,
-16, 17, 18, 24, 14, 4, 5, 6, 9-12, 19, 20, 26; each phase's seconds print
+16, 17, 18, 24, 27, 14, 4, 5, 6, 9-12, 19, 20, 26; each phase's seconds print
 on one JSON line (``phase seconds``) before the script's. ``python3
 chip_smoke.py --phase 17`` (or ``--phase 18``, ``--phase 19``, ``--phase
-20``, ``--phase 24`` or ``--phase 26``) builds
+20``, ``--phase 24``, ``--phase 26`` or ``--phase 27``) builds
 the kernels and runs that phase alone on fresh weights (a quick check; it
 prints no contract lines); ``--phase 21``, ``--phase 22``, ``--phase
 23`` and ``--phase 25`` run that phase alone and build nothing (they
@@ -494,7 +521,9 @@ live handoff run, both tiers), ``fleet`` (phase 18's affinity run,
 all three engines), ``defrag`` (phase 24's restores), ``ring`` and ``ulysses`` (phase 19 (b)'s runs, both
 ranks), ``tp_serve``, ``tp_paged`` and ``tp_train`` (phase 20's (a1),
 (a2) and (b), both ranks, (b) both meshes), ``static_baseline`` (phase 2
-(c)), ``train_bert_fsdp`` and ``train_bert_tp`` (phase 26, both ranks);
+(c)), ``train_bert_fsdp`` and ``train_bert_tp`` (phase 26, both ranks),
+``int8_serve`` (phase 27 (a)'s generate runs) and ``int8_pod`` (phase 27
+(b)'s pod);
 the forward rows carry ``at_draft_shape``, and the main-path rows
 ``at_ring_hop_shape``, ``at_ulysses_shape`` (phase 19),
 ``at_tp_train_shape`` (phase 20), ``at_bert_fsdp_shape`` and
@@ -557,10 +586,12 @@ from gpushare_device_plugin_tpu_torch.serving.engine import (
     PagedSlotEngine,
     Request,
     SlotEngine,
+    kv_slot_bytes,
     paged_plan_from_pod_env,
     poisson_trace,
     run_static_baseline,
     shared_prefix_trace,
+    slots_from_pod_env,
 )
 from gpushare_device_plugin_tpu_torch.serving.pages import paged_plan_for_slice
 from gpushare_device_plugin_tpu_torch.serving.profiler import ceil_rank_quantile
@@ -572,6 +603,7 @@ from gpushare_device_plugin_tpu_torch.workloads import bert as B
 from gpushare_device_plugin_tpu_torch.workloads import generate as G
 from gpushare_device_plugin_tpu_torch.workloads import lora as L
 from gpushare_device_plugin_tpu_torch.workloads import mnist
+from gpushare_device_plugin_tpu_torch.workloads import quant as Q
 from gpushare_device_plugin_tpu_torch.workloads import resnet as R
 from gpushare_device_plugin_tpu_torch.workloads import transformer as T
 from gpushare_device_plugin_tpu_torch.workloads.attention import ulysses_inner_attn
@@ -1294,12 +1326,12 @@ class SoloDecode:
     EOS (the engine retires a request there), and then frees its cache. It
     holds no reference to the weights: each call is given them."""
 
-    def __init__(self, params, cfg, prompt, max_new):
+    def __init__(self, params, cfg, prompt, max_new, kv_dtype=None):
         self.max_new = max_new
         self.toks: list[int] = []
         self.gaps: list[tuple[float, float]] = []
         p = torch.tensor([prompt], dtype=torch.long, device="cuda")
-        self._cache = G.init_cache(cfg, 1, len(prompt) + max_new)
+        self._cache = G.init_cache(cfg, 1, len(prompt) + max_new, kv_dtype=kv_dtype)
         self._logits, self._cache = G.prefill(params, p, self._cache, cfg)
         self._tok = None
 
@@ -1322,19 +1354,20 @@ class SoloDecode:
 
 
 def check_vs_solo(phase, params, cfg, req, got, want=None, solos=None,
-                  gap_rel=TOP2_GAP_REL) -> list[dict]:
+                  gap_rel=TOP2_GAP_REL, kv_dtype=None) -> list[dict]:
     """Hold one request's served tokens against the port's solo greedy
     decode by the near-tie rule: they may differ first only at a step where
     the solo top-two gap is at most ``gap_rel`` * |top|. Tokens that equal
     ``want`` (an earlier run's, already held) need no solo run; ``solos``
-    keeps each request's :class:`SoloDecode`, so a request held twice
-    decodes once. Returns the divergence, if any, for the log."""
+    keeps each request's :class:`SoloDecode` (over a ``kv_dtype`` cache),
+    so a request held twice decodes once. Returns the divergence, if any,
+    for the log."""
     if want is not None and got == want:
         return []
     solos = {} if solos is None else solos
     key = (req.prompt, req.max_new)
     if key not in solos:
-        solos[key] = SoloDecode(params, cfg, list(req.prompt), req.max_new)
+        solos[key] = SoloDecode(params, cfg, list(req.prompt), req.max_new, kv_dtype)
     solo = solos[key]
     j = next((i for i, tok in enumerate(got)
               if len(solo.upto(params, cfg, i + 1)) <= i or solo.toks[i] != tok), None)
@@ -6363,11 +6396,351 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
     return launches, report, fail
 
 
+# Phase 27: quantized serving. (a) is the reference bench's bench_serve
+# (bench_mfu.py:460-557) at full width and depth on phase 2's bf16 weights:
+# int8 prefill logits against bf16's (its gate: rel-L2 <= 0.1), then
+# make_generate for four precisions at batch 1 and 8 on 2,048-token prompts,
+# each wall held to bench_serve's weight-stream roofline guard at the H100
+# SXM's HBM rate. bench_serve decodes 128 tokens and times 5 runs after a
+# warm-up; here 32 tokens and one timed run after a warm-up of 2 tokens
+# (the same programs; nothing compiles), for the script's time limit.
+# (b) is the product the plugin sells: the 8B served as int8 from a 16-GiB
+# slice, which refuses the bf16 tree. A child with only the plugin's env
+# draws and quantizes its own weights (never the whole bf16 tree, which
+# the slice cannot hold), sizes the int8 paged pool from the env and
+# serves SERVE_TRACE's first requests at 32 layers inside its cap.
+QUANT_TP = 2048
+QUANT_MAX_NEW = 32
+QUANT_WARMUP_NEW = 2
+QUANT_BATCHES = (1, 8)
+QUANT_GATE_REL_L2 = 0.1
+QUANT_ROOFLINE_SLACK = 1.25  # a wall may beat max_new weight streams by no more
+QUANT_PRECISIONS = (("bf16", False, None), ("int8", True, None), ("bf16_kv8", False, "int8"),
+                    ("int8_kv8", True, "int8"))  # (label, int8 weights, kv_dtype)
+QUANT_POD_UNITS = 16
+QUANT_POD_SEED = 27
+QUANT_POD_REQUESTS = 8  # SERVE_TRACE's first 8
+QUANT_GEO = dict(max_len=2048, prefill_chunk=512, page_size=16)
+# The reference's plan for the int8 8B at QUANT_GEO in a 16-GiB slice
+# (tests/test_torch_pod_sizing.py holds the port's to it, from byte counts).
+QUANT_POD_SLOTS, QUANT_POD_PAGES = 212, 6864
+
+
+def drawn_int8_decoder(cfg, gen) -> dict:
+    """``quantize_decoder(init_params(cfg, gen, dtype=torch.bfloat16))``,
+    drawn a leaf at a time: the same draws in the same order, each leaf
+    quantized (``quant.quantize_leaf``) and dropped before the next is
+    drawn, so the whole bf16 tree never exists."""
+    shapes = T.param_shapes(cfg)
+
+    def leaf(name, shape, fan_in):
+        w = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        return Q.quantize_leaf(name, w.mul_(1.0 / math.sqrt(fan_in)))
+
+    def ones(shape):
+        return torch.ones(shape, dtype=torch.float32, device="cuda")
+
+    d = cfg.d_model
+    embed = leaf("embed", shapes["embed"], d)
+    layers = {name: leaf(name, shapes["layers"][name], cfg.d_ff if name == "wdown" else d)
+              for name in ("wq", "wkv", "wo", "wi", "wdown")}
+    layers.update(ln1=ones(shapes["layers"]["ln1"]), ln2=ones(shapes["layers"]["ln2"]))
+    return {"embed": embed, "layers": layers, "final_norm": ones(shapes["final_norm"]),
+            "out": leaf("out", shapes["out"], d)}
+
+
+def moved(tree, device):
+    """A tree of dicts of tensors with every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {key: moved(val, device) for key, val in tree.items()}
+    return tree.to(device)
+
+
+def own_peak_gb(held: int) -> float:
+    """Peak allocated since the last reset, less ``held`` bytes."""
+    return round((torch.cuda.max_memory_allocated() - held) / 1e9, 3)
+
+
+def quant_serve(params, cfg) -> tuple[dict, dict]:
+    """Phase 27 (a); returns its report and the launches of its generate
+    runs (warm-ups and timed runs, every precision and batch)."""
+    print("phase 27 (a): bench_serve, llama3_8b (32 layers): bf16, int8, bf16_kv8, int8_kv8",
+          flush=True)
+    fail = []
+    # Earlier phases' reference cycles, collected in the middle of a run,
+    # would free memory under its peak and turn its own peak negative.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    q = Q.quantize_decoder(params)
+    torch.cuda.synchronize()
+    rep = {"quantize_s": round(time.perf_counter() - t0, 3),
+           "param_bytes_bf16": Q.param_bytes(params), "param_bytes_int8": Q.param_bytes(q)}
+    rep["quantize_own_peak_gb"] = own_peak_gb(held + rep["param_bytes_int8"])
+    rep["hbm_saving_x"] = round(rep["param_bytes_bf16"] / rep["param_bytes_int8"], 3)
+    # A stacked quantize of layers 0-1 and a whole-leaf one of the head: the
+    # scales reduce over the contraction axes only (wi [L, d, 2, F] over d,
+    # out [d, V] over d), so slicing by layer or by column changes no code.
+    for name, whole, got in (
+        ("wi", Q.quantize(params["layers"]["wi"][:2], (1,)),
+         {k: v[:2] for k, v in q["layers"]["wi"].items()}),
+        ("out", Q.quantize(params["out"], (0,)), q["out"]),
+    ):
+        if not all(torch.equal(whole[k], got[k]) for k in ("q8", "scale")):
+            fail.append(f"the sliced quantize of {name} differs from the whole-leaf one")
+        del whole, got
+    # The one-pass dequantize rounds the f32 product as it stores it: the
+    # reference's two-pass values, bit for bit, on the card's cast path.
+    if not torch.equal(Q.dequantize(q["out"], torch.bfloat16),
+                       (q["out"]["q8"].float() * q["out"]["scale"]).to(torch.bfloat16)):
+        fail.append("dequantize differs from (q8.float() * scale).to(bf16) on the head")
+    bmax = max(QUANT_BATCHES)
+    for label, kv in (("bf16", None), ("int8", "int8")):
+        rep[f"kv_cache_bytes_{label}"] = bmax * kv_slot_bytes(cfg, QUANT_TP + QUANT_MAX_NEW, kv)
+    print("  bytes", json.dumps(rep), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab, (1, QUANT_TP), generator=gen, device="cuda")
+    logits = {}
+    for label, p in (("bf16", params), ("int8", q)):
+        cache = G.init_cache(cfg, 1, QUANT_TP + QUANT_MAX_NEW)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logits[label], _ = G.prefill(p, prompt, cache, cfg)
+        torch.cuda.synchronize()
+        rep[f"prefill_own_peak_gb_{label}"] = own_peak_gb(before)
+        del cache
+    lo16, lo8 = logits["bf16"].double(), logits["int8"].double()
+    norm = float(torch.linalg.vector_norm(lo16))
+    rel_l2 = float(torch.linalg.vector_norm(lo8 - lo16)) / max(norm, 1e-30)
+    rep["logits_rel_l2"] = rel_l2
+    rep["argmax_match"] = bool(torch.argmax(lo8, -1)[0] == torch.argmax(lo16, -1)[0])
+    print(f"  int8 prefill logits against bf16: rel-L2 {rel_l2} (gate {QUANT_GATE_REL_L2}), "
+          f"argmax match {rep['argmax_match']}; the prefill's own peak bf16 "
+          f"{rep['prefill_own_peak_gb_bf16']} GB, int8 {rep['prefill_own_peak_gb_int8']} GB",
+          flush=True)
+    if not rel_l2 <= QUANT_GATE_REL_L2:
+        fail.append(f"int8 prefill logits rel-L2 {rel_l2} > {QUANT_GATE_REL_L2}")
+
+    rows = []
+    torch.cuda.synchronize()
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    calls = 0
+    for batch in QUANT_BATCHES:
+        prompt = torch.randint(0, cfg.vocab, (batch, QUANT_TP), generator=gen, device="cuda")
+        row = {"batch": batch}
+        first = {}
+        for label, int8, kv in QUANT_PRECISIONS:
+            p, pbytes = (q, rep["param_bytes_int8"]) if int8 else (params,
+                                                                     rep["param_bytes_bf16"])
+            G.make_generate(cfg, max_new=QUANT_WARMUP_NEW, kv_dtype=kv)(p, prompt)
+            run = G.make_generate(cfg, max_new=QUANT_MAX_NEW, kv_dtype=kv)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = run(p, prompt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            calls += 2
+            floor = QUANT_MAX_NEW * pbytes / MEM_BYTES_PER_S
+            row[f"{label}_wall_ms"] = wall * 1e3
+            row[f"{label}_tokens_per_s"] = batch * QUANT_MAX_NEW / wall
+            row[f"{label}_roofline_ms"] = floor * 1e3
+            row[f"{label}_own_peak_gb"] = own_peak_gb(before)
+            gen_toks = out[:, QUANT_TP:]
+            if tuple(out.shape) != (batch, QUANT_TP + QUANT_MAX_NEW) or not bool(
+                    ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()):
+                fail.append(f"{label} batch {batch}: output {tuple(out.shape)} out of shape "
+                            "or vocabulary")
+            if wall < floor / QUANT_ROOFLINE_SLACK:
+                fail.append(f"{label} batch {batch}: wall {wall * 1e3:.1f} ms beats the "
+                            f"{QUANT_MAX_NEW}-step weight-stream roofline {floor * 1e3:.1f} ms "
+                            f"by more than {QUANT_ROOFLINE_SLACK}x")
+            first[label] = gen_toks[:, 0]
+            del out
+        row["int8_speedup"] = row["bf16_wall_ms"] / row["int8_wall_ms"]
+        row["first_token_equal_to_bf16"] = {
+            label: int((first[label] == first["bf16"]).sum()) for label in first}
+        rows.append(row)
+        print("  serve", json.dumps(row), flush=True)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    rep["serve"] = rows
+    if launches["flash_fwd"] != cfg.n_layers * calls or launches["flash_fwd_scalar"]:
+        fail.append(f"launches {launches}: not {cfg.n_layers} flash_fwd for each of {calls} "
+                    "prefills")
+    del q
+    if fail:
+        raise SystemExit("phase 27 (a) failed: " + "; ".join(fail))
+    return rep, launches
+
+
+def quant_pod_main(argv: list[str]) -> int:
+    """Phase 27 (b), in a child process whose env is the plugin's for a
+    QUANT_POD_UNITS slice: cap the process from the env, check that the
+    slice refuses the bf16 tree (``argv = [its bytes]``), draw the int8
+    tree, size the int8 paged pool from the env, serve, and hold every
+    request to solo greedy decode on the same tree and cache. Prints one
+    JSON line; exits 3 on an OOM, and through SystemExit on a failed
+    gate."""
+    bf16_bytes = int(argv[0])
+    settings = configure_torch_from_env()
+    fraction = float(settings[MEMORY_FRACTION])
+    cap = int(fraction * torch.cuda.get_device_properties(0).total_memory)
+    doc = {"slice_gib": PodTpuEnv.from_env().mem_units_container, "fraction": fraction,
+           "cap_bytes": cap}
+    cfg = llama3_8b()
+    fail = []
+    try:
+        slots_from_pod_env(cfg, QUANT_GEO["max_len"], weight_bytes=bf16_bytes)
+        fail.append(f"the slice did not refuse the bf16 tree ({bf16_bytes} bytes)")
+    except ValueError as e:
+        doc["bf16_refused"] = str(e)
+        if "quantize" not in str(e):
+            fail.append(f"the bf16 refusal does not say to quantize: {e}")
+    try:
+        t0 = time.perf_counter()
+        q = drawn_int8_decoder(cfg, torch.Generator(device="cuda").manual_seed(QUANT_POD_SEED))
+        torch.cuda.synchronize()
+        doc["draw_s"] = round(time.perf_counter() - t0, 3)
+        doc["weight_bytes"] = Q.param_bytes(q)
+        doc["draw_peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        # A pod loads its int8 weights from storage, a leaf at a time, into
+        # an empty allocator; a round trip through host memory gives that
+        # state. Left where they were drawn, the leaves sit in segments the
+        # draw's bf16 leaves split, which strand 1.70 GiB of the 15.20 GiB
+        # cap on an H100 80GB HBM3.
+        t0 = time.perf_counter()
+        host = moved(q, "cpu")
+        del q
+        torch.cuda.empty_cache()
+        q = moved(host, "cuda")
+        del host
+        torch.cuda.synchronize()
+        doc["load_s"] = round(time.perf_counter() - t0, 3)
+        plan = paged_plan_from_pod_env(cfg, weight_bytes=doc["weight_bytes"], kv_dtype="int8",
+                                       **QUANT_GEO)
+        doc["plan"] = dataclasses.asdict(plan)
+        if (plan.slots, plan.total_pages) != (QUANT_POD_SLOTS, QUANT_POD_PAGES):
+            fail.append(f"plan {plan.slots} slots x {plan.total_pages} pages, not the "
+                        f"reference's {QUANT_POD_SLOTS} x {QUANT_POD_PAGES}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = PagedSlotEngine(q, cfg, slots=plan.slots, total_pages=plan.total_pages,
+                                 eos_id=EOS_ID, kv_dtype="int8", **QUANT_GEO)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        engine.warmup()
+        trace = poisson_trace(vocab=cfg.vocab, **SERVE_TRACE)[:QUANT_POD_REQUESTS]
+        prefills = []
+        count_prefills(engine, prefills)
+        stats, wall, launches = measured(lambda: engine.run(trace))
+        del engine._prefill
+        s = stats.summary()
+        doc.update(
+            resident_bytes=resident, peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+            peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+            transient_peak_bytes=torch.cuda.max_memory_allocated() - resident,
+            requests=s["requests"], tokens=s["tokens"], ticks=s["ticks"], wall_s=wall,
+            ttft_p50_ms=s["ttft_p50_ms"], ttft_p99_ms=s["ttft_p99_ms"],
+            decode_step_p50_ms=engine.profiler.p50() * 1e3,
+            decode_step_p99_ms=engine.profiler.p99() * 1e3,
+            prefill_dispatches=len(prefills), shape_guard=stats.trace_counts,
+            launches=launches,
+        )
+        if len(stats.results) != len(trace):
+            fail.append("not every request was served")
+        if stats.trace_counts != {"prefill": 1, "extend": 1, "decode": 1}:
+            fail.append(f"shape guard moved: {stats.trace_counts}")
+        if engine.allocator.used_pages != engine.radix.cached_pages:
+            fail.append(f"pages leaked: {engine.allocator.used_pages} used, "
+                        f"{engine.radix.cached_pages} cached")
+        if not launches["flash_fwd"] == cfg.n_layers * len(prefills) > 0 or \
+                launches["flash_fwd_scalar"]:
+            fail.append(f"launches {launches}: not {cfg.n_layers} flash_fwd for each of "
+                        f"{len(prefills)} prefill dispatches")
+        if doc["peak_reserved_bytes"] > cap or doc["draw_peak_reserved_bytes"] > cap:
+            fail.append(f"peak reserved {doc['peak_reserved_bytes']} over the cap {cap}")
+        doc["decode_step_profile"] = profile_paged_decode_step(engine, steps=1)
+        del engine
+        by_rid = {r.rid: r for r in trace}
+        t0 = time.perf_counter()
+        solos, diverged = {}, []
+        for res in stats.results:
+            diverged += check_vs_solo("phase 27 (b)", q, cfg, by_rid[res.rid], res.tokens,
+                                      solos=solos, kv_dtype="int8")
+        doc["solo_s"] = round(time.perf_counter() - t0, 3)
+        doc["diverged_at_near_ties"] = diverged
+    except torch.cuda.OutOfMemoryError as e:
+        doc.update(oom=str(e).splitlines()[0][:400],
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated())
+        print(json.dumps(doc), flush=True)
+        return 3
+    doc["fail"] = fail
+    print(json.dumps(doc), flush=True)
+    return 1 if fail else 0
+
+
+def quant_pod(bf16_bytes: int) -> tuple[dict, dict]:
+    """Phase 27 (b): run :func:`quant_pod_main` in a child with only the
+    plugin's env for QUANT_POD_UNITS on top of the parent's; returns the
+    child's report and its run's launches."""
+    print(f"phase 27 (b): the int8 8B (32 layers) served from a {QUANT_POD_UNITS}-GiB pod, "
+          f"int8 KV cache, {QUANT_POD_REQUESTS} requests", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if k != const.ENV_CUDA_VISIBLE_DEVICES}
+    env.update(plugin_env(QUANT_POD_UNITS))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.quant_pod_main(sys.argv[1:]))"
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", code, str(bf16_bytes)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, capture_output=True,
+            text=True, timeout=POD_TIMEOUT_S,
+        )
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 27 (b) failed: the pod ran past {POD_TIMEOUT_S} s")
+    docs = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    doc = json.loads(docs[-1]) if docs else None
+    print("  int8 pod", json.dumps(doc), flush=True)
+    if proc.returncode != 0 or doc is None or doc.get("fail"):
+        raise SystemExit(f"phase 27 (b) failed: exit {proc.returncode}; "
+                         f"{(doc or {}).get('fail') or (doc or {}).get('oom')}; "
+                         f"stderr: {proc.stderr[-2000:]}")
+    gib = 2 ** 30
+    print(f"  pod: plan {doc['plan']['slots']} slots x {doc['plan']['total_pages']} pages; peak "
+          f"reserved {doc['peak_reserved_bytes'] / gib:.3f} GiB of a "
+          f"{doc['cap_bytes'] / gib:.3f} GiB cap; TTFT p50 {doc['ttft_p50_ms']:.1f} ms, decode "
+          f"step p50 {doc['decode_step_p50_ms']:.1f} ms", flush=True)
+    return doc, doc["launches"]
+
+
+def phase_quant(params, cfg) -> tuple[dict, dict]:
+    """Phase 27 on phase 2's bf16 8B weights: (a) :func:`quant_serve`, then
+    (b) :func:`quant_pod`. Returns the launches of both paths, by path
+    name (``int8_serve``, ``int8_pod``), and the phase's report."""
+    t0 = time.perf_counter()
+    serve, serve_launches = quant_serve(params, cfg)
+    t1 = time.perf_counter()
+    pod, pod_launches = quant_pod(serve["param_bytes_bf16"])
+    t2 = time.perf_counter()
+    print(f"  phase 27 (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s", flush=True)
+    report = {"serve": serve, "pod": pod, "seconds": t2 - t0}
+    return {"int8_serve": serve_launches, "int8_pod": pod_launches}, report
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24, 25, 26),
+    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27),
                     help="build the kernels and run only this phase (a quick check; "
                          "the contract's lines are not printed); phases 21, 22, 23 and "
                          "25 build nothing")
@@ -6439,7 +6812,7 @@ def main(argv: list[str]) -> int:
     if args.phase is not None:
         cfg = llama3_8b()
         params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
-        run = {17: phase_disagg, 18: phase_fleet, 24: phase_defrag}[args.phase]
+        run = {17: phase_disagg, 18: phase_fleet, 24: phase_defrag, 27: phase_quant}[args.phase]
         launches, report = run(params, cfg)
         print(f"phase {args.phase}: {report['seconds']:.1f} s; launches {json.dumps(launches)}; "
               f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
@@ -6460,6 +6833,7 @@ def main(argv: list[str]) -> int:
     disagg_launches, _ = timed("17", phase_disagg, params, cfg)
     fleet_launches, _ = timed("18", phase_fleet, params, cfg)
     defrag_launches, _ = timed("24", phase_defrag, params, cfg)
+    quant_launches, _ = timed("27", phase_quant, params, cfg)
     del params
     torch.cuda.empty_cache()
     lora_train_launches = timed("14", phase_lora_train)
@@ -6486,7 +6860,8 @@ def main(argv: list[str]) -> int:
              "ulysses": ulysses_launches,
              "tp_serve": tp_serve_launches, "tp_paged": tp_paged_launches,
              "tp_train": tp_train_launches, "static_baseline": static_launches,
-             "train_bert_fsdp": bert_fsdp_launches, "train_bert_tp": bert_tp_launches}
+             "train_bert_fsdp": bert_fsdp_launches, "train_bert_tp": bert_tp_launches,
+             **quant_launches}
     cp_numbers = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                   "tflops", "bound_fraction")
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",

@@ -41,6 +41,7 @@ from ..ops.flash_attention import flash_attention
 from ..parallel.ring import grouped_attention
 from .attention import chunk_prefill_attention, flash_or_plain, use_flash
 from ..parallel.mesh import Mesh
+from . import quant
 from .lora import LoraConfig, lora_flat_len, unflatten_lora
 from .quant import dequantize_kv, embed_lookup, quantize_kv
 from .transformer import (
@@ -147,13 +148,16 @@ def _row_update(cache_rows: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) 
     ``[0, Smax - T]`` as the reference's ``dynamic_update_slice`` does:
     the engine writes every row each decode step, and a retired row can
     sit at ``len == Smax``; its write then lands on the last position."""
-    B, T = new.shape[:2]
-    Smax = cache_rows.shape[1]
-    start = pos.long().clamp(0, Smax - T)
-    idx = start[:, None] + torch.arange(T, device=new.device)[None, :]
-    rows = torch.arange(B, device=new.device)[:, None]
-    cache_rows[rows, idx] = new.to(cache_rows.dtype)
+    rows = torch.arange(new.shape[0], device=new.device)[:, None]
+    cache_rows[rows, _write_index(pos, new.shape[1], cache_rows.shape[1])] = new.to(
+        cache_rows.dtype)
     return cache_rows
+
+
+def _write_index(pos: torch.Tensor, T: int, Smax: int) -> torch.Tensor:
+    """[B, T] positions :func:`_row_update` writes a row's T entries to:
+    ``pos[b]`` onwards, the start clamped to ``[0, Smax - T]``."""
+    return pos.long().clamp(0, Smax - T)[:, None] + torch.arange(T, device=pos.device)[None, :]
 
 
 def _write_prefix(cache: KVCache, layer: int, rows, k, v) -> None:
@@ -230,7 +234,6 @@ def prefill_slot(
     logits [1, vocab] f32 and the cache. ``mesh``: a tp rank's shards
     (module docstring)."""
     slot, n_real = int(slot), int(n_real)
-    dt = cfg.compute_dtype
     C = tokens.shape[0]
     positions = torch.arange(C, device=tokens.device)[None, :]
     kv_len = torch.tensor([n_real], dtype=torch.int32, device=tokens.device)
@@ -317,36 +320,58 @@ def decode_block(
     vis = vis.expand(B, T, Smax)
     wpos = pos0 if per_slot else pos0.expand(B)
     for i in range(cfg.n_layers):
-        rows = {key: val[i] for key, val in cache.items() if key != "len"}
-        x = _cached_layer(x, layer_params(params["layers"], i), cfg, positions, rows, wpos, vis,
-                          mesh=mesh)
+        x, _ = _cached_layer(x, layer_params(params["layers"], i), cfg, positions, cache, i,
+                             wpos, vis, mesh=mesh)
     return _out_logits(params, x, cfg, mesh), {**cache, "len": pos0 + T}
 
 
-def _cached_layer(x, lp, cfg: TransformerConfig, positions, rows: KVCache, wpos, vis,
-                  lora_l=None, lora_scale: float = 1.0, mesh: Mesh | None = None):
-    """One layer of a cached block: the block's K/V go into the layer's
-    cache rows ``rows`` ({"k", "v"} [B, Smax, Hkv, Dh], int8 scales
-    [B, Smax, Hkv]) at ``wpos`` in place, and its queries attend over the
-    rows under the visibility mask ``vis`` [B, T, Smax]. ``lora_l``: this
-    layer's per-row adapter views, applied at every projection."""
+def _row_blocks(n_rows: int, row_elems: int) -> list[tuple[int, int]]:
+    """``[lo, hi)`` blocks of cache rows of ``row_elems`` K elements each,
+    a block holding at most ``quant.DEQUANT_BLOCK`` of them (one row if a
+    row is larger)."""
+    step = max(1, quant.DEQUANT_BLOCK // max(row_elems, 1))
+    return [(lo, min(lo + step, n_rows)) for lo in range(0, n_rows, step)]
+
+
+def _cached_layer(x, lp, cfg: TransformerConfig, positions, cache: KVCache, layer: int,
+                  wpos, vis, tables: torch.Tensor | None = None, lora_l=None,
+                  lora_scale: float = 1.0, mesh: Mesh | None = None):
+    """One layer of a cached block over layer ``layer`` of ``cache``: the
+    rows themselves (views, written in place), or with ``tables`` [B, MP]
+    each row's pages gathered into a copy (:func:`_gather_paged`). The
+    block's K/V entries (:func:`_kv_entries`) are written into the rows
+    at ``wpos``, and the queries attend over them under the visibility
+    mask ``vis`` [B, T, Smax]. Rows go a block at a time
+    (:func:`_row_blocks`), so gathered pages, an int8 cache's dequantized
+    K and V, and the attention's f32 up-casts exist for one block of rows
+    only; every row's arithmetic is the whole batch's. Returns the
+    layer's output and the entries it wrote, [B, T, ...] each. ``lora_l``:
+    this layer's per-row adapter views, applied at every projection."""
     q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions,
                            lora=lora_l, lora_scale=lora_scale, mesh=mesh)
-    if "k_scale" in rows:
-        kq8, ks_new = quantize_kv(k)
-        vq8, vs_new = quantize_kv(v)
-        _row_update(rows["k"], kq8, wpos)
-        _row_update(rows["v"], vq8, wpos)
-        _row_update(rows["k_scale"], ks_new, wpos)
-        _row_update(rows["v_scale"], vs_new, wpos)
-        k_mat = dequantize_kv(rows["k"], rows["k_scale"], q.dtype)
-        v_mat = dequantize_kv(rows["v"], rows["v_scale"], q.dtype)
-    else:
-        k_mat = _row_update(rows["k"], k, wpos)
-        v_mat = _row_update(rows["v"], v, wpos)
-    attn = grouped_attention(q, *_rank_kv(k_mat, v_mat, cfg, mesh), causal=False, mask=vis)
+    B, T, Smax = k.shape[0], k.shape[1], vis.shape[-1]
+    new = _kv_entries(cache, k, v)
+    idx = _write_index(wpos, T, Smax)
+    row = torch.arange(B, device=k.device)[:, None]
+    parts = []
+    for lo, hi in _row_blocks(B, Smax * k.shape[2] * k.shape[3]):
+        if tables is None:
+            r = {key: val[layer, lo:hi] for key, val in cache.items() if key != "len"}
+        else:
+            r = _gather_paged(cache, layer, tables[lo:hi])
+        for key, val in new.items():
+            r[key][row[: hi - lo], idx[lo:hi]] = val[lo:hi].to(r[key].dtype)
+        if _cache_is_q8(r):
+            k_mat = dequantize_kv(r["k"], r["k_scale"], q.dtype)
+            v_mat = dequantize_kv(r["v"], r["v_scale"], q.dtype)
+        else:
+            k_mat, v_mat = r["k"], r["v"]
+        parts.append(grouped_attention(q[lo:hi], *_rank_kv(k_mat, v_mat, cfg, mesh),
+                                       causal=False, mask=vis[lo:hi]))
+        del r, k_mat, v_mat
+    attn = parts[0] if len(parts) == 1 else torch.cat(parts)
     x = x + _wo(attn, lp, cfg, lora_l, lora_scale, mesh)
-    return _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale, mesh=mesh)
+    return _mlp_block(x, lp, cfg, lora=lora_l, lora_scale=lora_scale, mesh=mesh), new
 
 
 def decode_step(
@@ -494,8 +519,9 @@ def _paged_block(
     at logical lengths ``pos0`` [B], each read and written through its page
     table (``page_tables`` [B, MP]). Each layer runs on its gathered view,
     and the block's T entries per row go back into the pages. ``lora``:
-    :func:`lora_bgmv_views` for the B rows. Returns logits [B, T, vocab]
-    f32; the pool is updated in place."""
+    :func:`lora_bgmv_views` for the B rows. Returns the final hidden
+    states [B, T, d], whose logits (:func:`_out_logits`) each caller takes
+    at the positions it reads; the pool is updated in place."""
     B, T = tokens.shape
     dev = tokens.device
     ps = cache["k"].shape[2]
@@ -508,17 +534,19 @@ def _paged_block(
     pids, offs = _page_slots(tables, logical, ps)
     pids, offs = pids.reshape(-1), offs.reshape(-1)
     # The view's entries at the block's positions, as the view's write left
-    # them (a position past the view reads the last one, bound for SCRATCH).
+    # them: a row's T entries went in at its position clamped to [0, Smax -
+    # T] (_write_index), and a position past the view reads the view's last
+    # one (bound for SCRATCH), so position t reads entry back[b, t] of T.
     rows = torch.arange(B, device=dev)[:, None]
-    read = logical.clamp(max=Smax - 1)
+    back = logical.clamp(max=Smax - 1) - _write_index(pos0, T, Smax)[:, :1]
     x = _embed(params["embed"], tokens, cfg, mesh)
     for i in range(cfg.n_layers):
-        view = _gather_paged(cache, i, tables)
-        x = _cached_layer(x, layer_params(params["layers"], i), cfg, logical, view, pos0, vis,
-                          _layer_lora(lora, i), lora_scale, mesh)
-        new = {key: val[rows, read].reshape((B * T,) + val.shape[2:]) for key, val in view.items()}
+        x, entries = _cached_layer(x, layer_params(params["layers"], i), cfg, logical, cache, i,
+                                   pos0, vis, tables, _layer_lora(lora, i), lora_scale, mesh)
+        new = {key: val[rows, back].reshape((B * T,) + val.shape[2:])
+               for key, val in entries.items()}
         _paged_write(cache, i, new, pids, offs)
-    return _out_logits(params, x, cfg, mesh)
+    return x
 
 
 def paged_prefill_slot(
@@ -545,7 +573,6 @@ def paged_prefill_slot(
     real position's logits [1, vocab] f32 and the cache with
     ``len[slot] = n_real``."""
     slot, n_real = int(slot), int(n_real)
-    dt = cfg.compute_dtype
     C = tokens.shape[0]
     ps = cache["k"].shape[2]
     logical = torch.arange(C, device=tokens.device)
@@ -595,11 +622,11 @@ def paged_extend_slot(
     ``len[slot] = pos + n_real``."""
     slot, pos, n_real = int(slot), int(pos), int(n_real)
     pos0 = torch.tensor([pos], dtype=torch.int32, device=tokens.device)
-    logits = _paged_block(params, tokens[None, :], cache, cfg, page_table[None, :], pos0,
-                          lora, lora_scale, mesh)
+    x = _paged_block(params, tokens[None, :], cache, cfg, page_table[None, :], pos0,
+                     lora, lora_scale, mesh)
     lens = cache["len"].clone()
     lens[slot] = pos + n_real
-    return logits[:, n_real - 1], {**cache, "len": lens}
+    return _out_logits(params, x[:, n_real - 1 : n_real], cfg, mesh)[:, 0], {**cache, "len": lens}
 
 
 def paged_decode_step(
@@ -621,9 +648,9 @@ def paged_decode_step(
     :func:`lora_bgmv_views` of the [B, AP] adapter tables. Returns logits
     [B, vocab] and the cache."""
     pos0 = cache["len"]
-    logits = _paged_block(params, token[:, None], cache, cfg, page_tables, pos0,
-                          lora, lora_scale, mesh)
-    return logits[:, 0], {**cache, "len": pos0 + 1}
+    x = _paged_block(params, token[:, None], cache, cfg, page_tables, pos0,
+                     lora, lora_scale, mesh)
+    return _out_logits(params, x, cfg, mesh)[:, 0], {**cache, "len": pos0 + 1}
 
 
 def paged_verify_block(
@@ -648,8 +675,8 @@ def paged_verify_block(
     the row overwrites them. ``lora`` as in :func:`paged_decode_step`.
     Returns logits [B, T, vocab] f32 and the cache."""
     pos0 = cache["len"]
-    logits = _paged_block(params, block, cache, cfg, page_tables, pos0, lora, lora_scale, mesh)
-    return logits, {**cache, "len": pos0 + block.shape[1]}
+    x = _paged_block(params, block, cache, cfg, page_tables, pos0, lora, lora_scale, mesh)
+    return _out_logits(params, x, cfg, mesh), {**cache, "len": pos0 + block.shape[1]}
 
 
 def _mask_after_eos(gen: torch.Tensor, eos_id: int) -> torch.Tensor:

@@ -56,7 +56,6 @@ from torch.utils.checkpoint import (
 )
 
 from ..device import resolve_device
-from ..ops.flash_attention import flash_attention
 from ..parallel.collectives import (
     all_gather,
     all_reduce,
@@ -79,10 +78,10 @@ from ..parallel.mesh import (
 )
 from ..parallel.ring import ring_attention
 from ..parallel.ulysses import ulysses_attention
-from .attention import flash_or_plain, grouped_full_attention, ulysses_inner_attn, use_flash
+from .attention import flash_or_plain, ulysses_inner_attn, use_flash
 from .optim import AdamW, tree_leaves
 from .optim import make_optimizer as _make_adamw
-from .quant import embed_lookup, is_qtensor, matmul_weight
+from .quant import embed_lookup, is_qtensor, matmul_weight, qmatmul
 
 Params = dict[str, Any]
 
@@ -296,6 +295,18 @@ def _full(w, cfg: TransformerConfig, mesh: Mesh | None, dim: int) -> torch.Tenso
     return w
 
 
+def _proj(eq: str, x, w, cfg: TransformerConfig, mesh: Mesh | None, dim: int) -> torch.Tensor:
+    """``einsum(eq, x, w)`` in the compute dtype, where ``w``'s leading dims
+    contract with ``x``'s trailing ones: a float weight whole
+    (:func:`_full`), an int8 one (never sharded) dequantized a block of
+    output channels at a time (``quant.qmatmul``), so serving from int8
+    weights never holds a whole dequantized copy of one."""
+    if is_qtensor(w):
+        xs, ws = eq.split("->")[0].split(",")
+        return qmatmul(x, w, len(set(xs) & set(ws)), cfg.compute_dtype)
+    return torch.einsum(eq, x, _full(w, cfg, mesh, dim))
+
+
 def _kv_replicated(wkv: torch.Tensor, cfg: TransformerConfig, mesh: Mesh | None) -> bool:
     """True on a tp mesh whose tp does not divide the kv heads: every rank
     holds all of them (``prune_unshardable``)."""
@@ -330,11 +341,13 @@ def _project_qkv(h, lp, cfg: TransformerConfig, positions, lora=None,
     with ``wkv``'s gradient summed over tp as it leaves)."""
     dt = cfg.compute_dtype
     h = copy_to_tp(h, mesh)
-    wkv = _full(lp["wkv"], cfg, mesh, 0)
-    if _kv_replicated(wkv, cfg, mesh):
-        wkv = copy_to_tp(wkv, mesh)
-    q = torch.einsum("btd,dhn->bthn", h, _full(lp["wq"], cfg, mesh, 0))
-    kv = torch.einsum("btd,dchn->btchn", h, wkv)
+    wkv = lp["wkv"]
+    if not is_qtensor(wkv):
+        wkv = _full(wkv, cfg, mesh, 0)
+        if _kv_replicated(wkv, cfg, mesh):
+            wkv = copy_to_tp(wkv, mesh)
+    q = _proj("btd,dhn->bthn", h, lp["wq"], cfg, mesh, 0)
+    kv = _proj("btd,dchn->btchn", h, wkv, cfg, mesh, 0)
     if lora is not None and "wq" in lora:
         q = q + _bgmv_delta(h, *lora["wq"], lora_scale, dt).reshape(q.shape)
     if lora is not None and "wkv" in lora:
@@ -350,11 +363,11 @@ def _mlp_block(x, lp, cfg: TransformerConfig, lora=None, lora_scale: float = 1.0
     over the rank's F/tp, down row-parallel, summed over tp."""
     dt = cfg.compute_dtype
     h = copy_to_tp(_rms_norm(x, lp["ln2"]), mesh)
-    gate_up = torch.einsum("btd,dcf->btcf", h, _full(lp["wi"], cfg, mesh, 0))
+    gate_up = _proj("btd,dcf->btcf", h, lp["wi"], cfg, mesh, 0)
     if lora is not None and "wi" in lora:
         gate_up = gate_up + _bgmv_delta(h, *lora["wi"], lora_scale, dt).reshape(gate_up.shape)
     ff = F.silu(gate_up[:, :, 0]) * gate_up[:, :, 1]
-    down = torch.einsum("btf,fd->btd", ff, _full(lp["wdown"], cfg, mesh, 1))
+    down = _proj("btf,fd->btd", ff, lp["wdown"], cfg, mesh, 1)
     if lora is not None and "wdown" in lora:
         down = down + _bgmv_delta(ff, *lora["wdown"], lora_scale, dt)
     return x + reduce_from_tp(down, mesh)
@@ -363,7 +376,7 @@ def _mlp_block(x, lp, cfg: TransformerConfig, lora=None, lora_scale: float = 1.0
 def _attn_out(attn, lp, cfg: TransformerConfig, mesh: Mesh | None = None, delta=None):
     """The wo projection (plus an adapter's ``delta``), row-parallel over
     tp: each rank's heads contribute a partial sum."""
-    out = torch.einsum("bthn,hnd->btd", attn, _full(lp["wo"], cfg, mesh, 2))
+    out = _proj("bthn,hnd->btd", attn, lp["wo"], cfg, mesh, 2)
     if delta is not None:
         out = out + delta
     return reduce_from_tp(out, mesh)
@@ -388,7 +401,7 @@ def _embed(embed, tokens: torch.Tensor, cfg: TransformerConfig, mesh: Mesh | Non
 def _logits(params: Params, x, cfg: TransformerConfig, mesh: Mesh | None = None):
     """f32 logits; with a tp ``mesh``, this rank's vocab/tp of them."""
     x = copy_to_tp(_rms_norm(x, params["final_norm"]), mesh)
-    return torch.einsum("btd,dv->btv", x, _full(params["out"], cfg, mesh, 0)).float()
+    return _proj("btd,dv->btv", x, params["out"], cfg, mesh, 0).float()
 
 
 def gather_logits(logits: torch.Tensor, cfg: TransformerConfig,

@@ -6,19 +6,26 @@ tests (tests/test_serving_engine.py, tests/test_pages_radix.py) and a
 grid around them.
 
 Exact: the same env and config give the same slot count, the same plan
-field for field, and the same error text.
+field for field, and the same error text. The Llama-3-8B case is sized
+from byte counts alone (meta tensors and ``jax.eval_shape``).
 """
 
+import jax
 import pytest
+import torch
 
 from gpushare_device_plugin_tpu.const import MemoryUnit as JUnit
 from gpushare_device_plugin_tpu.parallel.podenv import PodTpuEnv as JPod
 from gpushare_device_plugin_tpu.serving import engine as JE
 from gpushare_device_plugin_tpu.serving import pages as JPG
+from gpushare_device_plugin_tpu.workloads import quant as JQ
+from gpushare_device_plugin_tpu.workloads import transformer as JT
 from gpushare_device_plugin_tpu_torch.const import MemoryUnit
 from gpushare_device_plugin_tpu_torch.parallel.podenv import PodTpuEnv
 from gpushare_device_plugin_tpu_torch.serving import engine as E
 from gpushare_device_plugin_tpu_torch.serving import pages as PG
+from gpushare_device_plugin_tpu_torch.workloads import quant as Q
+from gpushare_device_plugin_tpu_torch.workloads import transformer as T
 
 from torch_parity import configs
 
@@ -171,3 +178,56 @@ def test_paged_plan_from_pod_env_reference_cases():
     p4 = E.paged_plan_from_pod_env(tcfg, 64, weight_bytes=w, page_size=8, env=gang, headroom=1.0)
     assert p4.total_pages >= 3 * p1.total_pages
     assert -(-w // 4) + p4.pool_bytes <= gang.gang_container_per_chip_bytes()
+
+
+POD_16_OF_79 = {"ALIYUN_COM_TPU_MEM_CONTAINER": "16", "ALIYUN_COM_TPU_MEM_DEV": "79"}
+
+
+def _8b_param_bytes():
+    """(int8, bf16) parameter bytes of the Llama-3-8B trees in each package,
+    counted from shapes: the port's on the meta device, the reference's
+    under ``jax.eval_shape``. Nothing 8B-sized is allocated."""
+
+    def meta(shapes, name=None):
+        if isinstance(shapes, dict):
+            return {k: meta(v, k) for k, v in shapes.items()}
+        dtype = torch.float32 if name in ("ln1", "ln2", "final_norm") else torch.bfloat16
+        return torch.empty(shapes, dtype=dtype, device="meta")
+
+    bf16 = meta(T.param_shapes(T.llama3_8b()))
+    port = (Q.param_bytes(Q.quantize_decoder(bf16)), Q.param_bytes(bf16))
+    jcfg = JT.llama3_8b()
+    masters = jax.eval_shape(lambda: JT.init_params(jax.random.key(0), jcfg))
+    ref = tuple(JQ.param_bytes(jax.eval_shape(fn, masters))
+                for fn in (JQ.quantize_decoder, JQ.cast_decoder))
+    return port, ref
+
+
+@pytest.mark.parametrize("weights", ["int8", "bf16"])
+def test_8b_sizing_of_a_16_gib_pod_equals_reference(weights):
+    """The int8 Llama-3-8B in a 16-GiB slice of a 79-unit card (the chip
+    smoke's int8 pod, paged at max_len 2,048, 16-token pages, 512-token
+    chunks, int8 KV): the reference's plan, 212 slots over 6,864 pages.
+    The bf16 tree is refused by both packages, with the same message
+    naming quantization, by the slot pool and the paged plan alike."""
+    port, ref = _8b_param_bytes()
+    assert port == ref == (8_037_591_040, 16_061_054_976)
+    jcfg, tcfg = JT.llama3_8b(), T.llama3_8b()
+    pod, jpod = _pair(POD_16_OF_79)
+    nbytes = port[0] if weights == "int8" else port[1]
+    geo = dict(weight_bytes=nbytes, page_size=16, prefill_chunk=512, kv_dtype="int8")
+    got = _outcome(E.paged_plan_from_pod_env, tcfg, 2048, env=pod, **geo)
+    want = _outcome(JE.paged_plan_from_pod_env, jcfg, 2048, env=jpod, **geo)
+    if want[0] == "ok":
+        want = ("ok", {k: v for k, v in want[1].items() if k in got[1]})
+    assert got == want
+    slots = [_outcome(fn, c, 2048, env=p, weight_bytes=nbytes)
+             for fn, c, p in ((E.slots_from_pod_env, tcfg, pod),
+                              (JE.slots_from_pod_env, jcfg, jpod))]
+    assert slots[0] == slots[1]
+    if weights == "int8":
+        assert (got[1]["slots"], got[1]["total_pages"]) == (212, 6864)
+        assert slots[0][0] == "ok"
+    else:
+        for outcome in (got, slots[0]):
+            assert outcome[0] == "ValueError" and "quantize" in outcome[1]
