@@ -281,7 +281,11 @@ Phases, each of which fails the run with a non-zero exit:
    the solo engine's or pass phase 3's near-tie rule (phase 13's for
    tenants), its shape guard stay ``{1, 1, 1}``, its ``flash_fwd``
    launches equal the solo run's, its weights, KV and slab be its shards'
-   bytes (half the solo's; the slab the plan's per-chip charge). (b)
+   bytes (half the solo's; the slab the plan's per-chip charge). (a1)
+   once more with an int8 KV cache on the trace's first 4 requests (bf16
+   weights: a gang shards no int8 tree): tokens the one-rank int8-KV
+   engine's or within phase 3's near-tie rule, each rank's cache half the
+   one-rank engine's (K, V and their scales split over tp). (b)
    ``llama3_8b()`` width at 2 layers, B=2 x 2,048, AdamW with clip_norm
    1.0, remat "full", 2 steps: a 1-rank control here, then fsdp=2 and tp=2
    on two ranks. Each rank's first loss by phase 6's rule against the
@@ -406,6 +410,8 @@ Phases, each of which fails the run with a non-zero exit:
    locks acquired, and fails on any violation or unless ``serving.drain``
    and ``serving.radix`` (the drain handshake's and the radix cache's
    locks, taken by the serving thread and the mover) are among them.
+   (d) One more clean move, of a slice serving ``quantize_decoder``'s tree
+   of the same 4 layers with an int8 KV cache, held to the same gates.
 25. The scheduler extender, host only (it builds nothing and launches no
    kernel; under ``EXTENDER_BUDGET_S``). (a) Phase 23's 50-node cluster, the
    other 49 nodes at 78 of their 79 GiB and this node's 16 share pods
@@ -489,12 +495,37 @@ Phases, each of which fails the run with a non-zero exit:
    ``flash_fwd`` 32 times a prefill dispatch, peak reserved memory at or
    below the cap; an OOM fails the phase. Prints the pages, slots, peak,
    cap, TTFT and decode step p50.
+28. int8 on the serving paths phase 27 bypasses, on phase 2's bf16 weights
+   (run straight after phase 27). (b) Phase 15's run A with the target cut
+   to 4 layers and its Llama-3.2-1B-shaped draft (4 of 16) both
+   ``quantize_decoder``'d, int8 KV, the pool from
+   ``paged_plan_from_pod_env(draft_cfg=..., kv_dtype="int8")``: tokens a
+   plain int8 engine's or within phase 3's near-tie rule, rollback pages,
+   no page leaked, the five programs' guard, ``flash_fwd`` per prefill
+   dispatch 4 at D=128 and 4 at D=64 (counted by head dim). (c) Phase
+   17's live handoff over the int8 tree of its 4 layers, int8 KV on both
+   tiers and the unified engine: nothing dropped, a delivery, no pending
+   journal entry or staged page, tokens the unified engine's or within
+   the near-tie rule; prints the wire bytes per page against a bf16
+   page's and a handoff's wall split. (a) Multi-LoRA over the int8 8B cut
+   to 16 layers in a 16-GiB pod: phase 13's four tenants drawn for phase
+   2's weights, each tenant's int8-base prefill logits against bf16
+   merged-solo within rel-L2 0.1; then a child with only the plugin's env
+   loads its int8 tree through host memory, sizes a 16-slot pool with
+   ``paged_plan_from_pod_env(lora=True, kv_dtype="int8")`` (at least 8
+   max_len rows of pages), serves each tenant's and the base model's
+   first request of phase 13's trace (the pod loads its tree and warms up
+   while (b) and (c) run, and serves once they end, alone on the card),
+   then serves each alone on the same engine: every token equal to its
+   one-request run's or within the near-tie rule, at least 4 adapter
+   misses, no page leaked, the shape guard, ``flash_fwd`` 16 a prefill
+   dispatch, peak reserved at or below the cap; an OOM fails the phase.
 
 The phases run in the order 1, 21, 22, 23, 25, 2, 3, 2 (c), 7, 8, 13, 15,
-16, 17, 18, 24, 27, 14, 4, 5, 6, 9-12, 19, 20, 26; each phase's seconds print
-on one JSON line (``phase seconds``) before the script's. ``python3
+16, 17, 18, 24, 27, 28, 14, 4, 5, 6, 9-12, 19, 20, 26; each phase's seconds
+print on one JSON line (``phase seconds``) before the script's. ``python3
 chip_smoke.py --phase 17`` (or ``--phase 18``, ``--phase 19``, ``--phase
-20``, ``--phase 24``, ``--phase 26`` or ``--phase 27``) builds
+20``, ``--phase 24``, ``--phase 26``, ``--phase 27`` or ``--phase 28``) builds
 the kernels and runs that phase alone on fresh weights (a quick check; it
 prints no contract lines); ``--phase 21``, ``--phase 22``, ``--phase
 23`` and ``--phase 25`` run that phase alone and build nothing (they
@@ -522,8 +553,11 @@ all three engines), ``defrag`` (phase 24's restores), ``ring`` and ``ulysses`` (
 ranks), ``tp_serve``, ``tp_paged`` and ``tp_train`` (phase 20's (a1),
 (a2) and (b), both ranks, (b) both meshes), ``static_baseline`` (phase 2
 (c)), ``train_bert_fsdp`` and ``train_bert_tp`` (phase 26, both ranks),
-``int8_serve`` (phase 27 (a)'s generate runs) and ``int8_pod`` (phase 27
-(b)'s pod);
+``int8_serve`` (phase 27 (a)'s generate runs), ``int8_pod`` (phase 27
+(b)'s pod), ``int8_lora_pod``, ``int8_spec`` and ``int8_disagg`` (phase
+28 (a)'s pod, (b)'s speculative run, (c)'s live run), ``int8_tp_serve``
+(phase 20's int8 KV run, both ranks) and ``int8_defrag`` (phase 24 (d)'s
+restore); the ``flash_fwd`` row also carries ``int8_spec_by_head_dim``;
 the forward rows carry ``at_draft_shape``, and the main-path rows
 ``at_ring_hop_shape``, ``at_ulysses_shape`` (phase 19),
 ``at_tp_train_shape`` (phase 20), ``at_bert_fsdp_shape`` and
@@ -532,6 +566,7 @@ the forward rows carry ``at_draft_shape``, and the main-path rows
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -593,7 +628,7 @@ from gpushare_device_plugin_tpu_torch.serving.engine import (
     shared_prefix_trace,
     slots_from_pod_env,
 )
-from gpushare_device_plugin_tpu_torch.serving.pages import paged_plan_for_slice
+from gpushare_device_plugin_tpu_torch.serving.pages import paged_plan_for_slice, pages_for
 from gpushare_device_plugin_tpu_torch.serving.profiler import ceil_rank_quantile
 from gpushare_device_plugin_tpu_torch.utils import metric_catalog as MC
 from gpushare_device_plugin_tpu_torch.utils import tracing
@@ -1052,6 +1087,10 @@ TP_SERVE_KW = dict(slots=8, max_len=1024, prefill_chunk=256, eos_id=EOS_ID)
 TP_TRACE = dict(n=24, seed=13, rate=0.2, prompt_lens=(64, 512), max_new=[16, 24, 32, 192])
 TP_SERVE_UNITS = 24
 TP_SERVE_LAYERS = 4
+# (a1) once more with an int8 KV cache (bf16 weights: a tp gang shards no
+# int8 tree, as the reference's shard_params refuses one), on the trace's
+# first TP_INT8_REQUESTS requests: K, V and their scales split over tp.
+TP_INT8_REQUESTS = 4
 TP_PAGED_LAYERS, TP_PAGED_REQUESTS, TP_PAGED_UNITS = 4, 8, 12
 TP_PAGED_GEO = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID)
 TP_TRAIN_LAYERS, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 2, 2, 2048, 2
@@ -1507,9 +1546,9 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
     kernel count, and the device time of the page gathers
     (``aten::index_select``) and scatters (``aten::index_copy_``). On a
     multi-LoRA engine every row runs a resident adapter (round robin, a
-    base-model row among them), and the adapter slab's gather (the one
-    ``index_select`` whose input is the slab) is reported apart from the
-    page gathers, with its bytes. Runs after the trace; reads pages,
+    base-model row among them), and the adapter slab's gathers (the
+    ``index_select`` a layer whose input is the slab) are reported apart
+    from the page gathers, with their bytes. Runs after the trace; reads pages,
     writes only the scratch page, and puts the rows' lengths back."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1563,10 +1602,10 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
                    if e.key == "aten::index_select" and e.input_shapes
                    and list(e.input_shapes[0]) == slab_shape]
         adapter_ms = sum(getattr(e, "device_time_total", 0.0) for e in adapter) / 1e3 / steps
-        # each slab row the tables name read once, each of the n * pages_per_adapter
-        # output rows written once
-        row_b = slab_shape[1] * 4
-        adapter_bytes = (len(set(atab.reshape(-1).tolist())) + atab.numel()) * row_b
+        # a layer at a time, each slab row that holds a row's part of the
+        # layer read once and written once
+        views = G.lora_bgmv_views(engine._lora_slab, atab, engine.cfg, engine.lora_cfg)
+        adapter_bytes = 2 * views.slab_rows_per_dispatch * slab_shape[1] * 4
         # every layer gathers each row's mp pages of K and V: the distinct
         # pages the tables name read once, the n * mp output pages written once
         pages_read = len(set(tables.reshape(-1).tolist())) + tables.numel()
@@ -1574,7 +1613,7 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
                        for k, v in engine.cache.items() if k != "len")
         # the same gather alone, by CUDA events: a check on the profiler's split
         gather_alone_ms = cuda_ms(
-            lambda: G.lora_bgmv_views(engine._lora_slab, atab, engine.cfg, engine.lora_cfg), 10)
+            lambda: [views.layer(i) for i in range(engine.cfg.n_layers)], 10)
         out.update(adapter_gather_ms=adapter_ms, adapter_gather_alone_ms=gather_alone_ms,
                    adapter_gather_bytes=adapter_bytes,
                    page_gather_ms=out["gather_ms"] - adapter_ms, page_gather_bytes=kv_bytes,
@@ -1615,8 +1654,29 @@ def spec_round_probe(engine) -> dict:
     return out
 
 
-def paged_run(label, make_engine, trace, phase="phase 7",
-              profile=True) -> tuple[object, dict, object, dict]:
+@contextlib.contextmanager
+def launches_by_head_dim():
+    """Yield a dict that counts, while the block runs, the ``flash_fwd``
+    launches by the head dim of their q (``fa._launch_fwd`` wrapped; the
+    kernel's own count, ``fa.LAUNCHES``, is untouched)."""
+    by_dim: dict[int, int] = {}
+    launch = fa._launch_fwd
+
+    def tallied(entry, q, *args, **kw):
+        out = launch(entry, q, *args, **kw)
+        if entry == "flash_fwd" and q.numel():
+            by_dim[int(q.shape[-1])] = by_dim.get(int(q.shape[-1]), 0) + 1
+        return out
+
+    fa._launch_fwd = tallied
+    try:
+        yield by_dim
+    finally:
+        fa._launch_fwd = launch
+
+
+def paged_run(label, make_engine, trace, phase="phase 7", profile=True,
+              head_dims=False) -> tuple[object, dict, object, dict]:
     """One measured run of the paged engine that ``make_engine`` builds:
     launch counts zeroed just before and read just after, prefill
     dispatches counted by wrapping the engine's prefill program, and the
@@ -1626,7 +1686,8 @@ def paged_run(label, make_engine, trace, phase="phase 7",
     multi-LoRA engine's resident adapters count as used pages; a
     speculative engine has five programs and its draft prefills with the
     target); returns the engine, its report, stats and launches.
-    ``profile`` profiles a made-up decode step after the run."""
+    ``profile`` profiles a made-up decode step after the run; ``head_dims``
+    adds the run's ``flash_fwd`` launches by head dim to the report."""
     torch.cuda.synchronize()
     held_gb = torch.cuda.memory_allocated() / 1e9  # weights, earlier engines
     engine = make_engine()
@@ -1645,8 +1706,9 @@ def paged_run(label, make_engine, trace, phase="phase 7",
     torch.cuda.reset_peak_memory_stats()
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
-    stats = engine.run(trace)
-    torch.cuda.synchronize()
+    with launches_by_head_dim() if head_dims else contextlib.nullcontext({}) as by_dim:
+        stats = engine.run(trace)
+        torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
     del engine._prefill  # the class's program again, and no engine -> engine cycle
     if spec:
@@ -1669,6 +1731,8 @@ def paged_run(label, make_engine, trace, phase="phase 7",
         "cache_stats": engine.cache_stats(),
         "tiers": s.get("tiers"),
     }
+    if head_dims:
+        report["flash_fwd_by_head_dim"] = by_dim
     if spec:
         walls = rounds["wall_s"]
         report.update(rounds=len(walls) + (rounds["profile"] is not None),
@@ -1829,10 +1893,11 @@ def lora_store_for(params, cfg, lcfg) -> tuple[dict, dict]:
     return store, ratios
 
 
-def lora_logits_check(params, merged, cfg, lcfg, adapter, prompt) -> dict:
+def lora_logits_check(params, merged, cfg, lcfg, adapter, prompt, kv_dtype=None) -> dict:
     """One paged prefill of ``prompt`` (one chunk) through the
-    BGMV path with ``adapter`` in a slab, against ``merge_lora`` +
-    ``prefill``: last-position logits, max |diff| against max |logit|."""
+    BGMV path with ``adapter`` in a slab (over a ``kv_dtype`` pool), against
+    ``merge_lora`` + ``prefill``: last-position logits, max |diff| against
+    max |logit|, and the relative L2 error."""
     ps = 16
     n = len(prompt)
     ppa = -(-L.lora_flat_len(cfg, lcfg) // (ps * cfg.d_model))
@@ -1840,7 +1905,7 @@ def lora_logits_check(params, merged, cfg, lcfg, adapter, prompt) -> dict:
     flat = L.flatten_lora(adapter, cfg, lcfg).cuda()
     slab.view(-1)[ps * cfg.d_model : ps * cfg.d_model + flat.numel()] = flat
     views = G.lora_bgmv_views(slab, torch.arange(1, ppa + 1, device="cuda")[None], cfg, lcfg)
-    cache = G.init_paged_cache(cfg, 1, n // ps + 1, ps)
+    cache = G.init_paged_cache(cfg, 1, n // ps + 1, ps, kv_dtype=kv_dtype)
     table = torch.arange(1, n // ps + 1, dtype=torch.int32, device="cuda")
     toks = torch.tensor(prompt, dtype=torch.long, device="cuda")
     got, _ = G.paged_prefill_slot(params, toks, cache, cfg, slot=0, page_table=table, n_real=n,
@@ -1848,8 +1913,10 @@ def lora_logits_check(params, merged, cfg, lcfg, adapter, prompt) -> dict:
     want, _ = G.prefill(merged, toks[None], G.init_cache(cfg, 1, n), cfg)
     diff = float((got - want).abs().max())
     top = float(want.abs().max())
+    rel_l2 = float(torch.linalg.vector_norm((got - want).double())
+                   / torch.linalg.vector_norm(want.double()).clamp_min(1e-30))
     return {"max_abs_diff": diff, "max_abs_logit": top, "bound": LORA_LOGIT_REL * top,
-            "same_argmax": bool(torch.equal(got.argmax(-1), want.argmax(-1)))}
+            "rel_l2": rel_l2, "same_argmax": bool(torch.equal(got.argmax(-1), want.argmax(-1)))}
 
 
 def phase_lora_serve(params, cfg) -> dict:
@@ -3020,7 +3087,7 @@ def measured(run):
     return out, time.perf_counter() - t0, dict(fa.LAUNCHES)
 
 
-def phase_disagg(params, cfg) -> tuple[dict, dict]:
+def phase_disagg(params, cfg, int8: bool = False) -> tuple[dict, dict]:
     """Phase 17, on phase 2's weights cut to their first DISAGG_LAYERS
     layers: the reference's disaggregated-serving bench at full width. One
     unified engine (the control), then
@@ -3028,18 +3095,27 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
     handoff, journaled (a WAL in a temporary directory and an
     ``AssumeCache``), and the forced fallback (``BrokenTransport``, two
     attempts), where every request re-prefills on the decode tier. Returns
-    the live run's kernel launches and the phase's report."""
+    the live run's kernel launches and the phase's report. ``int8``: phase
+    28 (c), the same over ``quantize_decoder``'s tree with int8 KV in every
+    engine, the live run only, and each page's wire bytes against a bf16
+    page's of the same geometry."""
     import tempfile
 
     from gpushare_device_plugin_tpu_torch.allocator.assume import AssumeCache
     from gpushare_device_plugin_tpu_torch.allocator.checkpoint import AllocationCheckpoint
     from gpushare_device_plugin_tpu_torch.serving import BrokenTransport, DisaggServer
 
-    print(f"phase 17: disaggregated prefill/decode serve, llama3_8b ({DISAGG_LAYERS} of 32 "
-          f"layers, bf16), {DISAGG_REQUESTS} requests of bench_serve_disagg", flush=True)
+    from gpushare_device_plugin_tpu_torch.serving.handoff import encode_page
+
+    phase, kv = ("phase 28 (c)", "int8") if int8 else ("phase 17", None)
+    print(f"{phase}: disaggregated prefill/decode serve, llama3_8b ({DISAGG_LAYERS} of 32 "
+          f"layers, {'int8 weights and KV' if int8 else 'bf16'}), {DISAGG_REQUESTS} requests of "
+          "bench_serve_disagg", flush=True)
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(cfg, n_layers=DISAGG_LAYERS)
     params = {**params, "layers": {k: v[:DISAGG_LAYERS] for k, v in params["layers"].items()}}
+    if int8:
+        params = Q.quantize_decoder(params)
     reqs = disagg_trace(cfg.vocab)
     rows = -(-DISAGG_MAX_LEN // DISAGG_PAGE)
     p_pages, d_pages = DISAGG_PREFILL_SLOTS * rows, DISAGG_DECODE_SLOTS * rows
@@ -3049,7 +3125,7 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
     def mk(slots, pages):
         return PagedSlotEngine(params, cfg, slots=slots, max_len=DISAGG_MAX_LEN,
                                total_pages=pages, page_size=DISAGG_PAGE,
-                               prefill_chunk=DISAGG_CHUNK, eos_id=EOS_ID)
+                               prefill_chunk=DISAGG_CHUNK, eos_id=EOS_ID, kv_dtype=kv)
 
     def check_engine(label, eng):
         if eng.trace_counts != guard:
@@ -3096,9 +3172,9 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
     launches_live: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = AllocationCheckpoint(os.path.join(tmp, "handoff.wal"))
-        for label, kw in (("live", dict(checkpoint=ckpt, assume=AssumeCache())),
-                          ("fallback", dict(transport=BrokenTransport(),
-                                            peer_kwargs={"attempts": 2}))):
+        runs = [("live", dict(checkpoint=ckpt, assume=AssumeCache())),
+                ("fallback", dict(transport=BrokenTransport(), peer_kwargs={"attempts": 2}))]
+        for label, kw in runs[:1] if int8 else runs:
             ds = DisaggServer(mk(DISAGG_PREFILL_SLOTS, p_pages), mk(DISAGG_DECODE_SLOTS, d_pages),
                               node="smoke", **kw)
             ds.warmup()
@@ -3131,8 +3207,8 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
             for r in trace:
                 got = out["results"][r.rid]["tokens"]
                 bit_equal += got == u_tokens[r.rid]
-                divergences += check_vs_solo(f"phase 17 ({label})", params, cfg, r, got,
-                                             want=u_tokens[r.rid], solos=solos)
+                divergences += check_vs_solo(f"{phase} ({label})", params, cfg, r, got,
+                                             want=u_tokens[r.rid], solos=solos, kv_dtype=kv)
             pst, dst = out["prefill"], out["decode"]
             tick_ms = (pst.wall_s + dst.wall_s) * 1e3 / max(pst.ticks + dst.ticks, 1)
             w = ds.wire
@@ -3180,10 +3256,22 @@ def phase_disagg(params, cfg) -> tuple[dict, dict]:
             k: v * u_tick_ms for k, v in report["unified"][q].items()}
     report["disagg_ttft_p99_ms"] = report["live"]["ttft_ms"]["p99"]
     report["disagg_tpot_p99_ms"] = report["live"]["tpot_ms"]["p99"]
+    wire = report["live"]["wire"]
+    # a bf16 page of the same geometry, as phase 17 ships it
+    shape = (cfg.n_layers, DISAGG_PAGE, cfg.kv_heads, cfg.head_dim)
+    bf16_page = len(encode_page({key: torch.zeros(shape, dtype=torch.bfloat16)
+                                 for key in ("k", "v")}))
+    report["wire_bytes_per_page"] = wire["bytes"] / max(wire["pages"], 1)
+    report["bf16_wire_bytes_per_page"] = bf16_page
     report["seconds"] = time.perf_counter() - t_phase
     print("  disagg", json.dumps(report), flush=True)
+    if int8:
+        split = report["live"]["per_handoff_ms"]
+        print(f"  wire bytes per page {report['wire_bytes_per_page']:.1f} against a bf16 page's "
+              f"{bf16_page} ({report['wire_bytes_per_page'] / bf16_page:.4f}); a handoff's "
+              "wall split (ms): " + json.dumps(split), flush=True)
     if fail:
-        raise SystemExit("phase 17 failed: " + "; ".join(fail))
+        raise SystemExit(f"{phase} failed: " + "; ".join(fail))
     return launches_live, report
 
 
@@ -3951,6 +4039,10 @@ def tp_serve_rank(mesh, workdir: str) -> dict:
     cfg_a1, params_a1 = tp_serve_view(cfg, params)
     out = {"serve": tp_serve_run(SlotEngine(params_a1, cfg_a1, mesh=mesh, **TP_SERVE_KW), trace,
                                  mesh)}
+    gc.collect()
+    out["serve_int8"] = tp_serve_run(
+        SlotEngine(params_a1, cfg_a1, mesh=mesh, kv_dtype="int8", **TP_SERVE_KW),
+        trace[:TP_INT8_REQUESTS], mesh)
     del params_a1
     gc.collect()
     cfg16, params16, ptrace, plan = tp_paged_setup(cfg, params)
@@ -4053,11 +4145,12 @@ def tp_train_rank(mesh, control) -> dict:
 
 
 def tp_check_serve(label, cfg, trace, solo, docs, fail, *, solos_for, expect_kv,
-                   expect_slab=None) -> dict:
+                   expect_slab=None, kv_dtype=None) -> dict:
     """Hold every rank of (a1) or (a2) against the solo run: tokens (equal,
     or the near-tie rule against solo decode of ``solos_for(req)``'s
-    weights, one tenant's at a time), shape guard, flash launches, and the
-    bytes a rank holds. Returns the report's row."""
+    weights, one tenant's at a time, over a ``kv_dtype`` cache), shape
+    guard, flash launches, and the bytes a rank holds. Returns the report's
+    row."""
     by_rid = {r.rid: r for r in trace}
     row = {"solo": {k: v for k, v in solo.items() if k != "tokens"}, "ranks": []}
     held = []  # (adapter, rid, rank, tokens) to hold against solo decode
@@ -4090,7 +4183,7 @@ def tp_check_serve(label, cfg, trace, solo, docs, fail, *, solos_for, expect_kv,
         weights, gap_rel = solos_for(by_rid[rid])
         diverged += [dict(d, rank=rank) for d in check_vs_solo(
             f"phase 20 ({label})", weights, cfg, by_rid[rid], got,
-            solos=solos.setdefault(aid, {}), gap_rel=gap_rel)]
+            solos=solos.setdefault(aid, {}), gap_rel=gap_rel, kv_dtype=kv_dtype)]
     row["diverged_at_near_ties"] = diverged
     print(f"   {label}", json.dumps(row), flush=True)
     return row
@@ -4152,10 +4245,10 @@ def tp_check_train(docs, control, fail) -> tuple[dict, dict]:
     return launches, rows
 
 
-def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
-    """Phase 20; returns the kernel launches of (a1), (a2) and (b) (each
-    summed over its ranks, (b) over both meshes), the kernel rows at a tp=2
-    training rank's shape, and a report. Order: the kernels; (b)'s control
+def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict, dict]:
+    """Phase 20; returns the kernel launches of (a1), (a2), (b) and (a1)'s
+    int8 KV run (each summed over its ranks, (b) over both meshes), the
+    kernel rows at a tp=2 training rank's shape, and a report. Order: the kernels; (b)'s control
     (its 34 GB peak alone on the card); the solo engines; the serving
     ranks; then (b)'s ranks, which run while this process holds the
     serving ranks' tokens to solo decode."""
@@ -4200,6 +4293,9 @@ def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
             cfg_a1, params_a1 = tp_serve_view(cfg, params)
             solo_a1 = tp_serve_run(SlotEngine(params_a1, cfg_a1, **TP_SERVE_KW), trace)
             gc.collect()
+            solo_int8 = tp_serve_run(SlotEngine(params_a1, cfg_a1, kv_dtype="int8",
+                                                **TP_SERVE_KW), trace[:TP_INT8_REQUESTS])
+            gc.collect()
             solo_a2 = tp_serve_run(
                 PagedSlotEngine(params16, cfg16, slots=plan.slots, total_pages=plan.total_pages,
                                 lora_store=store, lora_cfg=lcfg, **TP_PAGED_GEO), ptrace)
@@ -4219,10 +4315,17 @@ def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
                               for e in fa.LAUNCHES}
             launches_paged = {e: sum(d["paged"]["launches"][e] for d in docs)
                               for e in fa.LAUNCHES}
+            launches_int8 = {e: sum(d["serve_int8"]["launches"][e] for d in docs)
+                             for e in fa.LAUNCHES}
             report["serve"] = tp_check_serve(
                 "serve", cfg_a1, trace, solo_a1, docs, fail,
                 solos_for=lambda req: (params_a1, TOP2_GAP_REL),
                 expect_kv=solo_a1["kv_bytes"] // TP_RANKS)
+            report["serve_int8"] = tp_check_serve(
+                "serve_int8", cfg_a1, trace[:TP_INT8_REQUESTS], solo_int8, docs, fail,
+                solos_for=lambda req: (params_a1, TOP2_GAP_REL), kv_dtype="int8",
+                expect_kv=TP_SERVE_KW["slots"] * kv_slot_bytes(
+                    cfg_a1, TP_SERVE_KW["max_len"], "int8") // TP_RANKS)
             merged = {}
 
             def merged_for(req):
@@ -4258,7 +4361,7 @@ def phase_tensor_parallel(gen) -> tuple[dict, dict, dict, dict, dict]:
           f"{report['serve_checks_s']:.1f})", flush=True)
     if fail:
         raise SystemExit("phase 20 failed: " + "; ".join(fail))
-    return launches_serve, launches_paged, launches_train, rows, report
+    return launches_serve, launches_paged, launches_train, launches_int8, rows, report
 
 
 def shard_task(model: str, optimizer=None):
@@ -6152,17 +6255,20 @@ DEFRAG_WITNESSED_RANKS = ("serving.drain", "serving.radix")
 def phase_defrag(params, cfg) -> tuple[dict, dict]:
     """Phase 24 under the port's lock-order witness: :func:`defrag_moves`
     with ``lockrank.set_witness(True)`` from before its engines and locks
-    are made to its end. Fails on any of the moves' failures, on any
-    lock-order violation, or unless the ranks of DEFRAG_WITNESSED_RANKS were
-    acquired. Returns the launches of the moves and the phase's report,
-    which gains ``witness``: the violations counted and the ranks
-    acquired."""
+    are made to its end, in bf16 and then (d) int8. Fails on any of the
+    moves' failures, on any lock-order violation, or unless the ranks of
+    DEFRAG_WITNESSED_RANKS were acquired. Returns the launches of the moves
+    by path (``defrag``, ``int8_defrag``) and the phase's report, which
+    gains ``int8`` (the (d) move's) and ``witness``: the violations counted
+    and the ranks acquired."""
     from gpushare_device_plugin_tpu_torch.utils import lockrank
 
     lockrank.set_witness(True)
     lockrank.reset_violations()
     try:
         launches, report, fail = defrag_moves(params, cfg)
+        int8_launches, report["int8"], int8_fail = defrag_moves(params, cfg, int8=True)
+        fail += int8_fail
         found = lockrank.violations()
         ranks = lockrank.acquired_ranks()
     finally:
@@ -6176,15 +6282,17 @@ def phase_defrag(params, cfg) -> tuple[dict, dict]:
         fail.append(f"the witness saw no acquire of {missing}")
     if fail:
         raise SystemExit("phase 24 failed: " + "; ".join(fail))
-    return launches, report
+    return {"defrag": launches, "int8_defrag": int8_launches}, report
 
 
-def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
+def defrag_moves(params, cfg, int8: bool = False) -> tuple[dict, dict, list[str]]:
     """Phase 24's moves, on phase 2's weights cut to their first
     DEFRAG_LAYERS layers: a serving pod's slice moved by the port's
     ``SliceMover`` three times (clean, crashed past the switch and rolled
-    forward, crashed before it and rolled back). Returns the launches of
-    the moves, the phase's report and what failed.
+    forward, crashed before it and rolled back). ``int8``: (d), one clean
+    move of a slice serving ``quantize_decoder``'s tree with an int8 KV
+    cache. Returns the launches of the moves, the phase's report and what
+    failed.
 
     The fake apiserver's node lists two cards, 0 and 1, and both are the
     one H100: a move across cards needs two, as phase 20's gang env does,
@@ -6201,18 +6309,26 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
     from gpushare_device_plugin_tpu_torch.cluster.reconciler import DriftReconciler
     from gpushare_device_plugin_tpu_torch.utils.faults import FAULTS, SimulatedCrash
 
-    print(f"phase 24: live defragmentation of a serving llama3_8b slice ({DEFRAG_LAYERS} of 32 "
-          "layers, bf16), moved clean, rolled forward and rolled back", flush=True)
+    if int8:
+        print(f"phase 24 (d): live defragmentation of a slice serving the int8 llama3_8b "
+              f"({DEFRAG_LAYERS} of 32 layers, int8 KV), moved clean", flush=True)
+    else:
+        print(f"phase 24: live defragmentation of a serving llama3_8b slice ({DEFRAG_LAYERS} of "
+              "32 layers, bf16), moved clean, rolled forward and rolled back", flush=True)
     t_phase = time.perf_counter()
     fail: list[str] = []
     cfg = dataclasses.replace(cfg, n_layers=DEFRAG_LAYERS)
     params = {**params, "layers": {k: v[:DEFRAG_LAYERS] for k, v in params["layers"].items()}}
+    kv, moves, tag = (None, DEFRAG_MOVES, "")
+    if int8:
+        params = Q.quantize_decoder(params)
+        kv, moves, tag = "int8", DEFRAG_MOVES[:1], "int8 "
     card_units = card_gib()
     pod_env = PodTpuEnv.from_env(plugin_env(DEFRAG_SLICE_UNITS))
-    plan = paged_plan_from_pod_env(cfg, 2048, weight_bytes=tensor_bytes(params), page_size=16,
-                                   prefill_chunk=512, env=pod_env, slots=8)
+    plan = paged_plan_from_pod_env(cfg, 2048, weight_bytes=Q.param_bytes(params), page_size=16,
+                                   prefill_chunk=512, env=pod_env, slots=8, kv_dtype=kv)
     geo = dict(slots=8, total_pages=plan.total_pages, max_len=2048, prefill_chunk=512,
-               page_size=16, eos_id=EOS_ID)
+               page_size=16, eos_id=EOS_ID, kv_dtype=kv)
     src, dst = PagedSlotEngine(params, cfg, **geo), PagedSlotEngine(params, cfg, **geo)
     src.warmup()
     dst.warmup()
@@ -6239,8 +6355,8 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
     launches = {name: 0 for name in fa.LAUNCHES}
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            for i, (label, site, forward) in enumerate(DEFRAG_MOVES):
-                name = f"serve-{i}"
+            for i, (label, site, forward) in enumerate(moves):
+                label, name = tag + label, f"serve-{tag.strip() or 'bf16'}-{i}"
                 api.add_pod(cluster_pod(
                     name, DEFRAG_NODE, DEFRAG_SLICE_UNITS, phase="Running", created=i,
                     annotations={**assumed_on_card0(DEFRAG_SLICE_UNITS, card_units),
@@ -6259,7 +6375,8 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
                     drained.append(snap)
                     return snap
 
-                def restore(key, snap, times=times, restored=restored, profiled=i == 0):
+                def restore(key, snap, times=times, restored=restored,
+                            profiled=i == 0 and not int8):
                     t = time.perf_counter()
                     before = len(prefills)
                     for n in fa.LAUNCHES:
@@ -6345,7 +6462,7 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
                 diverged = []
                 for rid, toks in {**pre, **post}.items():
                     diverged += check_vs_solo("phase 24", params, cfg, by_rid[rid], toks,
-                                              want=ref.get(rid), solos=solos)
+                                              want=ref.get(rid), solos=solos, kv_dtype=kv)
                 pod = client.get_pod("default", name)
                 ann = pod["metadata"]["annotations"]
                 want_idx = "1" if forward else "0"
@@ -6365,7 +6482,7 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
                                 f"{times.get('restore_prefills')} prefill dispatches")
                 ckpt.close()
                 want_outcome = {"clean": "completed", "rolled forward": "move_rollforward",
-                                "rolled back": "move_rollback"}[label]
+                                "rolled back": "move_rollback"}[label[len(tag):]]
                 if outcome != want_outcome:
                     fail.append(f"{label}: the move ended {outcome!r}, not {want_outcome!r}")
                 row = {"move": label, "crash_site": site, "outcome": outcome,
@@ -6374,7 +6491,7 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
                        "drain_s": times["drain_s"],
                        "wal_patch_s": move_s - times["drain_s"] - (
                            times["restore_s"] if forward else 0.0),
-                       "restore_s": times["restore_s"], "restore_profiled": i == 0,
+                       "restore_s": times["restore_s"], "restore_profiled": i == 0 and not int8,
                        "restore_device_s": times.get("restore_device_s"),
                        "restore_prefills": times.get("restore_prefills"),
                        "restore_flash_fwd": times.get("restore_flash_fwd"),
@@ -6389,8 +6506,8 @@ def defrag_moves(params, cfg) -> tuple[dict, dict, list[str]]:
                     f"{dst.radix.cached_pages} cached")
     report["launches"] = launches
     report["seconds"] = time.perf_counter() - t_phase
-    print("  phase 24", json.dumps({k: v for k, v in report.items() if k != "moves"}),
-          flush=True)
+    print(f"  phase 24{' (d)' if int8 else ''}",
+          json.dumps({k: v for k, v in report.items() if k != "moves"}), flush=True)
     del src, dst
     torch.cuda.empty_cache()
     return launches, report, fail
@@ -6581,6 +6698,32 @@ def quant_serve(params, cfg) -> tuple[dict, dict]:
     return rep, launches
 
 
+def loaded_int8_decoder(cfg, doc: dict) -> dict:
+    """A pod's int8 8B tree (:func:`drawn_int8_decoder` at QUANT_POD_SEED),
+    loaded as a pod loads it; adds ``draw_s``, ``weight_bytes``,
+    ``draw_peak_reserved_bytes`` and ``load_s`` to ``doc``."""
+    t0 = time.perf_counter()
+    q = drawn_int8_decoder(cfg, torch.Generator(device="cuda").manual_seed(QUANT_POD_SEED))
+    torch.cuda.synchronize()
+    doc["draw_s"] = round(time.perf_counter() - t0, 3)
+    doc["weight_bytes"] = Q.param_bytes(q)
+    doc["draw_peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    # A pod loads its int8 weights from storage, a leaf at a time, into an
+    # empty allocator; a round trip through host memory gives that state.
+    # Left where they were drawn, the leaves sit in segments the draw's bf16
+    # leaves split, which strand 1.70 GiB of the 15.20 GiB cap on an H100
+    # 80GB HBM3.
+    t0 = time.perf_counter()
+    host = moved(q, "cpu")
+    del q
+    torch.cuda.empty_cache()
+    q = moved(host, "cuda")
+    del host
+    torch.cuda.synchronize()
+    doc["load_s"] = round(time.perf_counter() - t0, 3)
+    return q
+
+
 def quant_pod_main(argv: list[str]) -> int:
     """Phase 27 (b), in a child process whose env is the plugin's for a
     QUANT_POD_UNITS slice: cap the process from the env, check that the
@@ -6605,25 +6748,7 @@ def quant_pod_main(argv: list[str]) -> int:
         if "quantize" not in str(e):
             fail.append(f"the bf16 refusal does not say to quantize: {e}")
     try:
-        t0 = time.perf_counter()
-        q = drawn_int8_decoder(cfg, torch.Generator(device="cuda").manual_seed(QUANT_POD_SEED))
-        torch.cuda.synchronize()
-        doc["draw_s"] = round(time.perf_counter() - t0, 3)
-        doc["weight_bytes"] = Q.param_bytes(q)
-        doc["draw_peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
-        # A pod loads its int8 weights from storage, a leaf at a time, into
-        # an empty allocator; a round trip through host memory gives that
-        # state. Left where they were drawn, the leaves sit in segments the
-        # draw's bf16 leaves split, which strand 1.70 GiB of the 15.20 GiB
-        # cap on an H100 80GB HBM3.
-        t0 = time.perf_counter()
-        host = moved(q, "cpu")
-        del q
-        torch.cuda.empty_cache()
-        q = moved(host, "cuda")
-        del host
-        torch.cuda.synchronize()
-        doc["load_s"] = round(time.perf_counter() - t0, 3)
+        q = loaded_int8_decoder(cfg, doc)
         plan = paged_plan_from_pod_env(cfg, weight_bytes=doc["weight_bytes"], kv_dtype="int8",
                                        **QUANT_GEO)
         doc["plan"] = dataclasses.asdict(plan)
@@ -6688,32 +6813,53 @@ def quant_pod_main(argv: list[str]) -> int:
     return 1 if fail else 0
 
 
+def start_int8_pod(entry: str, workdir: str, *args: str) -> subprocess.Popen:
+    """Start ``chip_smoke.<entry>(args)`` in a child with only the plugin's
+    env for QUANT_POD_UNITS on top of the parent's, its output in files
+    under ``workdir``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if k != const.ENV_CUDA_VISIBLE_DEVICES}
+    env.update(plugin_env(QUANT_POD_UNITS))
+    code = f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}(sys.argv[1:]))"
+    with open(os.path.join(workdir, "pod.out"), "w") as out, \
+            open(os.path.join(workdir, "pod.err"), "w") as err:
+        return subprocess.Popen([sys.executable, "-c", code, *args],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                stdout=out, stderr=err, text=True)
+
+
+def finish_int8_pod(phase: str, proc: subprocess.Popen, workdir: str) -> dict:
+    """Wait for a pod :func:`start_int8_pod` started; returns its JSON line,
+    and fails ``phase`` unless it exits 0 with no failed gate."""
+    try:
+        proc.wait(timeout=POD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit(f"{phase} failed: the pod ran past {POD_TIMEOUT_S} s")
+    with open(os.path.join(workdir, "pod.out")) as f:
+        docs = [line for line in f.read().splitlines() if line.startswith("{")]
+    with open(os.path.join(workdir, "pod.err")) as f:
+        stderr = f.read()
+    doc = json.loads(docs[-1]) if docs else None
+    print("  int8 pod", json.dumps(doc), flush=True)
+    if proc.returncode != 0 or doc is None or doc.get("fail"):
+        raise SystemExit(f"{phase} failed: exit {proc.returncode}; "
+                         f"{(doc or {}).get('fail') or (doc or {}).get('oom')}; "
+                         f"stderr: {stderr[-2000:]}")
+    return doc
+
+
 def quant_pod(bf16_bytes: int) -> tuple[dict, dict]:
     """Phase 27 (b): run :func:`quant_pod_main` in a child with only the
     plugin's env for QUANT_POD_UNITS on top of the parent's; returns the
     child's report and its run's launches."""
     print(f"phase 27 (b): the int8 8B (32 layers) served from a {QUANT_POD_UNITS}-GiB pod, "
           f"int8 KV cache, {QUANT_POD_REQUESTS} requests", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    env = {k: v for k, v in os.environ.items() if k != const.ENV_CUDA_VISIBLE_DEVICES}
-    env.update(plugin_env(QUANT_POD_UNITS))
-    code = "import sys, chip_smoke; sys.exit(chip_smoke.quant_pod_main(sys.argv[1:]))"
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-c", code, str(bf16_bytes)],
-            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, capture_output=True,
-            text=True, timeout=POD_TIMEOUT_S,
-        )
-    except subprocess.TimeoutExpired:
-        raise SystemExit(f"phase 27 (b) failed: the pod ran past {POD_TIMEOUT_S} s")
-    docs = [line for line in proc.stdout.splitlines() if line.startswith("{")]
-    doc = json.loads(docs[-1]) if docs else None
-    print("  int8 pod", json.dumps(doc), flush=True)
-    if proc.returncode != 0 or doc is None or doc.get("fail"):
-        raise SystemExit(f"phase 27 (b) failed: exit {proc.returncode}; "
-                         f"{(doc or {}).get('fail') or (doc or {}).get('oom')}; "
-                         f"stderr: {proc.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = finish_int8_pod("phase 27 (b)",
+                              start_int8_pod("quant_pod_main", tmp, str(bf16_bytes)), tmp)
     gib = 2 ** 30
     print(f"  pod: plan {doc['plan']['slots']} slots x {doc['plan']['total_pages']} pages; peak "
           f"reserved {doc['peak_reserved_bytes'] / gib:.3f} GiB of a "
@@ -6736,11 +6882,396 @@ def phase_quant(params, cfg) -> tuple[dict, dict]:
     return {"int8_serve": serve_launches, "int8_pod": pod_launches}, report
 
 
+# Phase 28: int8 on the serving paths phase 27 bypasses, each run at
+# llama3_8b() width on seeded bf16 weights quantized with quantize_decoder.
+# (a) Multi-LoRA over the int8 8B cut to QUANT_LORA_LAYERS, in a child pod
+# of QUANT_POD_UNITS: phase 13's four tenants (rank 8 on every target),
+# drawn here for phase 2's weights at that depth and handed to the pod in a
+# file; the pod draws its own int8 tree, as phase 27 (b)'s does (it cannot
+# hold phase 2's bf16 one). QUANT_LORA_SLOTS rows, since the pool-wide decode
+# step attends every slot, active or not (phase 27 (b)'s 212 took 500 ms a
+# step). The pod serves each tenant's and the base model's first request
+# of phase 13's trace (5 requests, in trace order: requests 0-3 and 10):
+# its first 8 name only t0-t2 (t3 first at request 10), and the gate on
+# adapter misses needs all four tenants. At 32 layers its first 11, the
+# shortest head that names them all, took 174.5 s for (a) on one H100
+# 80GB HBM3 at 700 W (111.8 s of it the one-request runs, a pool-wide
+# step 237 ms p50), past the time this phase may add; so 5 requests at 16
+# layers. (b) Speculative paged serving at SPEC_LAYERS with the
+# Llama-3.2-1B-shaped draft at DRAFT_LAYERS, both int8, int8 KV, on phase
+# 15's run A. (c) Phase 17's disaggregated serving at DISAGG_LAYERS, int8
+# weights and both tiers' caches int8.
+QUANT_LORA_SLOTS = 16
+QUANT_LORA_LAYERS = 16
+QUANT_LORA_MIN_ROWS = 8  # max_len rows of pages the pod's plan must buy
+
+
+def first_per_tenant(trace) -> list:
+    """Each adapter id's first request (the base model's too), in trace
+    order."""
+    seen: set = set()
+    return [r for r in trace if not (r.adapter_id in seen or seen.add(r.adapter_id))]
+
+
+def one_request_runs(engine, trace) -> dict:
+    """Each request of ``trace`` served alone by ``engine`` (a one-request
+    run, arriving at tick 0), with the top-two logit gap at each token it
+    emits: ``{rid: (tokens, [(gap, |top|), ...])}``. The gaps come from the
+    logits each program takes its token from: the last prompt chunk's,
+    then each decode step's at the request's row."""
+    names = ("paged_prefill_slot", "paged_extend_slot", "paged_decode_step")
+    originals = {name: getattr(G, name) for name in names}
+    seen: dict = {}
+    calls: list = []
+
+    def keep(fn):
+        def wrapped(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            seen["logits"] = logits
+            return logits, cache
+        return wrapped
+
+    def program(name):
+        method = getattr(engine, name)
+
+        def wrapped(*args):
+            tok = method(*args)
+            logits, pick = seen.pop("logits"), tok
+            if name == "_decode":
+                row = int(torch.nonzero(args[2])[0, 0])
+                logits, pick = logits[row], tok[row]
+            else:
+                logits = logits[0]
+            top2 = torch.topk(logits.float(), 2).values
+            calls.append((name, int(pick), float(top2[0] - top2[1]), float(top2[0].abs())))
+            return tok
+        return wrapped
+
+    out = {}
+    for name in names:
+        setattr(G, name, keep(originals[name]))
+    try:
+        for req in trace:
+            calls.clear()
+            for name in ("_prefill", "_extend", "_decode"):
+                setattr(engine, name, program(name))
+            try:
+                stats = engine.run([dataclasses.replace(req, arrival=0.0)])
+            finally:
+                for name in ("_prefill", "_extend", "_decode"):
+                    delattr(engine, name)
+            first = next((i for i, c in enumerate(calls) if c[0] == "_decode"), len(calls))
+            emitted = calls[first - 1: first] + [c for c in calls[first:] if c[0] == "_decode"]
+            (res,) = stats.results
+            if [c[1] for c in emitted[: len(res.tokens)]] != list(res.tokens):
+                raise SystemExit(f"request {req.rid}: the recorded programs do not give the "
+                                 "one-request run's tokens")
+            out[req.rid] = (list(res.tokens), [(c[2], c[3]) for c in emitted])
+    finally:
+        for name, fn in originals.items():
+            setattr(G, name, fn)
+    return out
+
+
+def near_tie_divergence(rid, got, want, gaps) -> dict | None:
+    """Phase 3's rule for ``got`` against ``want`` (whose top-two gaps are
+    ``gaps``): None if equal; the first divergence if it is at a near tie;
+    SystemExit otherwise."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        if len(got) != len(want):
+            raise SystemExit(f"request {rid}: {len(got)} tokens, {len(want)} served alone")
+        return None
+    gap, top = gaps[j]
+    if gap > TOP2_GAP_REL * top:
+        raise SystemExit(f"request {rid} diverges at step {j} where the top-two gap alone "
+                         f"{gap} > {TOP2_GAP_REL} * {top}")
+    return {"rid": rid, "step": j, "solo_top2_gap": gap, "top": top,
+            "gap_over_top": gap / top if top else 0.0}
+
+
+def quant_lora_pod_main(argv: list[str]) -> int:
+    """Phase 28 (a), in a child whose env is the plugin's for a
+    QUANT_POD_UNITS slice (``argv = [the tenants' file, a directory]``):
+    cap the process, load the int8 tree and the tenants, size the int8
+    multi-LoRA pool from the env (``lora=True``), warm the engine up, wait
+    for the directory's "go" file (the parent's other runs end first, so
+    the timed runs have the card alone), serve each tenant's first request
+    of phase 13's trace, then each alone on the same engine. Prints one
+    JSON line; exits 3 on an OOM, and 1 on a failed gate."""
+    settings = configure_torch_from_env()
+    fraction = float(settings[MEMORY_FRACTION])
+    cap = int(fraction * torch.cuda.get_device_properties(0).total_memory)
+    doc = {"slice_gib": PodTpuEnv.from_env().mem_units_container, "fraction": fraction,
+           "cap_bytes": cap}
+    cfg = dataclasses.replace(llama3_8b(), n_layers=QUANT_LORA_LAYERS)
+    lcfg = L.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=LORA_TARGETS)
+    fail = []
+    try:
+        q = loaded_int8_decoder(cfg, doc)
+        store = torch.load(argv[0], weights_only=True)
+        plan = paged_plan_from_pod_env(cfg, weight_bytes=doc["weight_bytes"], kv_dtype="int8",
+                                       lora=True, slots=QUANT_LORA_SLOTS, **QUANT_GEO)
+        doc["plan"] = dataclasses.asdict(plan)
+        doc["plan_rows"] = plan.total_pages // pages_for(QUANT_GEO["max_len"],
+                                                         QUANT_GEO["page_size"])
+        if doc["plan_rows"] < QUANT_LORA_MIN_ROWS:
+            fail.append(f"the plan buys {doc['plan_rows']} max_len rows of pages, not "
+                        f"{QUANT_LORA_MIN_ROWS}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = PagedSlotEngine(q, cfg, slots=plan.slots, total_pages=plan.total_pages,
+                                 eos_id=EOS_ID, kv_dtype="int8", lora_store=store,
+                                 lora_cfg=lcfg, **QUANT_GEO)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        engine.warmup()
+        doc["engine_warmup_s"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        while not os.path.exists(os.path.join(argv[1], "go")):
+            if time.perf_counter() - t0 > POD_TIMEOUT_S:
+                raise SystemExit("phase 28 (a): the parent never wrote its go file")
+            time.sleep(0.05)
+        doc["waited_for_go_s"] = round(time.perf_counter() - t0, 3)
+        trace = first_per_tenant(paged_trace(cfg, seed=LORA_TRACE_SEED,
+                                             adapters=[*LORA_TENANTS, ""]))
+        prefills = []
+        count_prefills(engine, prefills)
+        stats, wall, launches = measured(lambda: engine.run(trace))
+        del engine._prefill
+        s = stats.summary()
+        adapters = engine.cache_stats()["adapters"]
+        doc.update(
+            resident_bytes=resident, requests=s["requests"], tokens=s["tokens"],
+            ticks=s["ticks"], wall_s=wall, ttft_p50_ms=s["ttft_p50_ms"],
+            ttft_p99_ms=s["ttft_p99_ms"], decode_step_p50_ms=engine.profiler.p50() * 1e3,
+            decode_step_p99_ms=engine.profiler.p99() * 1e3, prefill_dispatches=len(prefills),
+            shape_guard=stats.trace_counts, launches=launches, adapters=adapters,
+            tenants={aid or "base": sum(r.adapter_id == aid for r in trace)
+                     for aid in (*LORA_TENANTS, "")},
+        )
+        if len(stats.results) != len(trace):
+            fail.append("not every request was served")
+        if stats.trace_counts != {"prefill": 1, "extend": 1, "decode": 1}:
+            fail.append(f"shape guard moved: {stats.trace_counts}")
+        if adapters["misses"] < len(LORA_TENANTS):
+            fail.append(f"adapters {adapters}: fewer than {len(LORA_TENANTS)} misses")
+        if not launches["flash_fwd"] == cfg.n_layers * len(prefills) > 0 or \
+                launches["flash_fwd_scalar"]:
+            fail.append(f"launches {launches}: not {cfg.n_layers} flash_fwd for each of "
+                        f"{len(prefills)} prefill dispatches")
+
+        def leak(label):
+            held = engine.radix.cached_pages + engine.adapters.cached_pages
+            if engine.allocator.used_pages != held:
+                fail.append(f"{label}: {engine.allocator.used_pages} pages used, {held} held by "
+                            "the radix cache and resident adapters")
+
+        leak("after the run")
+        t0 = time.perf_counter()
+        alone = one_request_runs(engine, trace)
+        doc["alone_s"] = round(time.perf_counter() - t0, 3)
+        leak("after the one-request runs")
+        if engine.trace_counts != {"prefill": 1, "extend": 1, "decode": 1}:
+            fail.append(f"shape guard moved in the one-request runs: {engine.trace_counts}")
+        diverged = []
+        for res in stats.results:
+            found = near_tie_divergence(res.rid, list(res.tokens), *alone[res.rid])
+            diverged += [found] if found else []
+        doc["diverged_at_near_ties"] = diverged
+        doc["equal_to_alone"] = len(stats.results) - len(diverged)
+        doc.update(peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                   transient_peak_bytes=torch.cuda.max_memory_allocated() - resident)
+        if doc["peak_reserved_bytes"] > cap or doc["draw_peak_reserved_bytes"] > cap:
+            fail.append(f"peak reserved {doc['peak_reserved_bytes']} over the cap {cap}")
+        del engine
+    except torch.cuda.OutOfMemoryError as e:
+        doc.update(oom=str(e).splitlines()[0][:400],
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated())
+        print(json.dumps(doc), flush=True)
+        return 3
+    doc["fail"] = fail
+    print(json.dumps(doc), flush=True)
+    return 1 if fail else 0
+
+
+def start_lora_pod(params, cfg, workdir: str) -> dict:
+    """Phase 28 (a)'s first half, on phase 2's bf16 weights cut to
+    QUANT_LORA_LAYERS: phase 13's four tenants drawn for them, each
+    tenant's int8-base prefill logits (BGMV over ``quantize_decoder``'s
+    tree and an int8 pool) against bf16 merged-solo (``merge_lora`` +
+    prefill) by rel-L2, then :func:`quant_lora_pod_main` started in a child
+    pod, which sets up and waits for ``workdir``'s "go" file. Returns what
+    :func:`finish_lora_pod` needs."""
+    print(f"phase 28 (a): multi-LoRA over the int8 8B ({QUANT_LORA_LAYERS} of 32 layers) in a "
+          f"{QUANT_POD_UNITS}-GiB pod, int8 KV cache, {QUANT_LORA_SLOTS} slots, each tenant's "
+          "first request of phase 13's trace", flush=True)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=QUANT_LORA_LAYERS)
+    params = {**params, "layers": {k: v[:QUANT_LORA_LAYERS]
+                                   for k, v in params["layers"].items()}}
+    lcfg = L.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=LORA_TARGETS)
+    store, ratios = lora_store_for(params, cfg, lcfg)
+    trace = paged_trace(cfg, seed=LORA_TRACE_SEED, adapters=[*LORA_TENANTS, ""])
+    q = Q.quantize_decoder(params)
+    logits, fail = {}, []
+    for aid in LORA_TENANTS:
+        adapter = {n: {k: v.cuda() for k, v in ab.items()} for n, ab in store[aid].items()}
+        merged = L.merge_lora(params, adapter, lcfg)
+        first = next(r for r in trace if r.adapter_id == aid)
+        logits[aid] = lora_logits_check(q, merged, cfg, lcfg, adapter, list(first.prompt[:512]),
+                                        kv_dtype="int8")
+        del merged, adapter
+        torch.cuda.empty_cache()
+        if not logits[aid]["rel_l2"] <= QUANT_GATE_REL_L2:
+            fail.append(f"{aid}: int8-base logits rel-L2 {logits[aid]['rel_l2']} > "
+                        f"{QUANT_GATE_REL_L2}")
+    del q
+    print("  each tenant's prefill logits, int8 base (BGMV) against bf16 merged-solo:",
+          json.dumps(logits), flush=True)
+    if fail:
+        raise SystemExit("phase 28 (a) failed: " + "; ".join(fail))
+    path = os.path.join(workdir, "tenants.pt")
+    torch.save(store, path)
+    del store
+    proc = start_int8_pod("quant_lora_pod_main", workdir, path, workdir)
+    return {"proc": proc, "logits": logits, "adapter_ratios": ratios,
+            "parent_s": time.perf_counter() - t0}
+
+
+def finish_lora_pod(pod: dict, workdir: str) -> tuple[dict, dict]:
+    """Phase 28 (a)'s second half: write the "go" file, so the pod serves
+    alone on the card, and hold its report. Returns the report and the
+    pod's run's launches."""
+    t0 = time.perf_counter()
+    open(os.path.join(workdir, "go"), "w").close()
+    doc = finish_int8_pod("phase 28 (a)", pod["proc"], workdir)
+    doc.update(logits=pod["logits"], adapter_ratios=pod["adapter_ratios"],
+               seconds={"before_go": pod["parent_s"], "after_go": time.perf_counter() - t0})
+    gib = 2 ** 30
+    print(f"  pod: plan {doc['plan']['slots']} slots x {doc['plan']['total_pages']} pages "
+          f"({doc['plan_rows']} max_len rows); peak reserved "
+          f"{doc['peak_reserved_bytes'] / gib:.3f} GiB of a {doc['cap_bytes'] / gib:.3f} GiB "
+          f"cap; TTFT p50 {doc['ttft_p50_ms']:.1f} ms, decode step p50 "
+          f"{doc['decode_step_p50_ms']:.1f} ms; adapters {json.dumps(doc['adapters'])}; "
+          f"{doc['equal_to_alone']} of {doc['requests']} equal to their one-request runs; "
+          f"seconds {json.dumps(doc['seconds'])}", flush=True)
+    return doc, doc["launches"]
+
+
+def spec_int8(params, cfg) -> tuple[dict, dict]:
+    """Phase 28 (b): phase 15's run A with the target (phase 2's weights cut
+    to SPEC_LAYERS) and its Llama-3.2-1B-shaped draft (DRAFT_LAYERS) both
+    int8 and an int8 KV cache, against a plain int8 engine on the same
+    trace. Returns the report and the speculative run's launches."""
+    print(f"phase 28 (b): speculative paged serve, int8 llama3_8b ({SPEC_LAYERS} of 32 layers) "
+          f"and an int8 Llama-3.2-1B-shaped draft ({DRAFT_LAYERS} of 16), int8 KV", flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+    q = Q.quantize_decoder({**params, "layers": {k: v[:SPEC_LAYERS]
+                                                 for k, v in params["layers"].items()}})
+    dcfg = dataclasses.replace(llama32_1b_shape(), n_layers=DRAFT_LAYERS)
+    dq = Q.quantize_decoder(init_params(dcfg, torch.Generator(device="cuda").manual_seed(15),
+                                        device="cuda", dtype=torch.bfloat16))
+    pod = PodTpuEnv.from_env(plugin_env(PAGED_SLICE_UNITS))
+    plan_kw = dict(weight_bytes=Q.param_bytes(q), page_size=16, prefill_chunk=512, env=pod,
+                   kv_dtype="int8", slots=16)
+    plan = paged_plan_from_pod_env(cfg, 2048, draft_cfg=dcfg,
+                                   draft_weight_bytes=Q.param_bytes(dq), **plan_kw)
+    plan_plain = paged_plan_from_pod_env(cfg, 2048, **plan_kw)
+    print(f"  int8 target {Q.param_bytes(q) / 1e9:.3f} GB, draft {Q.param_bytes(dq) / 1e9:.3f} "
+          "GB; plan", json.dumps(dataclasses.asdict(plan)), flush=True)
+    trace = paged_trace(cfg)
+    by_rid = {r.rid: r for r in trace}
+    geo = dict(max_len=2048, prefill_chunk=512, page_size=16, eos_id=EOS_ID, kv_dtype="int8")
+    plain, plain_rep, plain_stats, _ = paged_run(
+        "plain int8 engine",
+        lambda: PagedSlotEngine(q, cfg, slots=16, total_pages=plan_plain.total_pages, **geo),
+        trace, phase="phase 28 (b)", profile=False)
+    del plain
+    torch.cuda.empty_cache()
+    served = {r.rid: r.tokens for r in plain_stats.results}
+    spec, rep, stats, launches = paged_run(
+        "int8 target and draft",
+        lambda: PagedSlotEngine(q, cfg, slots=16, total_pages=plan.total_pages,
+                                draft_params=dq, draft_cfg=dcfg, spec_k=SPEC_K, **geo),
+        trace, phase="phase 28 (b)", profile=False, head_dims=True)
+    del spec
+    torch.cuda.empty_cache()
+    solos, diverged, fail = {}, [], []
+    for res in stats.results:
+        diverged += check_vs_solo("phase 28 (b)", q, cfg, by_rid[res.rid], res.tokens,
+                                  want=served[res.rid], solos=solos, kv_dtype="int8")
+    del solos, q, dq
+    torch.cuda.empty_cache()
+    row = rep["cache_stats"]["speculative"]
+    by_dim = rep["flash_fwd_by_head_dim"]
+    report = {
+        "plan": dataclasses.asdict(plan), "speculative": row,
+        "acceptance": row["accepted"] / max(row["proposed"], 1),
+        "round_wall_p50_ms": rep["round_wall_p50_ms"],
+        "plain_decode_step_p50_ms": plain_rep["decode_step_p50_ms"],
+        "ticks": {"spec": stats.ticks, "plain": plain_stats.ticks},
+        "goodput_tokens_per_s": {"spec": rep["goodput_tokens_per_s"],
+                                 "plain": plain_rep["goodput_tokens_per_s"]},
+        "flash_fwd_by_head_dim": by_dim, "prefill_dispatches": rep["prefill_dispatches"],
+        "equal_to_plain": sum(r.tokens == served[r.rid] for r in stats.results),
+        "diverged_at_near_ties": diverged,
+    }
+    print("  phase 28 (b)", json.dumps(report), flush=True)
+    print(f"  acceptance {report['acceptance']:.4f}; a round's wall p50 "
+          f"{report['round_wall_p50_ms']:.1f} ms against the plain int8 step's "
+          f"{report['plain_decode_step_p50_ms']:.1f} ms", flush=True)
+    if not row["rollback_pages"] > 0:
+        fail.append(f"no page rolled back: {row}")
+    if by_dim.get(DRAFT_D, 0) != dcfg.n_layers * rep["prefill_dispatches"] or \
+            by_dim.get(cfg.head_dim, 0) != cfg.n_layers * rep["prefill_dispatches"]:
+        fail.append(f"flash_fwd by head dim {by_dim}: not {dcfg.n_layers} at D={DRAFT_D} and "
+                    f"{cfg.n_layers} at D=128 a prefill dispatch")
+    if fail:
+        raise SystemExit("phase 28 (b) failed: " + "; ".join(fail))
+    return report, launches
+
+
+def phase_int8_paths(params, cfg) -> tuple[dict, dict]:
+    """Phase 28 on phase 2's bf16 8B weights: (a)'s logits check and its
+    pod started (:func:`start_lora_pod`; the pod loads its tree and warms
+    its engine up meanwhile), (b) :func:`spec_int8`, (c) :func:`phase_disagg`
+    over int8, then (a)'s pod serves alone on the card
+    (:func:`finish_lora_pod`). Returns the launches of each path by name
+    (``int8_lora_pod``, ``int8_spec``, ``int8_disagg``) and the phase's
+    report."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        started = start_lora_pod(params, cfg, tmp)
+        try:
+            t1 = time.perf_counter()
+            spec, spec_launches = spec_int8(params, cfg)
+            t2 = time.perf_counter()
+            disagg_launches, disagg = phase_disagg(params, cfg, int8=True)
+        except BaseException:
+            started["proc"].kill()
+            started["proc"].wait()
+            raise
+        t3 = time.perf_counter()
+        pod, pod_launches = finish_lora_pod(started, tmp)
+    t4 = time.perf_counter()
+    print(f"  phase 28 (a) {t1 - t0:.1f} s before (b), {t4 - t3:.1f} s after (c); (b) "
+          f"{t2 - t1:.1f} s, (c) {t3 - t2:.1f} s", flush=True)
+    report = {"lora_pod": pod, "spec": spec, "disagg": disagg, "seconds": t4 - t0,
+              "seconds_by_run": {"a": (t1 - t0) + (t4 - t3), "b": t2 - t1, "c": t3 - t2}}
+    return {"int8_lora_pod": pod_launches, "int8_spec": spec_launches,
+            "int8_disagg": disagg_launches}, report
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phase", type=int, choices=(17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27),
+    ap.add_argument("--phase", type=int,
+                    choices=(17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28),
                     help="build the kernels and run only this phase (a quick check; "
                          "the contract's lines are not printed); phases 21, 22, 23 and "
                          "25 build nothing")
@@ -6792,10 +7323,11 @@ def main(argv: list[str]) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.phase == 20:
-        tp_serve, tp_paged, tp_train, _, report = phase_tensor_parallel(gen)
+        tp_serve, tp_paged, tp_train, tp_int8, _, report = phase_tensor_parallel(gen)
         print(f"phase 20: {report['seconds']:.1f} s; launches tp_serve {json.dumps(tp_serve)}, "
-              f"tp_paged {json.dumps(tp_paged)}, tp_train {json.dumps(tp_train)}; chip_smoke: "
-              f"{time.perf_counter() - t_script:.1f} s", flush=True)
+              f"tp_paged {json.dumps(tp_paged)}, tp_train {json.dumps(tp_train)}, int8_tp_serve "
+              f"{json.dumps(tp_int8)}; chip_smoke: {time.perf_counter() - t_script:.1f} s",
+              flush=True)
         return 0
     if args.phase == 26:
         bert_fsdp, bert_tp, _, report = phase_sharded_training(gen)
@@ -6812,7 +7344,8 @@ def main(argv: list[str]) -> int:
     if args.phase is not None:
         cfg = llama3_8b()
         params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
-        run = {17: phase_disagg, 18: phase_fleet, 24: phase_defrag, 27: phase_quant}[args.phase]
+        run = {17: phase_disagg, 18: phase_fleet, 24: phase_defrag, 27: phase_quant,
+               28: phase_int8_paths}[args.phase]
         launches, report = run(params, cfg)
         print(f"phase {args.phase}: {report['seconds']:.1f} s; launches {json.dumps(launches)}; "
               f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
@@ -6834,6 +7367,7 @@ def main(argv: list[str]) -> int:
     fleet_launches, _ = timed("18", phase_fleet, params, cfg)
     defrag_launches, _ = timed("24", phase_defrag, params, cfg)
     quant_launches, _ = timed("27", phase_quant, params, cfg)
+    int8_launches, int8_report = timed("28", phase_int8_paths, params, cfg)
     del params
     torch.cuda.empty_cache()
     lora_train_launches = timed("14", phase_lora_train)
@@ -6846,8 +7380,8 @@ def main(argv: list[str]) -> int:
     timed("11", phase_binpack, {"bert": bert, "resnet": resnet}, grants)
     timed("12", phase_overrun, bert["peak_reserved_bytes"])
     ring_launches, ulysses_launches, cp_rows, _ = timed("19", phase_context_parallel, gen)
-    tp_serve_launches, tp_paged_launches, tp_train_launches, tp_rows, _ = timed(
-        "20", phase_tensor_parallel, gen)
+    tp_serve_launches, tp_paged_launches, tp_train_launches, tp_int8_launches, tp_rows, _ = \
+        timed("20", phase_tensor_parallel, gen)
     bert_fsdp_launches, bert_tp_launches, shard_rows, _ = timed(
         "26", phase_sharded_training, gen)
     cp_rows = {**cp_rows, **tp_rows, **shard_rows}
@@ -6856,12 +7390,12 @@ def main(argv: list[str]) -> int:
              "train_bert": bert_launches, "lora_serve": lora_serve_launches,
              "lora_train": lora_train_launches, "spec_serve": spec_launches,
              "interference": interference_launches, "disagg": disagg_launches,
-             "fleet": fleet_launches, "defrag": defrag_launches, "ring": ring_launches,
+             "fleet": fleet_launches, **defrag_launches, "ring": ring_launches,
              "ulysses": ulysses_launches,
              "tp_serve": tp_serve_launches, "tp_paged": tp_paged_launches,
              "tp_train": tp_train_launches, "static_baseline": static_launches,
              "train_bert_fsdp": bert_fsdp_launches, "train_bert_tp": bert_tp_launches,
-             **quant_launches}
+             **quant_launches, **int8_launches, "int8_tp_serve": tp_int8_launches}
     cp_numbers = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                   "tflops", "bound_fraction")
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
@@ -6879,6 +7413,8 @@ def main(argv: list[str]) -> int:
             "replaces": "gpushare_device_plugin_tpu/ops/flash_attention.py:96",
             "launches": serve_launches[entry],
             "launches_by_path": {k: v[entry] for k, v in paths.items()},
+            **({"int8_spec_by_head_dim": int8_report["spec"]["flash_fwd_by_head_dim"]}
+               if entry == fwd_main else {}),
             "on_main_path": entry == fwd_main,
             "shape": "served: bf16 B=1 S=512 H=32 Hkv=8 D=128 causal kv_len",
             **{k: forward[(entry, "served")][k] for k in fwd_numbers},

@@ -13,7 +13,7 @@ the adapted weight is ``W + (alpha / r) * A @ B``:
 - Serving either merges one adapter into the weights
   (:func:`merge_lora`), or keeps many adapters as flat f32 vectors
   (:func:`flatten_lora`) striped across the pages of the paged engine's
-  slab, which every dispatch gathers per row
+  slab, which every dispatch gathers per row, a layer at a time
   (``generate.lora_bgmv_views``). On a tp mesh the flat vector is the
   rank's view (:func:`lora_tp_shard`): the ``B`` slices of its
   column-parallel targets, the ``A`` slices of its row-parallel ones,
@@ -269,6 +269,24 @@ def flatten_lora(lora: Params, cfg: TransformerConfig, lcfg: LoraConfig,
         parts.append(ab["a"].detach().float().reshape(-1))
         parts.append(ab["b"].detach().float().reshape(-1))
     return torch.cat(parts)
+
+
+def lora_layer_spans(
+    cfg: TransformerConfig, lcfg: LoraConfig, layer: int, mesh=None,
+) -> dict[str, tuple[tuple[int, tuple[int, int]], tuple[int, tuple[int, int]]]]:
+    """Where layer ``layer``'s part of each target sits in the flat layout
+    (:func:`unflatten_lora`'s, a tp rank's view on a ``mesh``): ``{target:
+    ((offset of a, (fi, r)), (offset of b, (r, fo)))}``, each a contiguous
+    run of floats."""
+    L, r = cfg.n_layers, lcfg.rank
+    out = {}
+    off = 0
+    for name in lcfg.targets:
+        fi, fo = _target_flat_dims(cfg, name, _tp(mesh))
+        na, nb = L * fi * r, L * r * fo
+        out[name] = ((off + layer * fi * r, (fi, r)), (off + na + layer * r * fo, (r, fo)))
+        off += na + nb
+    return out
 
 
 def unflatten_lora(

@@ -5,7 +5,8 @@ solo engines and the reference's tp engines on host devices: the
 reference's ``tests/test_serving_engine.py`` tp tests and
 ``tests/test_paged_engine.py``'s tp paged, tp restore and
 ``test_lora_tp2_tokens_identical``, at tp 2 and 4, plus a speculative
-engine whose draft pool is sharded.
+engine whose draft pool is sharded and a paged engine whose int8 cache
+splits its K, V and scales by kv head.
 
 Two spawns, started together, run every case: two ranks (tp=2) and four
 (tp=4). Tolerances: none. f32, so every rank's tokens equal the solo
@@ -69,6 +70,7 @@ CASES = {
     "paged_tp2": (2, "paged", KV4, 1, PAGED_KW, SHARED, False, False),
     "paged_tp4": (4, "paged", KV4, 1, PAGED_KW, SHARED, False, False),
     "paged_replicated_kv_tp4": (4, "paged", BASE, 1, PAGED_KW, SHARED, False, False),
+    "paged_int8_tp2": (2, "paged", KV4, 2, dict(PAGED_KW, kv_dtype="int8"), SHARED, False, False),
     "lora_tp2": (2, "paged", KV4, 1, dict(PAGED_KW, total_pages=64), TENANTS, True, False),
     "lora_tp4": (4, "paged", KV4, 1, dict(PAGED_KW, total_pages=64), TENANTS, True, False),
     "spec_tp2": (2, "paged", KV4, 1, dict(PAGED_KW, spec_k=3), SHARED, False, True),
@@ -223,7 +225,7 @@ def test_every_rank_emits_the_solo_engines_tokens(ranks, name):
 
 
 @pytest.mark.parametrize("name", ["slot_tp2", "slot_replicated_kv_tp4", "paged_tp2",
-                                  "lora_tp2", "spec_tp2"])
+                                  "paged_int8_tp2", "lora_tp2", "spec_tp2"])
 def test_every_rank_emits_the_reference_tp_engines_tokens(ranks, name):
     want = _reference_tp(name)
     for r in _by_rank(ranks, name):
@@ -241,7 +243,8 @@ def _plan(name):
     tp, kind, shape, seed, kw, trace, lora, draft = CASES[name]
     return paged_plan_for_slice(1 << 30, _tcfg(shape), kw["max_len"], page_size=kw["page_size"],
                                 prefill_chunk=kw["prefill_chunk"], weight_bytes=0, n_chips=tp,
-                                lora=lora, draft_cfg=_tcfg(DRAFT) if draft else None)
+                                lora=lora, draft_cfg=_tcfg(DRAFT) if draft else None,
+                                kv_dtype=kw.get("kv_dtype"))
 
 
 @pytest.mark.parametrize("name", list(CASES))
