@@ -1605,7 +1605,8 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
         # a layer at a time, each slab row that holds a row's part of the
         # layer read once and written once
         views = G.lora_bgmv_views(engine._lora_slab, atab, engine.cfg, engine.lora_cfg)
-        adapter_bytes = 2 * views.slab_rows_per_dispatch * slab_shape[1] * 4
+        slab_rows = atab.shape[0] * sum(cols.numel() for cols, _ in views.reads)
+        adapter_bytes = 2 * slab_rows * slab_shape[1] * 4
         # every layer gathers each row's mp pages of K and V: the distinct
         # pages the tables name read once, the n * mp output pages written once
         pages_read = len(set(tables.reshape(-1).tolist())) + tables.numel()
@@ -1613,7 +1614,7 @@ def profile_paged_decode_step(engine, steps: int = 3) -> dict:
                        for k, v in engine.cache.items() if k != "len")
         # the same gather alone, by CUDA events: a check on the profiler's split
         gather_alone_ms = cuda_ms(
-            lambda: [views.layer(i) for i in range(engine.cfg.n_layers)], 10)
+            lambda: [G._layer_lora(views, i) for i in range(engine.cfg.n_layers)], 10)
         out.update(adapter_gather_ms=adapter_ms, adapter_gather_alone_ms=gather_alone_ms,
                    adapter_gather_bytes=adapter_bytes,
                    page_gather_ms=out["gather_ms"] - adapter_ms, page_gather_bytes=kv_bytes,
@@ -6727,11 +6728,13 @@ def loaded_int8_decoder(cfg, doc: dict) -> dict:
 def quant_pod_main(argv: list[str]) -> int:
     """Phase 27 (b), in a child process whose env is the plugin's for a
     QUANT_POD_UNITS slice: cap the process from the env, check that the
-    slice refuses the bf16 tree (``argv = [its bytes]``), draw the int8
-    tree, size the int8 paged pool from the env, serve, and hold every
-    request to solo greedy decode on the same tree and cache. Prints one
-    JSON line; exits 3 on an OOM, and through SystemExit on a failed
-    gate."""
+    slice refuses the bf16 tree (``argv = [its bytes, a directory]``),
+    draw the int8 tree, size the int8 paged pool from the env, serve,
+    profile a step that attends every row (the pool's largest transient,
+    inside the peak the cap gate reads), and hold every request to solo
+    greedy decode on the same tree and cache, after writing the
+    directory's "solo" file (nothing after it is timed). Prints one JSON
+    line; exits 3 on an OOM, and through SystemExit on a failed gate."""
     bf16_bytes = int(argv[0])
     settings = configure_torch_from_env()
     fraction = float(settings[MEMORY_FRACTION])
@@ -6761,13 +6764,18 @@ def quant_pod_main(argv: list[str]) -> int:
                                  eos_id=EOS_ID, kv_dtype="int8", **QUANT_GEO)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
         engine.warmup()
+        doc["warmup_s"] = round(time.perf_counter() - t0, 3)
         trace = poisson_trace(vocab=cfg.vocab, **SERVE_TRACE)[:QUANT_POD_REQUESTS]
         prefills = []
         count_prefills(engine, prefills)
         stats, wall, launches = measured(lambda: engine.run(trace))
         del engine._prefill
         s = stats.summary()
+        t0 = time.perf_counter()
+        doc["decode_step_profile"] = profile_paged_decode_step(engine, steps=1)
+        doc["profile_s"] = round(time.perf_counter() - t0, 3)
         doc.update(
             resident_bytes=resident, peak_reserved_bytes=torch.cuda.max_memory_reserved(),
             peak_allocated_bytes=torch.cuda.max_memory_allocated(),
@@ -6792,9 +6800,9 @@ def quant_pod_main(argv: list[str]) -> int:
                         f"{len(prefills)} prefill dispatches")
         if doc["peak_reserved_bytes"] > cap or doc["draw_peak_reserved_bytes"] > cap:
             fail.append(f"peak reserved {doc['peak_reserved_bytes']} over the cap {cap}")
-        doc["decode_step_profile"] = profile_paged_decode_step(engine, steps=1)
         del engine
         by_rid = {r.rid: r for r in trace}
+        open(os.path.join(argv[1], "solo"), "w").close()
         t0 = time.perf_counter()
         solos, diverged = {}, []
         for res in stats.results:
@@ -6829,14 +6837,35 @@ def start_int8_pod(entry: str, workdir: str, *args: str) -> subprocess.Popen:
                                 stdout=out, stderr=err, text=True)
 
 
+def wait_for_file(phase: str, proc: subprocess.Popen, path: str) -> bool:
+    """Wait until a child writes ``path`` (True) or exits first (False);
+    fail ``phase`` after POD_TIMEOUT_S."""
+    deadline = time.perf_counter() + POD_TIMEOUT_S
+    while not os.path.exists(path):
+        if proc.poll() is not None:
+            return False
+        if time.perf_counter() > deadline:
+            stop(proc)
+            raise SystemExit(f"{phase} failed: no {os.path.basename(path)} file in "
+                             f"{POD_TIMEOUT_S} s")
+        time.sleep(0.05)
+    return True
+
+
+def stop(proc: subprocess.Popen) -> None:
+    """Kill a child this script started, if it still runs, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
 def finish_int8_pod(phase: str, proc: subprocess.Popen, workdir: str) -> dict:
     """Wait for a pod :func:`start_int8_pod` started; returns its JSON line,
     and fails ``phase`` unless it exits 0 with no failed gate."""
     try:
         proc.wait(timeout=POD_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        stop(proc)
         raise SystemExit(f"{phase} failed: the pod ran past {POD_TIMEOUT_S} s")
     with open(os.path.join(workdir, "pod.out")) as f:
         docs = [line for line in f.read().splitlines() if line.startswith("{")]
@@ -6851,15 +6880,24 @@ def finish_int8_pod(phase: str, proc: subprocess.Popen, workdir: str) -> dict:
     return doc
 
 
-def quant_pod(bf16_bytes: int) -> tuple[dict, dict]:
+def quant_pod(bf16_bytes: int, during_solo=None) -> tuple[dict, dict]:
     """Phase 27 (b): run :func:`quant_pod_main` in a child with only the
-    plugin's env for QUANT_POD_UNITS on top of the parent's; returns the
-    child's report and its run's launches."""
+    plugin's env for QUANT_POD_UNITS on top of the parent's; call
+    ``during_solo`` (if given) once the child has reached its solo
+    checks, which time nothing. Returns the child's report and its run's
+    launches."""
     print(f"phase 27 (b): the int8 8B (32 layers) served from a {QUANT_POD_UNITS}-GiB pod, "
           f"int8 KV cache, {QUANT_POD_REQUESTS} requests", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        doc = finish_int8_pod("phase 27 (b)",
-                              start_int8_pod("quant_pod_main", tmp, str(bf16_bytes)), tmp)
+        proc = start_int8_pod("quant_pod_main", tmp, str(bf16_bytes), tmp)
+        if during_solo is not None:
+            try:
+                if wait_for_file("phase 27 (b)", proc, os.path.join(tmp, "solo")):
+                    during_solo()
+            except BaseException:
+                stop(proc)
+                raise
+        doc = finish_int8_pod("phase 27 (b)", proc, tmp)
     gib = 2 ** 30
     print(f"  pod: plan {doc['plan']['slots']} slots x {doc['plan']['total_pages']} pages; peak "
           f"reserved {doc['peak_reserved_bytes'] / gib:.3f} GiB of a "
@@ -6868,14 +6906,15 @@ def quant_pod(bf16_bytes: int) -> tuple[dict, dict]:
     return doc, doc["launches"]
 
 
-def phase_quant(params, cfg) -> tuple[dict, dict]:
+def phase_quant(params, cfg, during_solo=None) -> tuple[dict, dict]:
     """Phase 27 on phase 2's bf16 8B weights: (a) :func:`quant_serve`, then
-    (b) :func:`quant_pod`. Returns the launches of both paths, by path
-    name (``int8_serve``, ``int8_pod``), and the phase's report."""
+    (b) :func:`quant_pod` (``during_solo`` as there). Returns the launches
+    of both paths, by path name (``int8_serve``, ``int8_pod``), and the
+    phase's report."""
     t0 = time.perf_counter()
     serve, serve_launches = quant_serve(params, cfg)
     t1 = time.perf_counter()
-    pod, pod_launches = quant_pod(serve["param_bytes_bf16"])
+    pod, pod_launches = quant_pod(serve["param_bytes_bf16"], during_solo)
     t2 = time.perf_counter()
     print(f"  phase 27 (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s", flush=True)
     report = {"serve": serve, "pod": pod, "seconds": t2 - t0}
@@ -6994,8 +7033,9 @@ def quant_lora_pod_main(argv: list[str]) -> int:
     """Phase 28 (a), in a child whose env is the plugin's for a
     QUANT_POD_UNITS slice (``argv = [the tenants' file, a directory]``):
     cap the process, load the int8 tree and the tenants, size the int8
-    multi-LoRA pool from the env (``lora=True``), warm the engine up, wait
-    for the directory's "go" file (the parent's other runs end first, so
+    multi-LoRA pool from the env (``lora=True``), warm the engine up, write
+    the directory's "ready" file (the parent times nothing beside this
+    set-up), wait for its "go" file (the parent's other runs end first, so
     the timed runs have the card alone), serve each tenant's first request
     of phase 13's trace, then each alone on the same engine. Prints one
     JSON line; exits 3 on an OOM, and 1 on a failed gate."""
@@ -7028,6 +7068,7 @@ def quant_lora_pod_main(argv: list[str]) -> int:
         resident = torch.cuda.memory_allocated()
         engine.warmup()
         doc["engine_warmup_s"] = round(time.perf_counter() - t0, 3)
+        open(os.path.join(argv[1], "ready"), "w").close()
         t0 = time.perf_counter()
         while not os.path.exists(os.path.join(argv[1], "go")):
             if time.perf_counter() - t0 > POD_TIMEOUT_S:
@@ -7100,12 +7141,13 @@ def quant_lora_pod_main(argv: list[str]) -> int:
 
 def start_lora_pod(params, cfg, workdir: str) -> dict:
     """Phase 28 (a)'s first half, on phase 2's bf16 weights cut to
-    QUANT_LORA_LAYERS: phase 13's four tenants drawn for them, each
-    tenant's int8-base prefill logits (BGMV over ``quantize_decoder``'s
-    tree and an int8 pool) against bf16 merged-solo (``merge_lora`` +
-    prefill) by rel-L2, then :func:`quant_lora_pod_main` started in a child
-    pod, which sets up and waits for ``workdir``'s "go" file. Returns what
-    :func:`finish_lora_pod` needs."""
+    QUANT_LORA_LAYERS: phase 13's four tenants drawn for them and handed
+    to :func:`quant_lora_pod_main`, started in a child pod (it sets up,
+    writes ``workdir``'s "ready" file and waits for its "go" file); then,
+    meanwhile, each tenant's int8-base prefill logits (BGMV over
+    ``quantize_decoder``'s tree and an int8 pool) against bf16
+    merged-solo (``merge_lora`` + prefill) by rel-L2. Returns what
+    :func:`phase_int8_paths` needs."""
     print(f"phase 28 (a): multi-LoRA over the int8 8B ({QUANT_LORA_LAYERS} of 32 layers) in a "
           f"{QUANT_POD_UNITS}-GiB pod, int8 KV cache, {QUANT_LORA_SLOTS} slots, each tenant's "
           "first request of phase 13's trace", flush=True)
@@ -7115,42 +7157,47 @@ def start_lora_pod(params, cfg, workdir: str) -> dict:
                                    for k, v in params["layers"].items()}}
     lcfg = L.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=LORA_TARGETS)
     store, ratios = lora_store_for(params, cfg, lcfg)
-    trace = paged_trace(cfg, seed=LORA_TRACE_SEED, adapters=[*LORA_TENANTS, ""])
-    q = Q.quantize_decoder(params)
-    logits, fail = {}, []
-    for aid in LORA_TENANTS:
-        adapter = {n: {k: v.cuda() for k, v in ab.items()} for n, ab in store[aid].items()}
-        merged = L.merge_lora(params, adapter, lcfg)
-        first = next(r for r in trace if r.adapter_id == aid)
-        logits[aid] = lora_logits_check(q, merged, cfg, lcfg, adapter, list(first.prompt[:512]),
-                                        kv_dtype="int8")
-        del merged, adapter
-        torch.cuda.empty_cache()
-        if not logits[aid]["rel_l2"] <= QUANT_GATE_REL_L2:
-            fail.append(f"{aid}: int8-base logits rel-L2 {logits[aid]['rel_l2']} > "
-                        f"{QUANT_GATE_REL_L2}")
-    del q
-    print("  each tenant's prefill logits, int8 base (BGMV) against bf16 merged-solo:",
-          json.dumps(logits), flush=True)
-    if fail:
-        raise SystemExit("phase 28 (a) failed: " + "; ".join(fail))
     path = os.path.join(workdir, "tenants.pt")
     torch.save(store, path)
-    del store
     proc = start_int8_pod("quant_lora_pod_main", workdir, path, workdir)
-    return {"proc": proc, "logits": logits, "adapter_ratios": ratios,
+    try:
+        trace = paged_trace(cfg, seed=LORA_TRACE_SEED, adapters=[*LORA_TENANTS, ""])
+        q = Q.quantize_decoder(params)
+        logits, fail = {}, []
+        for aid in LORA_TENANTS:
+            adapter = {n: {k: v.cuda() for k, v in ab.items()} for n, ab in store[aid].items()}
+            merged = L.merge_lora(params, adapter, lcfg)
+            first = next(r for r in trace if r.adapter_id == aid)
+            logits[aid] = lora_logits_check(q, merged, cfg, lcfg, adapter,
+                                            list(first.prompt[:512]), kv_dtype="int8")
+            del merged, adapter
+            torch.cuda.empty_cache()
+            if not logits[aid]["rel_l2"] <= QUANT_GATE_REL_L2:
+                fail.append(f"{aid}: int8-base logits rel-L2 {logits[aid]['rel_l2']} > "
+                            f"{QUANT_GATE_REL_L2}")
+        del q, store
+        torch.cuda.empty_cache()
+        print("  each tenant's prefill logits, int8 base (BGMV) against bf16 merged-solo:",
+              json.dumps(logits), flush=True)
+        if fail:
+            raise SystemExit("phase 28 (a) failed: " + "; ".join(fail))
+    except BaseException:
+        stop(proc)
+        raise
+    return {"proc": proc, "workdir": workdir, "logits": logits, "adapter_ratios": ratios,
             "parent_s": time.perf_counter() - t0}
 
 
-def finish_lora_pod(pod: dict, workdir: str) -> tuple[dict, dict]:
+def finish_lora_pod(pod: dict) -> tuple[dict, dict]:
     """Phase 28 (a)'s second half: write the "go" file, so the pod serves
     alone on the card, and hold its report. Returns the report and the
     pod's run's launches."""
     t0 = time.perf_counter()
-    open(os.path.join(workdir, "go"), "w").close()
-    doc = finish_int8_pod("phase 28 (a)", pod["proc"], workdir)
+    open(os.path.join(pod["workdir"], "go"), "w").close()
+    doc = finish_int8_pod("phase 28 (a)", pod["proc"], pod["workdir"])
     doc.update(logits=pod["logits"], adapter_ratios=pod["adapter_ratios"],
-               seconds={"before_go": pod["parent_s"], "after_go": time.perf_counter() - t0})
+               seconds={"parent_set_up": pod["parent_s"], "waited_for_ready": pod["waited_s"],
+                        "after_go": time.perf_counter() - t0})
     gib = 2 ** 30
     print(f"  pod: plan {doc['plan']['slots']} slots x {doc['plan']['total_pages']} pages "
           f"({doc['plan_rows']} max_len rows); peak reserved "
@@ -7235,32 +7282,42 @@ def spec_int8(params, cfg) -> tuple[dict, dict]:
     return report, launches
 
 
-def phase_int8_paths(params, cfg) -> tuple[dict, dict]:
-    """Phase 28 on phase 2's bf16 8B weights: (a)'s logits check and its
-    pod started (:func:`start_lora_pod`; the pod loads its tree and warms
-    its engine up meanwhile), (b) :func:`spec_int8`, (c) :func:`phase_disagg`
-    over int8, then (a)'s pod serves alone on the card
-    (:func:`finish_lora_pod`). Returns the launches of each path by name
-    (``int8_lora_pod``, ``int8_spec``, ``int8_disagg``) and the phase's
-    report."""
+def phase_int8_paths(params, cfg, pod: dict | None = None) -> tuple[dict, dict]:
+    """Phase 28 on phase 2's bf16 8B weights: (a)'s logits check and pod
+    (``pod``, from :func:`start_lora_pod`: the whole script starts it while
+    phase 27 (b)'s pod runs its solo checks, which time nothing; started
+    here when not given), then, once that pod is warm (its "ready" file),
+    so that no timed run shares the card with its set-up, (b)
+    :func:`spec_int8`, (c) :func:`phase_disagg` over int8, then (a)'s pod
+    serves alone on the card (:func:`finish_lora_pod`). Returns the
+    launches of each path by name (``int8_lora_pod``, ``int8_spec``,
+    ``int8_disagg``) and the phase's report."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        started = start_lora_pod(params, cfg, tmp)
+    with contextlib.ExitStack() as stack:
+        where = "beside phase 27 (b)'s solo checks"
+        if pod is None:
+            pod = start_lora_pod(params, cfg, stack.enter_context(tempfile.TemporaryDirectory()))
+            where = "here"
         try:
+            if not wait_for_file("phase 28 (a)", pod["proc"],
+                                 os.path.join(pod["workdir"], "ready")):
+                finish_int8_pod("phase 28 (a)", pod["proc"], pod["workdir"])
+                raise SystemExit("phase 28 (a) failed: the pod exited before its warm-up ended")
             t1 = time.perf_counter()
+            pod["waited_s"] = t1 - t0
             spec, spec_launches = spec_int8(params, cfg)
             t2 = time.perf_counter()
             disagg_launches, disagg = phase_disagg(params, cfg, int8=True)
         except BaseException:
-            started["proc"].kill()
-            started["proc"].wait()
+            stop(pod["proc"])
             raise
         t3 = time.perf_counter()
-        pod, pod_launches = finish_lora_pod(started, tmp)
+        lora_pod, pod_launches = finish_lora_pod(pod)
     t4 = time.perf_counter()
-    print(f"  phase 28 (a) {t1 - t0:.1f} s before (b), {t4 - t3:.1f} s after (c); (b) "
+    print(f"  phase 28 (a) set up {where} ({pod['parent_s']:.1f} s in this process), "
+          f"{t1 - t0:.1f} s waited for its pod to warm up, {t4 - t3:.1f} s after (c); (b) "
           f"{t2 - t1:.1f} s, (c) {t3 - t2:.1f} s", flush=True)
-    report = {"lora_pod": pod, "spec": spec, "disagg": disagg, "seconds": t4 - t0,
+    report = {"lora_pod": lora_pod, "spec": spec, "disagg": disagg, "seconds": t4 - t0,
               "seconds_by_run": {"a": (t1 - t0) + (t4 - t3), "b": t2 - t1, "c": t3 - t2}}
     return {"int8_lora_pod": pod_launches, "int8_spec": spec_launches,
             "int8_disagg": disagg_launches}, report
@@ -7366,8 +7423,19 @@ def main(argv: list[str]) -> int:
     disagg_launches, _ = timed("17", phase_disagg, params, cfg)
     fleet_launches, _ = timed("18", phase_fleet, params, cfg)
     defrag_launches, _ = timed("24", phase_defrag, params, cfg)
-    quant_launches, _ = timed("27", phase_quant, params, cfg)
-    int8_launches, int8_report = timed("28", phase_int8_paths, params, cfg)
+    # phase 28 (a)'s pod sets up while phase 27 (b)'s runs its solo checks
+    with tempfile.TemporaryDirectory() as lora_dir:
+        lora_pod: dict = {}
+        try:
+            quant_launches, _ = timed(
+                "27", phase_quant, params, cfg,
+                lambda: lora_pod.update(start_lora_pod(params, cfg, lora_dir)))
+            int8_launches, int8_report = timed("28", phase_int8_paths, params, cfg,
+                                               lora_pod or None)
+        except BaseException:
+            if lora_pod:
+                stop(lora_pod["proc"])
+            raise
     del params
     torch.cuda.empty_cache()
     lora_train_launches = timed("14", phase_lora_train)

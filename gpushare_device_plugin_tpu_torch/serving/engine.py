@@ -787,6 +787,10 @@ class PagedSlotEngine(SlotEngine):
                 (total_pages + 1, self._adapter_page_floats), dtype=torch.float32,
                 device=self.device,
             )
+            # each layer's adapter page columns, read a layer at a time
+            self._lora_reads = G.lora_layer_reads(self.cfg, lora_cfg,
+                                                  self._adapter_page_floats, self.mesh,
+                                                  self.device)
             self._reset_adapter_pub()
         self.draft_cache = None
         if draft_cfg is not None:
@@ -832,15 +836,14 @@ class PagedSlotEngine(SlotEngine):
     def _lora_kw(self, atab: torch.Tensor | None) -> dict:
         """The programs' LoRA arguments: with a store, every dispatch
         gathers its rows' adapters (``atab`` [B, AP] adapter page tables;
-        all SCRATCH for base-model rows) from the slab."""
+        all SCRATCH for base-model rows) from the slab, a layer at a time."""
         if (self.adapters is None) != (atab is None):
             raise ValueError("adapter tables go to the programs of an engine with a "
                              "lora_store, and only to those")
         if atab is None:
             return {}
         return {
-            "lora": G.lora_bgmv_views(self._lora_slab, atab, self.cfg, self.lora_cfg,
-                                      self.mesh),
+            "lora": G.LoraRows(self._lora_slab, atab.long(), self._lora_reads),
             "lora_scale": self.lora_cfg.scale,
         }
 
@@ -885,18 +888,23 @@ class PagedSlotEngine(SlotEngine):
         return torch.argmax(logits[0], -1)
 
     def _decode(self, tokens: torch.Tensor, tables: torch.Tensor,
-                active: torch.Tensor, atab: torch.Tensor | None = None) -> torch.Tensor:
+                active: torch.Tensor, atab: torch.Tensor | None = None,
+                live_rows: int | None = None) -> torch.Tensor:
+        """The pool-wide decode step; rows at or past ``live_rows`` (the
+        highest decoding row plus one) are idle and not attended
+        (:func:`generate.paged_decode_step`)."""
         self._guard("decode", tokens, tables, active, self.cache["k"], self.cache["len"],
                     *self._spec_guard(), *self._lora_guard(atab))
         logits, new = G.paged_decode_step(
             self.params, tokens, self.cache, self.cfg, page_tables=tables, mesh=self.mesh,
-            **self._lora_kw(atab),
+            live_rows=live_rows, **self._lora_kw(atab),
         )
         new["len"] = torch.where(active, new["len"], self.cache["len"])
         self.cache = new
         if self.draft_cache is not None:
             _, dnew = G.paged_decode_step(self.draft_params, tokens, self.draft_cache,
-                                          self.draft_cfg, page_tables=tables, mesh=self.mesh)
+                                          self.draft_cfg, page_tables=tables, mesh=self.mesh,
+                                          live_rows=live_rows)
             dnew["len"] = torch.where(active, dnew["len"], self.draft_cache["len"])
             self.draft_cache = dnew
         return torch.argmax(logits, -1)
@@ -2012,7 +2020,7 @@ class PagedSlotEngine(SlotEngine):
                     self.governor.before_step()
                 step_t0 = time.perf_counter()
                 nxt = self._decode(self._upload(toks), self._upload(tables), self._upload(active),
-                                   atab)
+                                   atab, max(dec) + 1)
                 self.ticks += 1
                 dispatched = True
                 nxt = nxt.cpu().numpy()  # waits for the step's device work

@@ -32,9 +32,7 @@ gathered whole over tp, so every rank samples the same token.
 
 from __future__ import annotations
 
-import functools
-from collections.abc import Mapping
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -337,7 +335,8 @@ def _row_blocks(n_rows: int, row_elems: int) -> list[tuple[int, int]]:
 
 def _cached_layer(x, lp, cfg: TransformerConfig, positions, cache: KVCache, layer: int,
                   wpos, vis, tables: torch.Tensor | None = None, lora_l=None,
-                  lora_scale: float = 1.0, mesh: Mesh | None = None):
+                  lora_scale: float = 1.0, mesh: Mesh | None = None,
+                  live_rows: int | None = None):
     """One layer of a cached block over layer ``layer`` of ``cache``: the
     rows themselves (views, written in place), or with ``tables`` [B, MP]
     each row's pages gathered into a copy (:func:`_gather_paged`). The
@@ -346,9 +345,12 @@ def _cached_layer(x, lp, cfg: TransformerConfig, positions, cache: KVCache, laye
     mask ``vis`` [B, T, Smax]. Rows go a block at a time
     (:func:`_row_blocks`), so gathered pages, an int8 cache's dequantized
     K and V, and the attention's f32 up-casts exist for one block of rows
-    only; every row's arithmetic is the whole batch's. Returns the
-    layer's output and the entries it wrote, [B, T, ...] each. ``lora_l``:
-    this layer's per-row adapter views, applied at every projection."""
+    only; every row's arithmetic is the whole batch's. With ``tables``,
+    a block wholly at or past ``live_rows`` (idle rows, whose tables are
+    all SCRATCH and whose outputs nobody reads) is not attended: its
+    attention output is zeros. Returns the layer's output and the entries
+    it wrote, [B, T, ...] each. ``lora_l``: this layer's per-row adapter
+    views, applied at every projection."""
     q, k, v = _project_qkv(_rms_norm(x, lp["ln1"]), lp, cfg, positions,
                            lora=lora_l, lora_scale=lora_scale, mesh=mesh)
     B, T, Smax = k.shape[0], k.shape[1], vis.shape[-1]
@@ -357,6 +359,9 @@ def _cached_layer(x, lp, cfg: TransformerConfig, positions, cache: KVCache, laye
     row = torch.arange(B, device=k.device)[:, None]
     parts = []
     for lo, hi in _row_blocks(B, Smax * k.shape[2] * k.shape[3]):
+        if tables is not None and live_rows is not None and lo >= live_rows:
+            parts.append(q.new_zeros(q[lo:hi].shape))
+            continue
         if tables is None:
             r = {key: val[layer, lo:hi] for key, val in cache.items() if key != "len"}
         else:
@@ -392,13 +397,14 @@ def decode_step(
 # --- per-row LoRA adapters (the multi-LoRA engine) ----------------------------
 
 
-@functools.lru_cache(maxsize=64)
-def _layer_reads(cfg: TransformerConfig, lcfg: LoraConfig, mesh: Mesh | None,
-                 page_floats: int, device: str) -> tuple:
-    """Per layer: the adapter page columns whose slab rows hold that
-    layer's part of every target (a device tensor, in the order read) and
+def lora_layer_reads(cfg: TransformerConfig, lcfg: LoraConfig, page_floats: int,
+                     mesh: Mesh | None = None, device=None) -> tuple:
+    """Per layer ``i``: ``(cols, where)``. ``cols`` (a long tensor on
+    ``device``) are the adapter page columns whose slab rows hold layer
+    ``i``'s part of every target, in the order read; ``where`` is
     ``{target: ((start, (fi, r)), (start, (r, fo)))}``, each start an
-    offset into those rows read back to back."""
+    offset into those rows read back to back. An engine builds them once
+    for its slab's ``page_floats``."""
     out = []
     for i in range(cfg.n_layers):
         cols: list[int] = []
@@ -414,70 +420,48 @@ def _layer_reads(cfg: TransformerConfig, lcfg: LoraConfig, mesh: Mesh | None,
     return tuple(out)
 
 
-class LoraViews(Mapping):
-    """Per-row adapters from the paged slab, read a layer at a time.
+class LoraRows(NamedTuple):
+    """A dispatch's per-row adapters: the paged ``slab`` ``[pages,
+    page_floats]`` f32 holding every resident adapter's flat vector
+    (``lora.flatten_lora``) striped across pages of the KV pool's id
+    space (row :data:`SCRATCH` stays zero), the rows' adapter page ids
+    ``tables`` ``[B, AP]`` (long; an all-SCRATCH table reads zeros, the
+    null adapter, whose delta is exactly zero) and the slab's
+    :func:`lora_layer_reads`. Which adapter a row runs is table data,
+    never a shape. On a tp ``mesh`` the slab holds the rank's views
+    (``lora.lora_tp_shard``): its B slices of column-parallel targets and
+    A slices of row-parallel ones."""
 
-    ``slab`` ``[pages, page_floats]`` f32 holds every resident adapter's
-    flat vector (``lora.flatten_lora``) striped across pages of the KV
-    pool's id space; row :data:`SCRATCH` stays zero. ``tables`` ``[B, AP]``
-    int32 are the rows' adapter page ids; an all-SCRATCH table gathers
-    zeros, the null adapter, whose delta is exactly zero. Which adapter a
-    row runs is table data, never a shape. On a tp ``mesh`` the slab holds
-    the rank's views (``lora.lora_tp_shard``), and so do the views: its B
-    slices of column-parallel targets and A slices of row-parallel ones.
-
-    :meth:`layer` reads only the slab rows that hold layer ``i``'s part of
-    each target (two ``index_select`` a layer), so a dispatch never holds
-    every row's whole adapter (at Llama-3-8B width, rank 8 on every
-    target, 75.5 MB a row at 32 layers). As a mapping it is the
-    reference's ``{target: (a [L, B, fi, r], b [L, B, r, fo])}``, the
-    layers stacked (for inspection; the programs read :meth:`layer`)."""
-
-    def __init__(self, slab: torch.Tensor, tables: torch.Tensor, cfg: TransformerConfig,
-                 lcfg: LoraConfig, mesh: Mesh | None = None):
-        self._slab, self._tables = slab, tables.long()
-        self._targets, self._layers = tuple(lcfg.targets), cfg.n_layers
-        self._reads = _layer_reads(cfg, lcfg, mesh, slab.shape[1], str(slab.device))
-
-    def layer(self, i: int) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
-        """Layer ``i``'s ``{target: (a [B, fi, r], b [B, r, fo])}``."""
-        cols, where = self._reads[i]
-        B = self._tables.shape[0]
-        rows = self._slab.index_select(0, self._tables.index_select(1, cols).reshape(-1))
-        rows = rows.reshape(B, -1)
-        return {name: tuple(rows[:, s:s + shape[0] * shape[1]].reshape(B, *shape)
-                            for s, shape in pair) for name, pair in where.items()}
-
-    @property
-    def slab_rows_per_dispatch(self) -> int:
-        """Slab rows a dispatch reads, every layer once."""
-        return self._tables.shape[0] * sum(int(cols.numel()) for cols, _ in self._reads)
-
-    def __getitem__(self, name: str) -> tuple[torch.Tensor, torch.Tensor]:
-        if name not in self._targets:
-            raise KeyError(name)
-        layers = [self.layer(i)[name] for i in range(self._layers)]
-        return torch.stack([a for a, _ in layers]), torch.stack([b for _, b in layers])
-
-    def __iter__(self):
-        return iter(self._targets)
-
-    def __len__(self) -> int:
-        return len(self._targets)
+    slab: torch.Tensor
+    tables: torch.Tensor
+    reads: tuple
 
 
 def lora_bgmv_views(
     slab: torch.Tensor, tables: torch.Tensor, cfg: TransformerConfig, lcfg: LoraConfig,
     mesh: Mesh | None = None,
-) -> LoraViews:
-    """Per-row adapters from the paged slab (:class:`LoraViews`: each layer
-    read when a program reaches it)."""
-    return LoraViews(slab, tables, cfg, lcfg, mesh)
+) -> LoraRows:
+    """The programs' ``lora`` argument for ``tables`` [B, AP] over
+    ``slab`` (:class:`LoraRows`). Where the reference gathers every row's
+    whole adapter for a dispatch, each layer is read when a program
+    reaches it (:func:`_layer_lora`): at Llama-3-8B width, rank 8 on every
+    target, a row's whole adapter is 75.5 MB at 32 layers."""
+    return LoraRows(slab, tables.long(),
+                    lora_layer_reads(cfg, lcfg, slab.shape[1], mesh, slab.device))
 
 
-def _layer_lora(lora, i: int):
-    """Layer ``i``'s views of :func:`lora_bgmv_views`' output (or None)."""
-    return None if lora is None else lora.layer(i)
+def _layer_lora(lora: LoraRows | None, i: int):
+    """Layer ``i``'s ``{target: (a [B, fi, r], b [B, r, fo])}``: the slab
+    rows that hold the layer's part of each row's adapter, two
+    ``index_select`` (or None without adapters)."""
+    if lora is None:
+        return None
+    cols, where = lora.reads[i]
+    B = lora.tables.shape[0]
+    rows = lora.slab.index_select(0, lora.tables.index_select(1, cols).reshape(-1))
+    rows = rows.reshape(B, -1)
+    return {name: tuple(rows[:, s:s + shape[0] * shape[1]].reshape(B, *shape)
+                        for s, shape in pair) for name, pair in where.items()}
 
 
 def _lora_wo_delta(attn, lora_l, lora_scale: float, dt):
@@ -571,12 +555,14 @@ def _paged_block(
     lora=None,
     lora_scale: float = 1.0,
     mesh: Mesh | None = None,
+    live_rows: int | None = None,
 ) -> torch.Tensor:
     """:func:`decode_block` of a T-token block (``tokens`` [B, T]) for rows
     at logical lengths ``pos0`` [B], each read and written through its page
     table (``page_tables`` [B, MP]). Each layer runs on its gathered view,
     and the block's T entries per row go back into the pages. ``lora``:
-    :func:`lora_bgmv_views` for the B rows. Returns the final hidden
+    :func:`lora_bgmv_views` for the B rows. ``live_rows``: see
+    :func:`paged_decode_step`. Returns the final hidden
     states [B, T, d], whose logits (:func:`_out_logits`) each caller takes
     at the positions it reads; the pool is updated in place."""
     B, T = tokens.shape
@@ -599,7 +585,8 @@ def _paged_block(
     x = _embed(params["embed"], tokens, cfg, mesh)
     for i in range(cfg.n_layers):
         x, entries = _cached_layer(x, layer_params(params["layers"], i), cfg, logical, cache, i,
-                                   pos0, vis, tables, _layer_lora(lora, i), lora_scale, mesh)
+                                   pos0, vis, tables, _layer_lora(lora, i), lora_scale, mesh,
+                                   live_rows=live_rows)
         new = {key: val[rows, back].reshape((B * T,) + val.shape[2:])
                for key, val in entries.items()}
         _paged_write(cache, i, new, pids, offs)
@@ -696,17 +683,22 @@ def paged_decode_step(
     lora=None,
     lora_scale: float = 1.0,
     mesh: Mesh | None = None,
+    live_rows: int | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Pool-wide decode step through per-row page tables (``page_tables``
     [B, MP]): each row's one new entry lands at ``(page_tables[b,
     len[b] // ps], len[b] % ps)``. Rows whose table points at the scratch
     page (free, or mid-prefill) write there, never read. ``len`` advances
     by one for every row; the engine freezes idle rows' lengths. ``lora``:
-    :func:`lora_bgmv_views` of the [B, AP] adapter tables. Returns logits
-    [B, vocab] and the cache."""
+    :func:`lora_bgmv_views` of the [B, AP] adapter tables. ``live_rows``
+    (the engine's host-side bound): every row at or past it is idle, with
+    an all-SCRATCH table, and the row blocks of cache reads that hold only
+    such rows are skipped, so a large pool with few rows decoding attends
+    those few (its live rows' logits are unchanged; an idle row's logits
+    are not meaningful). Returns logits [B, vocab] and the cache."""
     pos0 = cache["len"]
     x = _paged_block(params, token[:, None], cache, cfg, page_tables, pos0,
-                     lora, lora_scale, mesh)
+                     lora, lora_scale, mesh, live_rows)
     return _out_logits(params, x, cfg, mesh)[:, 0], {**cache, "len": pos0 + 1}
 
 

@@ -12,9 +12,12 @@ Exact: tokens (greedy argmax in f32), ticks, the adapter and speculative
 rows of ``cache_stats()``, the plans, the handoff outcomes and paths, each
 page's wire length and header, the drained snapshot's rows and the
 refusals' messages. The tensor-parallel int8 paged engine is
-``tests/test_torch_tp_engine.py``'s ``paged_int8_tp2``.
+``tests/test_torch_tp_engine.py``'s ``paged_int8_tp2``. Port-only: the
+adapter slab read a layer at a time, and a paged decode step's skip of
+idle row blocks.
 """
 
+import dataclasses
 import json
 import struct
 
@@ -22,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gpushare_device_plugin_tpu.const import MemoryUnit
 from gpushare_device_plugin_tpu.parallel.podenv import PodTpuEnv as JPod
@@ -62,12 +66,17 @@ ENVS = [
 
 class Model:
     """One decoder on both sides, int8: each package's ``quantize_decoder``
-    of the same float tree."""
+    of the same float tree (its first ``layers`` layers when given: an
+    early-exit draft of the decoder ``shape`` and ``seed`` draw)."""
 
-    def __init__(self, shape, seed):
+    def __init__(self, shape, seed, layers=None):
         self.jcfg = JT.TransformerConfig(**shape, compute_dtype=jnp.float32)
-        self.tcfg = T.TransformerConfig(**shape, compute_dtype=torch.float32)
         jp = JT.init_params(jax.random.key(seed), self.jcfg)
+        if layers is not None:
+            self.jcfg = dataclasses.replace(self.jcfg, n_layers=layers)
+            jp = {**jp, "layers": jax.tree_util.tree_map(lambda x: x[:layers], jp["layers"])}
+        self.tcfg = T.TransformerConfig(**{**shape, "n_layers": self.jcfg.n_layers},
+                                        compute_dtype=torch.float32)
         self.jp = JQ.quantize_decoder(jp)
         self.tp = Q.quantize_decoder(convert.from_jax_numpy(to_numpy(jp), self.tcfg,
                                                             device="cpu"))
@@ -84,6 +93,13 @@ def target():
 @pytest.fixture(scope="module")
 def draft():
     return Model(DRAFT, 7)
+
+
+@pytest.fixture(scope="module")
+def early_exit():
+    """The target's first layer as its draft: it agrees with the target
+    often, but not always."""
+    return Model(SHAPE, 0, layers=1)
 
 
 @pytest.fixture(scope="module")
@@ -286,27 +302,31 @@ def _disagg_run(model, side, monkeypatch, decode_kv="int8"):
     return ds, out, view
 
 
-@pytest.mark.parametrize("case", ["lora", "spec", "disagg", "disagg_float_decode_tier"])
-def test_int8_serving_path_equals_reference(case, target, draft, tenants, monkeypatch):
+@pytest.mark.parametrize("case", ["lora", "spec", "spec_early_exit_draft", "disagg",
+                                  "disagg_float_decode_tier"])
+def test_int8_serving_path_equals_reference(case, target, draft, early_exit, tenants,
+                                            monkeypatch):
     """(1) Three tenants and base rows in one batch over int8 weights and
     int8 KV: tokens, ticks and the adapter row the reference's, and every
     tenant off the base model somewhere. (2) An int8 target with an int8
     draft (independent, so nearly every proposal is rejected): tokens,
-    ticks and the accepted, proposed and rollback counts the reference's.
-    (3) ``DisaggServer`` over int8 weights and KV: results, outcomes and
+    ticks and the accepted, proposed and rollback counts the reference's;
+    with the target's first layer as the draft, some proposals are
+    accepted and some rolled back, so verify's int8 codes and scales stay
+    for the accepted positions and a round rolls back part-way. (3) ``DisaggServer`` over int8 weights and KV: results, outcomes and
     both tiers' stats the reference's, every page's wire length and header
     equal, and the tokens a unified int8 engine's. (4) A decode tier whose
     cache is not int8 refuses every int8 export as the reference's does:
     the import raises and the row re-prefills there."""
-    if case in ("lora", "spec"):
+    if case in ("lora", "spec", "spec_early_exit_draft"):
         run = (lambda side: _lora_run(target, tenants, side)) if case == "lora" else \
-            (lambda side: _spec_run(target, draft, side))
+            (lambda side: _spec_run(target, draft if case == "spec" else early_exit, side))
         (jeng, jstats, jrow), (teng, tstats, trow) = run("ref"), run("port")
         assert _tokens(tstats) == _tokens(jstats)
         assert tstats.ticks == jstats.ticks
         assert trow == jrow
         assert teng.trace_counts == {**GUARD, **({"draft": 1, "verify": 1}
-                                                  if case == "spec" else {})}
+                                                  if case != "lora" else {})}
         assert _leak_free(teng)
         if case == "lora":
             assert trow["adapters"]["misses"] == len(TENANTS)
@@ -323,6 +343,8 @@ def test_int8_serving_path_equals_reference(case, target, draft, tenants, monkey
         else:
             row = trow["speculative"]
             assert row["proposed"] > 0 and row["rollback_pages"] > 0
+            if case == "spec_early_exit_draft":
+                assert 0 < row["accepted"] < row["proposed"]
         return
     decode_kv = "int8" if case == "disagg" else None
     jds, jout, jview = _disagg_run(target, "ref", monkeypatch, decode_kv)
@@ -388,36 +410,130 @@ def _tp_mesh(tp):
                 groups={}, ranks={})
 
 
-@pytest.mark.parametrize("tp", [1, 2])
-def test_layer_views_are_the_whole_slab_read(target, tenants, tp):
-    """``lora_bgmv_views`` gathers one layer's slices when a program reads
-    that layer: each layer's (a, b) equal, bit for bit, the same layer of
-    one whole read of every row's adapter pages (unflattened), on one chip
-    and as a tp rank's view; a SCRATCH row reads zeros; the whole views
-    (what the reference returns) are the layers stacked."""
-    store, lcfg = tenants["port"]
-    cfg = target.tcfg
-    mesh = None if tp == 1 else _tp_mesh(tp)
-    flat_len = L.lora_flat_len(cfg, lcfg, mesh)
+class _Largest(TorchDispatchMode):
+    """The most elements any tensor an op makes holds, while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor):
+                self.numel = max(self.numel, t.numel())
+        return out
+
+
+def _striped(cfg, lcfg, store, mesh, tp):
+    """Two tenants' flat vectors striped into slab pages (4 positions of
+    ``d_model / tp`` floats a page); rows: the second tenant, the null
+    adapter, the first. Returns the slab, the tables and the pages an
+    adapter takes."""
     pf = 4 * cfg.d_model // tp
-    ppa = -(-flat_len // pf)
+    ppa = -(-L.lora_flat_len(cfg, lcfg, mesh) // pf)
     slab = torch.zeros((2 * ppa + 1, pf))
-    for i, aid in enumerate(TENANTS[:2]):
-        vec = L.flatten_lora(store[aid], cfg, lcfg, mesh)
+    for i, tree in enumerate(store):
+        vec = L.flatten_lora(tree, cfg, lcfg, mesh)
         slab.view(-1)[(1 + i * ppa) * pf:(1 + i * ppa) * pf + vec.numel()] = vec
     tables = torch.tensor([list(range(1 + ppa, 1 + 2 * ppa)), [0] * ppa,
                            list(range(1, 1 + ppa))], dtype=torch.int32)
-    views = G.lora_bgmv_views(slab, tables, cfg, lcfg, mesh)
-    whole = slab.index_select(0, tables.reshape(-1).long()).reshape(3, -1)[:, :flat_len]
-    want = L.unflatten_lora(whole, cfg, lcfg, mesh)
-    assert list(views) == list(lcfg.targets)
-    for i in range(cfg.n_layers):
-        got = G._layer_lora(views, i)
-        assert list(got) == list(lcfg.targets)
-        for name, (a, b) in got.items():
-            assert torch.equal(a, want[name][0][:, i]) and torch.equal(b, want[name][1][:, i])
-            assert not a[1].any() and not b[1].any()
-    for name in lcfg.targets:
-        a, b = views[name]
-        assert torch.equal(a, want[name][0].movedim(1, 0))
-        assert torch.equal(b, want[name][1].movedim(1, 0))
+    return slab, tables, ppa
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_layer_views_are_the_whole_slab_read(target, tenants, tp):
+    """``lora_bgmv_views`` reads one layer's slices when a program reaches
+    that layer: each layer's (a, b) equal, bit for bit, the same layer of
+    one whole read of every row's adapter pages (unflattened), on one chip
+    and as a tp rank's view, and a SCRATCH row reads zeros. The guard on
+    the transient: on an 8-layer decoder, no tensor a layer's read makes
+    holds more than the rows' pages of that layer, under a quarter of
+    their whole adapters (a whole read per dispatch, sliced, fails)."""
+    store, lcfg = tenants["port"]
+    mesh = None if tp == 1 else _tp_mesh(tp)
+    deep = dataclasses.replace(target.tcfg, n_layers=8)
+    gen = torch.Generator().manual_seed(5)
+    deep_store = [{name: {k: torch.randn(shape, generator=gen) for k, shape in shp.items()}
+                   for name, shp in L.target_shapes(deep, lcfg).items()} for _ in range(2)]
+    for cfg, trees in ((target.tcfg, [store[a] for a in TENANTS[:2]]), (deep, deep_store)):
+        slab, tables, ppa = _striped(cfg, lcfg, trees, mesh, tp)
+        flat_len = L.lora_flat_len(cfg, lcfg, mesh)
+        rows = G.lora_bgmv_views(slab, tables, cfg, lcfg, mesh)
+        whole = slab.index_select(0, tables.reshape(-1).long()).reshape(3, -1)[:, :flat_len]
+        want = L.unflatten_lora(whole, cfg, lcfg, mesh)
+        for i in range(cfg.n_layers):
+            with _Largest() as seen:
+                got = G._layer_lora(rows, i)
+            assert list(got) == list(lcfg.targets)
+            for name, (a, b) in got.items():
+                assert torch.equal(a, want[name][0][:, i]) and torch.equal(b, want[name][1][:, i])
+                assert not a[1].any() and not b[1].any()
+            cols = rows.reads[i][0].numel()
+            assert seen.numel == 3 * cols * slab.shape[1]
+            if cfg is deep:
+                # the layer's floats, plus a page where each of its 2 runs a
+                # target starts part-way into one
+                layer_floats = sum(fi * r + r * fo for fi, r, fo in (
+                    (a.shape[1], a.shape[2], b.shape[2]) for a, b in got.values()))
+                assert cols <= -(-layer_floats // slab.shape[1]) + 2 * len(got)
+                assert 4 * cols < ppa
+
+
+# --- idle rows of a paged decode step ------------------------------------------
+
+
+def _one_row_blocks(n_rows, row_elems):
+    return [(lo, lo + 1) for lo in range(n_rows)]
+
+
+def test_idle_row_blocks_are_not_attended(target, monkeypatch):
+    """With cache reads a row at a time (a large pool's row blocks, here
+    forced), the paged decode step skips the blocks past ``live_rows``:
+    the live rows' logits and the pool (but the SCRATCH page idle rows
+    write) are those of the step that attends every row, bit for bit; and an int8 engine of 4 slots, which passes
+    its highest decoding row, reads fewer blocks and serves the
+    reference's tokens."""
+    monkeypatch.setattr(G, "_row_blocks", _one_row_blocks)
+    params, cfg = target.tp, target.tcfg
+    cache = G.init_paged_cache(cfg, 4, 16, 4, kv_dtype="int8", device="cpu")
+    tables = torch.zeros((4, 4), dtype=torch.int32)
+    for slot, pages in enumerate(([1, 2], [3, 4])):
+        prompt = torch.arange(5 + slot, 11 + slot) % cfg.vocab
+        tables[slot, :2] = torch.tensor(pages)
+        _, cache = G.paged_prefill_slot(params, prompt, cache, cfg, slot=slot,
+                                        page_table=tables[slot], n_real=6)
+    token = torch.tensor([7, 9, 0, 0])
+    out = {}
+    for live in (None, 2):
+        c = {key: val.clone() for key, val in cache.items()}
+        logits, c = G.paged_decode_step(params, token, c, cfg, page_tables=tables,
+                                        live_rows=live)
+        out[live] = (logits, c)
+    assert torch.equal(out[2][0][:2], out[None][0][:2])
+    # every page but SCRATCH, where idle rows park their writes
+    for key in cache:
+        got, want = out[2][1][key], out[None][1][key]
+        assert torch.equal(got, want) if key == "len" else torch.equal(got[:, 1:], want[:, 1:])
+
+    gathers = {}
+    for skip in (True, False):
+        calls = []
+        gather = G._gather_paged
+        monkeypatch.setattr(G, "_gather_paged", lambda *a: calls.append(1) or gather(*a))
+        eng = _engine(target, "port", slots=4, max_len=32, total_pages=40, page_size=4,
+                      prefill_chunk=4)
+        if not skip:
+            decode = eng._decode
+            eng._decode = lambda tokens, tables, active, atab=None, live_rows=None: \
+                decode(tokens, tables, active, atab)
+        reqs = E.poisson_trace(8, seed=11, rate=0.4, vocab=64, prompt_lens=(2, 9),
+                               max_new=[3, 12])
+        gathers[skip] = (_tokens(eng.run(reqs)), len(calls))
+        monkeypatch.setattr(G, "_gather_paged", gather)
+    want = _tokens(_engine(target, "ref", slots=4, max_len=32, total_pages=40, page_size=4,
+                           prefill_chunk=4).run(JE.poisson_trace(8, seed=11, rate=0.4, vocab=64,
+                                                                 prompt_lens=(2, 9),
+                                                                 max_new=[3, 12])))
+    assert gathers[True][0] == gathers[False][0] == want
+    assert gathers[True][1] < gathers[False][1]

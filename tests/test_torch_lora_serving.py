@@ -175,12 +175,22 @@ def _slab(side, n_pages=48):
     return slab, pages, ppa
 
 
+def stacked_views(rows, n_layers):
+    """The port's per-layer reads (``generate._layer_lora``) stacked into
+    the reference's ``{target: (a [L, B, fi, r], b [L, B, r, fo])}``."""
+    layers = [G._layer_lora(rows, i) for i in range(n_layers)]
+    return {name: tuple(torch.stack([layer[name][j] for layer in layers]) for j in (0, 1))
+            for name in layers[0]}
+
+
 def test_bgmv_views_equal_reference(every_target):
     side = every_target
     slab, pages, ppa = _slab(side)
     tables = np.stack([pages["t1"], np.full((ppa,), P.SCRATCH), pages["t0"]]).astype(np.int32)
     want = JG.lora_bgmv_views(jnp.asarray(slab), jnp.asarray(tables), side.jcfg, side.jlcfg)
-    got = G.lora_bgmv_views(torch.from_numpy(slab), torch.from_numpy(tables), side.tcfg, side.tlcfg)
+    rows = G.lora_bgmv_views(torch.from_numpy(slab), torch.from_numpy(tables), side.tcfg,
+                             side.tlcfg)
+    got = stacked_views(rows, side.tcfg.n_layers)
     assert list(got) == list(ALL)
     for name in ALL:
         for g, w in zip(got[name], want[name]):
